@@ -1,0 +1,5 @@
+"""Utilities of the port."""
+
+from .params import load_jax_params
+
+__all__ = ["load_jax_params"]
