@@ -1,13 +1,22 @@
 """The llama family in PyTorch, with the JAX package's parameter layout."""
 
 from .config import TransformerConfig, get_config, list_models, param_count
-from .generation import forward_with_cache, generate, init_cache, make_sampler, resolve_decode_protocol
+from .generation import (
+    forward_window_with_cache,
+    forward_with_cache,
+    generate,
+    init_cache,
+    make_sampler,
+    resolve_decode_protocol,
+    resolve_window_protocol,
+)
 from .llama import Llama, decoder_layer, rms_norm
 
 __all__ = [
     "Llama",
     "TransformerConfig",
     "decoder_layer",
+    "forward_window_with_cache",
     "forward_with_cache",
     "generate",
     "get_config",
@@ -16,5 +25,6 @@ __all__ = [
     "make_sampler",
     "param_count",
     "resolve_decode_protocol",
+    "resolve_window_protocol",
     "rms_norm",
 ]

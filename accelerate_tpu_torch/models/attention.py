@@ -24,6 +24,12 @@ def round_to_dtype(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
 
 
+def resolve_dot(dot_fn):
+    """The projection-matmul hook with its default: plain ``@`` when no
+    override (``ops.quant_matmul.quant_dot``) is installed."""
+    return dot_fn if dot_fn is not None else (lambda a, w: a @ w)
+
+
 def dense_init(generator: torch.Generator, shape: tuple, fan_in: int, device) -> torch.Tensor:
     """Scaled-normal initializer shared by the model zoo (fp32)."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)

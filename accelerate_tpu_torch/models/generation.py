@@ -32,21 +32,10 @@ def init_cache(
     }
 
 
-def forward_with_cache(model: Llama, input_ids: torch.Tensor, cache: dict):
-    """Run ``input_ids`` ``[B, S]`` against the cache.
-
-    Returns (fp32 logits for the LAST position ``[B, V]``, updated cache).
-
-    Two cache forms:
-    - dense: ``k``/``v`` ``[L, B, T, KV, D]`` and an int ``length`` shared by
-      the batch; the new K/V are written in place and attention is masked
-      to positions ``<=`` each query's;
-    - paged (the serving engine's decode): ``k``/``v`` are the page pools
-      ``[L, P, ps, KV, D]``, ``length`` is a per-row ``[B]`` int32 tensor,
-      ``table`` the page tables and ``attend`` the hook that reads the pool.
-      The returned cache's ``k``/``v`` are then the new token's K/V,
-      ``[L, B, S, KV, D]``, for the engine to scatter into the pool.
-    """
+def _run_layers(model: Llama, input_ids: torch.Tensor, cache: dict):
+    """Embed ``input_ids`` ``[B, S]`` at the cache's positions and run every
+    layer against the cache; returns the final-normed hidden states
+    ``[B, S, H]`` and the updated cache (see :func:`forward_with_cache`)."""
     cfg = model.config
     s = input_ids.shape[1]
     length = cache["length"]
@@ -69,16 +58,56 @@ def forward_with_cache(model: Llama, input_ids: torch.Tensor, cache: dict):
     new_k, new_v = [], []
     for i in range(cfg.num_layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i], "length": length, **extra}
-        h, nc = decoder_layer(cfg, h, model.layer_params(i), cos, sin, mask, cache=layer_cache)
+        h, nc = decoder_layer(
+            cfg, h, model.layer_params(i), cos, sin, mask, cache=layer_cache, dot_fn=model.dot_fn
+        )
         if extra:
             new_k.append(nc["k"])
             new_v.append(nc["v"])
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
-    logits = h[:, -1] @ model.head().to(h.dtype)
     if extra:
         new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v), "length": length + s}
     else:
         new_cache = {"k": cache["k"], "v": cache["v"], "length": length + s}
+    return h, new_cache
+
+
+def forward_with_cache(model: Llama, input_ids: torch.Tensor, cache: dict):
+    """Run ``input_ids`` ``[B, S]`` against the cache.
+
+    Returns (fp32 logits for the LAST position ``[B, V]``, updated cache).
+
+    Two cache forms:
+    - dense: ``k``/``v`` ``[L, B, T, KV, D]`` and an int ``length`` shared by
+      the batch; the new K/V are written in place and attention is masked
+      to positions ``<=`` each query's;
+    - paged (the serving engine's decode): ``k``/``v`` are the page pools
+      ``[L, P, ps, KV, D]``, ``length`` is a per-row ``[B]`` int32 tensor,
+      ``table`` the page tables and ``attend`` the hook that reads the pool.
+      The returned cache's ``k``/``v`` are then the new token's K/V,
+      ``[L, B, S, KV, D]``, for the engine to scatter into the pool.
+    """
+    h, new_cache = _run_layers(model, input_ids, cache)
+    logits = h[:, -1] @ model.head().to(h.dtype)
+    return logits.to(torch.float32), new_cache
+
+
+def forward_window_with_cache(model: Llama, input_ids: torch.Tensor, cache: dict):
+    """Speculative-verify window forward: :func:`forward_with_cache` with
+    fp32 logits for EVERY position, ``[B, S, V]``. The engine scores a whole
+    ``k+1``-token candidate window per slot in one step and needs the
+    greedy token after each window position.
+
+    Paged ``attend`` protocol only: the causal mask inside the window lives
+    in the hook (``ops.paged_attention.paged_verify_attention``), so a cache
+    without one cannot be scored correctly and raises."""
+    if "attend" not in cache:
+        raise ValueError(
+            "forward_window_with_cache requires the paged 'attend' protocol "
+            "(the in-window causal mask lives in the attend hook)"
+        )
+    h, new_cache = _run_layers(model, input_ids, cache)
+    logits = h @ model.head().to(h.dtype)  # all positions, not just the last
     return logits.to(torch.float32), new_cache
 
 
@@ -92,6 +121,14 @@ def resolve_decode_protocol(model):
         ),
         lambda ids, c: forward_with_cache(model, ids, c),
     )
+
+
+def resolve_window_protocol(model):
+    """The window-forward half of the decode protocol, ``forward_window(ids,
+    cache) -> (all-position logits [B, S, V], cache)``: the speculative
+    verify drives a model only through it (the llama family's lives in
+    this module)."""
+    return lambda ids, c: forward_window_with_cache(model, ids, c)
 
 
 def make_sampler(temperature: float):

@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
-from .attention import apply_rotary, dense_init, dot_product_attention, rotary_embedding
+from .attention import apply_rotary, dense_init, dot_product_attention, resolve_dot, rotary_embedding
+from ..utils.params import flatten_tree
 from .config import TransformerConfig, get_config
 
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
@@ -39,6 +40,7 @@ def decoder_layer(
     mask: Optional[torch.Tensor],
     causal: bool = True,
     cache: Optional[dict] = None,  # {"k","v"} [B, T, KV, D] + write offset "length"
+    dot_fn=None,  # the projection hook, e.g. ops.quant_matmul.quant_dot
 ):
     """One llama decoder layer. Returns ``(h, new_cache_or_None)``.
 
@@ -49,13 +51,16 @@ def decoder_layer(
     - without one (prefill, ``generate()``), K/V are written into the dense
       cache at ``length`` in place, where the JAX package returns an updated
       copy, and attention runs over the whole cache under ``mask``.
+
+    Every projection goes through ``dot_fn`` (plain ``@`` when None).
     """
+    dot = resolve_dot(dot_fn)
     b, s = h.shape[:2]
     nh, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q = (x @ lp["wq"]).reshape(b, s, nh, d)
-    k = (x @ lp["wk"]).reshape(b, s, nkv, d)
-    v = (x @ lp["wv"]).reshape(b, s, nkv, d)
+    q = dot(x, lp["wq"]).reshape(b, s, nh, d)
+    k = dot(x, lp["wk"]).reshape(b, s, nkv, d)
+    v = dot(x, lp["wv"]).reshape(b, s, nkv, d)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     new_cache = None
@@ -75,34 +80,38 @@ def decoder_layer(
         new_cache = {"k": k_cache, "v": v_cache, "length": length}
     else:
         attn = dot_product_attention(q, k, v, mask=mask, causal=causal)
-    h = h + attn.reshape(b, s, nh * d) @ lp["wo"]
+    h = h + dot(attn.reshape(b, s, nh * d), lp["wo"])
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    h = h + (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+    h = h + dot(F.silu(dot(x, lp["w_gate"])) * dot(x, lp["w_up"]), lp["w_down"])
     return h, new_cache
 
 
+def layer_shapes(cfg: TransformerConfig) -> dict:
+    """The stacked ``[L, ...]`` shape of every layer weight."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    d, nh, nkv, L = cfg.dim_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
+    return {
+        "attn_norm": (L, h),
+        "wq": (L, h, nh * d),
+        "wk": (L, h, nkv * d),
+        "wv": (L, h, nkv * d),
+        "wo": (L, nh * d, h),
+        "mlp_norm": (L, h),
+        "w_gate": (L, h, i),
+        "w_up": (L, h, i),
+        "w_down": (L, i, h),
+    }
+
+
 class _Layers(nn.Module):
-    """The stacked layer weights: one ``[L, ...]`` parameter per key."""
+    """The stacked layer weights: one ``[L, ...]`` parameter per key (or,
+    once :meth:`Llama.install` put one there, a packed ``QuantizedWeight``)."""
 
     def __init__(self, cfg: TransformerConfig, device, dtype):
         super().__init__()
-        h, i = cfg.hidden_size, cfg.intermediate_size
-        d, nh, nkv, L = cfg.dim_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
-        shapes = {
-            "attn_norm": (L, h),
-            "wq": (L, h, nh * d),
-            "wk": (L, h, nkv * d),
-            "wv": (L, h, nkv * d),
-            "wo": (L, nh * d, h),
-            "mlp_norm": (L, h),
-            "w_gate": (L, h, i),
-            "w_up": (L, h, i),
-            "w_down": (L, i, h),
-        }
-        for name in LAYER_KEYS:
+        for name, shape in layer_shapes(cfg).items():
             self.register_parameter(
-                name,
-                nn.Parameter(torch.empty(shapes[name], device=device, dtype=dtype), requires_grad=False),
+                name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
             )
 
 
@@ -125,6 +134,9 @@ class Llama(nn.Module):
         if cfg.num_experts > 1:
             raise NotImplementedError("mixture-of-experts layers are not in the port yet")
         self.config = cfg
+        # the projection hook of every layer (None = plain matmul);
+        # quantized-resident serving installs ops.quant_matmul.quant_dot
+        self.dot_fn = None
         device = resolve_device(device)
         h, v = cfg.hidden_size, cfg.vocab_size
 
@@ -172,8 +184,51 @@ class Llama(nn.Module):
         return self
 
     def layer_params(self, index: int) -> dict:
-        """Views of layer ``index``'s weights, keyed as in the JAX layer dict."""
+        """Views of layer ``index``'s weights, keyed as in the JAX layer dict
+        (a packed layer matrix gives its per-layer ``QuantizedWeight`` view)."""
         return {name: getattr(self.layers, name)[index] for name in LAYER_KEYS}
+
+    def _shapes(self) -> dict:
+        cfg = self.config
+        shapes = {"embed_tokens": (cfg.vocab_size, cfg.hidden_size), "final_norm": (cfg.hidden_size,)}
+        if not cfg.tie_embeddings:
+            shapes["lm_head"] = (cfg.hidden_size, cfg.vocab_size)
+        shapes.update({f"layers.{k}": s for k, s in layer_shapes(cfg).items()})
+        return shapes
+
+    def param_tree(self) -> dict:
+        """The weights as the JAX package's nested param dict (no copies)."""
+        tree: dict = {"layers": {name: getattr(self.layers, name) for name in LAYER_KEYS}}
+        for name in self._shapes():
+            if not name.startswith("layers."):
+                tree[name] = getattr(self, name)
+        return tree
+
+    @torch.no_grad()
+    def install(self, tree: dict) -> "Llama":
+        """Replace every weight by the leaf at its key path in ``tree`` (the
+        JAX layout): a tensor, or for a layer matrix a stacked packed
+        ``QuantizedWeight`` that stays packed. Nothing is copied; the model's
+        device and dtype follow the leaves. Raises ``KeyError`` when the key
+        paths differ and ``ValueError`` when a (logical) shape does."""
+        leaves = dict(flatten_tree(tree))
+        shapes = self._shapes()
+        if set(leaves) != set(shapes):
+            raise KeyError(
+                f"param tree mismatch: missing {sorted(set(shapes) - set(leaves))}, "
+                f"unexpected {sorted(set(leaves) - set(shapes))}"
+            )
+        for path, leaf in leaves.items():
+            if tuple(leaf.shape) != shapes[path]:
+                raise ValueError(f"{path}: leaf has shape {tuple(leaf.shape)}, expected {shapes[path]}")
+            owner, name = (self.layers, path[len("layers."):]) if path.startswith("layers.") else (self, path)
+            owner._parameters.pop(name, None)
+            owner.__dict__.pop(name, None)
+            if isinstance(leaf, torch.Tensor):
+                owner.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+            else:
+                object.__setattr__(owner, name, leaf)  # a packed QuantizedWeight
+        return self
 
     def head(self) -> torch.Tensor:
         return self.embed_tokens.T if self.config.tie_embeddings else self.lm_head
@@ -197,6 +252,8 @@ class Llama(nn.Module):
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
         for i in range(cfg.num_layers):
-            h, _ = decoder_layer(cfg, h, self.layer_params(i), cos, sin, mask, causal=True)
+            h, _ = decoder_layer(
+                cfg, h, self.layer_params(i), cos, sin, mask, causal=True, dot_fn=self.dot_fn
+            )
         h = rms_norm(h, self.final_norm, cfg.norm_eps)
         return h @ self.head().to(h.dtype)

@@ -18,15 +18,25 @@ Counterpart of the paged core of ``accelerate_tpu/serving/engine.py``:
   prompt token is the first decode input;
 - **scheduling** is host-side (``scheduler.py``): FIFO admission into free
   slots and pages, retirement on EOS or budget, and preemption of the
-  youngest request under page pressure.
+  youngest request under page pressure;
+- **quantized-resident weights** (:meth:`ServingEngine.from_streamed` over
+  ``dispatch_model(..., quantization=QuantizationConfig(...))``): the layer
+  matrices stay packed int8/int4 on the device and every projection runs
+  through the fused dequant-matmul kernel (``ops/quant_matmul.py``);
+- **speculative decoding** (``speculative=SpeculativeConfig(...)``,
+  ``speculative.py``): a draft model proposes ``k`` tokens per slot and one
+  forward over ``[num_slots, k + 1]`` verifies them through the paged verify
+  kernel, one launch per layer; the longest agreeing prefix is committed,
+  so at temperature 0 the tokens equal plain decode's. Linear and tree
+  (COW-forked branches) modes.
 
 The pools are updated in place (prefill scatter, decode write-back, the
 copy-on-write page copy), which is what buffer donation buys the JAX engine.
 
-Not in this port yet: speculative decoding, quantized-resident weights, the
-dense ``paged=False`` slab, quarantine and scrub, chaos fault plans, the
-step watchdog, request tracing, the telemetry hub, disaggregated
-park/adopt/extract and program analysis.
+Not in this port yet: the dense ``paged=False`` slab, quarantine and scrub,
+chaos fault plans (and the speculation chaos knob), the step watchdog,
+request tracing (and the draft/verify spans), the telemetry hub and its
+speculative records, disaggregated park/adopt/extract and program analysis.
 """
 
 from __future__ import annotations
@@ -39,13 +49,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.generation import make_sampler, resolve_decode_protocol
-from ..ops.paged_attention import paged_decode_attention
+from ..big_modeling import QuantizedLayerPacker, StreamedModel
+from ..models.generation import make_sampler, resolve_decode_protocol, resolve_window_protocol
+from ..ops.quant_matmul import quant_dot
+from ..ops.paged_attention import paged_verify_attention
 from ..ops.runtime import resolve_device, same_device
 from ..telemetry.serving import ServingStats
+from ..utils.quantization import QuantizedWeight
 from .kv_cache import bucket_for, prefill_buckets
-from .paging import PagedKVCache, paged_buckets, pages_for
+from .paging import PagedKVCache, decode_into_pool, paged_buckets, pages_for, prefill_into_pool
 from .scheduler import ContinuousBatchingScheduler, QueueFull, Request
+from .speculative import SpeculativeConfig, SpeculativeState
 
 
 @dataclass
@@ -81,13 +95,70 @@ def generation_row(prompt, result: ServingResult, max_new_tokens: int, eos_token
     return row
 
 
-def _attend(q, k_new, v_new, cache):
-    """The decode-cache ``attend`` hook: every slot's attention over its
-    pages, from the layer's pool view and the step's tables and lengths."""
-    out = paged_decode_attention(
-        q[:, 0], k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], cache["table"], cache["length"]
+def params_from_streamed(streamed: StreamedModel, quantized_resident: bool = False) -> dict:
+    """Reassemble a :class:`~..big_modeling.StreamedModel` as a device-resident
+    param tree in the JAX layout: host-placed components move to the device
+    and every layer leaf is a ``[L, ...]`` view of one stacked buffer.
+
+    The layers' packed buffers are copied one by one into that stacked
+    buffer on the device, and each device-placed layer of the streamer is
+    rebound to its row as it is copied: the card holds every layer once,
+    whether or not the caller keeps the streamer.
+
+    Without ``quantized_resident`` a quantized streamer's layers dequantize
+    on the device to the streamer's dtype (W8A16/W4A16, a full-precision
+    copy of every matrix). With it, matrix leaves stay packed as stacked
+    :class:`~..utils.quantization.QuantizedWeight` views (int8 ``q`` and fp32
+    ``scale``) for the fused dequant-matmul; vectors dequantize as before."""
+    params = streamed.resident_tree()
+    packer = streamed.packer
+    quantized = isinstance(packer, QuantizedLayerPacker)
+    layers = streamed.layer_buffers
+
+    def parts(buf):  # a quantized layer is an (int8 data, fp32 sidecar) pair
+        return buf if quantized else (buf,)
+
+    stacked = tuple(
+        torch.empty((len(layers),) + tuple(part.shape), dtype=part.dtype, device=streamed.device)
+        for part in parts(layers[0])
     )
-    return out[:, None]
+    for i, buf in enumerate(layers):
+        for dst, src in zip(stacked, parts(buf)):
+            dst[i].copy_(src)
+        if streamed.layer_on_device[i]:  # drop the layer's own buffer
+            rows = tuple(dst[i] for dst in stacked)
+            layers[i] = rows if quantized else rows[0]
+    bufs = stacked if quantized else stacked[0]
+    params["layers"] = packer.unpack(bufs, quantized_resident) if quantized else packer.unpack(bufs)
+    return params
+
+
+def quantized_resident_params(streamed: StreamedModel) -> Optional[dict]:
+    """The install policy of fused-dequant serving: on a quantized streamer,
+    build the packed-resident params and install ``quant_dot`` as the
+    model's ``dot_fn``. Returns the params, or None when the streamer is not
+    quantized. Raises when another hook already owns the projections: that
+    one is never replaced, and serving dequantized weights through it would
+    run something else in the kernel's place."""
+    if not isinstance(streamed.packer, QuantizedLayerPacker):
+        return None
+    current = streamed.model.dot_fn
+    if current is not None and current is not quant_dot:
+        raise ValueError(
+            f"quantized-resident serving needs model.dot_fn to be quant_dot or None, "
+            f"got {getattr(current, '__name__', current)!r}"
+        )
+    params = params_from_streamed(streamed, quantized_resident=True)
+    streamed.model.dot_fn = quant_dot
+    return params
+
+
+def _attend_window(q, k_new, v_new, cache):
+    """The verify ``attend`` hook: every slot's window over its pages plus
+    the window's own keys, causal inside the window."""
+    return paged_verify_attention(
+        q, k_new, v_new, cache["k"], cache["v"], cache["table"], cache["length"]
+    )
 
 
 class ServingEngine:
@@ -113,6 +184,7 @@ class ServingEngine:
         prefill_chunk: Optional[int] = None,
         prefix_sharing: bool = True,
         prefix_cache_entries: int = 256,
+        speculative: Optional[SpeculativeConfig] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -146,6 +218,50 @@ class ServingEngine:
         self._rng = rng
         self.stats = ServingStats(num_slots, num_pages=self.cache.num_pages, page_size=page_size)
         self._warming = False  # warmup(): synthetic prompts skip the prefix cache
+        # target-model forwards by kind, for checks that count kernel launches
+        self.forward_counts = {"prefill": 0, "decode": 0, "verify": 0}
+        # speculative decoding (speculative.py): the draft's pools and tracking
+        # live in SpeculativeState, the verify and the window bookkeeping here.
+        # Temperature 0 only: acceptance is exact greedy match, which is what
+        # makes the output token-equal to plain decode
+        self.spec: Optional[SpeculativeState] = None
+        if speculative is not None:
+            if self.temperature != 0.0:
+                raise ValueError(
+                    "speculative decoding is temperature-0 only (acceptance is exact "
+                    f"greedy match), got temperature={self.temperature}"
+                )
+            draft = speculative.draft_model
+            if draft.config.vocab_size != model.config.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size {draft.config.vocab_size} != target vocab_size "
+                    f"{model.config.vocab_size}: drafted token ids would not be target tokens"
+                )
+            if not same_device(self.device, draft.device):
+                raise ValueError(f"draft model is on {draft.device}, the engine on {self.device}")
+            self.spec = SpeculativeState(speculative, self.cache)
+            self._fwd_window = resolve_window_protocol(model)
+
+    @classmethod
+    def from_streamed(cls, streamed: StreamedModel, **kwargs) -> "ServingEngine":
+        """Serve a :class:`~..big_modeling.StreamedModel`: the big-model
+        placement (device maps, int8/int4 quantization) becomes the serving
+        checkpoint path. The params reassemble on the device and are
+        installed into ``streamed.model``, which the engine then serves;
+        ``kwargs`` go to the constructor (``device`` must be the
+        streamer's).
+
+        On a quantized streamer the matrices stay packed on the device and
+        ``quant_dot`` becomes the model's ``dot_fn``
+        (:func:`quantized_resident_params`): serving reads 1-byte (int8) or
+        half-byte (int4) weights through the fused dequant-matmul kernel and
+        no full-precision copy of a layer matrix exists. An unquantized
+        streamer serves its weights as they are."""
+        params = quantized_resident_params(streamed)
+        if params is None:
+            params = params_from_streamed(streamed)
+        streamed.model.install(params)
+        return cls(streamed.model, **kwargs)
 
     # -- device work --------------------------------------------------------
 
@@ -154,66 +270,94 @@ class ServingEngine:
         return torch.tensor(array, device=self.device)
 
     def _decode(self) -> np.ndarray:
-        """One decode step over every slot; returns the sampled tokens
-        (0 on inactive lanes). Active lanes write their new K/V at
-        ``(table[length // ps], length % ps)``; inactive lanes write zeros
-        to the null page, which keeps it finite."""
-        ps = self.cache.page_size
-        tokens = self._host_to_device(self._pending)
-        lengths = self._host_to_device(self.cache.lengths)
-        tables = self._host_to_device(self.cache.tables)
+        """One decode step over every slot (``paging.decode_into_pool``);
+        returns the sampled tokens (0 on inactive lanes)."""
         active = self._host_to_device(self.cache.active)
-        cache = {"k": self.cache.k, "v": self.cache.v, "length": lengths,
-                 "table": tables, "attend": _attend}
-        logits, delta = self._fwc(tokens[:, None], cache)
-        nxt = self._sample(logits, self._rng)
-        idx = (lengths // ps).long()[:, None]
-        wpage = torch.where(active, tables.gather(1, idx)[:, 0], 0).long()
-        woff = torch.where(active, lengths % ps, 0).long()
-        lane = active[None, :, None, None]
-        pool_k, pool_v = self.cache.k, self.cache.v
-        zero = torch.zeros((), dtype=pool_k.dtype, device=self.device)
-        # in place: the pool is never copied (the JAX engine donates it instead)
-        pool_k[:, wpage, woff] = torch.where(lane, delta["k"][:, :, 0].to(pool_k.dtype), zero)
-        pool_v[:, wpage, woff] = torch.where(lane, delta["v"][:, :, 0].to(pool_v.dtype), zero)
-        nxt = torch.where(active, nxt, 0)
+        logits = decode_into_pool(
+            self._fwc, self.cache.k, self.cache.v, self._host_to_device(self._pending),
+            self._host_to_device(self.cache.lengths), self._host_to_device(self.cache.tables),
+            active, self.cache.page_size,
+        )
+        self.forward_counts["decode"] += 1
+        nxt = torch.where(active, self._sample(logits, self._rng), 0)
         return nxt.cpu().numpy()  # the host fetch is the per-step fence
 
     def _prefill(self, span: int, ids: np.ndarray, row: np.ndarray, start: int) -> None:
-        """Prefill ``span`` tokens at the page-aligned ``start``: gather the
-        slot's pages up to ``start + span`` into a dense view, run the dense
-        forward over it, and scatter the span's pages back into the pool."""
+        """Prefill ``span`` tokens at the page-aligned ``start``
+        (``paging.prefill_into_pool``)."""
+        prefill_into_pool(
+            self._fwc, self.cache.k, self.cache.v, span, self._host_to_device(ids), row, start,
+            self.cache.page_size,
+        )
+        self.forward_counts["prefill"] += 1
+
+    def _verify(self, window: np.ndarray, active: np.ndarray, limits: np.ndarray, tables: np.ndarray):
+        """Speculative verify: score every slot's ``k+1``-token window (the
+        pending token plus the candidates) in one target forward through
+        the paged verify kernel, and commit the longest agreeing prefix.
+
+        Acceptance is greedy agreement: with ``toks[j]`` the argmax after
+        window position ``j``, candidate ``window[j+1]`` is accepted iff it
+        equals ``toks[j]`` and every earlier candidate was, so ``accepted =
+        sum(cumprod(eq))``. The emitted run is ``toks[:emit]`` with ``emit =
+        min(accepted + 1, limits)``: every emitted token is the target's own
+        argmax on inputs the rule proved right, hence equal to plain decode,
+        and a slot with no draft emits exactly its plain-decode token under
+        ``limits = 1``. The write-back is the decode scatter widened to the
+        window: positions ``length .. length+emit-1`` land in the slot's
+        pages (grown by the host beforehand), every other row goes to the
+        null page as zeros. Returns host ``(toks [S, w], accepted [S], emit
+        [S])``."""
         ps = self.cache.page_size
-        n_pages = span // ps
-        needed = (start + span) // ps
-        row_t = torch.tensor(row[:needed], dtype=torch.long, device=self.device)
+        pps = self.cache.pages_per_slot
+        w = window.shape[1]
+        win = self._host_to_device(window)
+        lengths = self._host_to_device(self.cache.lengths)
+        tables_t = self._host_to_device(tables)
+        active_t = self._host_to_device(active)
+        cache = {"k": self.cache.k, "v": self.cache.v, "length": lengths,
+                 "table": tables_t, "attend": _attend_window}
+        logits, delta = self._fwd_window(win, cache)  # [S, w, V], K/V [L, S, w, KV, D]
+        self.forward_counts["verify"] += 1
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        eq = (win[:, 1:] == toks[:, :-1]).to(torch.int32)
+        accepted = torch.cumprod(eq, dim=1).sum(dim=1).to(torch.int32)
+        emit = torch.where(
+            active_t, torch.minimum(accepted + 1, self._host_to_device(limits)), 0
+        ).to(torch.int32)
+        steps = torch.arange(w, device=self.device)[None, :]
+        pos = lengths[:, None] + steps  # [S, w]
+        write = active_t[:, None] & (steps < emit[:, None])
+        page_idx = torch.clamp(pos // ps, max=pps - 1).long()
+        wpage = torch.where(write, tables_t.gather(1, page_idx), 0).long().reshape(-1)
+        woff = torch.where(write, pos % ps, 0).long().reshape(-1)
+        lane = write[None, :, :, None, None]
         pool_k, pool_v = self.cache.k, self.cache.v
+        zero = torch.zeros((), dtype=pool_k.dtype, device=self.device)
         layers = pool_k.shape[0]
-        view_shape = (layers, 1, needed * ps) + tuple(pool_k.shape[3:])
-        view = {
-            "k": pool_k[:, row_t].reshape(view_shape),
-            "v": pool_v[:, row_t].reshape(view_shape),
-            "length": start,
-        }
-        self._fwc(self._host_to_device(ids), view)  # logits dropped by design
-        page_shape = (layers, n_pages, ps) + tuple(pool_k.shape[3:])
-        wids = row_t[start // ps : start // ps + n_pages]
-        pool_k[:, wids] = view["k"][:, 0, start : start + span].reshape(page_shape)
-        pool_v[:, wids] = view["v"][:, 0, start : start + span].reshape(page_shape)
+        flat = (layers, wpage.numel()) + tuple(pool_k.shape[3:])
+        pool_k[:, wpage, woff] = torch.where(lane, delta["k"].to(pool_k.dtype), zero).reshape(flat)
+        pool_v[:, wpage, woff] = torch.where(lane, delta["v"].to(pool_v.dtype), zero).reshape(flat)
+        host = torch.cat([toks, accepted[:, None], emit[:, None]], dim=1).cpu().numpy()
+        return host[:, :w], host[:, w], host[:, w + 1]
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """The device half of copy-on-write: one page, every layer."""
+        """The device half of copy-on-write: one page, every layer (the
+        draft pool's too, which indexes through the same table rows)."""
         self.cache.k[:, dst] = self.cache.k[:, src]
         self.cache.v[:, dst] = self.cache.v[:, src]
+        if self.spec is not None and self.spec.enabled:
+            self.spec.copy_page(src, dst)
 
     # -- request intake ------------------------------------------------------
 
     def warmup(self) -> None:
         """Run one synthetic single-token request per prefill bucket, each
         prompt a distinct token so no prefix hit skips a bucket. This builds
-        the kernels and touches every prefill span and the decode step
-        before traffic arrives. The synthetic requests stay out of the
-        prefix cache, and the statistics restart afterwards."""
+        the kernels and touches every prefill span and the decode (or
+        verify) step before traffic arrives. The synthetic requests stay out
+        of the prefix cache, and the statistics and forward counts restart
+        afterwards."""
         self._warming = True
         cap, self.scheduler.max_queue = self.scheduler.max_queue, None
         try:
@@ -227,6 +371,7 @@ class ServingEngine:
         self.stats = ServingStats(
             self.cache.num_slots, num_pages=self.cache.num_pages, page_size=self.cache.page_size
         )
+        self.forward_counts = dict.fromkeys(self.forward_counts, 0)
 
     def submit(
         self,
@@ -393,6 +538,13 @@ class ServingEngine:
                 take < remaining or request.prefilled > request.prefix_hit
             )
             self._prefill(span, ids, self.cache.tables[slot], request.prefilled)
+            if self.spec is not None and self.spec.enabled:
+                # mirror the span into the draft pool (same ids, row and
+                # start) so the slot can draft the moment it decodes, and so
+                # pages filed in the prefix cache carry draft content too
+                self.spec.prefill(span, ids, self.cache.tables[slot], request.prefilled)
+                if int(self.spec.draft_len[slot]) == request.prefilled:
+                    self.spec.draft_len[slot] = request.prefilled + take
             request.prefilled += take
             self.stats.record_prefill(span)
             if chunked_span:
@@ -481,6 +633,244 @@ class ServingEngine:
                 self.stats.record_cow_copy()
         return failed
 
+    # -- speculative decoding (speculative.py) --------------------------------
+
+    def disable_speculation(self, reason: str) -> None:
+        """Permanent opt-out: plain paged decode from the next step on. Both
+        paths consume ``_pending[slot]`` at position ``lengths[slot]`` and
+        advance by what they emit, so no token is dropped or duplicated."""
+        if self.spec is None or not self.spec.enabled:
+            return
+        self.spec.disable(reason)
+        self.stats.record_spec_fallback()
+
+    def _spec_catch_up(self, slot: int, request: Request) -> None:
+        """Bring the draft pool's content for ``slot`` up to the committed
+        length with mirrored prefill spans (a slot that spent a stretch not
+        drafting). The input at position ``p`` is ``concat(prompt,
+        generated)[p]`` for every ``p < length``; spans start at
+        ``draft_len``'s page, and padded span tails land in the null page."""
+        spec = self.spec
+        ps = self.cache.page_size
+        length = int(self.cache.lengths[slot])
+        history = np.concatenate([request.prompt, np.asarray(request.generated, np.int32)])
+        while int(spec.draft_len[slot]) < length:
+            start = (int(spec.draft_len[slot]) // ps) * ps
+            span = self._next_span(length - start, start)
+            take = min(span, length - start)
+            ids = np.zeros((1, span), np.int32)
+            ids[0, :take] = history[start : start + take]
+            spec.prefill(span, ids, self.cache.tables[slot], start)
+            spec.draft_len[slot] = start + take
+
+    def _spec_limits(self, active_idx) -> tuple[np.ndarray, np.ndarray]:
+        """Per-slot emit caps for one speculative step. Decode-visible lanes
+        get at least 1 (verifying a bare pending token is the plain decode);
+        slots that can draft (healthy, draft pool caught up, more than one
+        token of budget left, window pages securable) get ``min(k,
+        budget)``. The cap stays at ``k``, not ``k + 1``: without the bonus
+        token ``draft_len == lengths`` holds in steady state."""
+        spec = self.spec
+        k = spec.config.k
+        ps = self.cache.page_size
+        limits = np.ones((self.cache.num_slots,), np.int32)
+        drafting = np.zeros((self.cache.num_slots,), bool)
+        for slot in active_idx:
+            request = self.scheduler.slots[slot]
+            if request is None or not self.cache.active[slot]:
+                continue
+            budget = request.max_new_tokens - len(request.generated)
+            if budget <= 1 or not spec.draft_ok[slot]:
+                continue
+            length = int(self.cache.lengths[slot])
+            if int(spec.draft_len[slot]) < length:
+                self._spec_catch_up(slot, request)
+            if int(spec.draft_len[slot]) != length:
+                continue
+            want = min(k, budget)
+            need = pages_for(length + want, ps) - int(self.cache.held[slot])
+            if need > 0 and not self.cache.grow(slot, need):
+                # page pressure: the slot decodes at the plain rate this step
+                self.stats.record_page_pressure()
+                continue
+            limits[slot] = want
+            drafting[slot] = True
+        return limits, drafting
+
+    def _spec_device_step(self, active_idx):
+        """One speculative step over every lane, in place of the plain
+        decode: draft up to ``k`` candidates per eligible slot, verify every
+        slot's window in one target forward, commit the longest agreeing
+        prefix. Returns ``(tokens [S, w], emit [S], drafted [S])``;
+        ``drafted`` marks the slots to trim and advance after the step."""
+        spec = self.spec
+        limits, drafting = self._spec_limits(active_idx)
+        window = np.zeros((self.cache.num_slots, spec.config.k + 1), np.int32)
+        window[:, 0] = self._pending
+        if spec.config.mode == "tree" and drafting.any():
+            tokens, emit, drafted, proposed = self._spec_tree_step(window, limits, drafting)
+        else:
+            tokens, emit, drafted, proposed = self._spec_linear_step(window, limits, drafting)
+        if not self._warming and drafted.any():
+            accepted = [max(int(emit[s]) - 1, 0) for s in np.flatnonzero(drafted)]
+            self.stats.record_spec_step(proposed=proposed, accepted_lengths=accepted)
+        return tokens, emit, drafted
+
+    def _spec_linear_step(self, window, limits, drafting):
+        """Linear mode: one greedy draft chain per drafting slot (launch
+        ``i`` consumes launch ``i-1``'s token at position ``length + i``),
+        then one verify. Each launch is masked to the slots whose cap it
+        still serves, so draft writes never pass ``length + limits - 1``,
+        inside the pages ``_spec_limits`` secured."""
+        spec = self.spec
+        drafted = drafting.copy()
+        lengths0 = self.cache.lengths.copy()
+        chain = self._pending.copy()
+        proposed = 0
+        for i in range(int(limits.max()) if drafting.any() else 0):
+            step_active = drafting & (i < limits)
+            if not step_active.any():
+                break
+            nxt, ok = spec.decode(
+                np.where(step_active, chain, 0), lengths0 + i, step_active, self.cache.tables
+            )
+            proposed += int(step_active.sum())
+            for slot in np.flatnonzero(step_active & ~ok):
+                # the draft went non-finite: stop extending this chain; the
+                # candidates already in the window stay usable (verify decides)
+                spec.fail_slot(int(slot), self.cache.tables, int(self.cache.held[slot]))
+                drafting[slot] = False
+            good = step_active & ok
+            window[good, i + 1] = nxt[good]
+            chain = np.where(good, nxt, chain).astype(np.int32)
+        tokens, _, emit = self._verify(window, self.cache.active, limits, self.cache.tables)
+        return tokens, emit, drafted, proposed
+
+    def _spec_tree_step(self, window, limits, drafting):
+        """Tree mode: fork up to ``num_branches`` branches per drafting slot
+        off the draft's top-B first tokens, verify each branch, commit the
+        one the target agrees with longest.
+
+        Page protocol, in this order: the seed launch runs on the slots' own
+        rows and writes the pending position's draft K/V into the boundary
+        page; then branch rows fork. Committed pages below the boundary are
+        shared by refcount (verify never writes them), the boundary page is
+        copied in both pools (``_copy_page``), each branch's tail is fresh
+        pages. Commit swaps the winner's segment into the slot's table row
+        (which serves both pools) and drops every other reference. Pressure
+        drops branches (worst case: branch 0 alone, which is linear mode).
+        Top-B seeds are distinct, so only one branch can start with the
+        target's first choice: every branch emits a prefix of the
+        temperature-0 stream, and the winner (lowest branch on ties) keeps
+        the output equal to plain decode."""
+        spec = self.spec
+        B = spec.config.num_branches
+        ps = self.cache.page_size
+        S = self.cache.num_slots
+        drafted = drafting.copy()
+        lengths0 = self.cache.lengths.copy()
+        seeds, ok = spec.decode(
+            np.where(drafting, self._pending, 0), lengths0, drafting, self.cache.tables, top_b=B
+        )
+        for slot in np.flatnonzero(drafting & ~ok):
+            spec.fail_slot(int(slot), self.cache.tables, int(self.cache.held[slot]))
+            drafting[slot] = False
+            limits[slot] = 1
+        proposed = int(drafting.sum())
+        # branches[slot] = (idx0, target, rows): rows[0] is the slot's own
+        # row, rows[b >= 1] a private boundary copy plus a fresh tail
+        branches: dict[int, tuple[int, int, list[np.ndarray]]] = {}
+        for slot in np.flatnonzero(drafting):
+            slot = int(slot)
+            length = int(lengths0[slot])
+            idx0 = length // ps
+            target = pages_for(length + int(limits[slot]), ps)
+            rows = [self.cache.tables[slot].copy()]
+            committed = [int(p) for p in self.cache.tables[slot, :idx0] if p]
+            src = int(self.cache.tables[slot, idx0])
+            for _ in range(1, B):
+                fresh = self.cache._alloc(target - idx0)
+                if fresh is None:
+                    break  # pressure: fewer branches this step
+                self.cache.pages.fork(committed)
+                row = self.cache.tables[slot].copy()
+                row[idx0:target] = fresh
+                self._copy_page(src, fresh[0])
+                self.stats.record_cow_copy()
+                rows.append(row)
+            branches[slot] = (idx0, target, rows)
+        nb = np.zeros((S,), np.int32)
+        for slot, (_, _, rows) in branches.items():
+            nb[slot] = len(rows)
+        bmax = int(nb.max()) if branches else 0
+        wins, tabs, chains = [], [], []
+        for b in range(bmax):
+            tb = self.cache.tables.copy()
+            wb = window.copy()
+            for slot, (_, _, rows) in branches.items():
+                if b < len(rows):
+                    tb[slot] = rows[b]
+                    wb[slot, 1] = seeds[slot, b]
+            wins.append(wb)
+            tabs.append(tb)
+            chains.append(wb[:, 1].copy())
+        # branch chains: launch (i, b) advances branch b of every tree slot
+        for i in range(1, int(limits.max()) if branches else 0):
+            for b in range(bmax):
+                act = drafting & (nb > b) & (i < limits)
+                if not act.any():
+                    continue
+                nxt, ok = spec.decode(np.where(act, chains[b], 0), lengths0 + i, act, tabs[b])
+                proposed += int(act.sum())
+                for slot in np.flatnonzero(act & ~ok):
+                    # a branch chain went non-finite: the slot stops drafting
+                    # (every branch's draft pages scrubbed) and emits its one
+                    # plain-decode token
+                    slot = int(slot)
+                    idx0_, target_, rows = branches[slot]
+                    spec.draft_ok[slot] = False
+                    spec.scrub_pages({int(r[j]) for r in rows for j in range(idx0_, target_)})
+                    drafting[slot] = False
+                    limits[slot] = 1
+                good = act & ok
+                wins[b][good, i + 1] = nxt[good]
+                chains[b] = np.where(good, nxt, chains[b]).astype(np.int32)
+        toks_b, acc_b, emit_b = [], [], []
+        for b in range(max(bmax, 1)):
+            wb = wins[b] if b < len(wins) else window
+            tb = tabs[b] if b < len(tabs) else self.cache.tables
+            # lanes whose slot has no branch b are masked off: their writes
+            # would land through the original row over branch 0's window K/V
+            act = self.cache.active & ~(drafted & (nb <= b)) if b else self.cache.active
+            toks, accepted, emit = self._verify(wb, act, limits, tb)
+            toks_b.append(toks)
+            acc_b.append(accepted)
+            emit_b.append(emit)
+        tokens = toks_b[0].copy()
+        emit = emit_b[0].copy()
+        # commit: each tree slot's winner swaps in; every branch reference
+        # drops (forked committed refs, loser pages and, for a winner b >= 1,
+        # the replaced originals)
+        for slot, (idx0, target, rows) in branches.items():
+            accs = [int(acc_b[b][slot]) for b in range(len(rows))]
+            win = int(np.argmax(accs)) if drafting[slot] else 0
+            committed = [int(p) for p in rows[0][:idx0] if p]
+            for b in range(1, len(rows)):
+                for p in committed:
+                    self.cache.pages.decref(p)
+                if b != win:
+                    for j in range(idx0, target):
+                        if int(rows[b][j]):
+                            self.cache.pages.decref(int(rows[b][j]))
+            if win > 0:
+                for j in range(idx0, target):
+                    if int(self.cache.tables[slot, j]):
+                        self.cache.pages.decref(int(self.cache.tables[slot, j]))
+                self.cache.tables[slot, idx0:target] = rows[win][idx0:target]
+                tokens[slot] = toks_b[win][slot]
+                emit[slot] = emit_b[win][slot]
+        return tokens, emit, drafted, proposed
+
     # -- the step -------------------------------------------------------------
 
     def _result_for(self, request: Request) -> ServingResult:
@@ -527,8 +917,14 @@ class ServingEngine:
         retire. Returns the requests that finished this step."""
         t0 = time.perf_counter()
         finished = self._retire_degraded(t0)
-        for _ in self.scheduler.admit_ready(self._free_slot):
-            pass  # admission only claims capacity; prefill runs below
+        for slot, request in self.scheduler.admit_ready(self._free_slot):
+            # admission only claims capacity; prefill runs below
+            if self.spec is not None:
+                # draft health is per request, and a prefix hit's shared pages
+                # carry the first holder's mirrored draft content, so drafting
+                # resumes from the hit rather than from position 0
+                self.spec.draft_ok[slot] = True
+                self.spec.draft_len[slot] = request.prefilled
         finished.extend(self._advance_prefills())
         finished.extend(self._prepare_decode_writes())
         active_idx = self.scheduler.active_slots
@@ -536,7 +932,15 @@ class ServingEngine:
             # no request is decode-visible yet: no device step
             return finished
 
-        tokens = self._decode()
+        drafted = None
+        if self.spec is not None and self.spec.enabled:
+            # the speculative step replaces the plain decode: every active
+            # lane rides the verify (a lane with no draft verifies just its
+            # pending token: emit 1, the plain-decode token)
+            tokens, emit, drafted = self._spec_device_step(active_idx)
+        else:
+            tokens = self._decode()[:, None]
+            emit = np.ones((self.cache.num_slots,), np.int32)
         now = time.perf_counter()
         delivered = 0
         for slot in active_idx:
@@ -550,26 +954,45 @@ class ServingEngine:
                 self._record_degraded(done)
                 finished.append(self._result_for(done))
                 continue
-            delivered += 1
-            token = int(tokens[slot])
-            request.generated.append(token)
-            self.cache.lengths[slot] += 1
-            if request.first_token_at is None:
-                request.first_token_at = now
-                self.stats.record_first_token(request.ttft_s)
-            hit_eos = self.eos_token_id is not None and token == self.eos_token_id
-            if hit_eos or len(request.generated) >= request.max_new_tokens:
-                self.cache.retire(slot)
-                done = self.scheduler.retire(slot, "eos" if hit_eos else "length")
-                self.stats.record_finish(done.latency_s)
-                finished.append(self._result_for(done))
-            elif request.past_deadline(now):
+            # up to emit[slot] tokens; the retire gates (EOS, budget) apply
+            # per token in order, so a window whose middle token is EOS
+            # retires there and drops the tail, as plain decode would
+            retired = False
+            for j in range(int(emit[slot])):
+                delivered += 1
+                token = int(tokens[slot, j])
+                request.generated.append(token)
+                self.cache.lengths[slot] += 1
+                if request.first_token_at is None:
+                    request.first_token_at = now
+                    self.stats.record_first_token(request.ttft_s)
+                hit_eos = self.eos_token_id is not None and token == self.eos_token_id
+                if hit_eos or len(request.generated) >= request.max_new_tokens:
+                    self.cache.retire(slot)
+                    done = self.scheduler.retire(slot, "eos" if hit_eos else "length")
+                    self.stats.record_finish(done.latency_s)
+                    finished.append(self._result_for(done))
+                    retired = True
+                    break
+            if retired:
+                continue
+            if request.past_deadline(now):
                 self.cache.retire(slot)
                 done = self.scheduler.retire(slot, "expired")
                 self._record_degraded(done)
                 finished.append(self._result_for(done))
             else:
                 self._pending[slot] = token
+        if drafted is not None:
+            # speculative rollback: a slot that drafted grew its table for the
+            # whole window; release what the accepted prefix did not reach
+            # and advance the draft pool's high-water mark
+            for slot in np.flatnonzero(drafted):
+                if self.scheduler.slots[slot] is None or not self.cache.active[slot]:
+                    continue  # retired mid-window: its pages are already released
+                self.cache.trim_to_length(slot)
+                if self.spec.draft_ok[slot]:
+                    self.spec.draft_len[slot] = int(self.cache.lengths[slot])
         self.stats.record_step(
             now - t0, active=len(active_idx), waiting=self.scheduler.waiting,
             tokens=delivered, pages_in_use=self.cache.pages_in_use,

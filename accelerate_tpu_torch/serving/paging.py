@@ -15,6 +15,10 @@ holds every request's K/V; a fixed-shape int32 page table per slot
 - :class:`PagedKVCache`: pools, tables and the host mirrors the engine
   drives. The pools are torch tensors on the engine's device; tables,
   lengths and flags are host numpy arrays shipped to the device per step.
+- :func:`decode_into_pool` / :func:`prefill_into_pool`: the device half,
+  one model forward against a pair of pools with the write-back. The
+  engine runs them on its pools, the speculative draft on its own pools
+  through the same tables.
 
 Sharing is page-aligned, so a slot's write position normally lands in a
 private page; ``prepare_write`` is the backstop that copies a shared page
@@ -30,6 +34,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.paged_attention import paged_decode_attention
 from .kv_cache import SlotAllocator
 
 
@@ -300,6 +305,27 @@ class PagedKVCache:
         self.pages.decref(page)
         return ("cow", page, dst)
 
+    def trim_to_length(self, slot: int) -> list[int]:
+        """Speculative rollback: drop the trailing pages beyond what
+        ``lengths[slot]`` committed positions need. Before a verify step the
+        engine grows the slot to hold the whole candidate window; when
+        acceptance lands short the surplus is released here (a forked tree
+        branch's surplus un-shares, the last holder frees the page) and the
+        table's tail points at the null page again. Returns the pages that
+        became free."""
+        keep = pages_for(int(self.lengths[slot]), self.page_size)
+        held = int(self.held[slot])
+        if keep >= held:
+            return []
+        freed = []
+        for idx in range(keep, held):
+            page = int(self.tables[slot, idx])
+            if page and self.pages.decref(page):
+                freed.append(page)
+            self.tables[slot, idx] = 0
+        self.held[slot] = keep
+        return freed
+
     def retire(self, slot: int) -> None:
         """Free the lane and drop the slot's page references. Stale K/V in a
         freed page is unreachable: reads stop at a slot's length and a new
@@ -311,3 +337,53 @@ class PagedKVCache:
         self.held[slot] = 0
         self.lengths[slot] = 0
         self.active[slot] = False
+
+
+def attend_pool(q, k_new, v_new, cache):
+    """The decode-cache ``attend`` hook: every slot's attention over its
+    pages, from the layer's pool view and the step's tables and lengths."""
+    out = paged_decode_attention(
+        q[:, 0], k_new[:, 0], v_new[:, 0], cache["k"], cache["v"], cache["table"], cache["length"]
+    )
+    return out[:, None]
+
+
+def decode_into_pool(fwc, pool_k, pool_v, tokens, lengths, tables, active, page_size: int):
+    """One decode forward over every lane (``tokens`` ``[S]``, device
+    tensors throughout) through the paged decode kernel; returns the fp32
+    logits ``[S, V]``. Active lanes write their new K/V at ``(table[length
+    // ps], length % ps)``; inactive lanes write zeros to the null page,
+    which keeps it finite. In place: the pools are never copied (the JAX
+    engine donates them instead)."""
+    cache = {"k": pool_k, "v": pool_v, "length": lengths, "table": tables, "attend": attend_pool}
+    logits, delta = fwc(tokens[:, None], cache)
+    idx = (lengths // page_size).long()[:, None]
+    wpage = torch.where(active, tables.gather(1, idx)[:, 0], 0).long()
+    woff = torch.where(active, lengths % page_size, 0).long()
+    lane = active[None, :, None, None]
+    zero = torch.zeros((), dtype=pool_k.dtype, device=pool_k.device)
+    pool_k[:, wpage, woff] = torch.where(lane, delta["k"][:, :, 0].to(pool_k.dtype), zero)
+    pool_v[:, wpage, woff] = torch.where(lane, delta["v"][:, :, 0].to(pool_v.dtype), zero)
+    return logits
+
+
+def prefill_into_pool(fwc, pool_k, pool_v, span: int, ids, row, start: int, page_size: int) -> None:
+    """Prefill ``span`` tokens (``ids`` ``[1, span]`` on the pools' device)
+    at the page-aligned ``start``: gather the pages of ``row`` up to
+    ``start + span`` into a dense view, run the dense forward over it, and
+    scatter the span's pages back into the pools."""
+    n_pages = span // page_size
+    needed = (start + span) // page_size
+    row_t = torch.tensor(np.asarray(row[:needed]), dtype=torch.long, device=pool_k.device)
+    layers = pool_k.shape[0]
+    view_shape = (layers, 1, needed * page_size) + tuple(pool_k.shape[3:])
+    view = {
+        "k": pool_k[:, row_t].reshape(view_shape),
+        "v": pool_v[:, row_t].reshape(view_shape),
+        "length": start,
+    }
+    fwc(ids, view)  # logits dropped by design
+    page_shape = (layers, n_pages, page_size) + tuple(pool_k.shape[3:])
+    wids = row_t[start // page_size : start // page_size + n_pages]
+    pool_k[:, wids] = view["k"][:, 0, start : start + span].reshape(page_shape)
+    pool_v[:, wids] = view["v"][:, 0, start : start + span].reshape(page_shape)

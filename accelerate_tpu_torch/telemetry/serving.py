@@ -2,7 +2,8 @@
 
 Counterpart of the ``ServingStats`` surface in
 ``accelerate_tpu/telemetry/serving.py`` that the paged engine feeds: time to
-first token, per-step time, throughput, slot occupancy and the page economy.
+first token, per-step time, throughput, slot occupancy, the page economy
+and the speculative-decoding counters.
 The engine's per-step host fetch of the sampled tokens is the timing fence,
 so step durations are wall times with no extra synchronisation.
 """
@@ -56,6 +57,13 @@ class ServingStats:
         self.page_occupancy_sum = 0.0
         self.peak_pages_in_use = 0
         self.last_pages_in_use = 0
+        # speculative decoding: accepted lengths are raw per-step samples
+        # (token counts, not seconds)
+        self.spec_steps = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_fallbacks = 0
+        self.spec_accepted_lengths: list[int] = []
 
     def record_submit(self) -> None:
         self.requests_submitted += 1
@@ -93,6 +101,17 @@ class ServingStats:
 
     def record_page_pressure(self) -> None:
         self.page_pressure_events += 1
+
+    def record_spec_step(self, proposed: int, accepted_lengths) -> None:
+        """One speculative engine step: ``proposed`` draft tokens offered to
+        the verifier and the per-slot accepted lengths."""
+        self.spec_steps += 1
+        self.spec_proposed_tokens += proposed
+        self.spec_accepted_tokens += int(sum(accepted_lengths))
+        self.spec_accepted_lengths.extend(int(a) for a in accepted_lengths)
+
+    def record_spec_fallback(self) -> None:
+        self.spec_fallbacks += 1
 
     def record_step(
         self,
@@ -178,6 +197,17 @@ class ServingStats:
             )
             if self.steps:
                 out["page_occupancy"] = self.page_occupancy_sum / self.steps
+        out.update(
+            spec_steps=self.spec_steps,
+            spec_proposed_tokens=self.spec_proposed_tokens,
+            spec_accepted_tokens=self.spec_accepted_tokens,
+            spec_fallbacks=self.spec_fallbacks,
+        )
+        if self.spec_accepted_lengths:
+            # token counts, not durations: percentiles taken directly
+            arr = np.asarray(self.spec_accepted_lengths, np.float64)
+            out["spec_accepted_len_p50"] = round(float(np.percentile(arr, 50)), 3)
+            out["spec_accepted_len_p99"] = round(float(np.percentile(arr, 99)), 3)
         out.update(_percentiles_ms(self.step_seconds, "per_token"))
         out.update(_percentiles_ms(self.ttft_seconds, "ttft"))
         out.update(_percentiles_ms(self.latency_seconds, "request_latency"))

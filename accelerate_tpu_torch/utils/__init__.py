@@ -1,5 +1,20 @@
 """Utilities of the port."""
 
-from .params import load_jax_params
+from .params import flatten_tree, load_jax_params
+from .quantization import (
+    QuantizationConfig,
+    QuantizedWeight,
+    dequantize_weight,
+    quantize_weight,
+    unpack_int4,
+)
 
-__all__ = ["load_jax_params"]
+__all__ = [
+    "QuantizationConfig",
+    "QuantizedWeight",
+    "dequantize_weight",
+    "flatten_tree",
+    "load_jax_params",
+    "quantize_weight",
+    "unpack_int4",
+]

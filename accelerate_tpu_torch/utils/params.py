@@ -15,11 +15,12 @@ import torch
 from torch import nn
 
 
-def _flatten(tree, prefix: str = "") -> Iterator[tuple[str, object]]:
+def flatten_tree(tree, prefix: str = "") -> Iterator[tuple[str, object]]:
+    """``(dotted key path, leaf)`` pairs of a nested param dict."""
     for key, value in tree.items():
         path = f"{prefix}{key}"
         if isinstance(value, dict):
-            yield from _flatten(value, path + ".")
+            yield from flatten_tree(value, path + ".")
         else:
             yield path, value
 
@@ -30,7 +31,7 @@ def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
     dicts of numpy arrays (bf16 leaves included). Raises ``KeyError`` when
     the key paths differ and ``ValueError`` when a shape does. Values are
     cast to each parameter's dtype and device. Returns ``model``."""
-    leaves = dict(_flatten(tree))
+    leaves = dict(flatten_tree(tree))
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(leaves))
     unexpected = sorted(set(leaves) - set(params))
