@@ -1,37 +1,63 @@
 """accelerate-tpu on PyTorch and CUDA: the port of ``accelerate_tpu`` to an
 NVIDIA H100.
 
-The port serves llama models through a paged continuous-batching engine,
-with speculative decoding and quantized-resident (int8/int4) weights. Its
-kernels are hand-written CUDA for ``sm_90a``: paged decode attention
-(``csrc/paged_decode.cu``), the speculative verify attention
-(``csrc/paged_verify.cu``) and the fused dequant-matmul
-(``csrc/quant_matmul.cu``). Entry points run on CUDA unless the caller
-passes ``device="cpu"``; on the CPU every kernel takes its plain PyTorch
-version.
+The port trains and serves llama models on one device. Training runs the
+JAX package's entry points: ``Accelerator(mixed_precision=...)``,
+``prepare_model``, ``prepare_optimizer`` and ``compiled_step(loss_fn)`` (or
+the eager ``backward`` + ``optimizer.step()``), with bf16 compute over fp32
+master params, flash attention for sequences of at least
+``flash_attention_min_seq`` tokens and the optax-formula ``fused_adamw``.
+Serving runs a paged continuous-batching engine, with speculative decoding
+and quantized-resident (int8/int4) weights.
+
+Its kernels are hand-written CUDA for ``sm_90a``: flash attention forward
+(``csrc/flash_fwd.cu``) and backward (``csrc/flash_bwd.cu``), fused adamw
+(``csrc/fused_adamw.cu``), paged decode attention (``csrc/paged_decode.cu``),
+the speculative verify attention (``csrc/paged_verify.cu``) and the fused
+dequant-matmul (``csrc/quant_matmul.cu``). Entry points run on CUDA unless
+the caller passes ``device="cpu"``; on the CPU every kernel takes its plain
+PyTorch version.
 """
 
+from .accelerator import Accelerator
 from .big_modeling import dispatch_model, make_layered_device_map
 from .models import Llama, generate, get_config
+from .ops.flash_attention import flash_attention, make_auto_attention
+from .ops.fused_adamw import adamw, fused_adamw
 from .ops.paged_attention import paged_decode_attention, paged_verify_attention
 from .ops.quant_matmul import quant_dot, quant_matmul
 from .serving import ServingEngine, SpeculativeConfig
+from .state import AcceleratorState, GradientState, PartialState
+from .utils.dataclasses import CompilationConfig, GradientAccumulationPlugin, LossScaleKwargs
 from .utils.params import load_jax_params
 from .utils.quantization import QuantizationConfig, QuantizedWeight
+from .utils.random import set_seed
 
 __all__ = [
+    "Accelerator",
+    "AcceleratorState",
+    "CompilationConfig",
+    "GradientAccumulationPlugin",
+    "GradientState",
     "Llama",
+    "LossScaleKwargs",
+    "PartialState",
     "QuantizationConfig",
     "QuantizedWeight",
     "ServingEngine",
     "SpeculativeConfig",
+    "adamw",
     "dispatch_model",
+    "flash_attention",
+    "fused_adamw",
     "generate",
     "get_config",
     "load_jax_params",
+    "make_auto_attention",
     "make_layered_device_map",
     "paged_decode_attention",
     "paged_verify_attention",
     "quant_dot",
     "quant_matmul",
+    "set_seed",
 ]

@@ -1,6 +1,13 @@
 """The llama family in PyTorch, with the JAX package's parameter layout."""
 
-from .config import TransformerConfig, get_config, list_models, param_count
+from .config import (
+    TransformerConfig,
+    get_config,
+    list_models,
+    param_count,
+    train_flops_per_step,
+    train_flops_per_token,
+)
 from .generation import (
     forward_window_with_cache,
     forward_with_cache,
@@ -27,4 +34,6 @@ __all__ = [
     "resolve_decode_protocol",
     "resolve_window_protocol",
     "rms_norm",
+    "train_flops_per_step",
+    "train_flops_per_token",
 ]

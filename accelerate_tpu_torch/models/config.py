@@ -27,6 +27,7 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    dropout_rate: float = 0.0  # residual dropout; every llama config has 0
     # num_experts > 1 selects the routed-expert MLP, which the port does not have
     num_experts: int = 1
     moe_top_k: int = 2
@@ -108,3 +109,18 @@ def param_count(config: TransformerConfig) -> int:
     if not config.tie_embeddings:
         total += h * v  # lm head
     return total
+
+
+def train_flops_per_token(config: TransformerConfig, seq_len: Optional[int] = None) -> float:
+    """Training FLOPs per token: the standard 6·N dense estimate (fwd + bwd)
+    plus 12·L·H·S for the self-attention score/context matmuls, which the
+    parameter count does not see (the JAX package's MFU formula)."""
+    seq = seq_len if seq_len is not None else config.max_seq_len
+    dense = 6.0 * param_count(config)
+    attention = 12.0 * config.num_layers * config.hidden_size * seq
+    return dense + attention
+
+
+def train_flops_per_step(config: TransformerConfig, batch_size: int, seq_len: int) -> float:
+    """Training FLOPs for one optimizer step over ``batch_size`` sequences."""
+    return batch_size * seq_len * train_flops_per_token(config, seq_len)

@@ -41,6 +41,8 @@ def decoder_layer(
     causal: bool = True,
     cache: Optional[dict] = None,  # {"k","v"} [B, T, KV, D] + write offset "length"
     dot_fn=None,  # the projection hook, e.g. ops.quant_matmul.quant_dot
+    attention_fn=None,  # e.g. ops.flash_attention.make_auto_attention(...)
+    kv_mask: Optional[torch.Tensor] = None,  # raw [B, S] validity for attention_fn
 ):
     """One llama decoder layer. Returns ``(h, new_cache_or_None)``.
 
@@ -52,6 +54,8 @@ def decoder_layer(
       cache at ``length`` in place, where the JAX package returns an updated
       copy, and attention runs over the whole cache under ``mask``.
 
+    Without a cache, ``attention_fn(q, k, v, kv_mask)`` attends when set (the
+    training step's flash hook), else the einsum path under ``mask``.
     Every projection goes through ``dot_fn`` (plain ``@`` when None).
     """
     dot = resolve_dot(dot_fn)
@@ -78,6 +82,8 @@ def decoder_layer(
         v_cache[:, length : length + s] = v.to(v_cache.dtype)
         attn = dot_product_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask=mask)
         new_cache = {"k": k_cache, "v": v_cache, "length": length}
+    elif attention_fn is not None:
+        attn = attention_fn(q, k, v, kv_mask)
     else:
         attn = dot_product_attention(q, k, v, mask=mask, causal=causal)
     h = h + dot(attn.reshape(b, s, nh * d), lp["wo"])
@@ -133,10 +139,17 @@ class Llama(nn.Module):
             raise ValueError(f"Llama needs a llama config, got arch {cfg.arch!r}")
         if cfg.num_experts > 1:
             raise NotImplementedError("mixture-of-experts layers are not in the port yet")
+        if cfg.dropout_rate > 0:
+            raise NotImplementedError("residual dropout is not in the port yet (ROADMAP item 10)")
         self.config = cfg
         # the projection hook of every layer (None = plain matmul);
         # quantized-resident serving installs ops.quant_matmul.quant_dot
         self.dot_fn = None
+        # the attention hook of the training forward (None = einsum);
+        # Accelerator.prepare_model installs the flash dispatch
+        self.attention_fn = None
+        # per-layer activation checkpointing: off (the parallel slice, ROADMAP item 9)
+        self.remat_layers = False
         device = resolve_device(device)
         h, v = cfg.hidden_size, cfg.vocab_size
 
@@ -233,16 +246,22 @@ class Llama(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed_tokens.T if self.config.tie_embeddings else self.lm_head
 
-    def forward(
+    def apply(
         self,
+        params: dict,  # the JAX layout: param_tree(), or a cast copy of it
         input_ids: torch.Tensor,  # [B, S] integer ids
         attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real
         positions: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Logits ``[B, S, V]`` in the model's dtype."""
+        """Logits ``[B, S, V]`` in the params' dtype, with the weights taken
+        from ``params`` (the JAX package's ``apply``, which a user's
+        ``loss_fn`` calls; it shadows ``nn.Module.apply``): the training
+        step passes its compute-dtype cast of the fp32 masters, so gradients
+        flow back to them. The stacked layers run as a loop over views
+        unbound once per key."""
         cfg = self.config
         s = input_ids.shape[1]
-        h = self.embed_tokens[input_ids.long()]
+        h = params["embed_tokens"][input_ids.long()]
         if positions is None:
             positions = torch.arange(s, device=h.device)[None, :]
         elif positions.dim() == 1:
@@ -251,9 +270,47 @@ class Llama(nn.Module):
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
+        layers = params["layers"]
+        per_key = {
+            name: layers[name].unbind(0) if isinstance(layers[name], torch.Tensor)
+            else [layers[name][i] for i in range(cfg.num_layers)]
+            for name in LAYER_KEYS
+        }
         for i in range(cfg.num_layers):
             h, _ = decoder_layer(
-                cfg, h, self.layer_params(i), cos, sin, mask, causal=True, dot_fn=self.dot_fn
+                cfg, h, {name: per_key[name][i] for name in LAYER_KEYS}, cos, sin, mask,
+                causal=True, dot_fn=self.dot_fn, attention_fn=self.attention_fn,
+                kv_mask=attention_mask,
             )
-        h = rms_norm(h, self.final_norm, cfg.norm_eps)
-        return h @ self.head().to(h.dtype)
+        h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+        head = params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]
+        return h @ head.to(h.dtype)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # [B, S] integer ids
+        attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real
+        positions: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Logits ``[B, S, V]`` in the model's dtype."""
+        return self.apply(self.param_tree(), input_ids, attention_mask, positions)
+
+    @staticmethod
+    def loss_fn(model: "Llama"):
+        """Next-token cross-entropy over a batch ``{input_ids,
+        [attention_mask]}``: log-softmax in fp32, the mask weighting the
+        targets' positions, as the JAX package's ``Llama.loss_fn``."""
+
+        def fn(params, batch):
+            input_ids = batch["input_ids"]
+            attention_mask = batch.get("attention_mask")
+            logits = model.apply(params, input_ids, attention_mask)
+            targets = input_ids[:, 1:].long()
+            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+            if attention_mask is not None:
+                w = attention_mask[:, 1:].float()
+                return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+            return nll.mean()
+
+        return fn

@@ -7,10 +7,11 @@ plain PyTorch version, a CUDA tensor launches the kernel or raises. There is
 no override that swaps a kernel out.
 
 Kernels are CUDA C++ sources under ``accelerate_tpu_torch/csrc/``, each with
-a plain C interface. The first use of a source compiles it with ``nvcc`` for
-``sm_90a`` into a shared library under ``accelerate_tpu_torch/_build/``
-(named by a hash of the source, so an edited source rebuilds) and loads it
-with ``ctypes``. The build takes seconds.
+a plain C interface (headers shared between sources end in ``.cuh``). The
+first use of a source compiles it with ``nvcc`` for ``sm_90a`` into a
+shared library under ``accelerate_tpu_torch/_build/`` (named by a hash of
+the source and the headers, so an edited source rebuilds) and loads it with
+``ctypes``. The build takes seconds.
 """
 
 from __future__ import annotations
@@ -67,10 +68,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` goes: named by the source hash."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """Where the build of ``csrc/<name>.cu`` goes: named by the hash of the
+    source, the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for file_name in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, file_name), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_kernel(name: str) -> str:

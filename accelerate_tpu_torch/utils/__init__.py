@@ -1,6 +1,6 @@
 """Utilities of the port."""
 
-from .params import flatten_tree, load_jax_params
+from .params import flatten_tree, load_jax_params, tree_leaves, tree_map
 from .quantization import (
     QuantizationConfig,
     QuantizedWeight,
@@ -15,6 +15,8 @@ __all__ = [
     "dequantize_weight",
     "flatten_tree",
     "load_jax_params",
+    "tree_leaves",
+    "tree_map",
     "quantize_weight",
     "unpack_int4",
 ]

@@ -1,0 +1,116 @@
+"""Config dataclasses and enums of the training step.
+
+Copies of the parts of ``accelerate_tpu/utils/dataclasses.py`` that one
+device needs, not imports: the port never imports the JAX package. Field
+names and defaults follow the reference, so user configs carry over. Values
+that need a later slice raise ``NotImplementedError`` naming their ROADMAP
+item.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import asdict, dataclass
+from typing import Any, Optional
+
+import torch
+
+
+class _StrEnum(str, enum.Enum):
+    def __str__(self) -> str:  # so f-strings show the bare value
+        return self.value
+
+
+class DistributedType(_StrEnum):
+    """Primary distribution strategy. One device is ``NO``; the others wait
+    for the parallel slice (ROADMAP item 9)."""
+
+    NO = "NO"
+    DATA_PARALLEL = "DATA_PARALLEL"
+    FSDP = "FSDP"
+    TENSOR_PARALLEL = "TENSOR_PARALLEL"
+    PIPELINE_PARALLEL = "PIPELINE_PARALLEL"
+    HYBRID = "HYBRID"
+
+
+class PrecisionType(_StrEnum):
+    NO = "no"
+    FP16 = "fp16"
+    BF16 = "bf16"
+    FP8 = "fp8"
+
+
+@dataclass
+class KwargsHandler:
+    def to_kwargs(self) -> dict[str, Any]:
+        return asdict(self)
+
+
+@dataclass
+class LossScaleKwargs(KwargsHandler):
+    """Dynamic loss scaling for fp16 (reference ``GradScalerKwargs``). bf16
+    needs no scaling; this only activates for fp16."""
+
+    init_scale: float = 2.0**15
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+
+
+@dataclass
+class GradientAccumulationPlugin(KwargsHandler):
+    """Gradient-accumulation window semantics of the reference (its
+    scheduler and data-loader fields come with ROADMAP item 9)."""
+
+    num_steps: int = 1
+    sync_each_batch: bool = False
+
+
+@dataclass
+class CompilationConfig:
+    """Step options; the reference's donation and scan flags have no
+    counterpart in eager PyTorch. ``flash_attention_min_seq``: sequences at
+    least this long route attention through the flash kernels
+    (``ops/flash_attention``); 0 disables. The port wires the hook on every device (the JAX package
+    only on a TPU), so a CPU run takes the kernels' plain versions.
+    ``remat_policy`` other than None raises: activation checkpointing comes
+    with the parallel slice (ROADMAP item 9)."""
+
+    remat_policy: Optional[str] = None
+    flash_attention_min_seq: int = 1024
+
+    def __post_init__(self):
+        if self.remat_policy not in (None, "none"):
+            raise NotImplementedError(
+                f"remat_policy={self.remat_policy!r}: activation checkpointing is not "
+                "in the port yet (ROADMAP item 9)"
+            )
+
+
+@dataclass
+class MixedPrecisionPolicy:
+    """Dtype policy: fp32 master params, compute in ``compute_dtype``. The
+    step casts params and batch to it inside the autograd graph, so grads
+    land on the fp32 masters; it is a cast, not autocast."""
+
+    mixed_precision: PrecisionType = PrecisionType.NO
+
+    def __post_init__(self):
+        self.mixed_precision = PrecisionType(self.mixed_precision)
+        if self.mixed_precision == PrecisionType.FP8:
+            raise NotImplementedError(
+                "mixed_precision='fp8' (scaled e4m3 projections, ops/fp8.py) is not in "
+                "the port yet (ROADMAP item 16)"
+            )
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return {
+            PrecisionType.NO: torch.float32,
+            PrecisionType.FP16: torch.float16,
+            PrecisionType.BF16: torch.bfloat16,
+        }[self.mixed_precision]
+
+    @property
+    def requires_loss_scaling(self) -> bool:
+        return self.mixed_precision == PrecisionType.FP16

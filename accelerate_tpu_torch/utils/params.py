@@ -25,6 +25,20 @@ def flatten_tree(tree, prefix: str = "") -> Iterator[tuple[str, object]]:
             yield path, value
 
 
+def tree_leaves(tree) -> list:
+    """Leaves of a nested dict in the JAX package's pytree order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in sorted(tree)}
+    return fn(tree, *rest)
+
+
 @torch.no_grad()
 def load_jax_params(model: nn.Module, tree: dict) -> nn.Module:
     """Fill ``model``'s parameters from a JAX param tree given as nested

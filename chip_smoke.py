@@ -40,7 +40,25 @@ wall time:
    launches checked against 7 projections x layers x forwards, resident
    layer bytes against bf16's, the device memory ``from_streamed`` adds
    measured), profiled as in phase 3; then fp32 int8 and int4 tokens
-   against ``generate()`` over the dequantized weights.
+   against ``generate()`` over the dequantized weights;
+10. the flash attention forward kernel against its plain version at four
+    geometries ((a) llama-125m at B=32, S=1024, causal; (b) B=8, S=4096;
+    (c) B=4, S=2048, head dim 128, 32 query heads over 8 kv heads, a padded
+    mask with a fully padded row; (d) non-causal under a mask), in bf16 and
+    fp32, timed beside its bound, the plain version and SDPA;
+11. the dq and dk/dv kernels at the same geometries against the plain
+    backward and against autograd through the plain forward, timed beside
+    SDPA's backward;
+12. the fused adamw kernel bit-equal to its plain version over 5 steps on
+    llama-125m's 12 leaves, timed beside ``torch.optim.AdamW(fused=True)``;
+13. training: llama-125m in bf16 through ``Accelerator`` ->
+    ``prepare_model`` -> ``prepare_optimizer(fused_adamw(3e-4))`` ->
+    ``compiled_step`` at B=32, S=1024 and B=8, S=4096 (step p50 over 10 steps
+    after 3 warm-up steps, tokens/s, MFU, peak memory, launches = 12 per
+    step for each flash kernel and for adamw, one profiled step each); then
+    fp32 at B=2, S=1024, 3 steps against the same steps with the plain
+    attention and the plain adamw passed in; then bf16 at B=8, S=1024 on a
+    64-token sub-vocabulary, whose loss must fall by 1 nat in 20 steps.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -49,7 +67,9 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,12 +80,19 @@ import torch
 import torch.nn.functional as F
 
 from accelerate_tpu_torch import (
+    Accelerator,
+    AcceleratorState,
+    CompilationConfig,
+    GradientState,
     Llama,
+    PartialState,
     QuantizationConfig,
     QuantizedWeight,
     ServingEngine,
     SpeculativeConfig,
+    adamw,
     dispatch_model,
+    fused_adamw,
     generate,
     make_layered_device_map,
     paged_decode_attention,
@@ -74,10 +101,14 @@ from accelerate_tpu_torch import (
     quant_matmul,
 )
 from accelerate_tpu_torch.big_modeling import StreamedModel
+from accelerate_tpu_torch.models import train_flops_per_step
+from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
+from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_reference, bias_corrections
 from accelerate_tpu_torch.ops.quant_matmul import quant_matmul_reference
 from accelerate_tpu_torch.ops.runtime import build_kernel, build_log
 from accelerate_tpu_torch.serving.engine import params_from_streamed
+from accelerate_tpu_torch.utils.params import tree_leaves
 from accelerate_tpu_torch.utils.quantization import dequantize_weight, quantize_weight
 
 SEED = 0
@@ -92,11 +123,23 @@ KERNELS = {
                      "accelerate_tpu/ops/paged_attention.py:219"),  # _verify_kernel
     "quant_matmul": ("accelerate_tpu_torch/csrc/quant_matmul.cu",
                      "accelerate_tpu/ops/quant_matmul.py:68"),  # _matmul_kernel
+    "flash_fwd": ("accelerate_tpu_torch/csrc/flash_fwd.cu",
+                  "accelerate_tpu/ops/flash_attention.py:143"),  # _fwd_kernel
+    "flash_dq": ("accelerate_tpu_torch/csrc/flash_bwd.cu",
+                 "accelerate_tpu/ops/flash_attention.py:279"),  # _bwd_dq_kernel
+    "flash_dkv": ("accelerate_tpu_torch/csrc/flash_bwd.cu",
+                  "accelerate_tpu/ops/flash_attention.py:352"),  # _bwd_dkv_kernel
+    "fused_adamw": ("accelerate_tpu_torch/csrc/fused_adamw.cu",
+                    "accelerate_tpu/ops/fused_adamw.py:76"),  # _adamw_kernel
 }
+# the sources to build: csrc/<name>.cu (flash_bwd.cu holds two kernels)
+SOURCES = sorted({source.split("/")[-1][: -len(".cu")] for source, _ in KERNELS.values()})
 TIE_GAP = 1e-4
 SPEC_K = 4
 WRAPPERS = {"paged_decode": paged_decode_attention, "paged_verify": paged_verify_attention,
-            "quant_matmul": quant_matmul}  # each counts the launches of its kernel
+            "quant_matmul": quant_matmul, "flash_fwd": fa.flash_forward,
+            "flash_dq": fa.flash_backward_dq, "flash_dkv": fa.flash_backward_dkv,
+            "fused_adamw": adamw_leaf}  # each counts the launches of its kernel
 PROJECTIONS = 7  # wq wk wv wo w_gate w_up w_down: the quantized matrices of a layer
 
 
@@ -221,13 +264,14 @@ def phase_environment() -> str:
     print(f"[env] device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {card}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source, all at once
-        list(pool.map(build_kernel, KERNELS))
-    print(f"[env] built {len(KERNELS)} kernels for sm_90a in {time.perf_counter() - t0:.1f} s")
-    for name, (source, _) in KERNELS.items():
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, all at once
+        list(pool.map(build_kernel, SOURCES))
+    print(f"[env] built {len(KERNELS)} kernels from {len(SOURCES)} sources for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
         for line in (build_log(name) or "").splitlines():
             if "registers" in line or "spill" in line:
-                print(f"[env] ptxas {source.split('/')[-1]}: {line.strip()}")
+                print(f"[env] ptxas {name}.cu: {line.strip()}")
     return card
 
 
@@ -763,6 +807,401 @@ def phase_quant_serving(card: str, prompts) -> int:
     return launches
 
 
+# -- training: flash attention, fused adamw, the step ------------------------
+
+FLASH_GEOMETRIES = {
+    # name: (B, S, T, NH, KV, D, causal, masked)
+    "a_125m_s1024": (32, 1024, 1024, 12, 12, 64, True, False),
+    "b_125m_s4096": (8, 4096, 4096, 12, 12, 64, True, False),
+    "c_gqa32x8_d128_masked": (4, 2048, 2048, 32, 8, 128, True, True),
+    "d_bidirectional_masked": (8, 1024, 1024, 12, 12, 64, False, True),
+}
+# bf16 grads against the plain backward / autograd: within this share of each
+# gradient's largest magnitude (bf16 rounds p and dS before the products, in
+# tiles of another order); fp32 within 5e-4 absolute
+GRAD_TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 5e-4}
+
+
+def flash_case(rng, geometry, dtype):
+    """Inputs on the card; a masked case pads batch row 0 from 3/4 of T
+    (mid-tile) and batch row B-1 throughout (a fully padded row)."""
+    b, s, t, nh, kv, d, causal, masked = geometry
+    f = lambda *shape: torch.tensor(rng.standard_normal(shape, dtype=np.float32), device="cuda").to(dtype)  # noqa: E731
+    q, k, v, do = f(b, s, nh, d), f(b, t, kv, d), f(b, t, kv, d), f(b, s, nh, d)
+    kv_mask = mask = limit = None
+    if masked:
+        valid = np.ones((b, t), np.int32)
+        valid[0, 3 * t // 4 + 5:] = 0
+        valid[-1] = 0
+        kv_mask = torch.tensor(valid, device="cuda")
+        mask, limit = fa._mask_limit(kv_mask)
+    return dict(q=q, k=k, v=v, do=do, kv_mask=kv_mask, mask=mask, limit=limit, causal=causal,
+                scale=1.0 / math.sqrt(d))
+
+
+def attended_pairs(case) -> int:
+    """(query, key) pairs the kernels score, per query head: the causal
+    triangle and the mask as this run's data has them."""
+    q, k = case["q"], case["k"]
+    b, s, t = q.shape[0], q.shape[1], k.shape[1]
+    q_pos = torch.arange(s, device="cuda")[:, None]
+    k_pos = torch.arange(t, device="cuda")[None, :]
+    allowed = (k_pos <= q_pos) if case["causal"] else torch.ones((s, t), dtype=torch.bool, device="cuda")
+    if case["mask"] is None:
+        return b * int(allowed.sum().item())
+    per_key = allowed.sum(dim=0).to(torch.int64)  # queries that may see each key
+    return int((case["mask"].to(torch.int64) * per_key[None, :]).sum().item())
+
+
+def flash_bound_ms(case, kind: str) -> tuple[float, str]:
+    """Least time of one kernel call: every input and output once (q, k, v
+    and out / dO, dq / dO, dk, dv, the fp32 lse and delta rows, the mask),
+    against 2·D flops per product per attended pair (forward 2 products,
+    dq 3, dk/dv 4) at the dtype's dense peak."""
+    q, k = case["q"], case["k"]
+    esize = q.element_size()
+    nq, nk = q.numel(), k.numel()
+    rows = q.shape[0] * q.shape[2] * q.shape[1] * 4  # one fp32 [B, N, S] row set
+    mask = 0 if case["mask"] is None else case["mask"].numel() * 4 + case["limit"].numel() * 4
+    tensors = {"fwd": (2 * nq + 2 * nk) * esize + rows,
+               "dq": (3 * nq + 2 * nk) * esize + 2 * rows,
+               "dkv": (2 * nq + 4 * nk) * esize + 2 * rows}[kind]
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+    flops = 2.0 * products * q.shape[3] * q.shape[2] * attended_pairs(case)
+    t_bytes = (tensors + mask) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_inputs(case, requires_grad=False):
+    """[B, N, S, D] copies for SDPA (made outside the timed calls) and its
+    mask: the key mask, joined with the causal triangle when both apply."""
+    qh, kh, vh = (case[n].transpose(1, 2).contiguous().requires_grad_(requires_grad) for n in "qkv")
+    kwargs = dict(enable_gqa=qh.shape[1] != kh.shape[1])
+    if case["kv_mask"] is None:
+        kwargs["is_causal"] = case["causal"]
+    else:
+        s, t = qh.shape[2], kh.shape[2]
+        m = case["kv_mask"].bool()[:, None, None, :]
+        if case["causal"]:
+            m = m & torch.ones((s, t), dtype=torch.bool, device="cuda").tril()[None, None]
+        kwargs["attn_mask"] = m
+    return qh, kh, vh, kwargs
+
+
+def phase_flash_forward(card: str) -> dict:
+    """Forward kernel vs plain version at each geometry and dtype; returns
+    the record of geometry (a) in bf16, the main path's shape."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 10)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    record = None
+    for name, geometry in FLASH_GEOMETRIES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            c = flash_case(rng, geometry, dtype)
+            args = (c["q"], c["k"], c["v"], c["mask"], c["limit"], c["causal"], c["scale"])
+            out, lse = fa.flash_forward(*args)
+            want, want_lse = fa.flash_forward_reference(c["q"], c["k"], c["v"], c["mask"], c["causal"], c["scale"])
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max().item())
+            lse_err = float((lse - want_lse).abs().max().item())
+            padded_zero = c["mask"] is None or int(torch.count_nonzero(out[-1]).item()) == 0
+            del want, want_lse
+            ms = time_ms(lambda: fa.flash_forward(*args), flush, iters=20)
+            plain = time_ms(lambda: fa.flash_forward_reference(*args[:3], c["mask"], c["causal"], c["scale"]),
+                            flush, iters=5)
+            qh, kh, vh, kw = sdpa_inputs(c)
+            library = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw), flush, iters=20)
+            del qh, kh, vh, kw
+            bound, bound_by = flash_bound_ms(c, "fwd")
+            print(
+                f"[flash-fwd] {name} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tolerance "
+                f"{TOLERANCE[dtype]:.0e}), lse {lse_err:.3e}, padded row exactly 0: {padded_zero}; "
+                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library_ms {library:.4f}, bound "
+                f"{bound:.4f} ms ({bound_by}), achieved {bound / ms:.1%} of bound [{card}]"
+            )
+            if not (err <= TOLERANCE[dtype]) or not (lse_err <= 1e-4) or not padded_zero:
+                raise AssertionError(f"flash forward disagrees with its plain version at {name} {dtype}")
+            if name == "a_125m_s1024" and dtype == torch.bfloat16:
+                record = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                              bound_by=bound_by, library_ms=library)
+            del c, args, out, lse
+            torch.cuda.empty_cache()
+    return record
+
+
+def grad_error(got, want, dtype) -> tuple[float, float]:
+    """(max abs error, its tolerance) of one gradient."""
+    err = float((got.float() - want.float()).abs().max().item())
+    tol = GRAD_TOLERANCE[dtype] * (float(want.float().abs().max().item()) if dtype == torch.bfloat16 else 1.0)
+    return err, tol
+
+
+def phase_flash_backward(card: str) -> tuple[dict, dict]:
+    """dq and dk/dv kernels vs the plain backward and vs autograd through
+    the plain forward; returns the records of geometry (a) in bf16."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 11)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    records = None
+    for name, geometry in FLASH_GEOMETRIES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            c = flash_case(rng, geometry, dtype)
+            q, k, v, do, mask, limit = (c[n] for n in ("q", "k", "v", "do", "mask", "limit"))
+            out, lse = fa.flash_forward(q, k, v, mask, limit, c["causal"], c["scale"])
+            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, mask, limit, do, lse, delta, c["causal"], c["scale"])
+            ref_args = (q, k, v, mask, do, lse, delta, c["causal"], c["scale"])
+            dq = fa.flash_backward_dq(*args)
+            dk, dv = fa.flash_backward_dkv(*args)
+            torch.cuda.synchronize()
+            errors = {}
+            want = {"dq": fa.flash_backward_dq_reference(*ref_args)}
+            want.update(zip(("dk", "dv"), fa.flash_backward_dkv_reference(*ref_args)))
+            for key, got in (("dq", dq), ("dk", dk), ("dv", dv)):
+                errors[f"{key}/plain"] = grad_error(got, want[key], dtype)
+            del want
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            ref_out, _ = fa.flash_forward_reference(*leaves, mask, c["causal"], c["scale"])
+            ref_out.backward(do)
+            del ref_out
+            for key, got, leaf in (("dq", dq, leaves[0]), ("dk", dk, leaves[1]), ("dv", dv, leaves[2])):
+                errors[f"{key}/autograd"] = grad_error(got, leaf.grad, dtype)
+            del leaves
+            torch.cuda.empty_cache()
+            padded_zero = mask is None or all(int(torch.count_nonzero(x[-1]).item()) == 0 for x in (dq, dk, dv))
+            ms_dq = time_ms(lambda: fa.flash_backward_dq(*args), flush, iters=20)
+            ms_dkv = time_ms(lambda: fa.flash_backward_dkv(*args), flush, iters=20)
+            plain_dq = time_ms(lambda: fa.flash_backward_dq_reference(*ref_args), flush, iters=3)
+            plain_dkv = time_ms(lambda: fa.flash_backward_dkv_reference(*ref_args), flush, iters=3)
+            qh, kh, vh, kw = sdpa_inputs(c, requires_grad=True)
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+            do_h = do.transpose(1, 2).contiguous()
+            library = time_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), do_h, retain_graph=True),
+                              flush, iters=20)
+            del qh, kh, vh, kw, sdpa_out, do_h
+            b_dq, by_dq = flash_bound_ms(c, "dq")
+            b_dkv, by_dkv = flash_bound_ms(c, "dkv")
+            worst = ", ".join(f"{key} {e:.3e} (tol {t:.1e})" for key, (e, t) in errors.items())
+            print(
+                f"[flash-bwd] {name} {str(dtype).split('.')[-1]}: {worst}; padded row exactly 0: "
+                f"{padded_zero}; dq {ms_dq:.4f} ms (plain {plain_dq:.4f}, bound {b_dq:.4f} {by_dq}, "
+                f"{b_dq / ms_dq:.1%}), dkv {ms_dkv:.4f} ms (plain {plain_dkv:.4f}, bound {b_dkv:.4f} "
+                f"{by_dkv}, {b_dkv / ms_dkv:.1%}), SDPA backward (dq, dk, dv in one call) library_ms "
+                f"{library:.4f} [{card}]"
+            )
+            if any(not (e <= t) for e, t in errors.values()) or not padded_zero:
+                raise AssertionError(f"flash backward disagrees at {name} {dtype}: {errors}")
+            if name == "a_125m_s1024" and dtype == torch.bfloat16:
+                records = (
+                    dict(max_abs_err=errors["dq/plain"][0], ms=ms_dq, plain_ms=plain_dq, bound_ms=b_dq,
+                         bound_by=by_dq, library_ms=library),
+                    dict(max_abs_err=max(errors["dk/plain"][0], errors["dv/plain"][0]), ms=ms_dkv,
+                         plain_ms=plain_dkv, bound_ms=b_dkv, bound_by=by_dkv, library_ms=library),
+                )
+            del c, args, ref_args, q, k, v, do, out, lse, delta, dq, dk, dv
+            torch.cuda.empty_cache()
+    return records
+
+
+ADAMW_LR = 3e-4
+
+
+def phase_adamw(card: str) -> dict:
+    """The adamw kernel over llama-125m's 12 leaves, 5 steps, bit-equal to
+    its plain version; timed for one optimizer step (12 launches) beside its
+    bound and torch.optim.AdamW(fused=True) over the same leaves."""
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    leaves = [p.detach().clone() for p in tree_leaves(model.param_tree())]
+    del model
+    n = sum(p.numel() for p in leaves)
+    hp = fused_adamw(ADAMW_LR).hyperparams
+    state = {"kernel": [[p.clone(), torch.zeros_like(p), torch.zeros_like(p)] for p in leaves],
+             "plain": [[p.clone(), torch.zeros_like(p), torch.zeros_like(p)] for p in leaves]}
+    grads = None
+    for step in range(1, 6):
+        grads = [torch.randn(p.shape, generator=rng, device="cuda") * 1e-2 for p in leaves]
+        bc = bias_corrections(hp, torch.tensor(step, dtype=torch.int32, device="cuda"))
+        for (p, mu, nu), g in zip(state["kernel"], grads):
+            adamw_leaf(p, mu, nu, g, bc, hp)
+        for i, g in enumerate(grads):
+            state["plain"][i] = list(adamw_leaf_reference(*state["plain"][i], g, bc, hp))
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for x, y in zip(state["kernel"], state["plain"]) for a, b in zip(x, y))
+    err = max(float((a - b).abs().max().item()) for x, y in zip(state["kernel"], state["plain"]) for a, b in zip(x, y))
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    bc = bias_corrections(hp, torch.tensor(6, dtype=torch.int32, device="cuda"))
+
+    def kernel_step():
+        for (p, mu, nu), g in zip(state["kernel"], grads):
+            adamw_leaf(p, mu, nu, g, bc, hp)
+
+    def plain_step():
+        for (p, mu, nu), g in zip(state["plain"], grads):
+            adamw_leaf_reference(p, mu, nu, g, bc, hp)
+
+    ms = time_ms(kernel_step, flush, iters=20)
+    plain = time_ms(plain_step, flush, iters=10)
+    params = [torch.nn.Parameter(p) for p, _, _ in state["plain"]]
+    for p, g in zip(params, grads):
+        p.grad = g
+    library_opt = torch.optim.AdamW(params, lr=ADAMW_LR, weight_decay=hp.weight_decay, fused=True)
+    library = time_ms(library_opt.step, flush, iters=20)
+    bound = 7 * 4 * n / HBM_BYTES_PER_S * 1e3  # p, mu, nu, g read; p, mu, nu written
+    print(
+        f"[adamw] llama-125m, {len(leaves)} leaves, {n} params, 5 steps: kernel == plain bit for bit: "
+        f"{equal} (max abs diff {err:.3e}); one step ({len(leaves)} launches) {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.optim.AdamW(fused=True) library_ms {library:.4f}, bound {bound:.4f} ms "
+        f"(bytes), achieved {bound / ms:.1%} of bound [{card}]"
+    )
+    if not equal:
+        raise AssertionError(f"adamw kernel differs from its plain version by up to {err}")
+    del state, grads, params, library_opt
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
+                library_ms=library)
+
+
+def reset_training_state() -> None:
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    PartialState._reset_state()
+
+
+def train_setup(name, mixed_precision, tx, flash_min_seq=1024):
+    """A seeded fp32 model prepared behind a fresh Accelerator."""
+    reset_training_state()
+    accelerator = Accelerator(
+        mixed_precision=mixed_precision,
+        compilation_config=CompilationConfig(flash_attention_min_seq=flash_min_seq),
+    )
+    model = Llama(name, dtype=torch.float32, seed=SEED)
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(tx)
+    return accelerator, model
+
+
+def random_batch(rng, batch, seq, vocab) -> dict:
+    return {"input_ids": torch.tensor(rng.integers(0, vocab, (batch, seq)).astype(np.int32), device="cuda")}
+
+
+def phase_training(card: str) -> dict:
+    """llama-125m bf16 training through the entry points at the two bench
+    shapes; returns the launch counts of the B=32, S=1024 run."""
+    main_counts = None
+    for batch_size, seq in ((32, 1024), (8, 4096)):
+        accelerator, model = train_setup("llama-125m", "bf16", fused_adamw(ADAMW_LR))
+        layers = model.config.num_layers
+        step = accelerator.compiled_step(Llama.loss_fn(model))
+        batch = random_batch(np.random.default_rng(SEED + 13), batch_size, seq, model.config.vocab_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        times, losses = [], []
+        for i in range(13):
+            t0 = time.perf_counter()
+            losses.append(step(batch))
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        steps = 13
+        p50 = float(np.median(times))
+        flops = train_flops_per_step(model.config, batch_size, seq)
+        losses = [float(x) for x in losses]
+        print(
+            f"[train] llama-125m bf16 fused_adamw B={batch_size} S={seq}: step p50 {p50 * 1e3:.3f} ms "
+            f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over 10 steps after 3 warm-up, "
+            f"{batch_size * seq / p50:.1f} tokens/s, MFU {flops / p50 / PEAK_FLOPS[torch.bfloat16]:.4f} "
+            f"({flops:.3e} flops a step at 989 TFLOP/s), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; launches {counts} over {steps} steps [{card}]"
+        )
+        want = {"flash_fwd": layers * steps, "flash_dq": layers * steps, "flash_dkv": layers * steps,
+                "fused_adamw": 12 * steps}
+        for key, n in want.items():
+            if counts[key] != n:
+                raise AssertionError(f"{key}: {counts[key]} launches, expected {n}")
+        if any(counts[key] for key in ("paged_decode", "paged_verify", "quant_matmul")):
+            raise AssertionError(f"training launched serving kernels: {counts}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if (batch_size, seq) == (32, 1024):
+            main_counts = counts
+        profile_train_step(step, batch, card, f"B={batch_size} S={seq}")
+        del accelerator, model, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return main_counts
+
+
+def profile_train_step(step, batch, card: str, tag: str, steps: int = 2) -> None:
+    """Where a training step's time goes: ``steps`` steps under
+    torch.profiler, device events only."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, steps, f"llama-125m bf16 training step, {tag}", card)
+
+
+def plain_attention(q, k, v, kv_mask=None):
+    """The flash dispatch's function by the kernels' plain forward, with
+    autograd through it (no kernel)."""
+    mask = None if kv_mask is None else fa._mask_limit(kv_mask)[0]
+    return fa.flash_forward_reference(q, k, v, mask, True, 1.0 / math.sqrt(q.shape[-1]))[0]
+
+
+def phase_training_parity(card: str) -> None:
+    """fp32, B=2, S=1024: 3 steps through the kernels against 3 steps with
+    the plain attention and the plain adamw passed in explicitly, from the
+    same seeded weights; then bf16 on a 64-token sub-vocabulary, whose loss
+    must fall by at least 1 nat in 20 steps at lr 1e-3."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 14)
+    batch = random_batch(rng, 2, 1024, 32000)
+    losses = {}
+    for kind in ("kernels", "plain"):
+        if kind == "kernels":
+            accelerator, model = train_setup("llama-125m", "no", fused_adamw(ADAMW_LR))
+        else:
+            accelerator, model = train_setup("llama-125m", "no", adamw(ADAMW_LR), flash_min_seq=0)
+            model.attention_fn = plain_attention
+        step = accelerator.compiled_step(Llama.loss_fn(model))
+        reset_launches()
+        losses[kind] = [float(step(batch)) for _ in range(3)]
+        counts = launch_counts()
+        expected = 0 if kind == "plain" else 3 * model.config.num_layers
+        if counts["flash_fwd"] != expected or (kind == "plain" and any(counts.values())):
+            raise AssertionError(f"{kind} fp32 run launched {counts}")
+        del accelerator, model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["plain"]))
+    print(f"[train-parity] llama-125m fp32 B=2 S=1024, 3 steps: kernels {losses['kernels']} vs plain "
+          f"{losses['plain']}: max relative difference {rel:.3e} (tolerance 1e-4) [{card}]")
+    if not (rel <= 1e-4):
+        raise AssertionError("fp32 kernel steps differ from the plain steps")
+
+    accelerator, model = train_setup("llama-125m", "bf16", fused_adamw(1e-3))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    sub_vocab = rng.choice(32000, size=64, replace=False)
+    batch = {"input_ids": torch.tensor(sub_vocab[rng.integers(0, 64, (8, 1024))].astype(np.int32), device="cuda")}
+    curve = [float(step(batch)) for _ in range(20)]
+    print(f"[train-learn] llama-125m bf16 B=8 S=1024, 64-token sub-vocabulary, lr 1e-3: loss "
+          f"{curve[0]:.4f} -> {curve[-1]:.4f} over 20 steps (needs a fall of 1 nat; log 64 = "
+          f"{math.log(64):.4f}); curve {[round(x, 3) for x in curve]} [{card}]")
+    if not (curve[0] - curve[-1] >= 1.0):
+        raise AssertionError("the loss did not fall by 1 nat on the sub-vocabulary batch")
+    del accelerator, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -785,6 +1224,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     records["quant_matmul"] = timed("phase 8 quant kernel", phase_quant_kernel, card)
     launches["quant_matmul"] = timed("phase 9 quantized serving", phase_quant_serving, card, prompts)
+    del prompts, rows, gaps
+    gc.collect()
+    torch.cuda.empty_cache()  # the serving models are freed before training starts
+    records["flash_fwd"] = timed("phase 10 flash forward kernel", phase_flash_forward, card)
+    records["flash_dq"], records["flash_dkv"] = timed(
+        "phase 11 flash backward kernels", phase_flash_backward, card)
+    records["fused_adamw"] = timed("phase 12 adamw kernel", phase_adamw, card)
+    counts = timed("phase 13 training", phase_training, card)
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+        launches[name] = counts[name]
+    timed("phase 13 training parity and learning", phase_training_parity, card)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

@@ -1,0 +1,154 @@
+"""The port's flash attention (accelerate_tpu_torch/ops/flash_attention.py)
+against the JAX package's ``flash_attention``, whose Pallas kernels run in
+interpret mode on the CPU: the forward and the vjp of q, k and v, on the same
+numpy inputs.
+
+On the CPU the port's wrappers take their plain PyTorch versions; the CUDA
+kernels are held against those on the card by ``tests/test_torch_gpu.py`` and
+``chip_smoke.py``.
+
+Tolerances, as ``tests/test_flash_attention.py`` uses them in fp32: 2e-5 on
+the forward and 5e-4 on the grads (the two sides sum in other orders: the
+JAX kernels block by block with an online softmax, the plain versions over
+whole rows)."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from accelerate_tpu.models.attention import dot_product_attention as jax_dot_product_attention
+from accelerate_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from accelerate_tpu_torch.ops import flash_attention as fa
+
+FWD_TOL, GRAD_TOL = 2e-5, 5e-4
+
+
+def _case(b=2, s=256, t=None, n=4, kv=4, d=64, seed=0):
+    rng = np.random.default_rng(seed)
+    t = s if t is None else t
+    q = rng.normal(size=(b, s, n, d)).astype(np.float32)
+    k = rng.normal(size=(b, t, kv, d)).astype(np.float32)
+    v = rng.normal(size=(b, t, kv, d)).astype(np.float32)
+    do = rng.normal(size=(b, s, n, d)).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax(q, k, v, do, mask, **kwargs):
+    """JAX forward and the vjp of q, k, v against cotangent ``do``."""
+    jm = None if mask is None else jnp.asarray(mask)
+    out, vjp = jax.vjp(
+        lambda a, b, c: jax_flash_attention(a, b, c, jm, **kwargs),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port(q, k, v, do, mask, fn=fa.flash_attention, **kwargs):
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = fn(*leaves, None if mask is None else torch.tensor(mask), **kwargs)
+    out.backward(torch.tensor(do))
+    return out.detach().numpy(), [x.grad.numpy() for x in leaves]
+
+
+def _assert_close(port, want):
+    (out, grads), (w_out, w_grads) = port, want
+    np.testing.assert_allclose(out, w_out, rtol=FWD_TOL, atol=FWD_TOL)
+    for g, w, name in zip(grads, w_grads, "qkv"):
+        np.testing.assert_allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+@pytest.mark.parametrize("kv", [4, 2], ids=["mha", "gqa4x2"])
+def test_forward_and_grads_match_jax(causal, kv):
+    q, k, v, do = _case(kv=kv, seed=kv)
+    _assert_close(_port(q, k, v, do, None, causal=causal), _jax(q, k, v, do, None, causal=causal))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_masked_with_a_fully_padded_row_matches_jax(causal):
+    """A [B, S] mask: batch row 0 padded from 200 (mid-tile), row 1 padded
+    throughout. The padded row's output and grads are exactly 0 on both
+    sides (the running max starts at M_INIT, not at a masked score)."""
+    q, k, v, do = _case(kv=2, seed=6)
+    mask = np.ones((2, 256), np.int32)
+    mask[0, 200:] = 0
+    mask[1] = 0
+    port = _port(q, k, v, do, mask, causal=causal)
+    _assert_close(port, _jax(q, k, v, do, mask, causal=causal))
+    out, grads = port
+    assert np.count_nonzero(out[1]) == 0
+    for g in grads:
+        assert np.count_nonzero(g[1]) == 0
+
+
+def test_distinct_lengths_bidirectional_match_jax():
+    """Cross attention: 128 queries over 256 keys, non-causal, masked."""
+    q, k, v, do = _case(s=128, t=256, n=2, kv=2, seed=10)
+    mask = np.ones((2, 256), np.int32)
+    mask[1, 150:] = 0
+    _assert_close(_port(q, k, v, do, mask, causal=False), _jax(q, k, v, do, mask, causal=False))
+
+
+@pytest.mark.parametrize("s,causal_t", [(200, None), (96, None), (256, 384)],
+                         ids=["untileable_200", "untileable_96", "causal_s_ne_t"])
+def test_untileable_shapes_take_the_einsum_path(s, causal_t):
+    """A length no 128-block divides, or causal with S != T: both packages
+    run their einsum attention (no kernel launch in the port)."""
+    q, k, v, do = _case(s=s, t=causal_t, n=2, kv=2, seed=s)
+    launches = fa.flash_forward.launches
+    _assert_close(_port(q, k, v, do, None, causal=True), _jax(q, k, v, do, None, causal=True))
+    assert fa.flash_forward.launches == launches
+
+
+def _reference_einsum(q, k, v, causal=True):
+    return np.asarray(jax_dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+
+
+def test_auto_attention_switches_at_min_seq():
+    """make_auto_attention: at S >= min_seq the flash path (the plain version
+    of the kernels here, against JAX's kernels), below it the einsum path."""
+    attention = fa.make_auto_attention(min_seq=256)
+    q, k, v, do = _case(n=2, kv=2, seed=2)
+    _assert_close(_port(q, k, v, do, None, fn=attention), _jax(q, k, v, do, None))
+    q2, k2, v2, _ = _case(b=1, s=128, n=2, kv=2, seed=3)
+    short = attention(*(torch.tensor(x) for x in (q2, k2, v2)))
+    np.testing.assert_allclose(short.numpy(), _reference_einsum(q2, k2, v2), rtol=1e-6, atol=1e-6)
+    # the flash path's plain forward: fully masked rows give exactly 0,
+    # where the einsum path gives a uniform row
+    mask = torch.zeros((2, 256), dtype=torch.int32)
+    out = attention(*(torch.tensor(x) for x in (q, k, v)), mask)
+    assert torch.count_nonzero(out) == 0
+
+
+def test_bias_and_ring_offsets_raise():
+    q, k, v, _ = _case(n=2, kv=2)
+    t = [torch.tensor(x) for x in (q, k, v)]
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+        fa.flash_attention(*t, bias=torch.zeros((1, 2, 256, 256)))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+        fa.make_auto_attention(min_seq=1024)(*t, bias=torch.zeros((1, 2, 256, 256)))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        fa.flash_attention_block(*t, q_offset=0, kv_offset=256, causal=True)
+
+
+def test_plain_backward_matches_autograd_through_the_plain_forward():
+    """The plain dq and dk/dv versions (what the CPU backward runs) against
+    autograd through the plain forward, GQA and a mask: same function, so
+    the two agree to fp32 rounding."""
+    q, k, v, do = _case(kv=2, seed=12)
+    mask, limit = fa._mask_limit(torch.tensor(np.r_[np.ones((1, 256)), [[1] * 100 + [0] * 156]]))
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv)]
+    out, lse = fa.flash_forward_reference(*leaves, mask, True, 0.125)
+    out.backward(tdo)
+    out, lse = out.detach(), lse.detach()
+    delta = (tdo * out).sum(-1).transpose(1, 2).contiguous()
+    args = (tq, tk, tv, mask, tdo, lse, delta, True, 0.125)
+    dq = fa.flash_backward_dq_reference(*args)
+    dk, dv = fa.flash_backward_dkv_reference(*args)
+    for got, leaf in zip((dq, dk, dv), leaves):
+        np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
+    assert int(limit[1]) == 99 and int(limit[0]) == 255

@@ -11,7 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from accelerate_tpu_torch import Llama, ServingEngine, generate, get_config
+from accelerate_tpu_torch import (
+    Accelerator,
+    AcceleratorState,
+    CompilationConfig,
+    GradientState,
+    Llama,
+    PartialState,
+    ServingEngine,
+    generate,
+    get_config,
+)
 from accelerate_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
@@ -19,6 +29,13 @@ from accelerate_tpu_torch.ops.paged_attention import (
     paged_verify_attention_reference,
 )
 from accelerate_tpu_torch.big_modeling import dispatch_model, make_layered_device_map
+from accelerate_tpu_torch.ops import flash_attention as fa
+from accelerate_tpu_torch.ops.fused_adamw import (
+    adamw_leaf,
+    adamw_leaf_reference,
+    bias_corrections,
+    fused_adamw,
+)
 from accelerate_tpu_torch.ops.quant_matmul import quant_dot, quant_matmul, quant_matmul_reference
 from accelerate_tpu_torch.serving import SpeculativeConfig
 from accelerate_tpu_torch.serving.engine import params_from_streamed
@@ -225,3 +242,140 @@ def test_quantized_resident_engine_on_the_card(cuda):
     assert quant_matmul.launches == 7 * config.num_layers * forwards
     for row, p in zip(rows, prompts):
         np.testing.assert_array_equal(row, generate(reference, p[None], max_new_tokens=6)[0])
+
+
+# flash attention geometries: (B, S, T, NH, KV, D, causal, masked)
+FLASH_GEOMETRIES = {
+    "causal_d64": (2, 256, 256, 4, 4, 64, True, False),
+    "causal_gqa_masked": (2, 256, 256, 8, 2, 64, True, True),
+    "d128_gqa_masked": (2, 192, 192, 4, 2, 128, True, True),
+    "noncausal_cross_masked": (2, 128, 320, 4, 2, 64, False, True),
+}
+
+
+def _flash_case(device, dtype, geometry, seed=0):
+    """Inputs and a [B, T] mask whose last batch row is fully padded (its
+    queries see no key: output, dq, dk, dv exactly 0) and whose first row
+    ends mid-tile."""
+    b, s, t, nh, kv, d, causal, masked = geometry
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=device).to(dtype)  # noqa: E731
+    q, k, v, do = f(b, s, nh, d), f(b, t, kv, d), f(b, t, kv, d), f(b, s, nh, d)
+    mask = limit = None
+    if masked:
+        valid = np.ones((b, t), np.int32)
+        valid[0, t - 37:] = 0
+        valid[-1] = 0
+        mask, limit = fa._mask_limit(torch.tensor(valid, device=device))
+    return q, k, v, do, mask, limit, causal, 1.0 / np.sqrt(d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geometry", list(FLASH_GEOMETRIES.values()), ids=list(FLASH_GEOMETRIES))
+def test_flash_kernels_match_plain_versions(cuda, dtype, geometry):
+    """Forward, dq and dk/dv kernels against their plain versions on the
+    same inputs: out within TOLERANCE, lse within 1e-4 (fp32 sums in
+    another order), grads within 5e-4 in fp32 and, in bf16, within 2e-2 of
+    each gradient's largest magnitude (bf16 rounds p and dS before the
+    products, in tiles of another order). A fully padded batch row gives
+    exact zeros."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, dtype, geometry)
+    before = (fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, mask, limit, do, lse, delta, causal, scale)
+    dq = fa.flash_backward_dq(*args)
+    dk, dv = fa.flash_backward_dkv(*args)
+    torch.cuda.synchronize()
+    after = (fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    assert after == tuple(x + 1 for x in before)
+    assert float((out.float() - want_out.float()).abs().max()) <= TOLERANCE[dtype]
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    ref_args = (q, k, v, mask, do, lse, delta, causal, scale)
+    grads = {"dq": (dq, fa.flash_backward_dq_reference(*ref_args))}
+    grads.update(zip(("dk", "dv"), zip((dk, dv), fa.flash_backward_dkv_reference(*ref_args))))
+    for name, (got, want) in grads.items():
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - want.float()).abs().max())
+        tol = 5e-4 if dtype == torch.float32 else 2e-2 * float(want.float().abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+    if mask is not None:
+        for x in (out[-1], dq[-1], dk[-1], dv[-1]):
+            assert torch.count_nonzero(x) == 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_grads_match_autograd_through_plain(cuda, masked):
+    """fp32: the autograd Function's grads (dq, dk/dv kernels) against
+    autograd through the einsum attention, 5e-4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geometry = (2, 256, 256, 8, 2, 64, True, masked)
+    q, k, v, do, mask, _, causal, _ = _flash_case(cuda, torch.float32, geometry, seed=3)
+    kv_mask = None if mask is None else mask.clone()
+    if kv_mask is not None:
+        kv_mask[-1, :5] = 1  # every batch row keeps a key: the einsum softmax has no empty row
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, kv_mask, causal=causal)
+    out.backward(do)
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    m = None if kv_mask is None else kv_mask[:, None, None, :].bool()
+    want = fa.dot_product_attention(*ref, mask=m, causal=causal, scale=1.0 / 8.0)
+    want.backward(do)
+    assert float((out - want).abs().max()) <= 2e-5
+    for got, w in zip(leaves, ref):
+        assert float((got.grad - w.grad).abs().max()) <= 5e-4
+
+
+def test_fused_adamw_kernel_is_bit_equal_to_plain(cuda):
+    """Five steps on leaves of odd sizes (a tail of 1-3 elements): the
+    kernel's p, mu and nu equal the plain version's bit for bit."""
+    rng = np.random.default_rng(0)
+    tx = fused_adamw(3e-3)
+    shapes = [(64, 48), (7,), (3, 5, 11), (1,)]
+    p = [torch.tensor(rng.standard_normal(s, dtype=np.float32), device=cuda) for s in shapes]
+    mu = [torch.zeros_like(x) for x in p]
+    nu = [torch.zeros_like(x) for x in p]
+    ref = [[x.clone() for x in p], [x.clone() for x in mu], [x.clone() for x in nu]]
+    for step in range(1, 6):
+        bc = bias_corrections(tx.hyperparams, torch.tensor(step, dtype=torch.int32, device=cuda))
+        for i, shape in enumerate(shapes):
+            g = torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=cuda)
+            before = adamw_leaf.launches
+            adamw_leaf(p[i], mu[i], nu[i], g, bc, tx.hyperparams)
+            assert adamw_leaf.launches == before + 1
+            ref[0][i], ref[1][i], ref[2][i] = adamw_leaf_reference(
+                ref[0][i], ref[1][i], ref[2][i], g, bc, tx.hyperparams
+            )
+        torch.cuda.synchronize()
+        for got, want in zip(p + mu + nu, ref[0] + ref[1] + ref[2]):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mixed_precision", ["no", "bf16"])
+def test_training_step_runs_each_kernel_once_per_layer(cuda, mixed_precision):
+    """llama-tiny widened to head dim 64, flash from 128 tokens, B=2 S=256,
+    through Accelerator -> compiled_step: each flash kernel launches once per
+    layer per step and adamw once per leaf per step, and one batch learnt
+    for 3 steps loses loss."""
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    PartialState._reset_state()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    accelerator = Accelerator(
+        mixed_precision=mixed_precision, compilation_config=CompilationConfig(flash_attention_min_seq=128)
+    )
+    model = Llama(get_config("llama-tiny").replace(hidden_size=256), seed=0)
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(fused_adamw(1e-3))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    batch = {"input_ids": torch.tensor(np.random.default_rng(0).integers(0, 1024, (2, 256)), device=cuda)}
+    counts = lambda: (fa.flash_forward.launches, fa.flash_backward_dq.launches,  # noqa: E731
+                      fa.flash_backward_dkv.launches, adamw_leaf.launches)
+    before = counts()
+    losses = [float(step(batch)) for _ in range(3)]
+    torch.cuda.synchronize()
+    layers = model.config.num_layers
+    assert [a - b for a, b in zip(counts(), before)] == [3 * layers] * 3 + [3 * 12]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
