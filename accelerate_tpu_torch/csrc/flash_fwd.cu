@@ -12,17 +12,41 @@
 // max(l, 1e-30) (exactly 0 for a row that saw no valid key) and lse = m + log(max(l,
 // 1e-30)), fp32 [B, N, S].
 //
-// Bound at llama-125m's shapes (D = 64, causal): operations, 4 * D flops per attended
-// (q, k) pair at 989 TFLOP/s in bf16 (0.052 ms at B=32, S=1024, N=12), with the bytes of q,
-// k, v and out at 3.35 TB/s close behind (0.061 ms). Design against it, bf16: K/V tiles by
-// cp.async into two shared-memory stages (the next tile lands while this one is used),
-// products on the tensor cores by mma.sync m16n8k16 from ldmatrix fragments, the scores, p
-// and the output accumulator in registers (p becomes the A operand of p.V without leaving
-// them). fp32 takes CUDA-core FMAs, the band's scores and output through shared memory. Not
-// yet here: wgmma and TMA, a persistent schedule that balances the causal triangle.
+// Bound at llama-125m's shapes (D = 64, causal): the bytes of q, k, v and out at 3.35 TB/s
+// (0.061 ms at B=32, S=1024, N=12), with the operations close behind (4 * D flops per
+// attended (q, k) pair at 989 TFLOP/s in bf16, 0.052 ms). Design against it, bf16
+// (FlashAttention-3's building blocks):
+// - Warp specialisation: a block is one consumer warpgroup (4 warps, 64 query rows) and one
+//   producer warp. The producer's elected lane copies Q once and every K/V tile by TMA
+//   (3-D tensor maps over [B * S, N, D], read in place, 128-byte swizzle; D = 128 as two
+//   64-column boxes) into a ring of 2 stages, each guarded by a "full" mbarrier (TMA bytes
+//   and the producer's arrivals: its lanes also stage the tile's mask penalties) and an
+//   "empty" one (one arrival per consumer warp once its products have read the stage).
+//   At D = 64 an SM holds four blocks (96 registers a thread), at D = 128 two: the other
+//   blocks' products run while one block is in its softmax.
+// - Both products by wgmma, fp32 accumulators in registers: S = Q.K^T from shared memory
+//   (K-major A and B, m64n64k16), then O += P.V with P rounded to bf16 in registers as the A
+//   operand and V read from shared memory as an MN-major B operand (m64nDk16). The
+//   softmax, causal limit, mask penalty and M_INIT stay in fp32 registers between them;
+//   the accumulator layout of S is the register A layout of P (flash_common.cuh `to_a`).
+//   The softmax costs one FFMA and one ex2 per score (the scale folded into the exponent,
+//   the causal test only on the diagonal tile): it, not the products, is what bounds the
+//   kernel at long S.
+// - Causal balance and L2: the q tiles of one (head, batch row) are neighbours in the
+//   one-dimensional grid, heaviest first, so they share their K/V tiles through L2 while the
+//   light tiles of the triangle fill the tail. (All heads' heaviest tiles first balanced the
+//   tail too, but read K/V from device memory again for every q tile.)
+// fp32 takes CUDA-core FMAs, the band's scores and output through shared memory (the tensor
+// cores take fp32 only as TF32). Tried and measured slower on the H100, so not here: two
+// 64-row tiles per warpgroup sharing each K/V tile; a persistent grid; issuing the next
+// tile's Q.K^T before this tile's softmax (ptxas serialized the wgmmas). Not yet here: two
+// consumer warpgroups in ping-pong, 128-key tiles (m64n128 products), a TMA store of the
+// output.
 //
 // Launch rules: the kernels run on the caller's stream, allocate nothing and do not
 // synchronise. The C entry point returns cudaGetLastError() after the launch.
+
+#include <cuda.h>  // CUtensorMap and its encoder's types (the encoder comes from the runtime)
 
 #include "flash_common.cuh"
 
@@ -31,119 +55,354 @@ namespace {
 using namespace flash;
 
 // --------------------------------------------------------------------------------------
-// bf16: tensor cores, register-resident band
+// Hopper building blocks: mbarriers, TMA, wgmma
 // --------------------------------------------------------------------------------------
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// arrive, and expect `bytes` more from TMA before the phase completes
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into shared memory; its
+// bytes complete on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle (1024-byte atoms of 8 rows
+// of 128 bytes, as TMA writes them): `lbo` the byte stride between 64-element column blocks
+// (MN-major operands wider than 64), `sbo` between 8-row groups
+__device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving an accumulator's reads or writes across a wgmma boundary
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// d[64 x 64] (+)= A . B, A and B from shared memory (K-major), bf16, fp32 accumulator
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint64_t b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 64] += A . B, A from registers (the m16n8k16 A layout in each warp), B from
+// shared memory, MN-major (transposed), bf16, fp32 accumulator
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += A . B, A from registers (the m16n8k16 A layout in each warp), B from
+// shared memory, MN-major (transposed), bf16, fp32 accumulator
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int D>
-struct Bf16Layout {
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n64(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_n128(d, a, b);
+}
+
+// --------------------------------------------------------------------------------------
+// bf16: wgmma fed by TMA, one consumer warpgroup and one producer warp
+// --------------------------------------------------------------------------------------
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit, relative error about 2^-22: one instruction where expf
+// takes about eight
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kConsumerWarps = 4;  // one warpgroup: 64 query rows, a band of 16 per warp
+constexpr int kFwdThreads = (kConsumerWarps + 1) * 32;
+constexpr int kBox = 64;           // columns of a TMA box: 128 bytes of bf16, the swizzle span
+constexpr int kBoxBytes = kBlockK * kBox * 2;
+static_assert(kBlockQ == kBlockK && kConsumerWarps * kBand == kBlockQ, "64-row tiles");
+
+template <int D>
+struct FwdLayout {
   static constexpr int kStages = 2;
-  static constexpr int kLd = padded<bf16>(D);
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + align128(2LL * kBlockQ * kLd);
-  static constexpr int kV = kK + align128(2LL * kStages * kBlockK * kLd);
-  static constexpr int kPen = kV + align128(2LL * kStages * kBlockK * kLd);
-  static constexpr int kBytes = kPen + align128(4LL * kStages * kBlockK);
+  static constexpr int kTile = kBlockK * D * 2;  // one 64-row tile: D / 64 boxes
+  static constexpr int kQ = 0;                   // tiles stay 1024-byte aligned
+  static constexpr int kK = kQ + kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kPen = kV + kStages * kTile;
+  static constexpr int kBar = kPen + kStages * kBlockK * 4;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // the base is rounded up to 1024 bytes
+  // blocks an SM holds: at D = 64 four (96 registers a thread), at D = 128 two
+  static constexpr int kBlocksPerSm = D == 64 ? 4 : 2;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
-    const bf16* __restrict__ q,      // [B, S, NH, D]
-    const bf16* __restrict__ k,      // [B, T, KV, D]
-    const bf16* __restrict__ v,      // [B, T, KV, D]
+__global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash_fwd_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,  // q [B * S, NH, D]
+    const __grid_constant__ CUtensorMap k_map,  // k [B * T, KV, D]
+    const __grid_constant__ CUtensorMap v_map,  // v [B * T, KV, D]
     const int* __restrict__ mask,    // [B, T] or null
     const int* __restrict__ limit,   // [B] last valid key, or null
     bf16* __restrict__ out,          // [B, S, NH, D]
     float* __restrict__ lse,         // [B, NH, S]
-    int S, int Tk, int NH, int KV, float scale, int causal) {
-  using L = Bf16Layout<D>;
+    int B, int S, int Tk, int NH, int KV, float scale, int causal) {
+  using L = FwdLayout<D>;
   constexpr int kNt = kBlockK / 8;  // 8-column tiles of a score band
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem + L::kQ;
+  unsigned char* ks = smem + L::kK;
+  unsigned char* vs = smem + L::kV;
   float* pen = reinterpret_cast<float*>(smem + L::kPen);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
 
-  const int iq = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // the q tiles of one (head, batch row) are neighbours in the grid, heaviest first under a
+  // causal mask: they share their K/V tiles through L2, and the light ones fill the tail
+  const int nq = S / kBlockQ;
+  const int rest = blockIdx.x / nq;
+  const int slot = blockIdx.x - rest * nq;
+  const int iq = causal ? nq - 1 - slot : slot;
+  const int h = rest % NH;
+  const int b = rest / NH;
   const int g = h / (NH / KV);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const bool masked = mask != nullptr;
-  const long long q_row = 1LL * NH * D;
-  const long long kv_row = 1LL * KV * D;
-  const bf16* kg = k + 1LL * b * Tk * kv_row + 1LL * g * D;
-  const bf16* vg = v + 1LL * b * Tk * kv_row + 1LL * g * D;
 
   int nk = Tk / kBlockK;
   if (causal) nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
   if (masked) nk = min(nk, (limit[b] + kBlockK) / kBlockK);  // limit -1 -> 0 tiles
 
-  auto load_kv = [&](int j, int stage) {
-    load_rows<bf16, D>(ks + stage * kBlockK * L::kLd, L::kLd, kg + 1LL * j * kBlockK * kv_row,
-                       kv_row, kBlockK);
-    load_rows<bf16, D>(vs + stage * kBlockK * L::kLd, L::kLd, vg + 1LL * j * kBlockK * kv_row,
-                       kv_row, kBlockK);
-    if (masked)
-      for (int i = tid; i < kBlockK; i += kThreads)
-        pen[stage * kBlockK + i] = mask_penalty(mask, 1LL * b * Tk + j * kBlockK + i);
-  };
+  if (tid == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 32);                // the producer's lanes (one also expects the bytes)
+      mbar_init(&empty[s], kConsumerWarps);  // one arrival per consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  load_rows<bf16, D>(qs, L::kLd, q + (1LL * b * S + 1LL * iq * kBlockQ) * q_row + 1LL * h * D,
-                     q_row, kBlockQ);
-  if (nk > 0) load_kv(0, 0);
-  cp_async_commit();
+  if (warp == kConsumerWarps) {
+    // ---- producer warp
+    if (lane == 0) {
+      mbar_arrive_expect(q_full, L::kTile);
+      for (int c = 0; c < D / kBox; ++c)
+        tma_load(qs + c * kBoxBytes, &q_map, q_full, c * kBox, h, b * S + iq * kBlockQ);
+    }
+    for (int j = 0; j < nk; ++j) {
+      const int stage = j % L::kStages;
+      const int use = j / L::kStages;
+      if (use > 0) mbar_wait(&empty[stage], (use - 1) & 1);  // the consumers released it
+      if (masked)  // in units of the unscaled product q.k, as the consumers take the scores
+        for (int i = lane; i < kBlockK; i += 32)
+          pen[stage * kBlockK + i] = mask_penalty(mask, 1LL * b * Tk + j * kBlockK + i) / scale;
+      if (lane == 0) {
+        mbar_arrive_expect(&full[stage], 2 * L::kTile);
+        const int row = b * Tk + j * kBlockK;
+        for (int c = 0; c < D / kBox; ++c) {
+          tma_load(ks + stage * L::kTile + c * kBoxBytes, &k_map, &full[stage], c * kBox, g, row);
+          tma_load(vs + stage * L::kTile + c * kBoxBytes, &v_map, &full[stage], c * kBox, g, row);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+    }
+    return;
+  }
 
-  // this lane's rows of the band: row0 and row0 + 8; its columns 2t, 2t+1 of each 8-tile
+  // ---- consumer warpgroup: this lane's rows of the band are row0 and row0 + 8; its columns
+  // 2t, 2t+1 of each 8-column tile.
+  // The scores stay unscaled until the exponent: the max of scale * s is scale * (max s),
+  // and p = exp(scale * s - m) = 2^(s * scale * log2 e - m * log2 e), one FFMA and one ex2
+  // per score. A future key (causal) or a padded one takes NEG_INF / scale or the penalty
+  // / scale, so that scale * s is NEG_INF or carries the penalty as the plain version's.
+  const float scale_log2 = scale * kLog2e;
+  const float neg_raw = kNegInf / scale;
   const int t = lane & 3;
   const int row0 = iq * kBlockQ + warp * kBand + (lane >> 2);
-  const bf16* q_band = qs + warp * kBand * L::kLd;
+  // wgmma descriptors of the Q tile and of stage 0's K and V tiles; a stage or a k16 step
+  // moves the start address (bits 0-13, in 16-byte units), which never carries
+  const uint64_t q_desc = sw128_desc(qs, 16, 1024);
+  const uint64_t k_desc = sw128_desc(ks, 16, 1024);
+  const uint64_t v_desc = sw128_desc(vs, kBoxBytes, 1024);
   float o[D / 8][4];
   zero(o);
+  float s[kNt][4];
+  zero(s);
   float m_run[2] = {kMInit, kMInit};
   float l_run[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
 
   for (int j = 0; j < nk; ++j) {
-    const int stage = j % 2;
-    if (j + 1 < nk) {
-      load_kv(j + 1, (j + 1) % 2);
-      cp_async_commit();
-      cp_async_wait<1>();  // tile j (and q) have landed for this thread
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // ... and for every thread
-    const bf16* kst = ks + stage * kBlockK * L::kLd;
-    const bf16* vst = vs + stage * kBlockK * L::kLd;
+    const int stage = j % L::kStages;
+    mbar_wait(&full[stage], (j / L::kStages) & 1);
+    const uint64_t stage_off = (stage * L::kTile) >> 4;
     const float* pst = pen + stage * kBlockK;
 
-    float s[kNt][4];
-    zero(s);
-    band_mma_nk<kNt, D>(s, q_band, L::kLd, kst, L::kLd);
+    // S = Q.K^T: K-major operands, k16 steps of 32 bytes inside each 64-column box
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
+      wgmma_ss_n64(s, q_desc + off, k_desc + stage_off + off, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
 
-    // online softmax over the lane's two rows; a row's four lanes reduce by shuffles
-    float mx[2] = {m_run[0], m_run[1]};
+    // online softmax over the lane's two rows; a row's four lanes reduce by shuffles. The
+    // score recipe is flash_common.cuh `score`'s (scale, causal limit, mask penalty, a
+    // running max from M_INIT), the causal test kept to the diagonal tile
+    const bool diagonal = causal && j * kBlockK + kBlockK - 1 > iq * kBlockQ;
+    float mx[2] = {neg_raw, neg_raw};
 #pragma unroll
     for (int n = 0; n < kNt; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);
-        s[n][e] = score(s[n][e], scale, causal, row0 + 8 * (e >> 1), j * kBlockK + c, masked,
-                        masked ? pst[c] : 0.f);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        float v = s[n][e];
+        if (diagonal && j * kBlockK + c > row0 + 8 * (e >> 1)) v = neg_raw;
+        if (masked) v += pst[c];
+        s[n][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }
-    float sum[2] = {0.f, 0.f};
+    float m_new[2], m_log2[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m_run[r], mx[r] * scale);
+      m_log2[r] = m_new[r] * kLog2e;
     }
+    float sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int n = 0; n < kNt; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - mx[e >> 1]);
+        s[n][e] = exp2_approx(fmaf(s[n][e], scale_log2, -m_log2[e >> 1]));
         sum[e >> 1] += s[n][e];
       }
     float corr[2];
@@ -151,28 +410,95 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
     for (int r = 0; r < 2; ++r) {
       sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
       sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      corr[r] = expf(m_run[r] - mx[r]);
+      corr[r] = exp2_approx((m_run[r] - m_new[r]) * kLog2e);
       l_run[r] = l_run[r] * corr[r] + sum[r];
-      m_run[r] = mx[r];
+      m_run[r] = m_new[r];
     }
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
     uint32_t p[kNt / 2][4];
-    to_a(p, s);  // p rounded to bf16: the A operand of p.V
-    reg_mma_kn<D / 8, kNt / 2>(o, p, vst, L::kLd);
-    __syncthreads();  // this stage's K/V are free for tile j + 2
+    to_a(p, s);  // p rounded to bf16: the register A operand of P.V
+
+    // O += P.V: V is the MN-major B operand; a k16 step is 16 key rows (2048 bytes)
+    pin(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNt / 2; ++kk)
+      wgmma_rs<D>(o, p[kk], v_desc + stage_off + ((kk * 16 * 128) >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
+    if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
   }
-  cp_async_wait<0>();
 
   // a row that saw no valid key: l = 0, so 0 / eps = 0
+  const long long q_row = 1LL * NH * D;
   const float l_safe[2] = {fmaxf(l_run[0], 1e-30f), fmaxf(l_run[1], 1e-30f)};
   store_rows<D / 8>(out + (1LL * b * S + row0) * q_row + 1LL * h * D, q_row, o, l_safe);
   if (t == 0)
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       lse[(1LL * b * NH + h) * S + row0 + 8 * r] = m_run[r] + logf(l_safe[r]);
+}
+
+// cuTensorMapEncodeTiled comes through the runtime's entry-point lookup, so the build links
+// no libcuda
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  return encode;
+}
+
+// a contiguous bf16 [rows, heads, D] tensor as a 3-D map with 64 x 1 x 64 boxes
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, long long rows,
+                int heads, int D) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2};
+  const cuuint32_t box[3] = {kBox, 1, kBlockK};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask,
+                        const int* limit, void* out, float* lse, int B, int S, int Tk, int NH,
+                        int KV, float scale, int causal, cudaStream_t stream) {
+  using L = FwdLayout<D>;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(encode, &q_map, q, 1LL * B * S, NH, D) ||
+      !encode_map(encode, &k_map, k, 1LL * B * Tk, KV, D) ||
+      !encode_map(encode, &v_map, v, 1LL * B * Tk, KV, D))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>(S / kBlockQ) * NH * B;
+  kernel<<<grid, kFwdThreads, L::kAlloc, stream>>>(q_map, k_map, v_map, mask, limit,
+                                                   static_cast<bf16*>(out), lse, B, S, Tk, NH,
+                                                   KV, scale, causal);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------------------------------------
@@ -306,7 +632,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
 }
 
 template <typename Layout, typename T>
-cudaError_t launch(void (*kernel)(const T*, const T*, const T*, const int*, const int*, T*,
+cudaError_t launch_f32(void (*kernel)(const T*, const T*, const T*, const int*, const int*, T*,
                                   float*, int, int, int, int, float, int),
                    const void* q, const void* k, const void* v, const int* mask,
                    const int* limit, void* out, float* lse, int B, int S, int Tk, int NH, int KV,
@@ -340,17 +666,15 @@ int flash_forward(const void* q, const void* k, const void* v, const void* mask,
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch<Bf16Layout<64>, bf16>(flash_fwd_bf16_kernel<64>, q, k, v, m, lim, out, l, B,
-                                        S, Tk, NH, KV, scale, causal, s);
+    return launch_bf16<64>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
   if (dtype == 1 && D == 128)
-    return launch<Bf16Layout<128>, bf16>(flash_fwd_bf16_kernel<128>, q, k, v, m, lim, out, l, B,
-                                         S, Tk, NH, KV, scale, causal, s);
+    return launch_bf16<128>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
   if (dtype == 0 && D == 64)
-    return launch<F32Layout<64>, float>(flash_fwd_f32_kernel<64>, q, k, v, m, lim, out, l, B, S,
-                                        Tk, NH, KV, scale, causal, s);
+    return launch_f32<F32Layout<64>, float>(flash_fwd_f32_kernel<64>, q, k, v, m, lim, out, l,
+                                            B, S, Tk, NH, KV, scale, causal, s);
   if (dtype == 0 && D == 128)
-    return launch<F32Layout<128>, float>(flash_fwd_f32_kernel<128>, q, k, v, m, lim, out, l, B,
-                                         S, Tk, NH, KV, scale, causal, s);
+    return launch_f32<F32Layout<128>, float>(flash_fwd_f32_kernel<128>, q, k, v, m, lim, out, l,
+                                             B, S, Tk, NH, KV, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

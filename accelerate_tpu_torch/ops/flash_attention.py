@@ -16,8 +16,10 @@ the k-tile loops: future and fully padded tiles are skipped, not masked.
 What bounds them on the H100: at llama-125m's shapes (head dim 64) the
 operations, ``4·B·N·D`` flops per attended (q, k) pair forward and 10 in
 the backward, at 989 TFLOP/s in bf16; at short sequences the bytes of q, k,
-v, out (and dO, dq, dk, dv) at 3.35 TB/s. In bf16 the kernels run their
-products on the tensor cores (``mma.sync``) and keep scores, p, dS and the
+v, out (and dO, dq, dk, dv) at 3.35 TB/s. In bf16 the forward runs both
+products by ``wgmma`` on K/V tiles that a producer warp copies by TMA into
+an mbarrier-guarded ring, and hands out its q tiles heaviest first; the
+backward kernels run theirs by ``mma.sync``. All keep scores, p, dS and the
 accumulators in registers; fp32 runs on the CUDA cores. See the sources'
 headers for what they leave for later.
 

@@ -7,8 +7,8 @@ result, when either is missing or any phase fails. Each phase prints its
 wall time:
 
 1. environment: card, power limit, and the build of every kernel (one
-   ``nvcc`` per source, all started together) with its ``nvcc -Xptxas -v``
-   register / shared-memory report;
+   ``nvcc`` per source, all started together, each source's build seconds
+   printed) with its ``nvcc -Xptxas -v`` register / shared-memory report;
 2. the paged decode kernel against its plain PyTorch version on the card,
    at three geometries (llama-1b, the llama-70b GQA head layout, the
    llama-125m head dim 64), in bf16 and fp32, with lengths that end
@@ -33,8 +33,9 @@ wall time:
    tree mode, tokens equal to the plain engine's except at near-ties, most
    drafted tokens accepted, tree mode returning every page it borrowed;
 8. the fused dequant-matmul kernel against its plain version at every
-   llama-1b projection shape, int8 and int4, M in {8, 64, 512}, bf16 and
-   fp32, timed beside cuBLAS over the weight dequantized beforehand;
+   llama-1b projection shape, int8 and int4, M in {8, 40, 64, 512}, bf16
+   and fp32, two launches bit-identical, timed beside cuBLAS over the
+   weight dequantized beforehand;
 9. quantized-resident serving: llama-1b int8 through ``dispatch_model`` and
    ``ServingEngine.from_streamed`` in bf16 with phase 3's traffic (kernel
    launches checked against 7 projections x layers x forwards, resident
@@ -45,7 +46,8 @@ wall time:
     geometries ((a) llama-125m at B=32, S=1024, causal; (b) B=8, S=4096;
     (c) B=4, S=2048, head dim 128, 32 query heads over 8 kv heads, a padded
     mask with a fully padded row; (d) non-causal under a mask), in bf16 and
-    fp32, timed beside its bound, the plain version and SDPA;
+    fp32, two launches bit-identical, timed beside its bound, the plain
+    version and SDPA;
 11. the dq and dk/dv kernels at the same geometries against the plain
     backward and against autograd through the plain forward, timed beside
     SDPA's backward;
@@ -264,10 +266,17 @@ def phase_environment() -> str:
     print(f"[env] device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {card}")
     t0 = time.perf_counter()
+
+    def build(name):
+        start = time.perf_counter()
+        build_kernel(name)
+        return time.perf_counter() - start
+
     with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source, all at once
-        list(pool.map(build_kernel, SOURCES))
+        seconds = dict(zip(SOURCES, pool.map(build, SOURCES)))
     print(f"[env] built {len(KERNELS)} kernels from {len(SOURCES)} sources for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{name}.cu {sec:.1f} s" for name, sec in seconds.items()))
     for name in SOURCES:
         for line in (build_log(name) or "").splitlines():
             if "registers" in line or "spill" in line:
@@ -646,12 +655,13 @@ def quant_bound_ms(m, k, n, bits, dtype) -> tuple[float, str]:
 
 def phase_quant_kernel(card: str) -> dict:
     """Dequant-matmul kernel vs plain version at every llama-1b projection
-    shape; returns the record of int8 bf16 [2048, 5504] at M=8 (the decode
-    step's w_gate / w_up)."""
+    shape, two launches bit-identical; returns the record of int8 bf16
+    [2048, 5504] at M=8 (the decode step's w_gate / w_up), with those of
+    M=40 (the verify window) and M=64 (the prefill chunk) under ``by_m``."""
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     rng = np.random.default_rng(SEED + 8)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    record = None
+    by_m = {}
     for k, n in QUANT_SHAPES:
         w = rng.standard_normal((k, n), dtype=np.float32)
         for bits in (8, 4):
@@ -660,10 +670,11 @@ def phase_quant_kernel(card: str) -> dict:
             for dtype in (torch.bfloat16, torch.float32):
                 weight = QuantizedWeight(q, scale, bits, dtype)
                 dense = dequantize_weight(q, scale, bits, dtype)  # the yardstick's weight
-                for m in (8, 64, 512):
+                for m in (8, 40, 64, 512):
                     x = torch.tensor(rng.standard_normal((m, k), dtype=np.float32) / (4 * np.sqrt(k)),
                                      device="cuda").to(dtype)
                     got = quant_matmul(x, weight)
+                    identical = torch.equal(got, quant_matmul(x, weight))
                     want = quant_matmul_reference(x, weight)
                     torch.cuda.synchronize()
                     err = float((got.float() - want.float()).abs().max().item())
@@ -673,17 +684,18 @@ def phase_quant_kernel(card: str) -> dict:
                     bound, bound_by = quant_bound_ms(m, k, n, bits, dtype)
                     print(
                         f"[quant] [{k},{n}] int{bits} {str(dtype).split('.')[-1]} M={m}: max_abs_err "
-                        f"{err:.3e} (tolerance {TOLERANCE[dtype]:.0e}); kernel {ms:.4f} ms, plain "
+                        f"{err:.3e} (tolerance {TOLERANCE[dtype]:.0e}), two launches bit-identical: "
+                        f"{identical}; kernel {ms:.4f} ms, plain "
                         f"{plain:.4f} ms, library_ms {library:.4f}, bound {bound:.4f} ms "
                         f"({bound_by}), achieved {bound / ms:.1%} of bound [{card}]"
                     )
-                    if not (err <= TOLERANCE[dtype]):
+                    if not (err <= TOLERANCE[dtype]) or not identical:
                         raise AssertionError(f"quant kernel disagrees at [{k},{n}] int{bits} {dtype} M={m}")
-                    if (k, n, bits, dtype, m) == (2048, 5504, 8, torch.bfloat16, 8):
-                        record = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-                                      bound_by=bound_by, library_ms=library)
+                    if (k, n, bits, dtype) == (2048, 5504, 8, torch.bfloat16) and m in (8, 40, 64):
+                        by_m[m] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+                                       bound_by=bound_by, library_ms=library)
                 del dense
-    return record
+    return dict(by_m.pop(8), by_m=by_m)
 
 
 def layer_bytes(model) -> tuple[int, int]:
@@ -901,6 +913,9 @@ def phase_flash_forward(card: str) -> dict:
             c = flash_case(rng, geometry, dtype)
             args = (c["q"], c["k"], c["v"], c["mask"], c["limit"], c["causal"], c["scale"])
             out, lse = fa.flash_forward(*args)
+            again, lse_again = fa.flash_forward(*args)
+            identical = torch.equal(out, again) and torch.equal(lse, lse_again)
+            del again, lse_again
             want, want_lse = fa.flash_forward_reference(c["q"], c["k"], c["v"], c["mask"], c["causal"], c["scale"])
             torch.cuda.synchronize()
             err = float((out.float() - want.float()).abs().max().item())
@@ -916,11 +931,12 @@ def phase_flash_forward(card: str) -> dict:
             bound, bound_by = flash_bound_ms(c, "fwd")
             print(
                 f"[flash-fwd] {name} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e} (tolerance "
-                f"{TOLERANCE[dtype]:.0e}), lse {lse_err:.3e}, padded row exactly 0: {padded_zero}; "
+                f"{TOLERANCE[dtype]:.0e}), lse {lse_err:.3e}, padded row exactly 0: {padded_zero}, "
+                f"two launches bit-identical: {identical}; "
                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library_ms {library:.4f}, bound "
                 f"{bound:.4f} ms ({bound_by}), achieved {bound / ms:.1%} of bound [{card}]"
             )
-            if not (err <= TOLERANCE[dtype]) or not (lse_err <= 1e-4) or not padded_zero:
+            if not (err <= TOLERANCE[dtype]) or not (lse_err <= 1e-4) or not padded_zero or not identical:
                 raise AssertionError(f"flash forward disagrees with its plain version at {name} {dtype}")
             if name == "a_125m_s1024" and dtype == torch.bfloat16:
                 record = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,

@@ -222,6 +222,46 @@ def test_quant_kernel_takes_an_unaligned_weight_view(cuda, bits):
     assert float((got - want).abs().max()) <= TOLERANCE[torch.float32]
 
 
+def _quant_case(device, m, k, n, bits, dtype, seed=0):
+    rng = np.random.default_rng(seed + m + k + n + bits)
+    q, scale = quantize_weight(rng.standard_normal((k, n), dtype=np.float32), bits=bits)
+    w = QuantizedWeight(torch.tensor(q, device=device), torch.tensor(scale, device=device), bits, dtype)
+    x = torch.tensor(rng.standard_normal((m, k), dtype=np.float32) / (4 * np.sqrt(k)), device=device).to(dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", [(2048, 2048), (2048, 5504), (5504, 2048), (2048, 1001)],
+                         ids=["2048x2048", "2048x5504", "5504x2048", "n_1001"])
+@pytest.mark.parametrize("m", [1, 8, 40, 64, 65, 512])
+def test_quant_tensor_core_kernel_matches_plain_version(cuda, m, kn, bits):
+    """bf16 on the tensor cores, every row tile (M = 1 .. 64 in one tile,
+    65 and 512 in several), split K (every M up to 65 at these N), and an N
+    that is no multiple of 8 (byte-wide weight copies): within one bf16
+    unit of the plain version."""
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    x, w = _quant_case(cuda, m, *kn, bits, torch.bfloat16)
+    got = quant_matmul(x, w)
+    want = quant_matmul_reference(x, w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= TOLERANCE[torch.bfloat16]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("mkn", [(8, 2048, 5504), (40, 5504, 2048), (512, 2048, 2048)],
+                         ids=["decode", "verify", "prefill"])
+def test_quant_kernel_is_bit_identical_across_launches(cuda, mkn, bits):
+    """Split K adds its partial sums in a fixed order, with no atomics: two
+    launches on the same inputs give the same bits (serving's parity gates
+    compare tokens)."""
+    x, w = _quant_case(cuda, *mkn, bits, torch.bfloat16, seed=7)
+    first = quant_matmul(x, w)
+    second = quant_matmul(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_quantized_resident_engine_on_the_card(cuda):
     """fp32 int8, llama-tiny widened to head dim 64: from_streamed serves
     generate()'s tokens over the dequantized weights, through the kernel
@@ -304,6 +344,53 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, geometry):
     if mask is not None:
         for x in (out[-1], dq[-1], dk[-1], dv[-1]):
             assert torch.count_nonzero(x) == 0
+
+
+@pytest.mark.parametrize(
+    "geometry",
+    [(2, 192, 320, 4, 4, 64, True, False), (2, 320, 192, 4, 2, 64, False, True),
+     (2, 256, 256, 8, 2, 128, True, True), (3, 128, 128, 2, 1, 128, False, True)],
+    ids=["causal_s_lt_t", "cross_s_gt_t_masked", "gqa_d128_masked", "mqa_d128_bidirectional"],
+)
+def test_flash_forward_kernel_edges(cuda, geometry):
+    """bf16 forward on wgmma and TMA at the edges of its tiling: S != T
+    (causal keys beyond S unseen, more queries than keys), GQA and MQA at
+    head dim 128 (two TMA boxes a row), a mask ending mid-tile and a fully
+    padded batch row (exactly 0); two launches give the same bits."""
+    q, k, v, _, mask, limit, causal, scale = _flash_case(cuda, torch.bfloat16, geometry, seed=5)
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    again, lse_again = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale)
+    torch.cuda.synchronize()
+    assert float((out.float() - want_out.float()).abs().max()) <= TOLERANCE[torch.bfloat16]
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    if mask is not None:
+        assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.parametrize("geometry", [FLASH_GEOMETRIES["causal_gqa_masked"], FLASH_GEOMETRIES["d128_gqa_masked"]],
+                         ids=["d64", "d128"])
+def test_flash_forward_lse_feeds_the_backward_kernels(cuda, geometry):
+    """bf16: the backward kernels fed the forward kernel's out and lse give
+    the gradients of the plain backward fed the plain forward's, within the
+    backward's tolerance (2e-2 of each gradient's largest magnitude)."""
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, torch.bfloat16, geometry, seed=9)
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, mask, limit, do, lse, delta, causal, scale)
+    got = {"dq": fa.flash_backward_dq(*args)}
+    got.update(zip(("dk", "dv"), fa.flash_backward_dkv(*args)))
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale)
+    ref_delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref_args = (q, k, v, mask, do, ref_lse, ref_delta, causal, scale)
+    want = {"dq": fa.flash_backward_dq_reference(*ref_args)}
+    want.update(zip(("dk", "dv"), fa.flash_backward_dkv_reference(*ref_args)))
+    torch.cuda.synchronize()
+    for name in ("dq", "dk", "dv"):
+        err = float((got[name].float() - want[name].float()).abs().max())
+        tol = 2e-2 * float(want[name].float().abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
 
 
 @pytest.mark.parametrize("masked", [False, True])

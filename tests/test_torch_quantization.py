@@ -28,7 +28,15 @@ from accelerate_tpu.serving import ServingEngine as JaxServingEngine
 from accelerate_tpu.utils import quantization as jax_quant
 from accelerate_tpu_torch import Llama, ServingEngine, load_jax_params
 from accelerate_tpu_torch.big_modeling import dispatch_model, make_layered_device_map
-from accelerate_tpu_torch.ops.quant_matmul import quant_dot, quant_matmul, quant_matmul_reference
+from accelerate_tpu_torch.ops.quant_matmul import (
+    BLOCK_K,
+    BLOCK_N,
+    SMS,
+    quant_dot,
+    quant_matmul,
+    quant_matmul_reference,
+    quant_plan,
+)
 from accelerate_tpu_torch.utils.quantization import (
     QuantizationConfig,
     QuantizedWeight,
@@ -140,6 +148,57 @@ def test_quant_wrapper_rejects_a_mismatched_contraction():
         quant_matmul(torch.ones((2, 32)), QuantizedWeight(w.q[None], w.scale[None], 8))
     plain = torch.full((8, 3), 2.0)
     torch.testing.assert_close(quant_dot(torch.ones((2, 8)), plain), torch.ones((2, 8)) @ plain)
+
+
+PLAN_SHAPES = [(2048, 2048), (2048, 5504), (5504, 2048), (98, 61), (2048, 1001), (256, 64)]
+
+
+def _covered(extent: int, tile: int, count: int) -> np.ndarray:
+    """How many of ``count`` tiles of ``tile`` rows cover each index of
+    ``range(extent)`` (tiles past the extent are cut there)."""
+    hits = np.zeros(extent, np.int64)
+    for i in range(count):
+        hits[i * tile:min((i + 1) * tile, extent)] += 1
+    return hits
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kn", PLAN_SHAPES, ids=[f"{k}x{n}" for k, n in PLAN_SHAPES])
+@pytest.mark.parametrize("m", [1, 8, 40, 64, 65, 512])
+def test_quant_plan_covers_every_output_and_k_row_once(m, kn, bits):
+    """The bf16 kernel's plan: its row, column and K tiles cover every M,
+    N and K index exactly once (no split owns no K tile), and a grid whose
+    output tiles leave half the SMs idle splits K into one wave: at most a
+    block per SM, at least half the SMs busy unless every K tile is a
+    split of its own."""
+    k, n = kn
+    plan = quant_plan(m, k, n, bits)
+    assert plan.m_tile % 8 == 0 and 8 <= plan.m_tile <= 64 and plan.m_tile >= min(m, 64)
+    assert (_covered(m, plan.m_tile, plan.m_tiles) == 1).all()
+    assert (_covered(n, BLOCK_N, plan.n_tiles) == 1).all()
+    assert plan.k_tiles == -(-k // BLOCK_K)
+    assert (_covered(k, plan.tiles_per_split * BLOCK_K, plan.splits) == 1).all()
+    assert (plan.splits - 1) * plan.tiles_per_split < plan.k_tiles  # the last split has a tile
+    tiles = plan.m_tiles * plan.n_tiles
+    if 2 * tiles > SMS or plan.k_tiles == 1:
+        assert plan.splits == 1
+    else:
+        assert plan.splits > 1 and plan.blocks <= SMS
+        assert 2 * plan.blocks > SMS or plan.splits == plan.k_tiles
+
+
+def test_quant_plan_of_the_decode_step():
+    """llama-1b's decode projections at 8 slots: N = 2048 gives 16 column
+    tiles, so K splits 8 ways (128 blocks); N = 5504 gives 43, K splits 3
+    ways (129 blocks); K = 5504 has 43 K tiles in 8 splits of up to 6. A
+    512-row prefill has 128 or more output tiles and does not split."""
+    assert quant_plan(8, 2048, 2048, 8)[2:] == (16, 16, 8, 2)
+    assert quant_plan(8, 2048, 5504, 8)[2:] == (43, 16, 3, 6)
+    assert quant_plan(8, 5504, 2048, 4)[2:] == (16, 43, 8, 6)
+    assert quant_plan(512, 2048, 5504, 8).splits == 1
+    assert quant_plan(512, 2048, 2048, 8).splits == 1
+    with pytest.raises(ValueError):
+        quant_plan(8, 2048, 2048, 2)
 
 
 # -- quantized-resident serving ---------------------------------------------------
