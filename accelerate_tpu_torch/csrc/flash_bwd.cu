@@ -1,270 +1,562 @@
-// Flash attention backward for Hopper (sm_90a): dq, and dk with dv, in two kernels.
+// Flash attention backward for Hopper (sm_90a): dq with the delta rows, and dk with dv, in
+// two kernels.
 //
 // Replaces the Pallas TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
 // (accelerate_tpu/ops/flash_attention.py). Both recompute the probabilities from the
 // forward's saved row logsumexp, P = exp(s - lse), with the forward's one score recipe
 // (scale on the fp32 product, NEG_INF past the causal limit, the mask penalty), and take
-// dS = P * (dP - delta) with dP = dO.V^T and delta = rowsum(dO * O) (fp32, computed by the
-// wrapper). dS * scale and P are rounded to the operand type before they enter a product.
-//  - dq: one block per (q tile, query head, batch row), looping over K/V tiles up to the
-//    forward's bound: dq = sum over tiles of dS.K, in fp32 registers.
-//  - dk/dv: one block per (k tile, kv head, batch row), looping over the kv head's query
-//    heads and, for each, over the q tiles from the causal lower bound (none when the k tile
-//    starts past the batch row's last valid key): dv = sum P^T.dO and dk = sum dS^T.Q, in
-//    fp32 registers. Each block owns its dk/dv rows, so nothing needs atomics.
+// dS = P * (dP - delta) with dP = dO.V^T and delta = rowsum(dO * O) in fp32. The dq kernel
+// computes delta for its own rows from dO and O before its loop and writes it to the fp32
+// [B, NH, S] row buffer that the dk/dv kernel, launched after it, reads (the JAX package
+// computes it outside its kernels). dS * scale and P are rounded to the operand type before
+// they enter a product.
+//  - dq: one block per (query rows, query head, batch row), looping over K/V tiles of 64 or
+//    128 keys up to the forward's bound: dq = sum over tiles of dS.K, in fp32 registers.
+//  - dk/dv: one block per (64 keys, kv head, batch row), looping over the kv head's query
+//    heads and, for each, over the q tiles of 64 or 128 rows from the causal lower bound
+//    (none when the keys start past the batch row's last valid key): dv = sum P^T.dO and dk =
+//    sum dS^T.Q, in fp32 registers. Each block owns its dk/dv rows: no atomics, and two
+//    launches give the same bits.
 // Every tensor is read and written in the model zoo's [B, S, N, D] layout in place.
 //
 // Bound at llama-125m's shapes (D = 64, causal): operations. dq does 3 products per attended
 // (q, k) pair (q.k, dO.v, dS.K: 6 * D flops), dk/dv 4 (q.k, dO.v, P^T.dO, dS^T.Q: 8 * D
 // flops); at 989 TFLOP/s in bf16, 0.078 and 0.104 ms at B=32, S=1024, N=12. Design against
-// it, bf16: the streamed operand's tiles by cp.async into two shared-memory stages, products
-// on the tensor cores by mma.sync m16n8k16 from ldmatrix fragments, scores, P, dS and the
-// dq / dk / dv accumulators in registers for the whole loop (P and dS become the next
-// product's A operand without leaving them). fp32 takes CUDA-core FMAs, its bands through
-// shared memory. Not yet here: wgmma and TMA, one fused pass (dq by atomics).
+// it, bf16 (FlashAttention-3's building blocks, hopper.cuh):
+// - Warp specialisation: a block is a producer warpgroup and C consumer warpgroups of 64
+//   rows each. The producer's first warp copies the block's fixed operand once (dq: Q and
+//   dO; dk/dv: K and V) and streams the other by TMA (3-D tensor maps over [B * S, N, D],
+//   128-byte swizzle, D = 128 as two 64-column boxes) into a ring of stages, each guarded by
+//   a "full" and an "empty" mbarrier (one arrival per consumer warp once its products have
+//   read the stage). dq's producer lanes also stage each K tile's mask penalties; dk/dv's
+//   producer streams each q tile's lse and delta rows by bulk copy. `setmaxnreg` leaves the
+//   producer 24 registers a thread and hands the rest to the consumers.
+// - Block shapes, as measured on the H100 (`DqTeam`, `DkvTeam` below): dq at D = 64 is one
+//   consumer, with 128-key tiles and two blocks an SM under a causal mask (T a multiple of
+//   128), 64-key tiles and three blocks otherwise; at D = 128 three consumers share each K/V
+//   tile in one block; dk/dv is one consumer, two blocks an SM, with 128-row q tiles at D = 64
+//   (S a multiple of 128). Blocks side by side on an SM hide each other's prologue (the fixed
+//   operand's load, delta) and epilogue, which two consumers of one block cannot. Larger
+//   tiles halve the waits per product and read shared memory at a lower rate per flop.
+// - Every product by wgmma, fp32 accumulators in registers. dq: S = Q.K^T and dP = dO.V^T
+//   from shared memory (K-major), then dq += dS.K with dS rounded to bf16 in registers as
+//   the A operand and the same K box read as an MN-major B operand. dk/dv: S^T = K.Q^T and
+//   dP^T = V.dO^T from shared memory, then dv += P^T.dO and dk += dS^T.Q from registers,
+//   the Q and dO boxes read MN-major. A register A operand lives only within one iteration:
+//   ptxas 12.9 gave the registers of loop-invariant K/V (or Q/dO) operands, loaded once
+//   before the loop, to other values inside it (wrong dk, dv on the H100). The
+//   accumulator layout of S is the register A layout of P (flash_common.cuh `to_a`). S and
+//   dP are two commit groups: the exponentials run while dP's product does.
+// - The probabilities cost one FFMA and one ex2 per score (scale and log2 e folded into the
+//   exponent, the scores kept in units of the unscaled product) and the causal test runs on
+//   the diagonal tiles only.
+// - Causal balance and L2: a head's blocks are neighbours in the one-dimensional grid,
+//   heaviest first (dq: the last q rows; dk/dv: the first keys), so they share their
+//   streamed tiles through L2 while the light blocks fill the tail.
+// A consumer whose 64 rows lie past S (dq with three consumers, S an odd number of 64-row
+// tiles) leaves at once and the barriers count one warpgroup fewer. fp32 takes CUDA-core
+// FMAs, its bands through shared memory (the tensor cores take fp32 only as TF32); its dq
+// kernel computes delta the same way. Measured slower on the H100 and left out: two
+// consumers per dk/dv block sharing each Q/dO tile, a persistent grid that takes tiles from
+// a counter, issuing dv's product before dS^T is computed. Not
+// here: one fused pass (dq by atomics, whose order changes from launch to launch).
 //
 // Launch rules: the kernels run on the caller's stream, allocate nothing and do not
 // synchronise. The C entry points return cudaGetLastError() after the launch.
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
 // --------------------------------------------------------------------------------------
-// bf16: tensor cores, register-resident bands
+// bf16: wgmma fed by TMA, a producer warpgroup and consumer warpgroups
 // --------------------------------------------------------------------------------------
 
-template <int D>
-struct DqBf16Layout {
-  static constexpr int kLd = padded<bf16>(D);
-  static constexpr int kQ = 0;
-  static constexpr int kDo = kQ + align128(2LL * kBlockQ * kLd);
-  static constexpr int kK = kDo + align128(2LL * kBlockQ * kLd);
-  static constexpr int kV = kK + align128(2LL * 2 * kBlockK * kLd);
-  static constexpr int kPen = kV + align128(2LL * 2 * kBlockK * kLd);
-  static constexpr int kBytes = kPen + align128(4LL * 2 * kBlockK);
+// A block: one producer warpgroup and C consumer warpgroups of 64 rows each, `Blocks` blocks
+// an SM. ptxas gives each thread the most registers that allows (65536 / (threads * Blocks),
+// in units of 8); the producer keeps 24 and hands the rest to the consumers.
+template <int C, int Blocks>
+struct Team {
+  static constexpr int kConsumers = C;
+  static constexpr int kBlocks = Blocks;
+  static constexpr int kRows = C * kBoxRows;  // q rows (dq) or keys (dk/dv) of a block
+  static constexpr int kThreads = (C + 1) * 128;
+  static constexpr int kLaunchRegs = 65536 / (kThreads * Blocks) / 8 * 8;
+  static constexpr int kProducerRegs = 24;
+  static constexpr int kConsumerRegs =
+      (kLaunchRegs * kThreads - kProducerRegs * 128) / (C * 128) / 8 * 8;
+};
+// The fastest shapes measured on the H100 (PERF.md). dq streams K/V tiles of kN keys: at
+// D = 64 under a causal mask 128 keys (m64n128 score products, half the per-tile waits) with
+// one consumer and two blocks an SM (232 registers hold the 128-column score and dP bands);
+// otherwise 64 keys, at D = 64 with one consumer and three blocks an SM (136 registers), at
+// D = 128 with three consumers sharing each K/V tile in one block (160 registers hold the
+// 64 x 128 accumulator). dk/dv: one consumer and two blocks an SM (232 registers), streaming
+// q tiles of kM rows: 128 at D = 64 (S a multiple of 128; the 128-column S^T and dP^T bands
+// fit), else 64. Blocks that run side by side on an SM hide each other's prologue and
+// epilogue.
+template <int D, int kN>
+using DqTeam =
+    std::conditional_t<kN == 128, Team<1, 2>, std::conditional_t<D == 64, Team<1, 3>, Team<3, 1>>>;
+using DkvTeam = Team<1, 2>;
+static_assert(kBlockQ == kBoxRows && kBlockK == kBoxRows && 4 * kBand == kBoxRows,
+              "64-row tiles, one TMA box of rows, a warp band of 16");
+
+template <int D, int kN>
+struct DqLayout {
+  static constexpr int kConsumers = DqTeam<D, kN>::kConsumers;
+  static constexpr int kStages = kN == 128 ? 2 : 3;  // two blocks of 128-key stages fit an SM
+  static constexpr int kTile = kBoxRows * D * 2;  // one 64-row tile: D / 64 boxes
+  static constexpr int kKvTile = kN * D * 2;      // one K or V tile: [D / 64][kN rows][128 B]
+  static constexpr int kQ = 0;                    // a tile per consumer; tiles 1024-byte aligned
+  static constexpr int kDo = kQ + kConsumers * kTile;
+  static constexpr int kK = kDo + kConsumers * kTile;
+  static constexpr int kV = kK + kStages * kKvTile;
+  static constexpr int kPen = kV + kStages * kKvTile;
+  static constexpr int kBar = kPen + kStages * kN * 4;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // the base is rounded up to 1024 bytes
+  // a consumer stops up to kConsumers - 1 tiles before the block's causal bound; the
+  // producer never waits for those tiles' release
+  static_assert(kStages >= kConsumers - 1, "the producer waits only on released stages");
+  // kmajor_step walks D in 64-row boxes: a 128-key tile has one box of columns
+  static_assert(kN == 64 || D == 64, "128-key tiles at D = 64 only");
 };
 
+template <int D, int kM>
+struct DkvLayout {
+  static constexpr int kConsumers = DkvTeam::kConsumers;
+  static constexpr int kStages = 2;
+  static constexpr int kTile = kBoxRows * D * 2;
+  static constexpr int kQTile = kM * D * 2;  // a streamed Q or dO tile of kM rows
+  static constexpr int kK = 0;  // a tile per consumer
+  static constexpr int kV = kK + kConsumers * kTile;
+  static constexpr int kQ = kV + kConsumers * kTile;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kRows = kDo + kStages * kQTile;  // [stage][lse | delta][kM] fp32
+  static constexpr int kBar = kRows + kStages * 2 * kM * 4;
+  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+  static_assert(kM == 64 || D == 64, "128-row q tiles at D = 64 only");
+};
+
+// delta = rowsum(dO * O) in fp32 for the lane's rows `row` and `row + 8` (at `off`, row
+// stride `stride` elements): each of a row's four lanes (t = lane % 4) sums a quarter of the
+// columns, 16 bytes a load, then shuffles reduce
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dq_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ mask, const int* __restrict__ limit,
-    const bf16* __restrict__ dout,     // [B, S, NH, D]
-    const float* __restrict__ lse,     // [B, NH, S]
-    const float* __restrict__ delta,   // [B, NH, S]
-    bf16* __restrict__ dq,             // [B, S, NH, D]
+__device__ __forceinline__ void row_delta(float (&dl)[2], const bf16* dout, const bf16* out,
+                                          long long off, long long stride, int t) {
+  constexpr int kVecs = D / 4 / 8;  // 16-byte vectors in a quarter row
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const uint4* dp = reinterpret_cast<const uint4*>(dout + off + r * 8 * stride + t * (D / 4));
+    const uint4* op = reinterpret_cast<const uint4*>(out + off + r * 8 * stride + t * (D / 4));
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVecs; ++i) {
+      const uint4 a = dp[i];
+      const uint4 o = op[i];
+      const bf16* av = reinterpret_cast<const bf16*>(&a);
+      const bf16* ov = reinterpret_cast<const bf16*>(&o);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum = fmaf(__bfloat162float(av[e]), __bfloat162float(ov[e]), sum);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    dl[r] = sum;
+  }
+}
+
+template <int D, int kN>
+__global__ void __launch_bounds__(DqTeam<D, kN>::kThreads, DqTeam<D, kN>::kBlocks)
+flash_dq_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
+    const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
+    const __grid_constant__ CUtensorMap k_map,   // k [B * T, KV, D]
+    const __grid_constant__ CUtensorMap v_map,   // v [B * T, KV, D]
+    const bf16* __restrict__ dout,   // [B, S, NH, D]
+    const bf16* __restrict__ out,    // [B, S, NH, D], the forward's output
+    const int* __restrict__ mask,    // [B, T] or null
+    const int* __restrict__ limit,   // [B] last valid key, or null
+    const float* __restrict__ lse,   // [B, NH, S]
+    float* __restrict__ delta,       // [B, NH, S], written here
+    bf16* __restrict__ dq,           // [B, S, NH, D]
     int S, int Tk, int NH, int KV, float scale, int causal) {
-  using L = DqBf16Layout<D>;
-  constexpr int kNt = kBlockK / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::kDo);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
+  using L = DqLayout<D, kN>;
+  using W = DqTeam<D, kN>;
+  constexpr int kNt = kN / 8;  // 8-column tiles of a score band
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem + L::kQ;
+  unsigned char* dos = smem + L::kDo;
+  unsigned char* ks = smem + L::kK;
+  unsigned char* vs = smem + L::kV;
   float* pen = reinterpret_cast<float*>(smem + L::kPen);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
 
-  const int iq = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // a head's blocks are neighbours in the grid, heaviest (last rows) first under a causal mask
+  const int nb = (S + W::kRows - 1) / W::kRows;
+  const int rest = blockIdx.x / nb;
+  const int slot = blockIdx.x - rest * nb;
+  const int iq = causal ? nb - 1 - slot : slot;
+  const int h = rest % NH;
+  const int b = rest / NH;
   const int g = h / (NH / KV);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int q0 = iq * W::kRows;
+  const int tiles = min(W::kConsumers, (S - q0) / kBlockQ);  // consumers with rows inside S
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const bool masked = mask != nullptr;
-  const long long q_row = 1LL * NH * D;
-  const long long kv_row = 1LL * KV * D;
-  const long long q_off = (1LL * b * S + 1LL * iq * kBlockQ) * q_row + 1LL * h * D;
-  const bf16* kg = k + 1LL * b * Tk * kv_row + 1LL * g * D;
-  const bf16* vg = v + 1LL * b * Tk * kv_row + 1LL * g * D;
 
-  int nk = Tk / kBlockK;
-  if (causal) nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
-  if (masked) nk = min(nk, (limit[b] + kBlockK) / kBlockK);
+  int nk = Tk / kN;
+  if (causal) nk = min(nk, (q0 + W::kRows + kN - 1) / kN);
+  if (masked) nk = min(nk, (limit[b] + kN) / kN);  // limit -1 -> 0 tiles
 
-  auto load_kv = [&](int j, int stage) {
-    load_rows<bf16, D>(ks + stage * kBlockK * L::kLd, L::kLd, kg + 1LL * j * kBlockK * kv_row,
-                       kv_row, kBlockK);
-    load_rows<bf16, D>(vs + stage * kBlockK * L::kLd, L::kLd, vg + 1LL * j * kBlockK * kv_row,
-                       kv_row, kBlockK);
-    if (masked)
-      for (int i = tid; i < kBlockK; i += kThreads)
-        pen[stage * kBlockK + i] = mask_penalty(mask, 1LL * b * Tk + j * kBlockK + i);
-  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 32);         // the producer's lanes (one also expects the bytes)
+      mbar_init(&empty[s], 4 * tiles);  // one arrival per consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_rows<bf16, D>(qs, L::kLd, q + q_off, q_row, kBlockQ);
-  load_rows<bf16, D>(dos, L::kLd, dout + q_off, q_row, kBlockQ);
-  if (nk > 0) load_kv(0, 0);
-  cp_async_commit();
+  if (warp < 4) {
+    // ---- producer warpgroup: its first warp streams; all four give registers back
+    setmaxnreg_dec<W::kProducerRegs>();
+    if (warp == 0) {
+      if (lane == 0) {
+        mbar_arrive_expect(q_full, 2 * tiles * L::kTile);
+        for (int w = 0; w < tiles; ++w)
+          for (int c = 0; c < D / kBox; ++c) {
+            const int row = b * S + q0 + w * kBlockQ;
+            tma_load(qs + w * L::kTile + c * kBoxBytes, &q_map, q_full, c * kBox, h, row);
+            tma_load(dos + w * L::kTile + c * kBoxBytes, &do_map, q_full, c * kBox, h, row);
+          }
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int stage = j % L::kStages;
+        const int use = j / L::kStages;
+        if (use > 0) mbar_wait(&empty[stage], (use - 1) & 1);  // the consumers released it
+        if (masked)  // in units of the unscaled product q.k, as the consumers take the scores
+          for (int i = lane; i < kN; i += 32)
+            pen[stage * kN + i] = mask_penalty(mask, 1LL * b * Tk + j * kN + i) / scale;
+        if (lane == 0) {
+          mbar_arrive_expect(&full[stage], 2 * L::kKvTile);
+          for (int c = 0; c < D / kBox; ++c)
+            for (int r = 0; r < kN / kBoxRows; ++r) {
+              const int off = stage * L::kKvTile + (c * (kN / kBoxRows) + r) * kBoxBytes;
+              const int row = b * Tk + j * kN + r * kBoxRows;
+              tma_load(ks + off, &k_map, &full[stage], c * kBox, g, row);
+              tma_load(vs + off, &v_map, &full[stage], c * kBox, g, row);
+            }
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+      }
+    }
+    return;
+  }
 
+  // ---- consumer warpgroup cw: query rows wq0 .. wq0 + 63; this lane's rows of its warp's
+  // band are row0 and row0 + 8, its columns 2t, 2t+1 of each 8-column tile
+  setmaxnreg_inc<W::kConsumerRegs>();
+  // with one consumer the index is a constant: a computed one ran slower on the H100
+  const int cw = W::kConsumers == 1 ? 0 : warp / 4 - 1;
+  if (W::kConsumers > 1 && cw >= tiles) return;
+  const int wq0 = q0 + cw * kBlockQ;
   const int t = lane & 3;
-  const int row0 = iq * kBlockQ + warp * kBand + (lane >> 2);
+  const int row0 = wq0 + (warp & 3) * kBand + (lane >> 2);
+  const long long q_row = 1LL * NH * D;
+  const long long q_off = (1LL * b * S + row0) * q_row + 1LL * h * D;
   const long long rows_off = (1LL * b * NH + h) * S + row0;
-  const float lse_r[2] = {lse[rows_off], lse[rows_off + 8]};
-  const float delta_r[2] = {delta[rows_off], delta[rows_off + 8]};
-  const bf16* q_band = qs + warp * kBand * L::kLd;
-  const bf16* do_band = dos + warp * kBand * L::kLd;
+  float dl[2];
+  row_delta<D>(dl, dout, out, q_off, q_row, t);
+  if (t == 0) {
+    delta[rows_off] = dl[0];
+    delta[rows_off + 8] = dl[1];
+  }
+  const float lse_log2[2] = {lse[rows_off] * kLog2e, lse[rows_off + 8] * kLog2e};
+  // the causal bound of this warpgroup's rows: the block's last tile lies wholly past them
+  const int nk_own = causal ? min(nk, (wq0 + kBlockQ + kN - 1) / kN) : nk;
+
+  // p = exp(scale * s - lse) = 2^(s * scale * log2 e - lse * log2 e); a future key (causal)
+  // or a padded one takes NEG_INF / scale or the penalty / scale, so that scale * s is
+  // NEG_INF or carries the penalty as the plain version's
+  const float scale_log2 = scale * kLog2e;
+  const float neg_raw = kNegInf / scale;
+  const uint64_t q_desc = sw128_desc(qs + cw * L::kTile, 16, 1024);
+  const uint64_t do_desc = sw128_desc(dos + cw * L::kTile, 16, 1024);
+  const uint64_t k_desc = sw128_desc(ks, 16, 1024);          // K-major B of Q.K^T
+  const uint64_t v_desc = sw128_desc(vs, 16, 1024);          // K-major B of dO.V^T
+  const uint64_t kt_desc = sw128_desc(ks, kBoxBytes, 1024);  // MN-major B of dS.K
   float acc[D / 8][4];
   zero(acc);
+  float s[kNt][4], dp[kNt][4];
+  zero(s);
+  zero(dp);
+  mbar_wait(q_full, 0);
 
-  for (int j = 0; j < nk; ++j) {
-    const int stage = j % 2;
-    if (j + 1 < nk) {
-      load_kv(j + 1, (j + 1) % 2);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kst = ks + stage * kBlockK * L::kLd;
-    const bf16* vst = vs + stage * kBlockK * L::kLd;
-    const float* pst = pen + stage * kBlockK;
-    float s[kNt][4], dp[kNt][4];
-    zero(s);
-    zero(dp);
-    band_mma_nk<kNt, D>(s, q_band, L::kLd, kst, L::kLd);
-    band_mma_nk<kNt, D>(dp, do_band, L::kLd, vst, L::kLd);
+  for (int j = 0; j < nk_own; ++j) {
+    const int stage = j % L::kStages;
+    mbar_wait(&full[stage], (j / L::kStages) & 1);
+    const uint64_t stage_off = (stage * L::kKvTile) >> 4;
+    const float* pst = pen + stage * kN;
+
+    // S = Q.K^T and dP = dO.V^T, two commit groups: P is computed while dP runs
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kN>(s, q_desc + kmajor_step(kk), k_desc + stage_off + kmajor_step(kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kN>(dp, do_desc + kmajor_step(kk), v_desc + stage_off + kmajor_step(kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    pin(s);
+
+    // P, the causal test kept to the diagonal tiles
+    const bool diagonal = causal && j * kN + kN - 1 > wq0;
 #pragma unroll
     for (int n = 0; n < kNt; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int c = n * 8 + 2 * t + (e & 1);
-        const float p = expf(score(s[n][e], scale, causal, row0 + 8 * r, j * kBlockK + c, masked,
-                                   masked ? pst[c] : 0.f) - lse_r[r]);
-        s[n][e] = p * (dp[n][e] - delta_r[r]) * scale;  // dS * scale, rounded by to_a
+        float v = s[n][e];
+        if (diagonal && j * kN + c > row0 + 8 * r) v = neg_raw;
+        if (masked) v += pst[c];
+        s[n][e] = exp2_approx(fmaf(v, scale_log2, -lse_log2[r]));
       }
+    wgmma_wait<0>();
+    pin(dp);
+    // dS * scale = P * (dP - delta) * scale
+#pragma unroll
+    for (int n = 0; n < kNt; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
     uint32_t ds[kNt / 2][4];
-    to_a(ds, s);
-    reg_mma_kn<D / 8, kNt / 2>(acc, ds, kst, L::kLd);  // dq += dS.K
-    __syncthreads();
+    to_a(ds, s);  // dS * scale rounded to bf16: the register A operand of dS.K
+
+    // dq += dS.K: K is the MN-major B operand; a k16 step is 16 key rows
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNt / 2; ++kk)
+      wgmma_rs<D>(acc, ds[kk], kt_desc + stage_off + mnmajor_step(kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+    if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
   }
-  cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
-  store_rows<D / 8>(dq + (1LL * b * S + row0) * q_row + 1LL * h * D, q_row, acc, one);
+  store_rows<D / 8>(dq + q_off, q_row, acc, one);
 }
 
-template <int D>
-struct DkvBf16Layout {
-  static constexpr int kLd = padded<bf16>(D);
-  static constexpr int kK = 0;
-  static constexpr int kV = kK + align128(2LL * kBlockK * kLd);
-  static constexpr int kQ = kV + align128(2LL * kBlockK * kLd);
-  static constexpr int kDo = kQ + align128(2LL * 2 * kBlockQ * kLd);
-  static constexpr int kRows = kDo + align128(2LL * 2 * kBlockQ * kLd);
-  static constexpr int kBytes = kRows + align128(4LL * 2 * 2 * kBlockQ);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_dkv_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+template <int D, int kM>
+__global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
+    const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
+    const __grid_constant__ CUtensorMap k_map,   // k [B * T, KV, D]
+    const __grid_constant__ CUtensorMap v_map,   // v [B * T, KV, D]
     const int* __restrict__ mask, const int* __restrict__ limit,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta,
-    bf16* __restrict__ dk,   // [B, T, KV, D]
-    bf16* __restrict__ dv,   // [B, T, KV, D]
+    const float* __restrict__ lse,    // [B, NH, S]
+    const float* __restrict__ delta,  // [B, NH, S]
+    bf16* __restrict__ dk,            // [B, T, KV, D]
+    bf16* __restrict__ dv,            // [B, T, KV, D]
     int S, int Tk, int NH, int KV, float scale, int causal) {
-  using L = DkvBf16Layout<D>;
-  constexpr int kNt = kBlockQ / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::kV);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::kDo);
-  float* rows = reinterpret_cast<float*>(smem + L::kRows);  // [stage][lse | delta][kBlockQ]
+  using L = DkvLayout<D, kM>;
+  using W = DkvTeam;
+  constexpr int kNt = kM / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ks = smem + L::kK;
+  unsigned char* vs = smem + L::kV;
+  unsigned char* qs = smem + L::kQ;
+  unsigned char* dos = smem + L::kDo;
+  float* rows = reinterpret_cast<float*>(smem + L::kRows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* kv_full = empty + L::kStages;
 
-  const int ik = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
+  // a kv head's blocks are neighbours in the grid, heaviest (first keys) first under a
+  // causal mask
+  const int nb = (Tk + W::kRows - 1) / W::kRows;
+  const int rest = blockIdx.x / nb;
+  const int ik = blockIdx.x - rest * nb;
+  const int g = rest % KV;
+  const int b = rest / KV;
   const int group = NH / KV;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int k0 = ik * W::kRows;
+  const int tiles = min(W::kConsumers, (Tk - k0) / kBlockK);  // consumers with keys inside T
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const bool masked = mask != nullptr;
-  const long long q_row = 1LL * NH * D;
-  const long long kv_row = 1LL * KV * D;
-  const long long kv_off = (1LL * b * Tk + 1LL * ik * kBlockK) * kv_row + 1LL * g * D;
 
-  // q-tile bounds: causal, q tiles wholly before this k tile see none of it; mask, a k tile
-  // past the last valid key contributes nothing
-  const int lower = causal ? (ik * kBlockK) / kBlockQ : 0;
-  int upper = S / kBlockQ;
-  if (masked && ik * kBlockK > limit[b]) upper = lower;
-  const int nq = upper - lower;
+  // q-tile bounds: causal, q tiles wholly before the block's first key see none of it; mask,
+  // a block past the last valid key contributes nothing (its rows get exact zeros)
+  const int lower = causal ? k0 / kM : 0;
+  int upper = S / kM;
+  if (masked && k0 > limit[b]) upper = lower;
+  const int nq = max(upper - lower, 0);
   const int n_iter = group * nq;  // (query head of the group, q tile), head outermost
 
-  auto load_q = [&](int it, int stage) {
-    const int h = g * group + it / nq;
-    const int jq = lower + it % nq;
-    const long long off = (1LL * b * S + 1LL * jq * kBlockQ) * q_row + 1LL * h * D;
-    load_rows<bf16, D>(qs + stage * kBlockQ * L::kLd, L::kLd, q + off, q_row, kBlockQ);
-    load_rows<bf16, D>(dos + stage * kBlockQ * L::kLd, L::kLd, dout + off, q_row, kBlockQ);
-    const long long row_off = (1LL * b * NH + h) * S + 1LL * jq * kBlockQ;
-    float* dst = rows + stage * 2 * kBlockQ;
-    for (int i = tid; i < kBlockQ; i += kThreads) {
-      dst[i] = lse[row_off + i];
-      dst[kBlockQ + i] = delta[row_off + i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);           // the producer's elected lane, with the bytes
+      mbar_init(&empty[s], 4 * tiles);  // one arrival per consumer warp
     }
-  };
+    mbar_init(kv_full, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  load_rows<bf16, D>(ks, L::kLd, k + kv_off, kv_row, kBlockK);
-  load_rows<bf16, D>(vs, L::kLd, v + kv_off, kv_row, kBlockK);
-  if (n_iter > 0) load_q(0, 0);
-  cp_async_commit();
+  if (warp < 4) {
+    // ---- producer warpgroup: one lane streams; all four warps give registers back
+    setmaxnreg_dec<W::kProducerRegs>();
+    if (warp == 0 && lane == 0 && n_iter > 0) {
+      mbar_arrive_expect(kv_full, 2 * tiles * L::kTile);
+      for (int w = 0; w < tiles; ++w)
+        for (int c = 0; c < D / kBox; ++c) {
+          const int row = b * Tk + k0 + w * kBlockK;
+          tma_load(ks + w * L::kTile + c * kBoxBytes, &k_map, kv_full, c * kBox, g, row);
+          tma_load(vs + w * L::kTile + c * kBoxBytes, &v_map, kv_full, c * kBox, g, row);
+        }
+      for (int it = 0; it < n_iter; ++it) {
+        const int stage = it % L::kStages;
+        const int use = it / L::kStages;
+        if (use > 0) mbar_wait(&empty[stage], (use - 1) & 1);
+        const int h = g * group + it / nq;
+        const int jq = lower + it % nq;
+        mbar_arrive_expect(&full[stage], 2 * L::kQTile + 2 * kM * 4);
+        for (int c = 0; c < D / kBox; ++c)
+          for (int r = 0; r < kM / kBoxRows; ++r) {
+            const int off = stage * L::kQTile + (c * (kM / kBoxRows) + r) * kBoxBytes;
+            const int row = b * S + jq * kM + r * kBoxRows;
+            tma_load(qs + off, &q_map, &full[stage], c * kBox, h, row);
+            tma_load(dos + off, &do_map, &full[stage], c * kBox, h, row);
+          }
+        const long long row_off = (1LL * b * NH + h) * S + 1LL * jq * kM;
+        float* dst = rows + stage * 2 * kM;
+        bulk_load(dst, lse + row_off, kM * 4, &full[stage]);
+        bulk_load(dst + kM, delta + row_off, kM * 4, &full[stage]);
+      }
+    }
+    return;
+  }
 
+  // ---- consumer warpgroup cw: keys wk0 .. wk0 + 63; this lane's keys are key0 and key0 + 8,
+  // its query columns 2t, 2t+1 of each 8-column tile
+  setmaxnreg_inc<W::kConsumerRegs>();
+  const int cw = warp / 4 - 1;  // computed even with one consumer: a constant ran slower
+  if (cw >= tiles) return;
+  const int wk0 = k0 + cw * kBlockK;
   const int t = lane & 3;
-  const int key0 = ik * kBlockK + warp * kBand + (lane >> 2);  // the lane's keys: key0, key0 + 8
-  float penalty[2] = {0.f, 0.f};
+  const int key0 = wk0 + (warp & 3) * kBand + (lane >> 2);
+  const float scale_log2 = scale * kLog2e;
+  const float neg_raw = kNegInf / scale;
+  float pen_raw[2] = {0.f, 0.f};  // in units of the unscaled product
   if (masked)
-    for (int r = 0; r < 2; ++r) penalty[r] = mask_penalty(mask, 1LL * b * Tk + key0 + 8 * r);
-  const bf16* k_band = ks + warp * kBand * L::kLd;
-  const bf16* v_band = vs + warp * kBand * L::kLd;
+    for (int r = 0; r < 2; ++r)
+      pen_raw[r] = mask_penalty(mask, 1LL * b * Tk + key0 + 8 * r) / scale;
+  const uint64_t k_desc = sw128_desc(ks + cw * L::kTile, 16, 1024);  // K-major A of K.Q^T
+  const uint64_t v_desc = sw128_desc(vs + cw * L::kTile, 16, 1024);  // K-major A of V.dO^T
+  const uint64_t q_desc = sw128_desc(qs, 16, 1024);                  // K-major B of K.Q^T
+  const uint64_t do_desc = sw128_desc(dos, 16, 1024);                // K-major B of V.dO^T
+  const uint64_t qt_desc = sw128_desc(qs, kBoxBytes, 1024);          // MN-major B of dS^T.Q
+  const uint64_t dot_desc = sw128_desc(dos, kBoxBytes, 1024);        // MN-major B of P^T.dO
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero(dk_acc);
   zero(dv_acc);
+  float st[kNt][4], dpt[kNt][4];  // S^T and dP^T for the band's keys
+  zero(st);
+  zero(dpt);
+  if (n_iter > 0) mbar_wait(kv_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
-    const int stage = it % 2;
-    if (it + 1 < n_iter) {
-      load_q(it + 1, (it + 1) % 2);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    const int stage = it % L::kStages;
+    mbar_wait(&full[stage], (it / L::kStages) & 1);
     const int jq = lower + it % nq;
-    const bf16* qst = qs + stage * kBlockQ * L::kLd;
-    const bf16* dost = dos + stage * kBlockQ * L::kLd;
-    const float* lse_s = rows + stage * 2 * kBlockQ;
-    const float* delta_s = lse_s + kBlockQ;
-    float st[kNt][4], dpt[kNt][4];  // S^T = K.Q^T and dP^T = V.dO^T for the band's keys
-    zero(st);
-    zero(dpt);
-    band_mma_nk<kNt, D>(st, k_band, L::kLd, qst, L::kLd);
-    band_mma_nk<kNt, D>(dpt, v_band, L::kLd, dost, L::kLd);
+    const uint64_t stage_off = (stage * L::kQTile) >> 4;
+    const float* lse_s = rows + stage * 2 * kM;
+    const float* delta_s = lse_s + kM;
+
+    // S^T = K.Q^T and dP^T = V.dO^T, two commit groups: P^T is computed while dP^T runs
+    pin(st);
+    pin(dpt);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kNt; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kM>(st, k_desc + kmajor_step(kk), q_desc + stage_off + kmajor_step(kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<kM>(dpt, v_desc + kmajor_step(kk), do_desc + stage_off + kmajor_step(kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T is in; dP^T may still run
+    pin(st);
+
+    // P^T; the causal test on the tiles where some key follows some query
+    const bool diagonal = causal && wk0 + kBlockK - 1 > jq * kM;
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + n * 8 + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int c = n * 8 + 2 * t + (e & 1);  // query row of the q tile
-        const float p = expf(score(st[n][e], scale, causal, jq * kBlockQ + c, key0 + 8 * r,
-                                   masked, penalty[r]) - lse_s[c]);
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - delta_s[c]) * scale;  // dS^T * scale
+        float v = st[n][e];
+        if (diagonal && key0 + 8 * r > jq * kM + c) v = neg_raw;
+        v += pen_raw[r];
+        st[n][e] = exp2_approx(fmaf(v, scale_log2, -((e & 1) ? l2.y : l2.x) * kLog2e));
       }
+    }
     uint32_t pa[kNt / 2][4], da[kNt / 2][4];
     to_a(pa, st);  // P^T rounded to bf16
-    to_a(da, dpt);
-    reg_mma_kn<D / 8, kNt / 2>(dv_acc, pa, dost, L::kLd);  // dv += P^T.dO
-    reg_mma_kn<D / 8, kNt / 2>(dk_acc, da, qst, L::kLd);   // dk += dS^T.Q
-    __syncthreads();
+
+    wgmma_wait<0>();
+    pin(dpt);
+
+    // dS^T * scale = P^T * (dP^T - delta) * scale
+#pragma unroll
+    for (int n = 0; n < kNt; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_s + n * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[n][e] = st[n][e] * (dpt[n][e] - ((e & 1) ? d2.y : d2.x)) * scale;
+    }
+    to_a(da, dpt);  // dS^T * scale rounded to bf16
+
+    // dv += P^T.dO and dk += dS^T.Q: dO and Q are MN-major B operands
+    pin(dk_acc);
+    pin(dv_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNt / 2; ++kk)
+      wgmma_rs<D>(dv_acc, pa[kk], dot_desc + stage_off + mnmajor_step(kk));
+#pragma unroll
+    for (int kk = 0; kk < kNt / 2; ++kk)
+      wgmma_rs<D>(dk_acc, da[kk], qt_desc + stage_off + mnmajor_step(kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(dv_acc);
+    pin(dk_acc);
+    if (lane == 0) mbar_arrive(&empty[stage]);
   }
-  cp_async_wait<0>();
   const float one[2] = {1.f, 1.f};
+  const long long kv_row = 1LL * KV * D;
   const long long out_off = (1LL * b * Tk + key0) * kv_row + 1LL * g * D;
   store_rows<D / 8>(dk + out_off, kv_row, dk_acc, one);
   store_rows<D / 8>(dv + out_off, kv_row, dv_acc, one);
@@ -294,8 +586,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq,
-    int S, int Tk, int NH, int KV, float scale, int causal) {
+    const float* __restrict__ out, const float* __restrict__ lse, float* __restrict__ delta,
+    float* __restrict__ dq, int S, int Tk, int NH, int KV, float scale, int causal) {
   using L = DqF32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -341,7 +633,23 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
   const int half = lane & 1;
   const int q_pos = iq * kBlockQ + warp * kBand + r;
   const float lse_r = lse[(1LL * b * NH + h) * S + q_pos];
-  const float delta_r = delta[(1LL * b * NH + h) * S + q_pos];
+  // delta = rowsum(dO * O) for the warp's 16 rows, each summed by the whole warp over
+  // columns lane, lane + 32, ... (coalesced); lanes 2r and 2r+1 keep row r's
+  float delta_r = 0.f;
+  {
+    const long long band = (1LL * b * S + 1LL * iq * kBlockQ + warp * kBand) * q_row + 1LL * h * D;
+    for (int i = 0; i < kBand; ++i) {
+      float part = 0.f;
+#pragma unroll
+      for (int c = lane; c < D; c += 32)
+        part = fmaf(dout[band + i * q_row + c], out[band + i * q_row + c], part);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+      part = __shfl_sync(0xffffffffu, part, 0);  // one order for every lane
+      if (i == r) delta_r = part;
+    }
+    if (half == 0) delta[(1LL * b * NH + h) * S + q_pos] = delta_r;
+  }
   float* s_band = scr + warp * L::kScratch;
   float* dp_band = s_band + kBand * L::kLdS;
   float* ds_band = dss + warp * kBand * L::kLdS;
@@ -522,39 +830,107 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
 // launches
 // --------------------------------------------------------------------------------------
 
-template <typename T>
-using DqKernel = void (*)(const T*, const T*, const T*, const int*, const int*, const T*,
-                          const float*, const float*, T*, int, int, int, int, float, int);
-template <typename T>
-using DkvKernel = void (*)(const T*, const T*, const T*, const int*, const int*, const T*,
-                           const float*, const float*, T*, T*, int, int, int, int, float, int);
+// setmaxnreg moves registers inside the block's own allocation: a build that gave the bf16
+// kernels fewer than kLaunchRegs a thread would leave the consumers waiting for ever, so the
+// launch refuses it
+template <typename Team, typename Kernel>
+cudaError_t check_registers(Kernel kernel) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs >= Team::kLaunchRegs ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
 
-template <typename T>
-cudaError_t launch_dq(DqKernel<T> kernel, int smem, const void* q, const void* k, const void* v,
-                      const int* mask, const int* limit, const void* dout, const float* lse,
-                      const float* delta, void* dq, int B, int S, int Tk, int NH, int KV,
-                      float scale, int causal, cudaStream_t stream) {
+// q, dO, k and v as tensor maps, in that order
+cudaError_t encode_maps(CUtensorMap (&maps)[4], const void* q, const void* dout, const void* k,
+                        const void* v, int B, int S, int Tk, int NH, int KV, int D) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (!encode_map(encode, &maps[0], q, 1LL * B * S, NH, D) ||
+      !encode_map(encode, &maps[1], dout, 1LL * B * S, NH, D) ||
+      !encode_map(encode, &maps[2], k, 1LL * B * Tk, KV, D) ||
+      !encode_map(encode, &maps[3], v, 1LL * B * Tk, KV, D))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <typename Team, typename Kernel>
+cudaError_t prepare_bf16(Kernel kernel, int smem) {
+  const cudaError_t err = check_registers<Team>(kernel);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <int D, int kN>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const int* mask,
+                           const int* limit, const void* dout, const void* out, const float* lse,
+                           float* delta, void* dq, int B, int S, int Tk, int NH, int KV,
+                           float scale, int causal, cudaStream_t stream) {
+  using L = DqLayout<D, kN>;
+  using W = DqTeam<D, kN>;
+  CUtensorMap maps[4];
+  cudaError_t err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_dq_bf16_kernel<D, kN>;
+  if ((err = prepare_bf16<W>(kernel, L::kAlloc)) != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((S + W::kRows - 1) / W::kRows) * NH * B;
+  kernel<<<grid, W::kThreads, L::kAlloc, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(out), mask, limit, lse, delta, static_cast<bf16*>(dq), S, Tk, NH,
+      KV, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D, int kM>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const int* mask,
+                            const int* limit, const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
+                            int KV, float scale, int causal, cudaStream_t stream) {
+  using L = DkvLayout<D, kM>;
+  CUtensorMap maps[4];
+  cudaError_t err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_dkv_bf16_kernel<D, kM>;
+  if ((err = prepare_bf16<DkvTeam>(kernel, L::kAlloc)) != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((Tk + DkvTeam::kRows - 1) / DkvTeam::kRows) * KV * B;
+  kernel<<<grid, DkvTeam::kThreads, L::kAlloc, stream>>>(maps[0], maps[1], maps[2], maps[3], mask,
+                                                   limit, lse, delta, static_cast<bf16*>(dk),
+                                                   static_cast<bf16*>(dv), S, Tk, NH, KV, scale,
+                                                   causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const int* mask,
+                          const int* limit, const void* dout, const void* out, const float* lse,
+                          float* delta, void* dq, int B, int S, int Tk, int NH, int KV,
+                          float scale, int causal, cudaStream_t stream) {
+  auto kernel = flash_dq_f32_kernel<D>;
+  const int smem = DqF32Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kBlockQ, NH, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, limit,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), S, Tk, NH, KV, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, limit, static_cast<const float*>(dout), static_cast<const float*>(out), lse, delta,
+      static_cast<float*>(dq), S, Tk, NH, KV, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dkv(DkvKernel<T> kernel, int smem, const void* q, const void* k,
-                       const void* v, const int* mask, const int* limit, const void* dout,
-                       const float* lse, const float* delta, void* dk, void* dv, int B, int S,
-                       int Tk, int NH, int KV, float scale, int causal, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const int* mask,
+                           const int* limit, const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
+                           int KV, float scale, int causal, cudaStream_t stream) {
+  auto kernel = flash_dkv_f32_kernel<D>;
+  const int smem = DkvF32Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(Tk / kBlockK, KV, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, limit,
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), S, Tk,
-      NH, KV, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, limit, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, Tk, NH, KV, scale, causal);
   return cudaGetLastError();
 }
 
@@ -567,34 +943,39 @@ bool valid(int B, int S, int Tk, int NH, int KV, const void* mask, const void* l
 
 extern "C" {
 
-// Layouts as flash_forward's; dout like q, lse and delta fp32 [B, NH, S], dq like q.
+// Layouts as flash_forward's; dout and out (the forward's output) like q, lse fp32
+// [B, NH, S]. Writes delta = rowsum(dout * out), fp32 [B, NH, S], and dq like q.
 // Returns a cudaError_t (0 = launched).
 int flash_backward_dq(const void* q, const void* k, const void* v, const void* mask,
-                      const void* limit, const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int S, int Tk, int NH, int KV, int D, float scale,
-                      int causal, int dtype, void* stream) {
+                      const void* limit, const void* dout, const void* out, const void* lse,
+                      void* delta, void* dq, int B, int S, int Tk, int NH, int KV, int D,
+                      float scale, int causal, int dtype, void* stream) {
   if (!valid(B, S, Tk, NH, KV, mask, limit)) return cudaErrorInvalidValue;
   const int* m = static_cast<const int*>(mask);
   const int* lim = static_cast<const int*>(limit);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dl = static_cast<float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 64 && causal && Tk % 128 == 0)  // see DqTeam
+    return launch_dq_bf16<64, 128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
+                                   scale, causal, s);
   if (dtype == 1 && D == 64)
-    return launch_dq<bf16>(flash_dq_bf16_kernel<64>, DqBf16Layout<64>::kBytes, q, k, v, m, lim,
-                           dout, l, dl, dq, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dq_bf16<64, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
+                                  causal, s);
   if (dtype == 1 && D == 128)
-    return launch_dq<bf16>(flash_dq_bf16_kernel<128>, DqBf16Layout<128>::kBytes, q, k, v, m, lim,
-                           dout, l, dl, dq, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dq_bf16<128, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
+                                   scale, causal, s);
   if (dtype == 0 && D == 64)
-    return launch_dq<float>(flash_dq_f32_kernel<64>, DqF32Layout<64>::kBytes, q, k, v, m, lim,
-                            dout, l, dl, dq, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dq_f32<64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
+                             causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dq<float>(flash_dq_f32_kernel<128>, DqF32Layout<128>::kBytes, q, k, v, m, lim,
-                            dout, l, dl, dq, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dq_f32<128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
+                              causal, s);
   return cudaErrorInvalidValue;
 }
 
-// dk and dv like k. Returns a cudaError_t (0 = launched).
+// delta as flash_backward_dq writes it; dk and dv like k. Returns a cudaError_t (0 =
+// launched).
 int flash_backward_dkv(const void* q, const void* k, const void* v, const void* mask,
                        const void* limit, const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int S, int Tk, int NH, int KV, int D,
@@ -605,18 +986,21 @@ int flash_backward_dkv(const void* q, const void* k, const void* v, const void* 
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 64 && S % 128 == 0)  // see DkvTeam
+    return launch_dkv_bf16<64, 128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                                    causal, s);
   if (dtype == 1 && D == 64)
-    return launch_dkv<bf16>(flash_dkv_bf16_kernel<64>, DkvBf16Layout<64>::kBytes, q, k, v, m,
-                            lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dkv_bf16<64, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                                   causal, s);
   if (dtype == 1 && D == 128)
-    return launch_dkv<bf16>(flash_dkv_bf16_kernel<128>, DkvBf16Layout<128>::kBytes, q, k, v, m,
-                            lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dkv_bf16<128, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                                    causal, s);
   if (dtype == 0 && D == 64)
-    return launch_dkv<float>(flash_dkv_f32_kernel<64>, DkvF32Layout<64>::kBytes, q, k, v, m,
-                             lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dkv_f32<64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                              causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dkv<float>(flash_dkv_f32_kernel<128>, DkvF32Layout<128>::kBytes, q, k, v, m,
-                             lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_dkv_f32<128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                               causal, s);
   return cudaErrorInvalidValue;
 }
 

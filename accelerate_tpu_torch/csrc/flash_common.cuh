@@ -1,12 +1,12 @@
 // Building blocks shared by the flash attention kernels (flash_fwd.cu, flash_bwd.cu).
 //
-// Tiles: a block owns kBlockQ query rows (forward, dq) or kBlockK key rows (dk/dv), four
-// warps, each warp a band of kBand = 16 rows. Two families of kernels use them:
-//  - bf16: products on the tensor cores by `mma.sync` m16n8k16 with fp32 accumulation,
-//    operands from shared memory by `ldmatrix`; a band's scores, probabilities, dS and
-//    accumulators stay in registers in the m16n8 accumulator layout (lane l holds rows l/4
-//    and l/4 + 8, columns 2(l%4) and 2(l%4)+1 of each 8-column tile), and p or dS become the
-//    next product's A operand in place (`to_a`), rounded to bf16 there;
+// Tiles: a warpgroup or block owns kBlockQ query rows (forward, dq) or kBlockK key rows
+// (dk/dv), four warps, each warp a band of kBand = 16 rows. Two families of kernels use them:
+//  - bf16: products on the tensor cores by `wgmma` (hopper.cuh) with fp32 accumulation; a
+//    band's scores, probabilities, dS and accumulators stay in registers in the m16n8
+//    accumulator layout (lane l holds rows l/4 and l/4 + 8, columns 2(l%4) and 2(l%4)+1 of
+//    each 8-column tile), and p or dS become the next product's A operand in place
+//    (`to_a`), rounded to bf16 there;
 //  - fp32: products on the CUDA cores (`WarpAcc`, `warp_mma`: the tensor cores have no
 //    full-precision fp32 path), a band's element-wise work through shared memory, lanes 2r
 //    and 2r+1 owning row r.
@@ -48,11 +48,8 @@ __host__ __device__ constexpr int align128(long long bytes) {
   return static_cast<int>((bytes + 127) / 128 * 128);
 }
 
-// leading dimension, in elements, of a shared-memory tile of `cols` T columns: rows padded
+// leading dimension, in elements, of a shared-memory fp32 tile of `cols` columns: rows padded
 // by 16 bytes, so rows start on distinct banks and every row stays 16-byte aligned
-template <typename T> __host__ __device__ constexpr int padded(int cols) {
-  return cols + 16 / static_cast<int>(sizeof(T));
-}
 __host__ __device__ constexpr int padded_f32(int cols) { return cols + 4; }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -129,93 +126,13 @@ __device__ __forceinline__ void warp_mma(WarpAcc<N>& acc, const float* A, int ld
   }
 }
 
-// ---- bf16: tensor-core fragments -------------------------------------------------------
+// ---- bf16: register fragments of the tensor-core products --------------------------------
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, fp32 accumulator
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A operand of rows 0-15, columns c0..c0+15 of a row-major bf16 band.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* band, int ld, int c0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, band + (lane & 15) * ld + c0 + (lane >> 4) * 8);
-}
-
-// The B operands of the 8-column tiles n0 and n0 + 8 over k0..k0+15, from a tile stored with
-// one row per n (row n, column k: the K of Q.K^T): b[0..1] for n0, b[2..3] for n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
-                                          int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// The same from a tile stored with one row per k (row k, column n: the V of P.V).
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile, int ld, int k0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, tile + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8);
-}
-
-// acc[16 x 8 NT] += band[16 x K] . tile^T, the band row-major and the tile one row per n
-// (Q.K^T, dO.V^T, and their transposes K.Q^T, V.dO^T).
-template <int NT, int K>
-__device__ __forceinline__ void band_mma_nk(float (&acc)[NT][4], const bf16* band, int lda,
-                                            const bf16* tile, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, band, lda, kk * 16);
-#pragma unroll
-    for (int n = 0; n < NT / 2; ++n) {
-      uint32_t b[4];
-      load_b_nk(b, tile, ldb, n * 16, kk * 16);
-      mma16816(acc[2 * n], a, b[0], b[1]);
-      mma16816(acc[2 * n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16 x 8 NT] += A[16 x 16 KT] . tile, A already in registers (from `to_a`), the tile one
-// row per k (P.V, dS.K, P^T.dO, dS^T.Q).
-template <int NT, int KT>
-__device__ __forceinline__ void reg_mma_kn(float (&acc)[NT][4], const uint32_t (&a)[KT][4],
-                                           const bf16* tile, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-    for (int n = 0; n < NT / 2; ++n) {
-      uint32_t b[4];
-      load_b_kn(b, tile, ldb, kk * 16, n * 16);
-      mma16816(acc[2 * n], a[kk], b[0], b[1]);
-      mma16816(acc[2 * n + 1], a[kk], b[2], b[3]);
-    }
-  }
 }
 
 // Accumulators of 8-column tiles 2kk and 2kk+1 as the A operand of k-step kk, rounded to

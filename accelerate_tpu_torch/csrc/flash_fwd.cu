@@ -15,7 +15,7 @@
 // Bound at llama-125m's shapes (D = 64, causal): the bytes of q, k, v and out at 3.35 TB/s
 // (0.061 ms at B=32, S=1024, N=12), with the operations close behind (4 * D flops per
 // attended (q, k) pair at 989 TFLOP/s in bf16, 0.052 ms). Design against it, bf16
-// (FlashAttention-3's building blocks):
+// (FlashAttention-3's building blocks, hopper.cuh, shared with flash_bwd.cu):
 // - Warp specialisation: a block is one consumer warpgroup (4 warps, 64 query rows) and one
 //   producer warp. The producer's elected lane copies Q once and every K/V tile by TMA
 //   (3-D tensor maps over [B * S, N, D], read in place, 128-byte swizzle; D = 128 as two
@@ -46,198 +46,22 @@
 // Launch rules: the kernels run on the caller's stream, allocate nothing and do not
 // synchronise. The C entry point returns cudaGetLastError() after the launch.
 
-#include <cuda.h>  // CUtensorMap and its encoder's types (the encoder comes from the runtime)
-
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
-
-// --------------------------------------------------------------------------------------
-// Hopper building blocks: mbarriers, TMA, wgmma
-// --------------------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// arrive, and expect `bytes` more from TMA before the phase completes
-__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// one box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into shared memory; its
-// bytes complete on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile in the 128-byte swizzle (1024-byte atoms of 8 rows
-// of 128 bytes, as TMA writes them): `lbo` the byte stride between 64-element column blocks
-// (MN-major operands wider than 64), `sbo` between 8-row groups
-__device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(smem) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving an accumulator's reads or writes across a wgmma boundary
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-}
-
-// d[64 x 64] (+)= A . B, A and B from shared memory (K-major), bf16, fp32 accumulator
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint64_t b,
-                                             int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d[64 x 64] += A . B, A from registers (the m16n8k16 A layout in each warp), B from
-// shared memory, MN-major (transposed), bf16, fp32 accumulator
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d[64 x 128] += A . B, A from registers (the m16n8k16 A layout in each warp), B from
-// shared memory, MN-major (transposed), bf16, fp32 accumulator
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
-        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
-        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4], const uint32_t (&a)[4], uint64_t b);
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n64(d, a, b);
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  wgmma_rs_n128(d, a, b);
-}
+using namespace hopper;
 
 // --------------------------------------------------------------------------------------
 // bf16: wgmma fed by TMA, one consumer warpgroup and one producer warp
 // --------------------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit, relative error about 2^-22: one instruction where expf
-// takes about eight
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr int kConsumerWarps = 4;  // one warpgroup: 64 query rows, a band of 16 per warp
 constexpr int kFwdThreads = (kConsumerWarps + 1) * 32;
-constexpr int kBox = 64;           // columns of a TMA box: 128 bytes of bf16, the swizzle span
-constexpr int kBoxBytes = kBlockK * kBox * 2;
-static_assert(kBlockQ == kBlockK && kConsumerWarps * kBand == kBlockQ, "64-row tiles");
+static_assert(kBlockQ == kBlockK && kBlockK == kBoxRows && kConsumerWarps * kBand == kBlockQ,
+              "64-row tiles, one TMA box of rows each");
 
 template <int D>
 struct FwdLayout {
@@ -300,7 +124,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
       mbar_init(&empty[s], kConsumerWarps);  // one arrival per consumer warp
     }
     mbar_init(q_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -365,10 +189,8 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
     pin(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int off = ((kk / 4) * kBoxBytes + (kk % 4) * 32) >> 4;
-      wgmma_ss_n64(s, q_desc + off, k_desc + stage_off + off, kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, q_desc + kmajor_step(kk), k_desc + stage_off + kmajor_step(kk), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
@@ -426,7 +248,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNt / 2; ++kk)
-      wgmma_rs<D>(o, p[kk], v_desc + stage_off + ((kk * 16 * 128) >> 4));
+      wgmma_rs<D>(o, p[kk], v_desc + stage_off + mnmajor_step(kk));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -441,41 +263,6 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       lse[(1LL * b * NH + h) * S + row0 + 8 * r] = m_run[r] + logf(l_safe[r]);
-}
-
-// cuTensorMapEncodeTiled comes through the runtime's entry-point lookup, so the build links
-// no libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  return encode;
-}
-
-// a contiguous bf16 [rows, heads, D] tensor as a 3-D map with 64 x 1 x 64 boxes
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, long long rows,
-                int heads, int D) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(heads) * D * 2};
-  const cuuint32_t box[3] = {kBox, 1, kBlockK};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -3,10 +3,12 @@
 # the modules flash_attention and fused_adamw share a name with their entry
 # point: the functions are exported by the package, not here
 from .flash_attention import (
+    flash_backward,
     flash_backward_dkv,
     flash_backward_dkv_reference,
     flash_backward_dq,
     flash_backward_dq_reference,
+    flash_delta_reference,
     flash_forward,
     flash_forward_reference,
     make_auto_attention,
@@ -25,10 +27,12 @@ __all__ = [
     "adamw",
     "adamw_leaf",
     "adamw_leaf_reference",
+    "flash_backward",
     "flash_backward_dkv",
     "flash_backward_dkv_reference",
     "flash_backward_dq",
     "flash_backward_dq_reference",
+    "flash_delta_reference",
     "flash_forward",
     "flash_forward_reference",
     "make_auto_attention",

@@ -14,20 +14,23 @@ softmax would give a uniform row). Causal and ``[B, T]`` key-mask bounds cut
 the k-tile loops: future and fully padded tiles are skipped, not masked.
 
 What bounds them on the H100: at llama-125m's shapes (head dim 64) the
-operations, ``4·B·N·D`` flops per attended (q, k) pair forward and 10 in
-the backward, at 989 TFLOP/s in bf16; at short sequences the bytes of q, k,
-v, out (and dO, dq, dk, dv) at 3.35 TB/s. In bf16 the forward runs both
-products by ``wgmma`` on K/V tiles that a producer warp copies by TMA into
-an mbarrier-guarded ring, and hands out its q tiles heaviest first; the
-backward kernels run theirs by ``mma.sync``. All keep scores, p, dS and the
-accumulators in registers; fp32 runs on the CUDA cores. See the sources'
-headers for what they leave for later.
+operations, ``4·B·N·D`` flops per attended (q, k) pair forward and 14 in
+the two backward kernels, at 989 TFLOP/s in bf16; at short sequences the
+bytes of q, k, v, out (and dO, dq, dk, dv) at 3.35 TB/s. In bf16 every
+kernel runs its products by ``wgmma`` on tiles that a producer copies by
+TMA into an mbarrier-guarded ring (``csrc/hopper.cuh``), and hands out its
+heaviest blocks first; all keep scores, p, dS and the accumulators in
+registers; fp32 runs on the CUDA cores. The dq kernel also computes
+``delta = rowsum(dO·O)`` for its rows and writes it for the dk/dv kernel,
+so the backward launches nothing else. See the sources' headers for what
+they leave for later.
 
 A tensor on the CPU takes the plain PyTorch versions
-(:func:`flash_forward_reference`, :func:`flash_backward_dq_reference`,
-:func:`flash_backward_dkv_reference`); a CUDA tensor launches the kernels
-or raises. The additive ``bias`` (T5, ROADMAP item 16) and the ring
-``offsets`` entry (ROADMAP item 17) raise ``NotImplementedError``.
+(:func:`flash_forward_reference`, :func:`flash_delta_reference`,
+:func:`flash_backward_dq_reference`, :func:`flash_backward_dkv_reference`);
+a CUDA tensor launches the kernels or raises. The additive ``bias`` (T5,
+ROADMAP item 16) and the ring ``offsets`` entry (ROADMAP item 17) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -112,6 +115,12 @@ def flash_forward_reference(q, k, v, mask=None, causal: bool = True, scale: floa
     return out, m + torch.log(l_safe)
 
 
+def flash_delta_reference(do, out) -> torch.Tensor:
+    """``delta = rowsum(dO·O)`` in fp32, ``[B, N, S]``: the backward's row
+    term, as the JAX package computes it outside its kernels."""
+    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+
+
 def _backward_terms(q, k, v, mask, do, lse, delta, causal, scale):
     """``(p fp32, ds rounded to k's dtype)`` of the backward kernels:
     ``p = exp(s - lse)``, ``dS = p·(dP - delta)``, ``ds = (dS·scale)``
@@ -167,12 +176,12 @@ def _fwd_library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = load_kernel(BWD_SOURCE)
-    args = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+    args = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.flash_backward_dq.argtypes = args
     lib.flash_backward_dq.restype = ctypes.c_int
-    lib.flash_backward_dkv.argtypes = [ctypes.c_void_p] * 10 + args[9:]
+    lib.flash_backward_dkv.argtypes = args
     lib.flash_backward_dkv.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
@@ -245,48 +254,64 @@ def flash_forward(q, k, v, mask=None, limit=None, causal: bool = True, scale: fl
     return out, lse
 
 
-def _backward_args(q, k, v, mask, limit, do, lse, delta):
+def _backward_args(q, k, v, mask, limit, do, rows, out=None):
+    """Contiguous operands and their dims; ``rows`` are the fp32 ``[B, N,
+    S]`` row inputs by name (lse, and delta for the dk/dv kernel)."""
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
-    dims = _check(q, k, v, mask, limit, do)
+    if out is not None:
+        out = out.contiguous()
+    dims = _check(q, k, v, mask, limit, do, *([] if out is None else [out]))
     b, s, _, nh, _, _ = dims
-    for name, x in (("lse", lse), ("delta", delta)):
+    for x in (do, out):
+        if x is not None and tuple(x.shape) != tuple(q.shape):
+            raise ValueError(f"dO and out must be shaped like q {tuple(q.shape)}, one is {tuple(x.shape)}")
+    for name, x in rows.items():
         if x.dtype != torch.float32 or tuple(x.shape) != (b, nh, s) or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 [{b}, {nh}, {s}]")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    return q, k, v, do, dims
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return q, k, v, do, out, dims
 
 
-def flash_backward_dq(q, k, v, mask, limit, do, lse, delta, causal: bool = True, scale: float = 1.0):
-    """dq kernel: one block per (batch, head, q tile), k tiles up to the
-    forward's bound. ``delta = rowsum(dO·O)`` fp32 ``[B, N, S]``."""
+def flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0):
+    """dq kernel: one block per (batch, head, 64 q rows at head dim 64, 192
+    at 128), k tiles up to the forward's bound. It also computes ``delta =
+    rowsum(dO·O)`` fp32 ``[B, N, S]`` for its rows from ``do`` and the
+    forward's ``out``; returns ``(dq, delta)``, delta for
+    :func:`flash_backward_dkv`."""
     if q.device.type == "cpu":
-        return flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal, scale)
+        delta = flash_delta_reference(do, out)
+        return flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal, scale), delta
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    q, k, v, do, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, lse, delta)
+    q, k, v, do, out, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, {"lse": lse}, out)
     dq = torch.empty_like(q)
+    delta = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         code = lib.flash_backward_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, t, nh, kv, d, scale,
-            int(causal), _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, t, nh, kv, d,
+            scale, int(causal), _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(code, lib, "flash_backward_dq")
     flash_backward_dq.launches += 1
-    return dq
+    return dq, delta
 
 
 def flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal: bool = True, scale: float = 1.0):
-    """dk/dv kernel: one block per (batch, kv head, k tile), looping over
+    """dk/dv kernel: one block per (batch, kv head, 64 keys), looping over
     the q tiles from the causal lower bound and over the kv head's query
-    heads, so dk and dv accumulate without atomics."""
+    heads, so dk and dv accumulate without atomics. ``delta`` is what
+    :func:`flash_backward_dq` returns."""
     if q.device.type == "cpu":
         return flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    q, k, v, do, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, lse, delta)
+    rows = {"lse": lse, "delta": delta}
+    q, k, v, do, _, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, rows)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
@@ -306,10 +331,18 @@ flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 
 
+def flash_backward(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0):
+    """The whole backward, ``(dq, dk, dv)``: the dq kernel (which also
+    writes delta), then the dk/dv kernel. On the CPU, the plain versions
+    with ``delta`` by :func:`flash_delta_reference`."""
+    dq, delta = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale)
+    dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
     """The custom vjp of the JAX package: the forward saves ``out`` and
-    ``lse``; the backward computes ``delta = rowsum(dO·O)`` in fp32 and
-    runs the dq and dk/dv kernels."""
+    ``lse``; the backward is :func:`flash_backward`."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, limit, causal, scale):
@@ -321,10 +354,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, mask, limit, out, lse = ctx.saved_tensors
-        delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
-        args = (q, k, v, mask, limit, do, lse, delta, ctx.causal, ctx.scale)
-        dq = flash_backward_dq(*args)
-        dk, dv = flash_backward_dkv(*args)
+        dq, dk, dv = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None, None
 
 

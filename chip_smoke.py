@@ -49,8 +49,11 @@ wall time:
     fp32, two launches bit-identical, timed beside its bound, the plain
     version and SDPA;
 11. the dq and dk/dv kernels at the same geometries against the plain
-    backward and against autograd through the plain forward, timed beside
-    SDPA's backward;
+    backward and against autograd through the plain forward, the delta rows
+    the dq kernel writes against the plain formula, two launches
+    bit-identical; each kernel timed, and the whole backward through
+    autograd (dq, then dk/dv) timed beside SDPA's backward; the backward
+    must launch those two kernels and run no ATen op but allocations;
 12. the fused adamw kernel bit-equal to its plain version over 5 steps on
     llama-125m's 12 leaves, timed beside ``torch.optim.AdamW(fused=True)``;
 13. training: llama-125m in bf16 through ``Accelerator`` ->
@@ -72,6 +75,7 @@ import copy
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -80,6 +84,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from accelerate_tpu_torch import (
     Accelerator,
@@ -278,10 +283,35 @@ def phase_environment() -> str:
           f"{time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{name}.cu {sec:.1f} s" for name, sec in seconds.items()))
     for name in SOURCES:
-        for line in (build_log(name) or "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[env] ptxas {name}.cu: {line.strip()}")
+        for line in ptxas_report(build_log(name) or ""):
+            print(f"[env] ptxas {name}.cu {line}")
     return card
+
+
+def kernel_name(mangled: str) -> str:
+    """``flash_dq_bf16_kernel<64, 128>`` from an Itanium-mangled kernel
+    name: the length-prefixed identifier that ends in ``_kernel``, and its
+    int template arguments."""
+    for run in re.finditer(r"\d+", mangled):
+        for k in range(len(run.group())):  # the length may follow other digits
+            ident = mangled[run.end():run.end() + int(run.group()[k:])]
+            if ident.endswith("_kernel") and ident.isidentifier():
+                args = re.match(r"I((?:Li\d+E)+)E", mangled[run.end() + len(ident):])
+                values = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                return ident + (f"<{', '.join(values)}>" if values else "")
+    return mangled
+
+
+def ptxas_report(log: str) -> list[str]:
+    """The ``-Xptxas -v`` lines that matter, each with its kernel's name:
+    registers, spills and any warning."""
+    lines, kernel = [], ""
+    for line in log.splitlines():
+        if "Function properties for " in line:
+            kernel = kernel_name(line.split("Function properties for ")[1].strip())
+        elif "registers" in line or "spill" in line or "warning" in line:
+            lines.append(f"{kernel}: {line.strip()}")
+    return lines
 
 
 GEOMETRIES = {
@@ -866,19 +896,24 @@ def attended_pairs(case) -> int:
 
 
 def flash_bound_ms(case, kind: str) -> tuple[float, str]:
-    """Least time of one kernel call: every input and output once (q, k, v
-    and out / dO, dq / dO, dk, dv, the fp32 lse and delta rows, the mask),
-    against 2·D flops per product per attended pair (forward 2 products,
-    dq 3, dk/dv 4) at the dtype's dense peak."""
+    """Least time of one call: every input and output once, against 2·D
+    flops per product per attended pair at the dtype's dense peak. fwd: q,
+    k, v, out, lse; 2 products. dq: q, k, v, dO, out, lse read, dq and
+    delta written; 3 products. dkv: q, k, v, dO, lse, delta read, dk, dv
+    written; 4 products. bwd, the whole backward as one function: q, k, v,
+    out, dO, lse read, dq, dk, dv written; 5 products (q.k, dO.v, dS.K,
+    P^T.dO, dS^T.Q, as a one-pass kernel would do them). Each counts the
+    mask too."""
     q, k = case["q"], case["k"]
     esize = q.element_size()
     nq, nk = q.numel(), k.numel()
     rows = q.shape[0] * q.shape[2] * q.shape[1] * 4  # one fp32 [B, N, S] row set
     mask = 0 if case["mask"] is None else case["mask"].numel() * 4 + case["limit"].numel() * 4
     tensors = {"fwd": (2 * nq + 2 * nk) * esize + rows,
-               "dq": (3 * nq + 2 * nk) * esize + 2 * rows,
-               "dkv": (2 * nq + 4 * nk) * esize + 2 * rows}[kind]
-    products = {"fwd": 2, "dq": 3, "dkv": 4}[kind]
+               "dq": (4 * nq + 2 * nk) * esize + 2 * rows,
+               "dkv": (2 * nq + 4 * nk) * esize + 2 * rows,
+               "bwd": (4 * nq + 4 * nk) * esize + rows}[kind]
+    products = {"fwd": 2, "dq": 3, "dkv": 4, "bwd": 5}[kind]
     flops = 2.0 * products * q.shape[3] * q.shape[2] * attended_pairs(case)
     t_bytes = (tensors + mask) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
@@ -953,9 +988,40 @@ def grad_error(got, want, dtype) -> tuple[float, float]:
     return err, tol
 
 
+class AtenOps(TorchDispatchMode):
+    """Records the name of every ATen op that runs under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+ALLOCATIONS = {"empty", "empty_like", "empty_strided"}  # ATen ops that launch no kernel
+
+
+def backward_eager_ops(args) -> tuple[list[str], tuple[int, int]]:
+    """What the autograd function's backward (``fa.flash_backward``) runs
+    besides its two kernels: the ATen ops other than allocations (delta is
+    computed inside the dq kernel, so none), and the launches of the dq and
+    dk/dv kernels (one each)."""
+    before = (fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    with AtenOps() as mode:
+        fa.flash_backward(*args)
+    launches = (fa.flash_backward_dq.launches - before[0], fa.flash_backward_dkv.launches - before[1])
+    return sorted(set(mode.ops) - ALLOCATIONS), launches
+
+
 def phase_flash_backward(card: str) -> tuple[dict, dict]:
     """dq and dk/dv kernels vs the plain backward and vs autograd through
-    the plain forward; returns the records of geometry (a) in bf16."""
+    the plain forward, delta (written by the dq kernel) vs the plain
+    formula, two launches bit-identical; the whole backward as autograd
+    runs it (the dq kernel, then dk/dv) timed beside SDPA's backward, with
+    the ATen ops of one such backward checked; returns the records of
+    geometry (a) in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(SEED + 11)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -965,12 +1031,20 @@ def phase_flash_backward(card: str) -> tuple[dict, dict]:
             c = flash_case(rng, geometry, dtype)
             q, k, v, do, mask, limit = (c[n] for n in ("q", "k", "v", "do", "mask", "limit"))
             out, lse = fa.flash_forward(q, k, v, mask, limit, c["causal"], c["scale"])
-            delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-            args = (q, k, v, mask, limit, do, lse, delta, c["causal"], c["scale"])
-            ref_args = (q, k, v, mask, do, lse, delta, c["causal"], c["scale"])
-            dq = fa.flash_backward_dq(*args)
-            dk, dv = fa.flash_backward_dkv(*args)
+            dq_args = (q, k, v, mask, limit, do, lse, out, c["causal"], c["scale"])
+            dq, delta = fa.flash_backward_dq(*dq_args)
+            dkv_args = (q, k, v, mask, limit, do, lse, delta, c["causal"], c["scale"])
+            dk, dv = fa.flash_backward_dkv(*dkv_args)
+            dq2, delta2 = fa.flash_backward_dq(*dq_args)
+            dk2, dv2 = fa.flash_backward_dkv(*dkv_args)
+            identical = all(torch.equal(a, b) for a, b in ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+            del dq2, delta2, dk2, dv2
+            want_delta = fa.flash_delta_reference(do, out)
             torch.cuda.synchronize()
+            delta_err = float((delta - want_delta).abs().max().item())
+            # the same fp32 products summed in another order, relative to the largest row
+            delta_tol = 1e-4 * max(float(want_delta.abs().max().item()), 1.0)
+            ref_args = (q, k, v, mask, do, lse, want_delta, c["causal"], c["scale"])
             errors = {}
             want = {"dq": fa.flash_backward_dq_reference(*ref_args)}
             want.update(zip(("dk", "dv"), fa.flash_backward_dkv_reference(*ref_args)))
@@ -986,10 +1060,17 @@ def phase_flash_backward(card: str) -> tuple[dict, dict]:
             del leaves
             torch.cuda.empty_cache()
             padded_zero = mask is None or all(int(torch.count_nonzero(x[-1]).item()) == 0 for x in (dq, dk, dv))
-            ms_dq = time_ms(lambda: fa.flash_backward_dq(*args), flush, iters=20)
-            ms_dkv = time_ms(lambda: fa.flash_backward_dkv(*args), flush, iters=20)
+            ms_dq = time_ms(lambda: fa.flash_backward_dq(*dq_args), flush, iters=20)
+            ms_dkv = time_ms(lambda: fa.flash_backward_dkv(*dkv_args), flush, iters=20)
             plain_dq = time_ms(lambda: fa.flash_backward_dq_reference(*ref_args), flush, iters=3)
             plain_dkv = time_ms(lambda: fa.flash_backward_dkv_reference(*ref_args), flush, iters=3)
+            # the whole backward as autograd runs it, beside SDPA's backward the same way
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            flash_out = fa._FlashAttention.apply(*leaves, mask, limit, c["causal"], c["scale"])
+            backward = time_ms(lambda: torch.autograd.grad(flash_out, leaves, do, retain_graph=True),
+                               flush, iters=20)
+            eager, launches = backward_eager_ops((q, k, v, mask, limit, do, lse, out, c["causal"], c["scale"]))
+            del leaves, flash_out
             qh, kh, vh, kw = sdpa_inputs(c, requires_grad=True)
             sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
             do_h = do.transpose(1, 2).contiguous()
@@ -998,24 +1079,33 @@ def phase_flash_backward(card: str) -> tuple[dict, dict]:
             del qh, kh, vh, kw, sdpa_out, do_h
             b_dq, by_dq = flash_bound_ms(c, "dq")
             b_dkv, by_dkv = flash_bound_ms(c, "dkv")
+            b_bwd, by_bwd = flash_bound_ms(c, "bwd")
             worst = ", ".join(f"{key} {e:.3e} (tol {t:.1e})" for key, (e, t) in errors.items())
             print(
-                f"[flash-bwd] {name} {str(dtype).split('.')[-1]}: {worst}; padded row exactly 0: "
-                f"{padded_zero}; dq {ms_dq:.4f} ms (plain {plain_dq:.4f}, bound {b_dq:.4f} {by_dq}, "
+                f"[flash-bwd] {name} {str(dtype).split('.')[-1]}: {worst}; delta {delta_err:.3e} (tol "
+                f"{delta_tol:.1e}); padded row exactly 0: {padded_zero}; two launches bit-identical: "
+                f"{identical}; dq {ms_dq:.4f} ms (plain {plain_dq:.4f}, bound {b_dq:.4f} {by_dq}, "
                 f"{b_dq / ms_dq:.1%}), dkv {ms_dkv:.4f} ms (plain {plain_dkv:.4f}, bound {b_dkv:.4f} "
-                f"{by_dkv}, {b_dkv / ms_dkv:.1%}), SDPA backward (dq, dk, dv in one call) library_ms "
-                f"{library:.4f} [{card}]"
+                f"{by_dkv}, {b_dkv / ms_dkv:.1%}); whole backward through autograd {backward:.4f} ms "
+                f"(eager ops besides allocations {eager}, launches dq/dkv {launches}; bound {b_bwd:.4f} {by_bwd}, "
+                f"{b_bwd / backward:.1%}), SDPA backward "
+                f"through autograd library_ms {library:.4f} ({backward / library:.2f}x) [{card}]"
             )
-            if any(not (e <= t) for e, t in errors.values()) or not padded_zero:
-                raise AssertionError(f"flash backward disagrees at {name} {dtype}: {errors}")
+            if (any(not (e <= t) for e, t in errors.values()) or not padded_zero or not identical
+                    or not (delta_err <= delta_tol)):
+                raise AssertionError(f"flash backward disagrees at {name} {dtype}: {errors}, delta "
+                                     f"{delta_err}, identical {identical}")
+            if eager or launches != (1, 1):
+                raise AssertionError(f"the flash backward ran {eager} and launched {launches} besides dq, dk/dv")
             if name == "a_125m_s1024" and dtype == torch.bfloat16:
+                common = dict(library_ms=library, backward_ms=backward, backward_bound_ms=b_bwd)
                 records = (
                     dict(max_abs_err=errors["dq/plain"][0], ms=ms_dq, plain_ms=plain_dq, bound_ms=b_dq,
-                         bound_by=by_dq, library_ms=library),
+                         bound_by=by_dq, **common),
                     dict(max_abs_err=max(errors["dk/plain"][0], errors["dv/plain"][0]), ms=ms_dkv,
-                         plain_ms=plain_dkv, bound_ms=b_dkv, bound_by=by_dkv, library_ms=library),
+                         plain_ms=plain_dkv, bound_ms=b_dkv, bound_by=by_dkv, **common),
                 )
-            del c, args, ref_args, q, k, v, do, out, lse, delta, dq, dk, dv
+            del c, dq_args, dkv_args, ref_args, q, k, v, do, out, lse, delta, want_delta, dq, dk, dv
             torch.cuda.empty_cache()
     return records
 

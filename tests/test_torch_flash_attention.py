@@ -152,3 +152,32 @@ def test_plain_backward_matches_autograd_through_the_plain_forward():
     for got, leaf in zip((dq, dk, dv), leaves):
         np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
     assert int(limit[1]) == 99 and int(limit[0]) == 255
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidirectional"])
+def test_backward_entry_matches_jax_grads(causal, masked):
+    """The backward entry the autograd function runs, on CPU tensors: the
+    dq wrapper returns dq with ``delta = rowsum(dO·O)`` by the plain
+    formula, and ``flash_backward`` (dq, then dk/dv fed that delta) fed the
+    plain forward's out and lse gives the JAX package's flash vjp, GQA, in
+    fp32 within GRAD_TOL (the two sides sum in other orders)."""
+    q, k, v, do = _case(kv=2, seed=20 + 2 * causal + masked)
+    mask = None
+    if masked:
+        mask = np.ones((2, 256), np.int32)
+        mask[0, 200:] = 0
+        mask[1, 100:] = 0
+    _, want = _jax(q, k, v, do, mask, causal=causal)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    m = limit = None
+    if masked:
+        m, limit = fa._mask_limit(torch.tensor(mask))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    out, lse = fa.flash_forward(tq, tk, tv, m, limit, causal, scale)
+    dq, delta = fa.flash_backward_dq(tq, tk, tv, m, limit, tdo, lse, out, causal, scale)
+    np.testing.assert_array_equal(delta.numpy(), (tdo * out).sum(-1).transpose(1, 2).numpy())
+    grads = fa.flash_backward(tq, tk, tv, m, limit, tdo, lse, out, causal, scale)
+    np.testing.assert_array_equal(grads[0].numpy(), dq.numpy())
+    for g, w, name in zip(grads, want, "qkv"):
+        np.testing.assert_allclose(g.numpy(), w, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"d{name}")

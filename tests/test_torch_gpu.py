@@ -10,6 +10,7 @@ the module is imported, so every worker collects the same tests."""
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from accelerate_tpu_torch import (
     Accelerator,
@@ -50,6 +51,9 @@ pytestmark = pytest.mark.gpu
 # max abs error of the kernel against its plain version: fp32 sums in
 # another order; bf16 outputs may differ by one unit in the last place
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the delta rows the dq kernel writes against the plain formula, relative to
+# the largest row (at least 1): the same fp32 products summed in another order
+DELTA_TOLERANCE = 1e-4
 
 
 @pytest.fixture
@@ -288,6 +292,7 @@ def test_quantized_resident_engine_on_the_card(cuda):
 FLASH_GEOMETRIES = {
     "causal_d64": (2, 256, 256, 4, 4, 64, True, False),
     "causal_gqa_masked": (2, 256, 256, 8, 2, 64, True, True),
+    "causal_gqa_masked_s192": (2, 192, 192, 8, 2, 64, True, True),
     "d128_gqa_masked": (2, 192, 192, 4, 2, 128, True, True),
     "noncausal_cross_masked": (2, 128, 320, 4, 2, 64, False, True),
 }
@@ -324,16 +329,16 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, geometry):
     before = (fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
     out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
     want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, mask, limit, do, lse, delta, causal, scale)
-    dq = fa.flash_backward_dq(*args)
-    dk, dv = fa.flash_backward_dkv(*args)
+    dq, delta = fa.flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale)
+    dk, dv = fa.flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale)
     torch.cuda.synchronize()
     after = (fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
     assert after == tuple(x + 1 for x in before)
     assert float((out.float() - want_out.float()).abs().max()) <= TOLERANCE[dtype]
     assert float((lse - want_lse).abs().max()) <= 1e-4
-    ref_args = (q, k, v, mask, do, lse, delta, causal, scale)
+    want_delta = fa.flash_delta_reference(do, out)
+    assert float((delta - want_delta).abs().max()) <= DELTA_TOLERANCE * float(want_delta.abs().max().clamp(min=1))
+    ref_args = (q, k, v, mask, do, lse, want_delta, causal, scale)
     grads = {"dq": (dq, fa.flash_backward_dq_reference(*ref_args))}
     grads.update(zip(("dk", "dv"), zip((dk, dv), fa.flash_backward_dkv_reference(*ref_args))))
     for name, (got, want) in grads.items():
@@ -377,12 +382,9 @@ def test_flash_forward_lse_feeds_the_backward_kernels(cuda, geometry):
     backward's tolerance (2e-2 of each gradient's largest magnitude)."""
     q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, torch.bfloat16, geometry, seed=9)
     out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, mask, limit, do, lse, delta, causal, scale)
-    got = {"dq": fa.flash_backward_dq(*args)}
-    got.update(zip(("dk", "dv"), fa.flash_backward_dkv(*args)))
+    got = dict(zip(("dq", "dk", "dv"), fa.flash_backward(q, k, v, mask, limit, do, lse, out, causal, scale)))
     ref_out, ref_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale)
-    ref_delta = (do.float() * ref_out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref_delta = fa.flash_delta_reference(do, ref_out)
     ref_args = (q, k, v, mask, do, ref_lse, ref_delta, causal, scale)
     want = {"dq": fa.flash_backward_dq_reference(*ref_args)}
     want.update(zip(("dk", "dv"), fa.flash_backward_dkv_reference(*ref_args)))
@@ -391,6 +393,71 @@ def test_flash_forward_lse_feeds_the_backward_kernels(cuda, geometry):
         err = float((got[name].float() - want[name].float()).abs().max())
         tol = 2e-2 * float(want[name].float().abs().max())
         assert err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("geometry", list(FLASH_GEOMETRIES.values()), ids=list(FLASH_GEOMETRIES))
+def test_flash_backward_kernels_are_bit_identical_across_launches(cuda, geometry):
+    """bf16: two launches of the dq kernel (dq and the delta rows it
+    writes) and of the dk/dv kernel give the same bits: every block owns
+    its output rows and sums them in a fixed order, no atomics."""
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, torch.bfloat16, geometry, seed=11)
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale)
+        runs.append((dq, delta, *fa.flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "delta", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geometry", list(FLASH_GEOMETRIES.values()), ids=list(FLASH_GEOMETRIES))
+def test_whole_cuda_backward_matches_plain_backward(cuda, dtype, geometry):
+    """flash_backward (the dq kernel writing delta, then dk/dv) against the
+    plain dq and dk/dv versions fed delta by the plain formula: 5e-4 in
+    fp32, 2e-2 of each gradient's largest magnitude in bf16; a fully padded
+    batch row gives exact zeros."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, dtype, geometry, seed=13)
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    got = dict(zip(("dq", "dk", "dv"), fa.flash_backward(q, k, v, mask, limit, do, lse, out, causal, scale)))
+    ref_args = (q, k, v, mask, do, lse, fa.flash_delta_reference(do, out), causal, scale)
+    want = {"dq": fa.flash_backward_dq_reference(*ref_args)}
+    want.update(zip(("dk", "dv"), fa.flash_backward_dkv_reference(*ref_args)))
+    torch.cuda.synchronize()
+    for name in ("dq", "dk", "dv"):
+        err = float((got[name].float() - want[name].float()).abs().max())
+        tol = 5e-4 if dtype == torch.float32 else 2e-2 * float(want[name].float().abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+        if mask is not None:
+            assert torch.count_nonzero(got[name][-1]) == 0, name
+
+
+class _AtenOps(TorchDispatchMode):
+    """Records the name of every ATen op that runs under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_backward_runs_no_eager_op(cuda, dtype):
+    """On CUDA tensors the autograd function's backward is its two kernels:
+    delta = rowsum(dO·O) is computed inside the dq kernel, so no ATen op
+    runs but the outputs' allocations."""
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, dtype, FLASH_GEOMETRIES["causal_gqa_masked"])
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+    before = (fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    with _AtenOps() as mode:
+        fa.flash_backward(q, k, v, mask, limit, do, lse, out, causal, scale)
+    assert set(mode.ops) <= {"empty", "empty_like", "empty_strided"}, mode.ops
+    assert (fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("masked", [False, True])

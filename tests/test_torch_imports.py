@@ -1,6 +1,7 @@
 """The port stands alone: no file of ``accelerate_tpu_torch/``, nor
-``chip_smoke.py``, imports ``jax``, ``optax`` or ``accelerate_tpu``. Checked
-on the source (an AST scan), since the test process imports JAX anyway."""
+``chip_smoke.py`` or ``chip_compare.py``, imports ``jax``, ``optax`` or
+``accelerate_tpu``. Checked on the source (an AST scan), since the test
+process imports JAX anyway."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "accelerate_tpu")
 
 
 def _port_sources():
-    files = [os.path.join(REPO_ROOT, "chip_smoke.py")]
+    files = [os.path.join(REPO_ROOT, name) for name in ("chip_smoke.py", "chip_compare.py")]
     for root, _, names in os.walk(os.path.join(REPO_ROOT, "accelerate_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return sorted(files)
