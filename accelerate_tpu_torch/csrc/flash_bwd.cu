@@ -53,6 +53,9 @@
 // - Causal balance and L2: a head's blocks are neighbours in the one-dimensional grid,
 //   heaviest first (dq: the last q rows; dk/dv: the first keys), so they share their
 //   streamed tiles through L2 while the light blocks fill the tail.
+// D = 32 runs the D = 64 kernels on one-box tiles whose columns 32 .. 63 TMA fills with zeros
+// (hopper.cuh `tile_dim`): the score products take the first 32 columns, the accumulators'
+// columns past 32 stay zero, and only 32 are stored; delta reads the real rows.
 // A consumer whose 64 rows lie past S (dq with three consumers, S an odd number of 64-row
 // tiles) leaves at once and the barriers count one warpgroup fewer. fp32 takes CUDA-core
 // FMAs, its bands through shared memory (the tensor cores take fp32 only as TF32); its dq
@@ -174,7 +177,7 @@ __device__ __forceinline__ void row_delta(float (&dl)[2], const bf16* dout, cons
 }
 
 template <int D, int kN>
-__global__ void __launch_bounds__(DqTeam<D, kN>::kThreads, DqTeam<D, kN>::kBlocks)
+__global__ void __launch_bounds__(DqTeam<tile_dim(D), kN>::kThreads, DqTeam<tile_dim(D), kN>::kBlocks)
 flash_dq_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
     const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
@@ -188,8 +191,9 @@ flash_dq_bf16_kernel(
     float* __restrict__ delta,       // [B, NH, S], written here
     bf16* __restrict__ dq,           // [B, S, NH, D]
     int S, int Tk, int NH, int KV, float scale, int causal) {
-  using L = DqLayout<D, kN>;
-  using W = DqTeam<D, kN>;
+  constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dq band
+  using L = DqLayout<kDt, kN>;
+  using W = DqTeam<kDt, kN>;
   constexpr int kNt = kN / 8;  // 8-column tiles of a score band
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -237,7 +241,7 @@ flash_dq_bf16_kernel(
       if (lane == 0) {
         mbar_arrive_expect(q_full, 2 * tiles * L::kTile);
         for (int w = 0; w < tiles; ++w)
-          for (int c = 0; c < D / kBox; ++c) {
+          for (int c = 0; c < kDt / kBox; ++c) {
             const int row = b * S + q0 + w * kBlockQ;
             tma_load(qs + w * L::kTile + c * kBoxBytes, &q_map, q_full, c * kBox, h, row);
             tma_load(dos + w * L::kTile + c * kBoxBytes, &do_map, q_full, c * kBox, h, row);
@@ -252,7 +256,7 @@ flash_dq_bf16_kernel(
             pen[stage * kN + i] = mask_penalty(mask, 1LL * b * Tk + j * kN + i) / scale;
         if (lane == 0) {
           mbar_arrive_expect(&full[stage], 2 * L::kKvTile);
-          for (int c = 0; c < D / kBox; ++c)
+          for (int c = 0; c < kDt / kBox; ++c)
             for (int r = 0; r < kN / kBoxRows; ++r) {
               const int off = stage * L::kKvTile + (c * (kN / kBoxRows) + r) * kBoxBytes;
               const int row = b * Tk + j * kN + r * kBoxRows;
@@ -299,7 +303,7 @@ flash_dq_bf16_kernel(
   const uint64_t k_desc = sw128_desc(ks, 16, 1024);          // K-major B of Q.K^T
   const uint64_t v_desc = sw128_desc(vs, 16, 1024);          // K-major B of dO.V^T
   const uint64_t kt_desc = sw128_desc(ks, kBoxBytes, 1024);  // MN-major B of dS.K
-  float acc[D / 8][4];
+  float acc[kDt / 8][4];
   zero(acc);
   float s[kNt][4], dp[kNt][4];
   zero(s);
@@ -355,7 +359,7 @@ flash_dq_bf16_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNt / 2; ++kk)
-      wgmma_rs<D>(acc, ds[kk], kt_desc + stage_off + mnmajor_step(kk));
+      wgmma_rs<kDt>(acc, ds[kk], kt_desc + stage_off + mnmajor_step(kk));
     wgmma_commit();
     wgmma_wait_all();
     pin(acc);
@@ -377,7 +381,8 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     bf16* __restrict__ dk,            // [B, T, KV, D]
     bf16* __restrict__ dv,            // [B, T, KV, D]
     int S, int Tk, int NH, int KV, float scale, int causal) {
-  using L = DkvLayout<D, kM>;
+  constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dk, dv bands
+  using L = DkvLayout<kDt, kM>;
   using W = DkvTeam;
   constexpr int kNt = kM / 8;
   extern __shared__ unsigned char smem_raw[];
@@ -429,7 +434,7 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     if (warp == 0 && lane == 0 && n_iter > 0) {
       mbar_arrive_expect(kv_full, 2 * tiles * L::kTile);
       for (int w = 0; w < tiles; ++w)
-        for (int c = 0; c < D / kBox; ++c) {
+        for (int c = 0; c < kDt / kBox; ++c) {
           const int row = b * Tk + k0 + w * kBlockK;
           tma_load(ks + w * L::kTile + c * kBoxBytes, &k_map, kv_full, c * kBox, g, row);
           tma_load(vs + w * L::kTile + c * kBoxBytes, &v_map, kv_full, c * kBox, g, row);
@@ -441,7 +446,7 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
         const int h = g * group + it / nq;
         const int jq = lower + it % nq;
         mbar_arrive_expect(&full[stage], 2 * L::kQTile + 2 * kM * 4);
-        for (int c = 0; c < D / kBox; ++c)
+        for (int c = 0; c < kDt / kBox; ++c)
           for (int r = 0; r < kM / kBoxRows; ++r) {
             const int off = stage * L::kQTile + (c * (kM / kBoxRows) + r) * kBoxBytes;
             const int row = b * S + jq * kM + r * kBoxRows;
@@ -477,7 +482,7 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
   const uint64_t do_desc = sw128_desc(dos, 16, 1024);                // K-major B of V.dO^T
   const uint64_t qt_desc = sw128_desc(qs, kBoxBytes, 1024);          // MN-major B of dS^T.Q
   const uint64_t dot_desc = sw128_desc(dos, kBoxBytes, 1024);        // MN-major B of P^T.dO
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[kDt / 8][4], dv_acc[kDt / 8][4];
   zero(dk_acc);
   zero(dv_acc);
   float st[kNt][4], dpt[kNt][4];  // S^T and dP^T for the band's keys
@@ -545,10 +550,10 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNt / 2; ++kk)
-      wgmma_rs<D>(dv_acc, pa[kk], dot_desc + stage_off + mnmajor_step(kk));
+      wgmma_rs<kDt>(dv_acc, pa[kk], dot_desc + stage_off + mnmajor_step(kk));
 #pragma unroll
     for (int kk = 0; kk < kNt / 2; ++kk)
-      wgmma_rs<D>(dk_acc, da[kk], qt_desc + stage_off + mnmajor_step(kk));
+      wgmma_rs<kDt>(dk_acc, da[kk], qt_desc + stage_off + mnmajor_step(kk));
     wgmma_commit();
     wgmma_wait<0>();
     pin(dv_acc);
@@ -854,6 +859,10 @@ cudaError_t encode_maps(CUtensorMap (&maps)[4], const void* q, const void* dout,
   return cudaSuccess;
 }
 
+// The kernel's register check and shared-memory limit. These runtime calls come before the
+// tensor maps are encoded: they make the device's context current on the calling thread, which
+// the encoder (a driver call) needs; on a thread that had made no runtime call, as autograd's
+// backward thread after a serving pass in the same process, it refused the maps.
 template <typename Team, typename Kernel>
 cudaError_t prepare_bf16(Kernel kernel, int smem) {
   const cudaError_t err = check_registers<Team>(kernel);
@@ -866,13 +875,13 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const in
                            const int* limit, const void* dout, const void* out, const float* lse,
                            float* delta, void* dq, int B, int S, int Tk, int NH, int KV,
                            float scale, int causal, cudaStream_t stream) {
-  using L = DqLayout<D, kN>;
-  using W = DqTeam<D, kN>;
-  CUtensorMap maps[4];
-  cudaError_t err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D);
-  if (err != cudaSuccess) return err;
+  using L = DqLayout<tile_dim(D), kN>;
+  using W = DqTeam<tile_dim(D), kN>;
   auto kernel = flash_dq_bf16_kernel<D, kN>;
-  if ((err = prepare_bf16<W>(kernel, L::kAlloc)) != cudaSuccess) return err;
+  cudaError_t err = prepare_bf16<W>(kernel, L::kAlloc);  // first: see prepare_bf16
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[4];
+  if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((S + W::kRows - 1) / W::kRows) * NH * B;
   kernel<<<grid, W::kThreads, L::kAlloc, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(dout),
@@ -886,12 +895,12 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const i
                             const int* limit, const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
                             int KV, float scale, int causal, cudaStream_t stream) {
-  using L = DkvLayout<D, kM>;
-  CUtensorMap maps[4];
-  cudaError_t err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D);
-  if (err != cudaSuccess) return err;
+  using L = DkvLayout<tile_dim(D), kM>;
   auto kernel = flash_dkv_bf16_kernel<D, kM>;
-  if ((err = prepare_bf16<DkvTeam>(kernel, L::kAlloc)) != cudaSuccess) return err;
+  cudaError_t err = prepare_bf16<DkvTeam>(kernel, L::kAlloc);  // first: see prepare_bf16
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[4];
+  if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((Tk + DkvTeam::kRows - 1) / DkvTeam::kRows) * KV * B;
   kernel<<<grid, DkvTeam::kThreads, L::kAlloc, stream>>>(maps[0], maps[1], maps[2], maps[3], mask,
                                                    limit, lse, delta, static_cast<bf16*>(dk),
@@ -959,6 +968,12 @@ int flash_backward_dq(const void* q, const void* k, const void* v, const void* m
   if (dtype == 1 && D == 64 && causal && Tk % 128 == 0)  // see DqTeam
     return launch_dq_bf16<64, 128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
                                    scale, causal, s);
+  if (dtype == 1 && D == 32 && causal && Tk % 128 == 0)
+    return launch_dq_bf16<32, 128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
+                                   scale, causal, s);
+  if (dtype == 1 && D == 32)
+    return launch_dq_bf16<32, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
+                                  causal, s);
   if (dtype == 1 && D == 64)
     return launch_dq_bf16<64, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
                                   causal, s);
@@ -971,6 +986,9 @@ int flash_backward_dq(const void* q, const void* k, const void* v, const void* m
   if (dtype == 0 && D == 128)
     return launch_dq_f32<128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
                               causal, s);
+  if (dtype == 0 && D == 32)
+    return launch_dq_f32<32>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
+                             causal, s);
   return cudaErrorInvalidValue;
 }
 
@@ -989,6 +1007,12 @@ int flash_backward_dkv(const void* q, const void* k, const void* v, const void* 
   if (dtype == 1 && D == 64 && S % 128 == 0)  // see DkvTeam
     return launch_dkv_bf16<64, 128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
                                     causal, s);
+  if (dtype == 1 && D == 32 && S % 128 == 0)
+    return launch_dkv_bf16<32, 128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                                    causal, s);
+  if (dtype == 1 && D == 32)
+    return launch_dkv_bf16<32, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                                   causal, s);
   if (dtype == 1 && D == 64)
     return launch_dkv_bf16<64, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
                                    causal, s);
@@ -1001,6 +1025,9 @@ int flash_backward_dkv(const void* q, const void* k, const void* v, const void* 
   if (dtype == 0 && D == 128)
     return launch_dkv_f32<128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
                                causal, s);
+  if (dtype == 0 && D == 32)
+    return launch_dkv_f32<32>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
+                              causal, s);
   return cudaErrorInvalidValue;
 }
 

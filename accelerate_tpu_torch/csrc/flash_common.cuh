@@ -154,11 +154,13 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
   for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
 }
 
-// Stores a band's bf16 rows from its accumulators, each divided by its row's `div` (1 for
-// none): rows `row` and `row + 8` of the lane at `dst` (row stride `stride` elements).
-template <int NT>
-__device__ __forceinline__ void store_rows(bf16* dst, long long stride, const float (&c)[NT][4],
+// Stores a band's bf16 rows from the first NT of its NA accumulator tiles (NA > NT where the
+// tile is wider than the head dim), each divided by its row's `div` (1 for none): rows `row`
+// and `row + 8` of the lane at `dst` (row stride `stride` elements).
+template <int NT, int NA>
+__device__ __forceinline__ void store_rows(bf16* dst, long long stride, const float (&c)[NA][4],
                                            const float (&div)[2]) {
+  static_assert(NT <= NA, "the stored columns lie inside the tile");
   const int lane = threadIdx.x & 31;
   const int t = lane & 3;
 #pragma unroll

@@ -23,7 +23,9 @@
 //   and the producer's arrivals: its lanes also stage the tile's mask penalties) and an
 //   "empty" one (one arrival per consumer warp once its products have read the stage).
 //   At D = 64 an SM holds four blocks (96 registers a thread), at D = 128 two: the other
-//   blocks' products run while one block is in its softmax.
+//   blocks' products run while one block is in its softmax. D = 32 runs the D = 64 block on
+//   one-box tiles whose columns 32 .. 63 TMA fills with zeros (hopper.cuh `tile_dim`): Q.K^T
+//   takes the first 32 columns, P.V gives zero columns past 32, and only 32 are stored.
 // - Both products by wgmma, fp32 accumulators in registers: S = Q.K^T from shared memory
 //   (K-major A and B, m64n64k16), then O += P.V with P rounded to bf16 in registers as the A
 //   operand and V read from shared memory as an MN-major B operand (m64nDk16). The
@@ -79,7 +81,7 @@ struct FwdLayout {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash_fwd_bf16_kernel(
+__global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPerSm) flash_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,  // q [B * S, NH, D]
     const __grid_constant__ CUtensorMap k_map,  // k [B * T, KV, D]
     const __grid_constant__ CUtensorMap v_map,  // v [B * T, KV, D]
@@ -88,7 +90,8 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
     bf16* __restrict__ out,          // [B, S, NH, D]
     float* __restrict__ lse,         // [B, NH, S]
     int B, int S, int Tk, int NH, int KV, float scale, int causal) {
-  using L = FwdLayout<D>;
+  constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the output band
+  using L = FwdLayout<kDt>;
   constexpr int kNt = kBlockK / 8;  // 8-column tiles of a score band
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -132,7 +135,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
     // ---- producer warp
     if (lane == 0) {
       mbar_arrive_expect(q_full, L::kTile);
-      for (int c = 0; c < D / kBox; ++c)
+      for (int c = 0; c < kDt / kBox; ++c)
         tma_load(qs + c * kBoxBytes, &q_map, q_full, c * kBox, h, b * S + iq * kBlockQ);
     }
     for (int j = 0; j < nk; ++j) {
@@ -145,7 +148,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
       if (lane == 0) {
         mbar_arrive_expect(&full[stage], 2 * L::kTile);
         const int row = b * Tk + j * kBlockK;
-        for (int c = 0; c < D / kBox; ++c) {
+        for (int c = 0; c < kDt / kBox; ++c) {
           tma_load(ks + stage * L::kTile + c * kBoxBytes, &k_map, &full[stage], c * kBox, g, row);
           tma_load(vs + stage * L::kTile + c * kBoxBytes, &v_map, &full[stage], c * kBox, g, row);
         }
@@ -171,7 +174,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
   const uint64_t q_desc = sw128_desc(qs, 16, 1024);
   const uint64_t k_desc = sw128_desc(ks, 16, 1024);
   const uint64_t v_desc = sw128_desc(vs, kBoxBytes, 1024);
-  float o[D / 8][4];
+  float o[kDt / 8][4];
   zero(o);
   float s[kNt][4];
   zero(s);
@@ -237,7 +240,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
       m_run[r] = m_new[r];
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < kDt / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] *= corr[e >> 1];
     uint32_t p[kNt / 2][4];
@@ -248,7 +251,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<D>::kBlocksPerSm) flash
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kNt / 2; ++kk)
-      wgmma_rs<D>(o, p[kk], v_desc + stage_off + mnmajor_step(kk));
+      wgmma_rs<kDt>(o, p[kk], v_desc + stage_off + mnmajor_step(kk));
     wgmma_commit();
     wgmma_wait_all();
     pin(o);
@@ -269,7 +272,13 @@ template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask,
                         const int* limit, void* out, float* lse, int B, int S, int Tk, int NH,
                         int KV, float scale, int causal, cudaStream_t stream) {
-  using L = FwdLayout<D>;
+  using L = FwdLayout<tile_dim(D)>;
+  // a runtime call first: it makes the device's context current on this thread, which the
+  // tensor-map encoder (a driver call) needs (hopper.cuh `encode_map`)
+  auto kernel = flash_fwd_bf16_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
+  if (err != cudaSuccess) return err;
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap q_map, k_map, v_map;
@@ -277,10 +286,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
       !encode_map(encode, &k_map, k, 1LL * B * Tk, KV, D) ||
       !encode_map(encode, &v_map, v, 1LL * B * Tk, KV, D))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_bf16_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
-  if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>(S / kBlockQ) * NH * B;
   kernel<<<grid, kFwdThreads, L::kAlloc, stream>>>(q_map, k_map, v_map, mask, limit,
                                                    static_cast<bf16*>(out), lse, B, S, Tk, NH,
@@ -440,7 +445,7 @@ extern "C" {
 
 // q [B, S, NH, D], k / v [B, T, KV, D], out like q: contiguous, dtype 0 = float32,
 // 1 = bfloat16. mask int32 [B, T] and limit int32 [B] (last valid key, -1 for none), both
-// null without a mask. lse fp32 [B, NH, S]. S and T multiples of 64, D 64 or 128.
+// null without a mask. lse fp32 [B, NH, S]. S and T multiples of 64, D 32, 64 or 128.
 // Returns a cudaError_t (0 = launched).
 int flash_forward(const void* q, const void* k, const void* v, const void* mask,
                   const void* limit, void* out, void* lse, int B, int S, int Tk, int NH, int KV,
@@ -456,12 +461,17 @@ int flash_forward(const void* q, const void* k, const void* v, const void* mask,
     return launch_bf16<64>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
   if (dtype == 1 && D == 128)
     return launch_bf16<128>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
+  if (dtype == 1 && D == 32)
+    return launch_bf16<32>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
   if (dtype == 0 && D == 64)
     return launch_f32<F32Layout<64>, float>(flash_fwd_f32_kernel<64>, q, k, v, m, lim, out, l,
                                             B, S, Tk, NH, KV, scale, causal, s);
   if (dtype == 0 && D == 128)
     return launch_f32<F32Layout<128>, float>(flash_fwd_f32_kernel<128>, q, k, v, m, lim, out, l,
                                              B, S, Tk, NH, KV, scale, causal, s);
+  if (dtype == 0 && D == 32)
+    return launch_f32<F32Layout<32>, float>(flash_fwd_f32_kernel<32>, q, k, v, m, lim, out, l,
+                                            B, S, Tk, NH, KV, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,10 @@
 // Tiles: a TMA box is 64 rows of 64 bf16 columns (128 bytes, the swizzle span) in the
 // 128-byte swizzle; a tile of 64 rows and D columns is D / 64 boxes, one after the other
 // (kBoxBytes apart). The same box serves as a K-major operand (rows are M or N, the 64
-// columns the reduction) and as an MN-major one (rows are the reduction, columns N).
+// columns the reduction) and as an MN-major one (rows are the reduction, columns N). A head
+// dim below 64 (D = 32) keeps the one-box tile (`tile_dim`): the tensor map describes the
+// real D columns, TMA fills the box's columns D .. 63 with zeros, which add nothing to a
+// product over D and give zero output columns, and the kernels store only the first D.
 
 #pragma once
 
@@ -20,6 +23,9 @@ constexpr int kBox = 64;                 // columns of a TMA box: 128 bytes of b
 constexpr int kBoxRows = 64;             // rows of a TMA box
 constexpr int kBoxBytes = kBoxRows * kBox * 2;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// columns of the shared-memory tile that holds D columns: whole boxes, at least one
+__host__ __device__ constexpr int tile_dim(int D) { return D < kBox ? kBox : D; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -310,7 +316,9 @@ inline EncodeTiled tensor_map_encoder() {
   return encode;
 }
 
-// a contiguous bf16 [rows, heads, D] tensor as a 3-D map with 64 x 1 x 64 boxes
+// a contiguous bf16 [rows, heads, D] tensor as a 3-D map with 64 x 1 x 64 boxes (at D = 32
+// a box is wider than the tensor: its columns past D arrive as zeros). Call it after a runtime
+// call on the same thread: the encoder needs the device's context current there.
 inline bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, long long rows,
                        int heads, int D) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),

@@ -20,7 +20,9 @@ bytes of q, k, v, out (and dO, dq, dk, dv) at 3.35 TB/s. In bf16 every
 kernel runs its products by ``wgmma`` on tiles that a producer copies by
 TMA into an mbarrier-guarded ring (``csrc/hopper.cuh``), and hands out its
 heaviest blocks first; all keep scores, p, dS and the accumulators in
-registers; fp32 runs on the CUDA cores. The dq kernel also computes
+registers; fp32 runs on the CUDA cores. Head dims 32, 64 and 128 are
+instantiated (at 32 the bf16 kernels keep 64-column tiles whose upper half
+TMA fills with zeros, and store 32 columns). The dq kernel also computes
 ``delta = rowsum(dO·O)`` for its rows and writes it for the dk/dv kernel,
 so the backward launches nothing else. See the sources' headers for what
 they leave for later.
@@ -53,7 +55,7 @@ NEG_INF = -1e30
 M_INIT = NEG_INF / 2
 TILE = 64  # csrc/flash_*.cu: kBlockQ = kBlockK, rows of q and of k per tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)  # D = 32 runs the D = 64 tiles, zero-filled past 32 by TMA
 # the JAX package's backward tiles: they only decide, with the forward's,
 # whether a shape tiles (the CUDA kernels choose their own tiles)
 BWD_BLOCK_Q = 512

@@ -1,15 +1,26 @@
 #!/usr/bin/env python3
 """This checkout of the PyTorch/CUDA port against another one, on one GPU.
 
-Run from the repository root: ``python3 chip_compare.py OTHER_ROOT``, where
-OTHER_ROOT is another checkout (say, the parent commit unpacked with ``git
-archive``). Each tree runs in a process of its own, in the order other,
-this, this, other, so that a drift of the card shows as a difference
-between the two runs of one tree. Each run builds its kernels, times the
-whole flash attention backward as autograd runs it (``torch.autograd.grad``
-through the flash function, bf16, at ``chip_smoke.FLASH_GEOMETRIES``, one
-JSON line each) and runs ``chip_smoke.phase_training`` (the bf16 llama-125m
-step at B=32 S=1024 and B=8 S=4096). It needs a CUDA card and exits
+Run from the repository root: ``python3 chip_compare.py OTHER_ROOT [PART
+...]``, where OTHER_ROOT is another checkout (say, the parent commit
+unpacked with ``git archive``) and each PART one of:
+
+- ``paged``: the paged decode and verify kernels in bf16 at
+  ``chip_smoke.GEOMETRIES`` (decode, and verify at each of the phase-5
+  windows), one JSON line each; a geometry the other tree's kernels refuse
+  prints as such;
+- ``serving``: one serving pass of phase 3 (llama-1b bf16, 16 requests x 64
+  new tokens), its decode step p50 and p99;
+- ``flash``: the whole flash attention backward as autograd runs it
+  (``torch.autograd.grad`` through the flash function, bf16, at
+  ``chip_smoke.FLASH_GEOMETRIES``);
+- ``training``: ``chip_smoke.phase_training`` (the bf16 llama-125m step at
+  B=32 S=1024 and B=8 S=4096).
+
+Without a PART it runs all four. Each tree runs in a process of its own, in
+the order other, this, this, other, so that a drift of the card shows as a
+difference between the two runs of one tree; both run this tree's
+geometries. Each run builds its kernels. It needs a CUDA card and exits
 non-zero without one.
 """
 
@@ -20,19 +31,58 @@ import os
 import subprocess
 import sys
 
+PARTS = ("paged", "serving", "flash", "training")
 
-def run_one(tag: str) -> None:
-    """One tree's measurements, from that tree's root (the current directory)."""
-    sys.path.insert(0, os.getcwd())
+
+def paged(cs, tag, card, flush, geometries, windows) -> None:
     import numpy as np
     import torch
 
-    import chip_smoke as cs
+    from accelerate_tpu_torch import paged_decode_attention, paged_verify_attention
+
+    rng = np.random.default_rng(cs.SEED)
+    for name, (slots, nh, kv, d, ps, pps, lengths) in geometries.items():
+        for window in [None, *windows.get(name, (cs.SPEC_K + 1, 1))]:
+            case = cs.make_case(rng, slots, nh, kv, d, ps, pps, lengths, torch.bfloat16, window=window)
+            fn = paged_decode_attention if window is None else paged_verify_attention
+            line = {"tree": tag, "kernel": "decode" if window is None else "verify", "geometry": name,
+                    "window": window, "card": card}
+            try:
+                fn(**case)
+            except ValueError as err:  # a geometry past what the other tree's kernels take
+                print(json.dumps({**line, "unsupported": str(err)}), flush=True)
+                continue
+            print(json.dumps({**line, "ms": cs.time_ms(lambda: fn(**case), flush)}), flush=True)
+            del case
+            torch.cuda.empty_cache()
+
+
+def serving(cs, tag, card) -> None:
+    import numpy as np
+    import torch
+
+    from accelerate_tpu_torch import Llama, ServingEngine
+
+    model = Llama("llama-1b", dtype=torch.bfloat16, seed=cs.SEED)
+    engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    engine.warmup()
+    for prompt in cs.serving_prompts(np.random.default_rng(cs.SEED), model.config.vocab_size):
+        engine.submit(prompt, max_new_tokens=64)
+    engine.run()
+    m = engine.metrics()
+    print(json.dumps({"tree": tag, "serving": "llama-1b bf16", "decode_p50_ms": m["per_token_p50_ms"],
+                      "decode_p99_ms": m["per_token_p99_ms"], "steps": m["steps"], "card": card}), flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def flash(cs, tag, card, flush) -> None:
+    import numpy as np
+    import torch
+
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    card = cs.phase_environment()
     rng = np.random.default_rng(cs.SEED)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     for name, geometry in cs.FLASH_GEOMETRIES.items():
         c = cs.flash_case(rng, geometry, torch.bfloat16)
         leaves = [c[n].detach().clone().requires_grad_() for n in "qkv"]
@@ -41,14 +91,33 @@ def run_one(tag: str) -> None:
         print(json.dumps({"tree": tag, "geometry": name, "backward_ms": ms, "card": card}), flush=True)
         del c, leaves, out
         torch.cuda.empty_cache()
-    cs.phase_training(card)
+
+
+def run_one(tag: str, parts: list, shapes: dict) -> None:
+    """One tree's measurements, from that tree's root (the current directory)."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as cs
+
+    card = cs.phase_environment()
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    if "paged" in parts:
+        paged(cs, tag, card, flush, shapes["geometries"], shapes["windows"])
+    if "flash" in parts:
+        flash(cs, tag, card, flush)
+    if "training" in parts:
+        cs.phase_training(card)
+    if "serving" in parts:  # last: the flash launches of earlier trees fail after a serving pass
+        serving(cs, tag, card)
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--one":
-        run_one(sys.argv[2])
+    if len(sys.argv) == 5 and sys.argv[1] == "--one":
+        run_one(sys.argv[2], sys.argv[3].split(","), json.loads(sys.argv[4]))
         return 0
-    if len(sys.argv) != 2:
+    parts = sys.argv[2:] or list(PARTS)
+    if len(sys.argv) < 2 or any(p not in PARTS for p in parts):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -56,15 +125,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_compare: no CUDA device", file=sys.stderr)
         return 1
+    import chip_smoke  # this tree's geometries, measured on both trees
+
+    shapes = json.dumps({"geometries": chip_smoke.GEOMETRIES, "windows": chip_smoke.WINDOWS})
     trees = {"other": os.path.abspath(sys.argv[1]), "this": os.path.dirname(os.path.abspath(__file__))}
     for tag in ("other", "this", "this", "other"):
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag], cwd=trees[tag],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tag, ",".join(parts), shapes],
+                              cwd=trees[tag], capture_output=True, text=True)
         print(f"[compare] {tag} ({trees[tag]}): exit {proc.returncode}", flush=True)
         for line in (proc.stdout + proc.stderr).splitlines():
             if line.startswith(("{", "[train]", "[env] device", "Traceback")) or "Error" in line:
                 print(line, flush=True)
         if proc.returncode != 0:
+            print("\n".join(proc.stderr.splitlines()[-30:]), flush=True)
             return proc.returncode
     return 0
 

@@ -9,23 +9,30 @@ wall time:
 1. environment: card, power limit, and the build of every kernel (one
    ``nvcc`` per source, all started together, each source's build seconds
    printed) with its ``nvcc -Xptxas -v`` register / shared-memory report;
-2. the paged decode kernel against its plain PyTorch version on the card,
-   at three geometries (llama-1b, the llama-70b GQA head layout, the
-   llama-125m head dim 64), in bf16 and fp32, with lengths that end
-   mid-page, a length-0 lane and NaN in every position past a length; plus
-   CUDA-event times of the kernel, the plain version and, as a yardstick
-   only, ``F.scaled_dot_product_attention`` over a pre-gathered view;
+2. the paged decode kernels (the split walk and its combine) against their
+   plain PyTorch version on the card, at five geometries (llama-1b, the
+   llama-70b GQA head layout, the llama-125m head dim 64, two slots of
+   4000 and 1500 positions at GQA 64/8, llama-tiny's head dim 32 at page
+   size 8), in bf16 and fp32, with lengths that end mid-page, a length-0
+   lane and NaN in every position past a length, two launches
+   bit-identical; plus CUDA-event times of the kernels, the plain version
+   and, as a yardstick only, ``F.scaled_dot_product_attention`` over a
+   pre-gathered view, each with the split the host planned;
 3. the serving slice in bf16: llama-1b at full width and depth (random
    weights from a seed) behind ``ServingEngine``, 16 requests to
    completion, with the kernel's launch count checked against
    layers x decode steps; then ``torch.profiler`` over ten steady decode
-   steps and over a second pass of such traffic, prefill chunks included;
+   steps and over a second pass of such traffic, prefill chunks included,
+   with the paged walk's and combine's device time a step;
 4. the same model in fp32: the engine's tokens against ``generate()``
-   (dense cache, plain attention), equal except at printed near-ties;
-5. the speculative verify kernel against its plain version at the same
-   three geometries with a window of 5 (k=4) and of 1, in bf16 and fp32;
-   at W=1 also against the decode kernel; times as in phase 2, with SDPA
-   over a pre-gathered view under the window mask as the yardstick;
+   (dense cache, plain attention), equal except at printed near-ties; 4b,
+   llama-tiny (head dim 32) the same way, and a bf16 pass of it;
+5. the speculative verify kernels against their plain version at the same
+   five geometries with a window of 5 (k=4) and of 1, and of 33 at
+   llama-1b's and of 9 at GQA 64/8, in bf16 and fp32, two launches
+   bit-identical; at W=1 also against the decode kernels; times as in
+   phase 2, with SDPA over a pre-gathered view under the window mask as
+   the yardstick;
 6. speculative serving in bf16: llama-1b verifying llama-125m's drafts
    (k=4, linear), phase 3's traffic, with verify launches checked against
    layers x verify forwards;
@@ -42,10 +49,11 @@ wall time:
    layer bytes against bf16's, the device memory ``from_streamed`` adds
    measured), profiled as in phase 3; then fp32 int8 and int4 tokens
    against ``generate()`` over the dequantized weights;
-10. the flash attention forward kernel against its plain version at four
+10. the flash attention forward kernel against its plain version at five
     geometries ((a) llama-125m at B=32, S=1024, causal; (b) B=8, S=4096;
     (c) B=4, S=2048, head dim 128, 32 query heads over 8 kv heads, a padded
-    mask with a fully padded row; (d) non-causal under a mask), in bf16 and
+    mask with a fully padded row; (d) non-causal under a mask; (e) B=4,
+    S=512, head dim 32, 4 query heads over 2, causal), in bf16 and
     fp32, two launches bit-identical, timed beside its bound, the plain
     version and SDPA;
 11. the dq and dk/dv kernels at the same geometries against the plain
@@ -319,12 +327,25 @@ GEOMETRIES = {
     "a_llama1b": (8, 16, 16, 128, 16, 64, [1024, 777, 0, 513, 16, 1, 300, 1000]),
     "b_gqa64x8": (8, 64, 8, 128, 16, 64, [600, 0, 1023, 17, 250, 999, 64, 5]),
     "c_d64": (8, 12, 12, 64, 16, 64, [0, 1024, 33, 700, 2, 415, 128, 901]),
+    # few slots and long walks: llama-70b's head layout, where an unsplit walk idles most SMs
+    "d_long": (2, 64, 8, 128, 16, 256, [4000, 1500]),
+    # llama-tiny's head layout and head dim 32, page size 8
+    "e_d32": (8, 4, 2, 32, 8, 32, [256, 0, 100, 7, 64, 1, 200, 33]),
 }
+# verify windows of phase 5 beyond k=4 and W=1: past the old limits of W <= 32 and
+# W * group * D <= 6144 (72 rows at GQA 64/8)
+WINDOWS = {"a_llama1b": (SPEC_K + 1, 1, 33), "b_gqa64x8": (SPEC_K + 1, 1, 9)}
+
+
+def split_line(slots, kv, rows, ps, pps) -> str:
+    plan = pa.paged_plan(slots, kv, rows, ps * pps)
+    return f"{plan.chunks} chunks of {plan.chunk} x {plan.row_tiles} row tiles"
 
 
 def phase_kernel(card: str) -> dict:
-    """Kernel vs plain version at each geometry and dtype; returns the
-    record of geometry (a) in bf16, the main path's shape."""
+    """Kernel vs plain version at each geometry and dtype, two launches
+    bit-identical; returns the record of geometry (a) in bf16, the main
+    path's shape."""
     rng = np.random.default_rng(SEED)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     record = None
@@ -332,27 +353,28 @@ def phase_kernel(card: str) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             case = make_case(rng, slots, nh, kv, d, ps, pps, lengths, dtype)
             got = paged_decode_attention(**case)
+            identical = torch.equal(got, paged_decode_attention(**case))
             want = pa.paged_decode_attention_reference(**case)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max().item())
             tol = TOLERANCE[dtype]
             group = nh // kv
-            zero = lengths.index(0)
-            exact_v = torch.equal(
-                got[zero], case["v_new"][zero].repeat_interleave(group, dim=0)
+            exact_v = 0 not in lengths or torch.equal(
+                got[lengths.index(0)], case["v_new"][lengths.index(0)].repeat_interleave(group, dim=0)
             )
             ms = time_ms(lambda: paged_decode_attention(**case), flush)
             plain = time_ms(lambda: pa.paged_decode_attention_reference(**case), flush)
             library = time_ms(sdpa_call(case), flush)
             bound, bound_by = bound_ms(case, dtype)
             print(
-                f"[kernel] {name} {str(dtype).split('.')[-1]}: max_abs_err {err:.3e} "
-                f"(tolerance {tol:.0e}), length-0 lane == v_new: {exact_v}; "
+                f"[kernel] {name} {str(dtype).split('.')[-1]} ({split_line(slots, kv, group, ps, pps)}): "
+                f"max_abs_err {err:.3e} (tolerance {tol:.0e}), length-0 lane == v_new: {exact_v}, "
+                f"two launches bit-identical: {identical}; "
                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library_ms {library:.4f}, "
                 f"bound {bound:.4f} ms ({bound_by}), achieved {bound / ms:.1%} of bound "
                 f"[{card}]"
             )
-            if not (err <= tol) or not exact_v:
+            if not (err <= tol) or not exact_v or not identical:
                 raise AssertionError(f"kernel disagrees with its plain version at {name} {dtype}")
             if name == "a_llama1b" and dtype == torch.bfloat16:
                 record = dict(
@@ -435,6 +457,11 @@ def report_profile(prof, wall_us: float, steps: int, what: str, card: str) -> No
           f"[{card}]")
     for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile]   {us / steps:9.1f} us/step  {key[:90]}")
+    paged = {kind: sum(us for key, us in device.items() if f"paged_{kind}_" in key)
+             for kind in ("walk", "combine")}
+    if any(paged.values()):
+        print(f"[profile]   paged attention: walk {paged['walk'] / steps:.1f} us/step, combine "
+              f"{paged['combine'] / steps:.1f} us/step")
 
 
 def profile_decode(engine, card: str, tag: str, steps: int = 10) -> None:
@@ -531,29 +558,67 @@ def phase_parity(card: str):
     return model, prompts, rows, gaps
 
 
+def phase_tiny_serving(card: str) -> None:
+    """llama-tiny (head dim 32, 4 heads over 2, page size 8) behind the
+    engine: fp32 tokens == generate() up to near-ties, then a bf16 pass;
+    the decode kernel launches once per layer per decode forward."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        model = Llama("llama-tiny", dtype=dtype, seed=SEED)
+        layers = model.config.num_layers
+        rng = np.random.default_rng(SEED + 4)
+        prompts = [rng.integers(1, model.config.vocab_size, size=n).astype(np.int32) for n in (1, 9, 40, 150)]
+        engine = ServingEngine(model, num_slots=4, max_len=256, page_size=8, prefill_chunk=64)
+        reset_launches()
+        rows = engine.generate_many(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        decodes = engine.forward_counts["decode"]
+        tag = str(dtype).split(".")[-1]
+        if counts["paged_decode"] != layers * decodes or decodes == 0 or counts["paged_verify"]:
+            raise AssertionError(f"llama-tiny {tag} launched {counts} over {decodes} decode forwards")
+        if dtype == torch.float32:
+            want, gaps = reference_rows(model, prompts, 16)
+            ties = compare_rows("tiny", prompts, rows, want, gaps, "generate()")
+            result = f"engine == generate() with {ties} ties"
+        else:
+            if not all(((r >= 0) & (r < model.config.vocab_size)).all() for r in rows):
+                raise AssertionError("llama-tiny bf16 produced ids outside the vocabulary")
+            result = "ids in the vocabulary"
+        print(f"[tiny] llama-tiny {tag} (head dim 32), prompts {[p.size for p in prompts]} x 16 tokens: "
+              f"{result}; decode kernel launches {counts['paged_decode']} = {layers} layers x "
+              f"{decodes} decode forwards [{card}]")
+        del engine, model
+    torch.cuda.empty_cache()
+
+
 def parity_prompts(vocab) -> list[np.ndarray]:
     rng = np.random.default_rng(SEED + 1)
     return [rng.integers(1, vocab, size=n).astype(np.int32) for n in (1, 17, 150, 333)]
 
 
 def phase_verify_kernel(card: str) -> dict:
-    """Verify kernel vs plain version at each geometry, window 5 (k=4) and 1,
-    and dtype; at W=1 also vs the decode kernel. Returns the record of
+    """Verify kernel vs plain version at each geometry, window 5 (k=4), 1
+    and the ``WINDOWS`` past the old limits, and dtype, two launches
+    bit-identical; at W=1 also vs the decode kernel. Returns the record of
     geometry (a) in bf16 at W=5, the main path's shape."""
     rng = np.random.default_rng(SEED + 5)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     record = None
     for name, (slots, nh, kv, d, ps, pps, lengths) in GEOMETRIES.items():
-        for window in (SPEC_K + 1, 1):
+        for window in WINDOWS.get(name, (SPEC_K + 1, 1)):
             for dtype in (torch.bfloat16, torch.float32):
                 case = make_case(rng, slots, nh, kv, d, ps, pps, lengths, dtype, window=window)
                 got = paged_verify_attention(**case)
+                identical = torch.equal(got, paged_verify_attention(**case))
                 want = pa.paged_verify_attention_reference(**case)
                 torch.cuda.synchronize()
                 err = float((got.float() - want.float()).abs().max().item())
                 tol = TOLERANCE[dtype]
-                zero = lengths.index(0)  # its first window row sees only its own key
-                exact_v = torch.equal(got[zero, 0], case["v_new"][zero, 0].repeat_interleave(nh // kv, 0))
+                # a length-0 lane's first window row sees only its own key
+                exact_v = 0 not in lengths or torch.equal(
+                    got[lengths.index(0), 0],
+                    case["v_new"][lengths.index(0), 0].repeat_interleave(nh // kv, 0))
                 decode_err = 0.0
                 if window == 1:
                     decode = paged_decode_attention(
@@ -567,13 +632,15 @@ def phase_verify_kernel(card: str) -> dict:
                 library = time_ms(sdpa_call(case), flush)
                 bound, bound_by = bound_ms(case, dtype)
                 print(
-                    f"[verify] {name} W={window} {str(dtype).split('.')[-1]}: max_abs_err "
-                    f"{err:.3e} (tolerance {tol:.0e}), length-0 lane row 0 == v_new: {exact_v}"
+                    f"[verify] {name} W={window} {str(dtype).split('.')[-1]} "
+                    f"({split_line(slots, kv, window * nh // kv, ps, pps)}): max_abs_err "
+                    f"{err:.3e} (tolerance {tol:.0e}), length-0 lane row 0 == v_new: {exact_v}, "
+                    f"two launches bit-identical: {identical}"
                     + (f", vs decode kernel {decode_err:.3e}" if window == 1 else "")
                     + f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, library_ms {library:.4f}, "
                     f"bound {bound:.4f} ms ({bound_by}), achieved {bound / ms:.1%} of bound [{card}]"
                 )
-                if not (err <= tol) or not exact_v or not (decode_err <= tol):
+                if not (err <= tol) or not exact_v or not identical or not (decode_err <= tol):
                     raise AssertionError(f"verify kernel disagrees at {name} W={window} {dtype}")
                 if name == "a_llama1b" and dtype == torch.bfloat16 and window == SPEC_K + 1:
                     record = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
@@ -857,6 +924,7 @@ FLASH_GEOMETRIES = {
     "b_125m_s4096": (8, 4096, 4096, 12, 12, 64, True, False),
     "c_gqa32x8_d128_masked": (4, 2048, 2048, 32, 8, 128, True, True),
     "d_bidirectional_masked": (8, 1024, 1024, 12, 12, 64, False, True),
+    "e_d32_gqa4x2": (4, 512, 512, 4, 2, 32, True, False),  # llama-tiny's heads
 }
 # bf16 grads against the plain backward / autograd: within this share of each
 # gradient's largest magnitude (bf16 rounds p and dS before the products, in
@@ -1323,6 +1391,7 @@ def main() -> int:
     records = {"paged_decode": timed("phase 2 decode kernel", phase_kernel, card)}
     launches = {"paged_decode": timed("phase 3 serving", phase_serving, card)}
     model, prompts, rows, gaps = timed("phase 4 parity", phase_parity, card)
+    timed("phase 4b llama-tiny serving (head dim 32)", phase_tiny_serving, card)
     records["paged_verify"] = timed("phase 5 verify kernel", phase_verify_kernel, card)
     launches["paged_verify"] = timed("phase 6 speculative serving", phase_spec_serving, card)
     timed("phase 7 speculative parity", phase_spec_parity, card, model, prompts, rows, gaps)

@@ -7,6 +7,8 @@ only PyTorch is installed:
 Whether a card exists is decided inside the ``cuda`` fixture, never while
 the module is imported, so every worker collects the same tests."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -23,9 +25,11 @@ from accelerate_tpu_torch import (
     generate,
     get_config,
 )
+from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
+    paged_plan,
     paged_verify_attention,
     paged_verify_attention_reference,
 )
@@ -54,6 +58,15 @@ TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the delta rows the dq kernel writes against the plain formula, relative to
 # the largest row (at least 1): the same fp32 products summed in another order
 DELTA_TOLERANCE = 1e-4
+
+
+# paged geometries: (NH, KV, D, page_size, pages_per_slot, lengths); head dims 128,
+# 64 and 32, page sizes 16, 8 and 5
+PAGED_GEOMETRIES = [
+    (16, 16, 128, 16, 8, [128, 77, 0, 1]), (64, 8, 128, 16, 8, [0, 100, 33, 128]),
+    (4, 2, 64, 8, 4, [5, 32, 0]), (4, 2, 32, 8, 6, [5, 41, 0, 48]), (8, 2, 64, 5, 30, [149, 0, 61]),
+]
+PAGED_IDS = ["llama1b", "gqa64x8", "d64_gqa4x2", "d32_gqa4x2", "ps5_gqa8x2"]
 
 
 @pytest.fixture
@@ -93,9 +106,8 @@ def _case(device, dtype, nh, kv, d, ps, pps, lengths, seed=0, window=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize(
     "geometry",
-    [(16, 16, 128, 16, 8, [128, 77, 0, 1]), (64, 8, 128, 16, 8, [0, 100, 33, 128]),
-     (4, 2, 64, 8, 4, [5, 32, 0])],
-    ids=["llama1b", "gqa64x8", "d64_gqa4x2"],
+    PAGED_GEOMETRIES,
+    ids=PAGED_IDS,
 )
 def test_kernel_matches_plain_version(cuda, dtype, geometry):
     nh, kv, d, ps, pps, lengths = geometry
@@ -116,9 +128,8 @@ def test_kernel_matches_plain_version(cuda, dtype, geometry):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize(
     "geometry",
-    [(16, 16, 128, 16, 8, [128, 77, 0, 1]), (64, 8, 128, 16, 8, [0, 100, 33, 128]),
-     (4, 2, 64, 8, 4, [5, 32, 0])],
-    ids=["llama1b", "gqa64x8", "d64_gqa4x2"],
+    PAGED_GEOMETRIES,
+    ids=PAGED_IDS,
 )
 def test_verify_kernel_matches_plain_version(cuda, dtype, geometry, window):
     """The verify kernel against its plain version; at W=1 against the
@@ -139,6 +150,84 @@ def test_verify_kernel_matches_plain_version(cuda, dtype, geometry, window):
         decode = {**case, **{k: case[k][:, 0] for k in ("q", "k_new", "v_new")}}
         err = (got[:, 0].float() - paged_decode_attention(**decode).float()).abs().max()
         assert float(err) <= TOLERANCE[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window, geometry", [
+    (9, (64, 8, 128, 16, 8, [0, 100, 33, 128])),  # 72 rows: five row tiles
+    (33, (16, 16, 128, 16, 8, [128, 77, 0, 1])),  # the window chunk walked in three steps
+    (33, (4, 2, 32, 5, 30, [149, 0, 61])),
+], ids=["w9_gqa64x8", "w33_llama1b", "w33_d32_ps5"])
+def test_verify_kernel_takes_wide_windows(cuda, dtype, window, geometry):
+    """Windows past the first kernel's limits (W <= 32, W * group * D <=
+    6144): the verify kernels against their plain version."""
+    nh, kv, d, ps, pps, lengths = geometry
+    case = _case(cuda, dtype, nh, kv, d, ps, pps, lengths, seed=3, window=window)
+    got = paged_verify_attention(**case)
+    want = paged_verify_attention_reference(**case)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert float((got.float() - want.float()).abs().max()) <= TOLERANCE[dtype]
+
+
+def _split(monkeypatch, chunk, capacity):
+    """Walk in chunks of ``chunk`` positions, whatever paged_plan would choose."""
+    def plan(slots, kv, rows, cap):
+        assert cap == capacity
+        return pa.PagedPlan(-(-rows // pa.ROW_TILE), chunk, -(-cap // chunk))
+
+    monkeypatch.setattr(pa, "paged_plan", plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 5])
+def test_split_counts_of_one_and_many_agree(cuda, monkeypatch, dtype, window):
+    """The same inputs walked in the plan's chunks, in one chunk and in
+    chunks of 64 positions (16 partials; a slot of length 0 and one of 1000
+    positions): each within TOLERANCE of the plain version."""
+    nh, kv, d, ps, pps, lengths = 16, 4, 128, 16, 64, [1000, 0, 64, 65, 1]
+    case = _case(cuda, dtype, nh, kv, d, ps, pps, lengths, seed=4, window=window)
+    fn = paged_decode_attention if window is None else paged_verify_attention
+    ref = paged_decode_attention_reference if window is None else paged_verify_attention_reference
+    want = ref(**case)
+    plan = paged_plan(len(lengths), kv, (window or 1) * nh // kv, ps * pps)
+    assert 1 < plan.chunks < ps * pps // 64
+    for chunk in (plan.chunk, ps * pps, 64):
+        _split(monkeypatch, chunk, ps * pps)
+        got = fn(**case)
+        torch.cuda.synchronize()
+        assert float((got.float() - want.float()).abs().max()) <= TOLERANCE[dtype], chunk
+
+
+@pytest.mark.parametrize("window", [None, 1, 5, 33])
+@pytest.mark.parametrize("geometry", PAGED_GEOMETRIES[1:4], ids=PAGED_IDS[1:4])
+def test_paged_kernels_are_bit_identical_across_launches(cuda, monkeypatch, geometry, window):
+    """No atomics: two launches of the walk and its ordered combine give the
+    same bits, bf16, in the plan's chunks and in chunks of 64."""
+    nh, kv, d, ps, pps, lengths = geometry
+    case = _case(cuda, torch.bfloat16, nh, kv, d, ps, pps, lengths, seed=6, window=window)
+    fn = paged_decode_attention if window is None else paged_verify_attention
+    assert torch.equal(fn(**case), fn(**case))
+    _split(monkeypatch, 64, ps * pps)
+    assert torch.equal(fn(**case), fn(**case))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_engine_on_the_card_serves_head_dim_32(cuda, dtype):
+    """llama-tiny as configured (head dim 32, 4 heads over 2), page size 8:
+    the engine decodes through the kernel once per layer per step, and in
+    fp32 gives generate()'s tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = Llama("llama-tiny", device=cuda, dtype=dtype, seed=0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 1024, (n,)).astype(np.int32) for n in (3, 17, 70, 1)]
+    engine = ServingEngine(model, num_slots=4, max_len=128, page_size=8, prefill_chunk=16)
+    paged_decode_attention.launches = 0
+    rows = engine.generate_many(prompts, max_new_tokens=6)
+    assert paged_decode_attention.launches == model.config.num_layers * engine.stats.steps > 0
+    if dtype == torch.float32:
+        for row, p in zip(rows, prompts):
+            np.testing.assert_array_equal(row, generate(model, p[None], max_new_tokens=6)[0])
 
 
 def test_engine_on_the_card_matches_generate(cuda):
@@ -295,6 +384,8 @@ FLASH_GEOMETRIES = {
     "causal_gqa_masked_s192": (2, 192, 192, 8, 2, 64, True, True),
     "d128_gqa_masked": (2, 192, 192, 4, 2, 128, True, True),
     "noncausal_cross_masked": (2, 128, 320, 4, 2, 64, False, True),
+    "causal_d32_gqa_masked": (2, 256, 256, 4, 2, 32, True, True),  # dq on 128-key tiles
+    "causal_d32_s192": (2, 192, 192, 4, 2, 32, True, False),  # dq on 64-key tiles
 }
 
 
@@ -313,6 +404,33 @@ def _flash_case(device, dtype, geometry, seed=0):
         valid[-1] = 0
         mask, limit = fa._mask_limit(torch.tensor(valid, device=device))
     return q, k, v, do, mask, limit, causal, 1.0 / np.sqrt(d)
+
+
+def test_flash_kernels_run_on_a_fresh_thread_after_serving(cuda):
+    """A serving pass, then the flash forward and backward from a thread that
+    has made no CUDA call (as autograd's backward thread): the TMA launches
+    make the context current before they encode their tensor maps, so they
+    are not refused."""
+    config = get_config("llama-tiny").replace(hidden_size=256)
+    model = Llama(config, device=cuda, dtype=torch.bfloat16, seed=0)
+    engine = ServingEngine(model, num_slots=4, max_len=96, page_size=16, prefill_chunk=16)
+    engine.generate_many([np.arange(1, 40, dtype=np.int32)], max_new_tokens=4)
+    del engine, model
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, torch.bfloat16, FLASH_GEOMETRIES["causal_d64"])
+    errors = []
+
+    def run():
+        try:
+            out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale)
+            fa.flash_backward(q, k, v, mask, limit, do, lse, out, causal, scale)
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            errors.append(err)
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join(timeout=300)
+    assert not thread.is_alive() and not errors, errors
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

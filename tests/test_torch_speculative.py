@@ -29,6 +29,7 @@ from accelerate_tpu_torch import Llama, ServingEngine, load_jax_params
 from accelerate_tpu_torch.models import forward_window_with_cache
 from accelerate_tpu_torch.ops.paged_attention import (
     paged_decode_attention_reference,
+    paged_split_reference,
     paged_verify_attention,
     paged_verify_attention_reference,
 )
@@ -160,6 +161,25 @@ def test_verify_plain_matches_jax_kernel_and_reference(w):
         _jax_per_slot(_verify_reference, clean, scale=1.0 / 16**0.5),
         rtol=RTOL, atol=ATOL,
     )
+
+
+@pytest.mark.parametrize(
+    "w, nh, kv, ps, pps, lengths",
+    [(9, 64, 8, 8, 3, (0, 13, 24)), (33, 4, 2, 8, 3, (0, 13, 24)), (33, 4, 2, 5, 8, (40, 0, 7))],
+    ids=["w9_gqa64x8", "w33_gqa4x2", "w33_ps5"],
+)
+def test_verify_plain_matches_jax_at_head_dim_32_and_wide_windows(w, nh, kv, ps, pps, lengths):
+    """Windows the first CUDA kernel refused (W > 32, W * group * D >
+    6144 at llama-70b's GQA 64/8, here narrowed to head dim 32): the plain
+    version, and the split form at chunks of 64 positions, against the
+    Pallas verify kernel (interpret mode), NaN past every walk."""
+    case = _verify_case(8, w, nh=nh, kv=kv, d=32, ps=ps, pps=pps, lengths=lengths)
+    want = _jax_per_slot(jax_paged_verify, case)
+    got = paged_verify_attention(**_torch(case)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    split = paged_split_reference(**_torch(case), chunk=64).numpy()
+    np.testing.assert_allclose(split, want, rtol=RTOL, atol=ATOL)
 
 
 def test_verify_at_window_1_is_decode():
