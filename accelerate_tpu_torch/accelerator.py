@@ -1,4 +1,5 @@
-"""The Accelerator facade for one device: prepare, backward, the training step.
+"""The Accelerator facade for one device: prepare, backward, the training
+loop, checkpoints.
 
 Counterpart of ``accelerate_tpu/accelerator.py``, keeping its seam: the
 loss is a function ``loss_fn(params, batch)`` over the JAX layout's param
@@ -10,8 +11,22 @@ tree, and the step is built around it::
     step = accelerator.compiled_step(Llama.loss_fn(model.module))
     loss = step({"input_ids": ids})
 
-or eagerly, ``accelerator.backward(loss_fn, batch)`` then
-``optimizer.step()`` and ``optimizer.zero_grad()``.
+or the loop every Accelerate user writes, with a data loader, a schedule
+and checkpoints::
+
+    model, optimizer, loader, scheduler = accelerator.prepare(
+        Llama("llama-125m"), fused_adamw(3e-4),
+        accelerator.prepare_data_loader(dataset, batch_size=16, shuffle=True), schedule)
+    for batch in loader:
+        with accelerator.accumulate(model):
+            loss = accelerator.backward(loss_fn, batch)
+            optimizer.step()
+            scheduler.step()
+            optimizer.zero_grad()
+    accelerator.save_state("ckpt")        # later: accelerator.load_state("ckpt")
+
+``accelerator.checkpoint_manager(...)`` adds periodic atomic saves, a save
+at the step boundary after SIGTERM, and ``resume("auto")``.
 
 Mixed precision is a cast, not autocast: the fp32 master parameters (and
 the batch's floating leaves) are cast to the compute dtype inside the
@@ -19,25 +34,32 @@ autograd graph, so every op computes in that dtype as in the JAX package
 and the gradients land on the masters in fp32. ``compiled_step`` runs
 eagerly in this slice (no ``torch.compile``, no CUDA graph: ROADMAP item
 15); it keeps the reference's microbatch split, cast, clip and update seam.
-The mesh, ZeRO, resilience and telemetry branches wait for later slices
-(ROADMAP items 9, 18, 19).
+The mesh, ZeRO, resilience, telemetry and analysis branches wait for later
+slices (ROADMAP items 9(b), 18, 19, 21): their methods raise
+``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
 
+import inspect
 from contextlib import contextmanager
 from typing import Any, Callable, Optional
 
 import torch
 
+from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
+from .ops import operations as ops
 from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value, scaled_optimizer_update
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     CompilationConfig,
     GradientAccumulationPlugin,
     KwargsHandler,
     LossScaleKwargs,
+    ProjectConfiguration,
 )
+from .utils.memory import release_memory
 from .utils.params import tree_leaves, tree_map
 
 # distinguishes "argument omitted" from an explicit None (= clear the setting)
@@ -70,16 +92,28 @@ class PreparedModel:
 class Accelerator:
     def __init__(
         self,
+        device_placement: bool = True,
+        split_batches: bool = False,
         mixed_precision: Optional[str] = None,
         gradient_accumulation_steps: Optional[int] = None,
+        parallelism: Any = None,
         compilation_config: Optional[CompilationConfig] = None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+        project_config: Optional[ProjectConfiguration] = None,
+        project_dir: Optional[str] = None,
+        even_batches: bool = True,
+        dispatch_batches: Optional[bool] = None,
+        step_scheduler_with_optimizer: bool = True,
         kwargs_handlers: Optional[list[KwargsHandler]] = None,
-        parallelism: Any = None,
         device=None,
     ):
         """``device=None`` means CUDA (and raises without a card);
-        ``device="cpu"`` runs every kernel's plain version."""
+        ``device="cpu"`` runs every kernel's plain version. The loader
+        options (``device_placement``, ``split_batches``, ``even_batches``,
+        ``dispatch_batches``) are the defaults of ``prepare_data_loader``."""
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
         self.loss_scale_kwargs: Optional[LossScaleKwargs] = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, LossScaleKwargs):
@@ -95,11 +129,54 @@ class Accelerator:
                 "Pass either gradient_accumulation_steps or gradient_accumulation_plugin, not both."
             )
         self.gradient_state = GradientState(gradient_accumulation_plugin)
+        self.device_placement = device_placement
+        self.split_batches = split_batches
+        self.even_batches = even_batches
+        self.dispatch_batches = dispatch_batches
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self._models: list[PreparedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
+        self._schedulers: list[AcceleratedScheduler] = []
+        self._dataloaders: list[BaseDataLoader] = []
+        self._custom_objects: list = []
+        self._save_model_hooks: list = []
+        self._load_model_hooks: list = []
         self._accum_step = 0
+        self.flag_tensor: Optional[torch.Tensor] = None
 
     # -- topology passthrough ------------------------------------------------
+
+    @property
+    def distributed_type(self):
+        return self.state.distributed_type
+
+    @property
+    def num_processes(self) -> int:
+        return self.state.num_processes
+
+    @property
+    def process_index(self) -> int:
+        return self.state.process_index
+
+    @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
+    def is_main_process(self) -> bool:
+        return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
 
     @property
     def device(self) -> torch.device:
@@ -113,9 +190,42 @@ class Accelerator:
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_state.num_steps
 
+    @gradient_accumulation_steps.setter
+    def gradient_accumulation_steps(self, value: int) -> None:
+        self.gradient_state.plugin_kwargs.update({"num_steps": value})
+
     @property
     def sync_gradients(self) -> bool:
         return self.gradient_state.sync_gradients
+
+    @property
+    def project_dir(self) -> Optional[str]:
+        return self.project_configuration.project_dir
+
+    def print(self, *args, **kwargs) -> None:
+        self.state.print(*args, **kwargs)
+
+    def wait_for_everyone(self) -> None:
+        self.state.wait_for_everyone()
+
+    @contextmanager
+    def main_process_first(self):
+        with self.state.main_process_first():
+            yield
+
+    @contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        with self.state.split_between_processes(inputs, apply_padding=apply_padding) as piece:
+            yield piece
+
+    def on_main_process(self, fn):
+        return self.state.on_main_process(fn)
+
+    def on_last_process(self, fn):
+        return self.state.on_last_process(fn)
+
+    def on_process(self, fn=None, process_index: int = 0):
+        return self.state.on_process(fn, process_index=process_index)
 
     # -- prepare ---------------------------------------------------------------
 
@@ -171,19 +281,84 @@ class Accelerator:
         self._optimizers.append(optimizer)
         return optimizer
 
+    def prepare_scheduler(self, schedule_fn: Callable[[int], float]) -> AcceleratedScheduler:
+        """Wrap a schedule ``count -> lr``, bound to the optimizer prepared
+        last."""
+        if isinstance(schedule_fn, AcceleratedScheduler):
+            return schedule_fn
+        scheduler = AcceleratedScheduler(
+            schedule_fn,
+            optimizer=self._optimizers[-1] if self._optimizers else None,
+            step_with_optimizer=self.step_scheduler_with_optimizer,
+            split_batches=self.split_batches,
+        )
+        self._schedulers.append(scheduler)
+        return scheduler
+
+    def prepare_data_loader(self, loader: Any, device_placement: Optional[bool] = None,
+                            **loader_kwargs) -> BaseDataLoader:
+        """A loader over ``loader`` (a dataset, a torch ``DataLoader`` or a
+        prepared loader) on this accelerator's device; ``loader_kwargs``
+        (batch_size, shuffle, seed, collate_fn, drop_last, prefetch, ...)
+        pass through to ``data_loader.prepare_data_loader``."""
+        if isinstance(loader, BaseDataLoader) and loader_kwargs:
+            raise ValueError(
+                "This loader is already prepared; the extra options "
+                f"{sorted(loader_kwargs)} would be silently ignored. Pass the "
+                "raw dataset instead to reconfigure it."
+            )
+        merged = dict(
+            split_batches=self.split_batches,
+            even_batches=self.even_batches,
+            dispatch_batches=self.dispatch_batches,
+            device=self.device,
+        )
+        merged.update(loader_kwargs)
+        prepared = prepare_data_loader(
+            loader,
+            device_placement=device_placement if device_placement is not None else self.device_placement,
+            **merged,
+        )
+        if prepared not in self._dataloaders:  # prepare() of a loader prepared here
+            self._dataloaders.append(prepared)
+        return prepared
+
+    @staticmethod
+    def _is_model_like(obj: Any) -> bool:
+        return isinstance(obj, PreparedModel) or (hasattr(obj, "apply") and hasattr(obj, "param_tree"))
+
+    @staticmethod
+    def _is_optimizer_like(obj: Any) -> bool:
+        return hasattr(obj, "init") and hasattr(obj, "update") and not hasattr(obj, "apply")
+
+    @staticmethod
+    def _is_loader_like(obj: Any) -> bool:
+        return (
+            isinstance(obj, BaseDataLoader)
+            or (hasattr(obj, "__getitem__") and hasattr(obj, "__len__"))
+            or (hasattr(obj, "__iter__") and not callable(obj))
+        )
+
     def prepare(self, *args: Any) -> Any:
-        """Prepare models (anything with ``apply`` and ``param_tree``) first,
-        then transforms (``init`` and ``update``); other objects pass
-        through. Data loaders and schedules come with ROADMAP item 9."""
+        """Prepare each object by its duck type, models first (an optimizer
+        binds to the model prepared before it): models (``apply`` and
+        ``param_tree``), transforms (``init`` and ``update``), data loaders
+        and datasets (indexable or iterable), then schedules (callables of
+        one argument, the step count). Other objects pass through."""
         prepared: dict[int, Any] = {}
         for i, obj in enumerate(args):
-            if isinstance(obj, PreparedModel) or (hasattr(obj, "apply") and hasattr(obj, "param_tree")):
+            if self._is_model_like(obj):
                 prepared[i] = self.prepare_model(obj)
         for i, obj in enumerate(args):
             if i in prepared:
                 continue
-            if hasattr(obj, "init") and hasattr(obj, "update"):
+            if self._is_optimizer_like(obj):
                 prepared[i] = self.prepare_optimizer(obj)
+            elif self._is_loader_like(obj):
+                prepared[i] = self.prepare_data_loader(obj)
+            elif callable(obj):
+                _check_schedule_shaped(obj)
+                prepared[i] = self.prepare_scheduler(obj)
             else:
                 prepared[i] = obj
         result = tuple(prepared[i] for i in range(len(args)))
@@ -255,15 +430,45 @@ class Accelerator:
             optimizer.set_clip_grad_value(None if clip_value is None else float(clip_value))
 
     def _do_sync(self) -> None:
-        self._accum_step += 1
-        sync = (self._accum_step % self.gradient_state.num_steps == 0) or self.gradient_state.sync_each_batch
-        self.gradient_state._set_sync_gradients(sync)
+        """Whether this micro-step applies the gradients: every
+        ``gradient_accumulation_steps``-th one, and the last batch of a
+        loader's epoch (``sync_with_dataloader``), which also restarts the
+        window."""
+        if self.gradient_state.sync_with_dataloader and self.gradient_state.end_of_dataloader:
+            self._accum_step = 0
+            self.gradient_state._set_sync_gradients(True)
+        else:
+            self._accum_step += 1
+            sync = (self._accum_step % self.gradient_state.num_steps == 0) or self.gradient_state.sync_each_batch
+            self.gradient_state._set_sync_gradients(sync)
 
     @contextmanager
     def accumulate(self, *models):  # noqa: ARG002 - models accepted for parity
         """Gradient-accumulation window: ``optimizer.step()`` and
         ``zero_grad()`` act once every ``gradient_accumulation_steps``."""
         self._do_sync()
+        yield
+
+    @contextmanager
+    def no_sync(self, model=None):  # noqa: ARG002 - parity
+        """Accumulate without applying: ``optimizer.step()`` and
+        ``zero_grad()`` do nothing inside."""
+        previous = self.gradient_state.sync_gradients
+        self.gradient_state._set_sync_gradients(False)
+        try:
+            yield
+        finally:
+            self.gradient_state._set_sync_gradients(previous)
+
+    @contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):  # noqa: ARG002 - parity
+        """Nothing to join: the loaders' even batches give every process as
+        many steps."""
+        yield
+
+    @contextmanager
+    def autocast(self, autocast_handler=None):  # noqa: ARG002 - parity
+        """Nothing to switch on: the dtype policy is a cast inside the step."""
         yield
 
     # -- the fused step ---------------------------------------------------------
@@ -319,6 +524,159 @@ class Accelerator:
             return loss
 
         return step
+
+    # -- gather / metrics -------------------------------------------------------
+
+    def gather(self, tensor):
+        return ops.gather(tensor)
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """Gather, then drop the rows the even-batch padding added to the
+        last batch of an epoch."""
+        data = ops.gather_object(input_data) if use_gather_object else ops.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+            data = ops.recursively_apply(lambda t: t[:remainder], data, test_type=ops.is_array)
+        return data
+
+    def reduce(self, tensor, reduction: str = "mean", scale: float = 1.0):
+        return ops.reduce(tensor, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+        return ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first)
+
+    def set_trigger(self) -> None:
+        """Raise the flag that :meth:`check_trigger` reads on every process."""
+        self.flag_tensor = torch.ones((), dtype=torch.int32, device=self.device)
+
+    def check_trigger(self) -> bool:
+        flag = self.flag_tensor if self.flag_tensor is not None else torch.zeros(
+            (), dtype=torch.int32, device=self.device)
+        if int(ops.reduce(flag, reduction="sum")) >= 1:
+            self.flag_tensor = None
+            return True
+        return False
+
+    # -- models and checkpoints ----------------------------------------------
+
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True):  # noqa: ARG002 - parity
+        return model.module if isinstance(model, PreparedModel) else model
+
+    def get_state_dict(self, model: PreparedModel, unwrap: bool = True):  # noqa: ARG002 - parity
+        """The params as a tree of host numpy arrays."""
+        return ops.to_numpy(model.params)
+
+    def save_model(self, model: PreparedModel, save_directory: str, max_shard_size: str = "10GB",
+                   safe_serialization: bool = True):
+        from .checkpointing import save_model_weights
+
+        save_model_weights(model.params, save_directory, max_shard_size=max_shard_size,
+                           safe_serialization=safe_serialization)
+
+    def register_for_checkpointing(self, *objects) -> None:
+        invalid = [o for o in objects if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(f"All objects must have state_dict/load_state_dict methods; got invalid: {invalid}")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook: Callable):
+        """``hook(models, weights, output_dir)`` runs before a save writes."""
+        self._save_model_hooks.append(hook)
+        return _RemovableHandle(self._save_model_hooks, hook)
+
+    def register_load_state_pre_hook(self, hook: Callable):
+        """``hook(models, input_dir)`` runs before a load reads."""
+        self._load_model_hooks.append(hook)
+        return _RemovableHandle(self._load_model_hooks, hook)
+
+    def save_state(self, output_dir: Optional[str] = None, **save_model_kwargs):
+        """Save the model, optimizer, scheduler, RNG and registered state in
+        the JAX package's format, atomically
+        (``checkpointing.save_accelerator_state``); returns the directory."""
+        from .checkpointing import save_accelerator_state
+
+        return save_accelerator_state(self, output_dir, **save_model_kwargs)
+
+    def load_state(self, input_dir: Optional[str] = None, **load_model_kwargs):
+        """Restore a checkpoint of either package; ``"auto"`` takes the newest
+        valid one under the project's checkpoints directory."""
+        from .checkpointing import load_accelerator_state
+
+        return load_accelerator_state(self, input_dir, **load_model_kwargs)
+
+    def checkpoint_manager(self, checkpoint_dir: Optional[str] = None, **manager_kwargs):
+        """A ``fault_tolerance.CheckpointManager`` for this accelerator."""
+        from .fault_tolerance import CheckpointManager
+
+        return CheckpointManager(self, checkpoint_dir=checkpoint_dir, **manager_kwargs)
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches)
+
+    def free_memory(self, *objects):
+        """Drop the prepared objects and return the card's cached memory."""
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self._accum_step = 0
+        release_memory()
+        return objects
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    def __deepcopy__(self, memo):
+        # an Accelerator wraps process-wide singletons: a copy must not fork them
+        return self
+
+    # -- later slices ---------------------------------------------------------
+
+    def init_trackers(self, *args, **kwargs):
+        raise NotImplementedError("trackers are not in the port yet (ROADMAP item 19)")
+
+    log = end_training = get_tracker = init_trackers
+
+    def profile(self, *args, **kwargs):
+        raise NotImplementedError("Accelerator.profile (torch.profiler windows) is not in the port yet "
+                                  "(ROADMAP item 19)")
+
+    def analyze(self, *args, **kwargs):
+        raise NotImplementedError("Accelerator.analyze is not in the port yet (ROADMAP item 21)")
+
+    def elastic_coordinator(self, *args, **kwargs):
+        raise NotImplementedError("elastic training is not in the port yet (ROADMAP item 18)")
+
+
+def _check_schedule_shaped(obj: Callable) -> None:
+    """A callable given to ``prepare`` is taken for a schedule, which takes
+    one argument (the step count); a loss function would fail much later,
+    so it is refused here with the fix spelled out."""
+    try:
+        required = [
+            p for p in inspect.signature(obj).parameters.values()
+            if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD) and p.default is p.empty
+        ]
+    except (TypeError, ValueError):  # builtins without signatures
+        return
+    if len(required) > 1:
+        raise TypeError(
+            f"prepare() got a callable ({getattr(obj, '__name__', obj)!r}) "
+            f"taking {len(required)} required arguments: a learning-rate "
+            "schedule takes one (the step count). If this is a loss "
+            "function, pass it to backward()/compiled_step() instead; "
+            "for a custom schedule call prepare_scheduler() explicitly."
+        )
+
+
+class _RemovableHandle:
+    def __init__(self, hook_list: list, hook):
+        self._list = hook_list
+        self._hook = hook
+
+    def remove(self) -> None:
+        if self._hook in self._list:
+            self._list.remove(self._hook)
 
 
 def _microbatch(x, i: int, num_micro: int):

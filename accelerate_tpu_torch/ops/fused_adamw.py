@@ -19,13 +19,22 @@ EmptyState())``; ``update`` is the plain transform's; ``fused_apply`` is
 the one-pass update the shared seam ``optimizer.scaled_optimizer_update``
 prefers. A CPU tensor takes :func:`adamw_leaf_reference`, a CUDA tensor
 launches the kernel or raises.
+
+:func:`adamw` also takes a schedule, ``learning_rate(count) -> lr``, as
+``optax.adamw(schedule)`` does: its state is then optax's
+``(ScaleByAdamState, EmptyState(), ScaleByScheduleState(count))`` and a
+step scales by ``-learning_rate(count)`` before the count goes up. The
+schedule is called on the int32 count tensor on the params' device (optax
+calls it on a traced int32 array), so a schedule written with arithmetic
+operators needs no host sync. :func:`fused_adamw` keeps a scalar learning
+rate and raises on a schedule, as the JAX package's does.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Union
 
 import torch
 
@@ -37,9 +46,9 @@ INT32_MAX = 2**31 - 1
 
 
 class AdamWHyperparams(NamedTuple):
-    """Scalar hyperparameters."""
+    """Scalar hyperparameters; :func:`adamw`'s learning rate may be a schedule."""
 
-    learning_rate: float
+    learning_rate: Union[float, Callable]
     b1: float
     b2: float
     eps: float
@@ -57,6 +66,13 @@ class ScaleByAdamState(NamedTuple):
 
 class EmptyState(NamedTuple):
     """optax's state of a stateless transform (decay, learning rate)."""
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax's state of a scheduled learning rate: the int32 count the
+    schedule is called on."""
+
+    count: torch.Tensor
 
 
 def safe_int32_increment(count: torch.Tensor) -> torch.Tensor:
@@ -155,9 +171,20 @@ class AdamW:
     def init(self, params: dict):
         device = tree_leaves(params)[0].device
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
-        count = torch.zeros((), dtype=torch.int32, device=device)
-        return (ScaleByAdamState(count, tree_map(zeros, params), tree_map(zeros, params)),
-                EmptyState(), EmptyState())
+        count = lambda: torch.zeros((), dtype=torch.int32, device=device)  # noqa: E731
+        lr_state = ScaleByScheduleState(count()) if callable(self.hyperparams.learning_rate) else EmptyState()
+        return (ScaleByAdamState(count(), tree_map(zeros, params), tree_map(zeros, params)),
+                EmptyState(), lr_state)
+
+    def _step_size(self, lr_state):
+        """optax's ``scale_by_learning_rate``: ``(-lr, state')``, with a
+        schedule ``-schedule(count)`` at the count before its increment."""
+        lr = self.hyperparams.learning_rate
+        if not callable(lr):
+            return -lr, lr_state
+        count = lr_state.count
+        step = torch.as_tensor(lr(count), dtype=torch.float32, device=count.device)
+        return -step, ScaleByScheduleState(safe_int32_increment(count))
 
     @torch.no_grad()
     def update(self, updates: dict, state, params: dict):
@@ -169,8 +196,9 @@ class AdamW:
         nu = tree_map(lambda g, v: (1.0 - hp.b2) * (g * g) + hp.b2 * v, updates, adam.nu)
         u = tree_map(lambda m, v: (m / bc[0]) / (torch.sqrt(v / bc[1] + hp.eps_root) + hp.eps), mu, nu)
         u = tree_map(lambda x, p: x + hp.weight_decay * p, u, params)
-        u = tree_map(lambda x: (-hp.learning_rate) * x, u)
-        return u, (ScaleByAdamState(count, mu, nu),) + tuple(state[1:])
+        step_size, lr_state = self._step_size(state[2])
+        u = tree_map(lambda x: step_size * x, u)
+        return u, (ScaleByAdamState(count, mu, nu), state[1], lr_state)
 
 
 class FusedAdamW(AdamW):
@@ -192,25 +220,25 @@ class FusedAdamW(AdamW):
         return params, (ScaleByAdamState(count, adam.mu, adam.nu),) + tuple(opt_state[1:])
 
 
-def _hyperparams(learning_rate, b1, b2, eps, eps_root, weight_decay, what: str) -> AdamWHyperparams:
-    if callable(learning_rate):
-        raise ValueError(
-            f"{what} takes a scalar learning_rate (schedules come with scheduler.py, "
-            "ROADMAP item 9)"
-        )
-    return AdamWHyperparams(
-        float(learning_rate), float(b1), float(b2), float(eps), float(eps_root), float(weight_decay)
-    )
+def _hyperparams(learning_rate, b1, b2, eps, eps_root, weight_decay) -> AdamWHyperparams:
+    lr = learning_rate if callable(learning_rate) else float(learning_rate)
+    return AdamWHyperparams(lr, float(b1), float(b2), float(eps), float(eps_root), float(weight_decay))
 
 
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+def adamw(learning_rate: Union[float, Callable], b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           eps_root: float = 0.0, weight_decay: float = 1e-4) -> AdamW:
-    """optax's ``adamw`` formula as a transform, the non-fused path."""
-    return AdamW(_hyperparams(learning_rate, b1, b2, eps, eps_root, weight_decay, "adamw"))
+    """optax's ``adamw`` formula as a transform, the non-fused path. The
+    learning rate is a float or a schedule ``count -> lr``."""
+    return AdamW(_hyperparams(learning_rate, b1, b2, eps, eps_root, weight_decay))
 
 
 def fused_adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 eps_root: float = 0.0, weight_decay: float = 1e-4) -> FusedAdamW:
     """Drop-in for :func:`adamw` with the fused-kernel update. Scalar
-    hyperparameters only: a schedule raises ``ValueError``."""
-    return FusedAdamW(_hyperparams(learning_rate, b1, b2, eps, eps_root, weight_decay, "fused_adamw"))
+    hyperparameters only: a schedule raises ``ValueError``, as the JAX
+    package's ``fused_adamw`` does (a schedule keeps :func:`adamw`)."""
+    if callable(learning_rate):
+        raise ValueError(
+            "fused_adamw takes a scalar learning_rate (a schedule keeps the plain adamw path)"
+        )
+    return FusedAdamW(_hyperparams(learning_rate, b1, b2, eps, eps_root, weight_decay))

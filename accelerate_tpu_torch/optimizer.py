@@ -11,18 +11,19 @@ with a ``fused_apply`` updates params and state in one kernel pass per leaf.
 
 Where the JAX package donates buffers to a jitted update, the port updates
 the fp32 master parameters in place. Offloading the optimizer state to the
-host waits for the parallel slice (ROADMAP item 9).
+host waits for the memory part of the parallel slice (ROADMAP item 9(c)).
 """
 
 from __future__ import annotations
 
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import LossScaleKwargs
-from .utils.params import tree_leaves, tree_map
+from .utils.params import state_leaves, state_unflatten, tree_leaves, tree_map
 
 
 @torch.no_grad()
@@ -196,3 +197,24 @@ class AcceleratedOptimizer:
             state["scale"] = self.scale
             state["growth_tracker"] = self.growth_tracker
         return state
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` whose ``opt_state`` leaves may be
+        numpy arrays (a checkpoint's): each leaf goes to the params' device
+        in the dtype of the state it replaces, and the fp16 loss scale and
+        growth tracker are restored."""
+        device = tree_leaves(self.params)[0].device
+        current, loaded = state_leaves(self.opt_state), state_leaves(state["opt_state"])
+        if len(loaded) != len(current):
+            raise ValueError(f"the optimizer state holds {len(current)} leaves, got {len(loaded)}")
+        leaves = [
+            torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x)).to(
+                device=device, dtype=old.dtype, copy=True
+            ).contiguous()
+            for old, x in zip(current, loaded)
+        ]
+        self.opt_state = state_unflatten(self.opt_state, leaves)
+        self._step_count = int(state.get("step_count", 0))
+        if self.scaler is not None and "scale" in state:
+            self.scale = torch.tensor(float(state["scale"]), dtype=torch.float32, device=device)
+            self.growth_tracker = torch.tensor(int(state["growth_tracker"]), dtype=torch.int32, device=device)

@@ -59,11 +59,39 @@ class LossScaleKwargs(KwargsHandler):
 
 @dataclass
 class GradientAccumulationPlugin(KwargsHandler):
-    """Gradient-accumulation window semantics of the reference (its
-    scheduler and data-loader fields come with ROADMAP item 9)."""
+    """Gradient-accumulation window semantics of the reference:
+    ``adjust_scheduler`` ticks the scheduler on the micro-steps the
+    optimizer skips, ``sync_with_dataloader`` closes a window at the end of
+    an epoch."""
 
     num_steps: int = 1
+    adjust_scheduler: bool = True
+    sync_with_dataloader: bool = True
     sync_each_batch: bool = False
+
+
+@dataclass
+class ProjectConfiguration:
+    """Checkpoint and logging directories (reference
+    ``ProjectConfiguration``): with ``automatic_checkpoint_naming``,
+    ``save_state`` writes ``<project_dir>/checkpoints/checkpoint_<iteration>``
+    and keeps the newest ``total_limit``."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: Optional[str] = None) -> None:
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
 
 
 @dataclass
@@ -74,7 +102,7 @@ class CompilationConfig:
     (``ops/flash_attention``); 0 disables. The port wires the hook on every device (the JAX package
     only on a TPU), so a CPU run takes the kernels' plain versions.
     ``remat_policy`` other than None raises: activation checkpointing comes
-    with the parallel slice (ROADMAP item 9)."""
+    with the memory part of the parallel slice (ROADMAP item 9(c))."""
 
     remat_policy: Optional[str] = None
     flash_attention_min_seq: int = 1024
@@ -83,7 +111,7 @@ class CompilationConfig:
         if self.remat_policy not in (None, "none"):
             raise NotImplementedError(
                 f"remat_policy={self.remat_policy!r}: activation checkpointing is not "
-                "in the port yet (ROADMAP item 9)"
+                "in the port yet (ROADMAP item 9(c))"
             )
 
 

@@ -32,6 +32,42 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def state_leaves(tree) -> list:
+    """Leaves of an optimizer state in ``jax.tree.leaves`` order: the fields
+    of a NamedTuple and the items of a tuple or list in order, a dict's keys
+    sorted, and no leaf for ``EmptyState()`` or None. This is the order of
+    the ``leaf_<j>`` entries of a checkpoint's ``optimizer_<i>.npz``."""
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in state_leaves(item)]
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in state_leaves(tree[key])]
+    if tree is None:
+        return []
+    return [tree]
+
+
+def state_unflatten(template, leaves: list):
+    """``template``'s structure with its leaves replaced by ``leaves``, taken
+    in :func:`state_leaves` order."""
+    want = len(state_leaves(template))
+    if len(leaves) != want:
+        raise ValueError(f"the state holds {want} leaves, got {len(leaves)}")
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(item) for item in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(item) for item in node)
+        if isinstance(node, dict):
+            return {key: build(node[key]) for key in sorted(node)}
+        if node is None:
+            return None
+        return next(it)
+
+    return build(template)
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts of one structure."""
     if isinstance(tree, dict):

@@ -71,9 +71,28 @@ wall time:
     step for each flash kernel and for adamw, one profiled step each); then
     fp32 at B=2, S=1024, 3 steps against the same steps with the plain
     attention and the plain adamw passed in; then bf16 at B=8, S=1024 on a
-    64-token sub-vocabulary, whose loss must fall by 1 nat in 20 steps.
+    64-token sub-vocabulary, whose loss must fall by 1 nat in 20 steps;
+14. the training loop: llama-125m in bf16 through ``Accelerator(
+    mixed_precision="bf16", gradient_accumulation_steps=2)`` and
+    ``prepare(model, fused_adamw(3e-4), loader, schedule)`` over a seeded
+    dataset of 264 rows of 1025 tokens (batch 16, shuffled, prefetch 2),
+    2 epochs of 17 micro-batches, the last of 8 rows closing its window at
+    the end of the epoch: 18 optimizer steps. Gates: every batch on the
+    card holds the rows its sampler picked; run B (prefetch 0) takes a
+    SIGTERM mid step 5, saves once at the boundary under
+    ``CheckpointManager`` (total_limit 2 rotates out the oldest) and its
+    losses equal the uninterrupted run A's; run C, a fresh Accelerator,
+    resumes with ``resume("auto")`` past a torn ``.tmp`` directory and a
+    damaged checkpoint, and its losses of steps 6-18 and final params equal
+    run A's bit for bit (or, if two A runs differ, lie within their
+    spread); launches are 12 per micro-batch for each flash kernel and 12
+    per optimizer step for adamw. Printed: the step p50 through the loader
+    beside phase 13's, the device busy share and the host-to-device copies'
+    stream over two profiled steps, the checkpoint's bytes and its save,
+    verify and load seconds, and the weight format written.
 
-The line before the last is a JSON object describing each kernel; the last
+The JSON line's launch counts of the four training kernels are phase 14's
+run A. The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -83,9 +102,12 @@ import copy
 import gc
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -109,6 +131,7 @@ from accelerate_tpu_torch import (
     dispatch_model,
     fused_adamw,
     generate,
+    get_config,
     make_layered_device_map,
     paged_decode_attention,
     paged_verify_attention,
@@ -116,6 +139,9 @@ from accelerate_tpu_torch import (
     quant_matmul,
 )
 from accelerate_tpu_torch.big_modeling import StreamedModel
+from accelerate_tpu_torch.checkpointing import has_safetensors
+from accelerate_tpu_torch.data_loader import BatchSampler, SeedableRandomSampler
+from accelerate_tpu_torch.fault_tolerance import build_manifest, verify_checkpoint, write_manifest
 from accelerate_tpu_torch.models import train_flops_per_step
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
@@ -1260,10 +1286,11 @@ def random_batch(rng, batch, seq, vocab) -> dict:
     return {"input_ids": torch.tensor(rng.integers(0, vocab, (batch, seq)).astype(np.int32), device="cuda")}
 
 
-def phase_training(card: str) -> dict:
+def phase_training(card: str) -> tuple[dict, float]:
     """llama-125m bf16 training through the entry points at the two bench
-    shapes; returns the launch counts of the B=32, S=1024 run."""
-    main_counts = None
+    shapes; returns the launch counts and the step p50 (seconds) of the
+    B=32, S=1024 run."""
+    main_counts, main_p50 = None, None
     for batch_size, seq in ((32, 1024), (8, 4096)):
         accelerator, model = train_setup("llama-125m", "bf16", fused_adamw(ADAMW_LR))
         layers = model.config.num_layers
@@ -1302,12 +1329,12 @@ def phase_training(card: str) -> dict:
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"non-finite training loss: {losses}")
         if (batch_size, seq) == (32, 1024):
-            main_counts = counts
+            main_counts, main_p50 = counts, p50
         profile_train_step(step, batch, card, f"B={batch_size} S={seq}")
         del accelerator, model, step, batch
         gc.collect()
         torch.cuda.empty_cache()
-    return main_counts
+    return main_counts, main_p50
 
 
 def profile_train_step(step, batch, card: str, tag: str, steps: int = 2) -> None:
@@ -1376,6 +1403,331 @@ def phase_training_parity(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 14: the training loop ------------------------------------------------
+
+LOOP_ROWS, LOOP_TOKENS = 264, 1025  # a row: 1024 inputs and the 1024 next tokens
+LOOP_BATCH, LOOP_ACCUM, LOOP_EPOCHS, LOOP_SEED = 16, 2, 2, 42
+LOOP_SAVE_STEP = 5  # mid epoch 0: after micro-batch 10
+
+
+class TokenRows:
+    """A map-style dataset: row ``i`` of a token matrix as ``{"input_ids"}``."""
+
+    def __init__(self, tokens: np.ndarray):
+        self.tokens = tokens
+
+    def __len__(self) -> int:
+        return len(self.tokens)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.tokens[i]}
+
+
+def loop_schedule(count):
+    """The schedule handed to ``prepare``: advisory, as in the JAX package
+    when the transform holds none (``fused_adamw`` takes a scalar)."""
+    return ADAMW_LR / (1 + 0.05 * count)
+
+
+def next_token_loss(model):
+    """Cross-entropy of rows of S+1 tokens: the model reads the first S and
+    predicts the last S (``Llama.loss_fn`` would attend over all S+1)."""
+
+    def fn(params, batch):
+        ids = batch["input_ids"]
+        logits = model.apply(params, ids[:, :-1])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, ids[:, 1:].long()[..., None]).mean()
+
+    return fn
+
+
+def loop_setup(dataset, prefetch: int):
+    """A fresh Accelerator and the four prepared objects of the loop. The
+    loader keeps the last batch of an epoch short (``even_batches=False``:
+    the JAX package's shard pads it to a full batch by repeating its rows
+    even at one process)."""
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="bf16", gradient_accumulation_steps=LOOP_ACCUM)
+    loader = accelerator.prepare_data_loader(dataset, batch_size=LOOP_BATCH, shuffle=True, seed=LOOP_SEED,
+                                             even_batches=False, prefetch=prefetch)
+    model, optimizer, loader, scheduler = accelerator.prepare(
+        Llama("llama-125m", dtype=torch.float32, seed=SEED), fused_adamw(ADAMW_LR), loader, loop_schedule)
+    return accelerator, model, optimizer, loader, scheduler
+
+
+def loop_indices(epochs: int) -> list[torch.Tensor]:
+    """The rows each micro-batch must hold: the sampler's batches, epoch by
+    epoch, as index tensors on the card."""
+    sampler = BatchSampler(SeedableRandomSampler(LOOP_ROWS, seed=LOOP_SEED), LOOP_BATCH)
+    out = []
+    for epoch in range(epochs):
+        sampler.set_epoch(epoch)
+        out += [torch.tensor(b, device="cuda") for b in sampler]
+    return out
+
+
+def train_loop(accelerator, model, optimizer, loader, scheduler, rows, indices, step=0, manager=None,
+               resume=None, kill_at=None) -> dict:
+    """The loop a user writes: ``accumulate`` -> ``backward`` -> ``step`` ->
+    ``scheduler.step`` -> ``zero_grad``, over ``LOOP_EPOCHS``. Returns the
+    loss of each optimizer step (the mean of its micro-batches), the step
+    reached, the seconds of each save, the seconds of each step (host clock
+    from the end of the previous step, loader included, to a synchronize
+    after it) and the count of batch elements that differ from the
+    sampler's rows (counted on the card). ``kill_at`` sends SIGTERM before
+    that micro-batch of the run."""
+    loss_fn = next_token_loss(model.module)
+    losses, window, saves, times, seen = [], [], [], [], 0
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    torch.cuda.synchronize()
+    last = time.perf_counter()
+    for epoch in range(resume.epoch if resume else 0, LOOP_EPOCHS):
+        loader.set_epoch(epoch)
+        epoch_loader = manager.resumed_loader(loader, resume, epoch) if manager else loader
+        offset = epoch * math.ceil(LOOP_ROWS / LOOP_BATCH) + (epoch_loader.position if resume else 0)
+        for i, batch in enumerate(epoch_loader):
+            if kill_at is not None and seen == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)  # the handler only sets a flag
+            seen += 1
+            bad += (batch["input_ids"] != rows[indices[offset + i]]).sum()
+            with accelerator.accumulate(model):
+                window.append(accelerator.backward(loss_fn, batch))
+                optimizer.step()
+                scheduler.step()
+                optimizer.zero_grad()
+            if not accelerator.sync_gradients:
+                continue
+            step += 1
+            losses.append(torch.stack(window).mean())
+            window = []
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - last)
+            if manager is not None and manager.should_save(step):
+                t0 = time.perf_counter()
+                manager.save(step, epoch=epoch)
+                saves.append(time.perf_counter() - t0)
+            last = time.perf_counter()
+            if manager is not None and manager.exit_requested:
+                break
+        if manager is not None and manager.exit_requested:
+            break
+        resume = None
+    return dict(losses=[float(x) for x in losses], step=step, saves=saves, times=times, bad=int(bad))
+
+
+def fake_checkpoint(base: str, step: int, damaged: bool = False) -> None:
+    """A small committed checkpoint (a manifest over one file), or, with
+    ``damaged``, one whose file no longer matches its manifest."""
+    path = os.path.join(base, f"checkpoint_{step}")
+    os.makedirs(path)
+    with open(os.path.join(path, "note.txt"), "w") as f:
+        f.write(f"step {step}\n")
+    write_manifest(path, build_manifest(path, step=step, metadata={"step": step}))
+    if damaged:
+        with open(os.path.join(path, "note.txt"), "a") as f:
+            f.write("torn\n")
+
+
+def loop_profile(accelerator, model, optimizer, loader, scheduler, card: str, p50: float) -> None:
+    """Two optimizer steps through the loader under torch.profiler, tracing
+    the device only (as ``profile_train_step`` does: host tracing slows the
+    host and with it the wall time): the device's busy share of the profiled
+    wall time and of the unprofiled step p50, and where the host-to-device
+    copies ran (their stream, and whether kernels of another stream ran
+    while they did)."""
+    loss_fn = next_token_loss(model.module)
+    loader.set_epoch(LOOP_EPOCHS)
+    batches = iter(loader)
+    for _ in range(2):  # the prefetch queue fills before the window
+        next(batches)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2 * LOOP_ACCUM):
+            batch = next(batches)
+            with accelerator.accumulate(model):
+                accelerator.backward(loss_fn, batch)
+                optimizer.step()
+                scheduler.step()
+                optimizer.zero_grad()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    batches.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy, end = 0.0, -math.inf
+    for start, stop in spans:  # the union of device activity
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    kernels = [e for e in device if e["cat"] == "kernel"]
+    compute = {e["args"].get("stream") for e in kernels}
+    h2d = [e for e in device if e["cat"] == "gpu_memcpy" and "HtoD" in e["name"]]
+    under = sum(
+        any(k["args"].get("stream") != c["args"].get("stream") and k["ts"] < c["ts"] + c["dur"]
+            and c["ts"] < k["ts"] + k["dur"] for k in kernels)
+        for c in h2d
+    )
+    streams = sorted({c["args"].get("stream") for c in h2d} - {None})
+    print(f"[loop-profile] llama-125m bf16 loop, 2 optimizer steps ({2 * LOOP_ACCUM} micro-batches of "
+          f"{LOOP_BATCH}x{LOOP_TOKENS - 1} through the loader, prefetch=2): wall {wall_us / 2e3:.3f} ms/step under the "
+          f"profiler (device tracing only), device busy {busy / 2e3:.3f} ms/step ({busy / wall_us:.1%} of that wall, "
+          f"{busy / 2e3 / (p50 * 1e3):.1%} of the unprofiled step p50 {p50 * 1e3:.3f} ms; union of "
+          f"kernels and copies); {len(h2d)} host-to-device copies on stream(s) {streams} (compute "
+          f"kernels on {sorted(compute - {None})}), {under} of them while a kernel of another stream "
+          f"ran [{card}]")
+
+
+def loop_spread_gate(dataset, rows, indices, losses_a, params_a, losses_c, params_c, start, card) -> None:
+    """Where run C is not bit-equal to run A: run A once more. Bit-equal
+    uninterrupted runs make C's difference a fault of the resume; otherwise
+    C must stay within the spread of the two uninterrupted runs."""
+    accelerator, model, optimizer, loader, scheduler = loop_setup(dataset, prefetch=2)
+    losses_a2 = train_loop(accelerator, model, optimizer, loader, scheduler, rows, indices)["losses"]
+    params_a2 = tree_leaves(model.params)
+    spread = (max(abs(a - b) for a, b in zip(losses_a, losses_a2)),
+              max(float((a - b).abs().max()) for a, b in zip(params_a, params_a2)))
+    off = (max(abs(a - c) for a, c in zip(losses_a[start:], losses_c)),
+           max(float((a - c).abs().max()) for a, c in zip(params_a, params_c)))
+    print(f"[loop-resume] run C differs from run A by {off[0]:.3e} in loss and {off[1]:.3e} in params; two "
+          f"uninterrupted runs differ by {spread[0]:.3e} and {spread[1]:.3e} [{card}]")
+    if spread == (0.0, 0.0) or off[0] > spread[0] or off[1] > spread[1]:
+        raise AssertionError("the resumed run is outside the spread of two uninterrupted runs")
+
+
+def phase_loop(card: str, compiled_p50: float) -> dict:
+    """llama-125m bf16 through ``prepare(model, fused_adamw, loader,
+    schedule)`` and the user's loop, 2 epochs of 17 micro-batches (the last
+    of 8 rows closes its window through the end-of-dataloader branch): 18
+    optimizer steps. Run A runs uninterrupted; run B (prefetch=0) takes a
+    SIGTERM mid step 5 and saves once at its boundary under
+    ``CheckpointManager``; run C resumes from a fresh Accelerator with
+    ``resume("auto")`` past a torn staging directory and a damaged
+    checkpoint, and trains to step 18. Returns run A's launch counts."""
+    rng = np.random.default_rng(SEED + 15)
+    tokens = rng.integers(0, get_config("llama-125m").vocab_size, (LOOP_ROWS, LOOP_TOKENS)).astype(np.int32)
+    dataset = TokenRows(tokens)
+    rows = torch.from_numpy(tokens).cuda()
+    indices = loop_indices(LOOP_EPOCHS)
+    micro = len(indices)
+    steps = LOOP_EPOCHS * math.ceil(math.ceil(LOOP_ROWS / LOOP_BATCH) / LOOP_ACCUM)
+
+    # run A: uninterrupted, timed by optimizer step
+    accelerator, model, optimizer, loader, scheduler = loop_setup(dataset, prefetch=2)
+    layers = model.module.config.num_layers
+    leaves = len(tree_leaves(model.params))
+    reset_launches()
+    run_a = train_loop(accelerator, model, optimizer, loader, scheduler, rows, indices)
+    counts = launch_counts()
+    losses_a, reached, timer = run_a["losses"], run_a["step"], run_a["times"]
+    params_a = [p.detach().clone() for p in tree_leaves(model.params)]
+    p50 = float(np.median(timer[2:]))
+    lr = scheduler.get_last_lr()[0]
+    print(f"[loop] llama-125m bf16, prepare(model, fused_adamw({ADAMW_LR}), loader, schedule), "
+          f"{micro} micro-batches of {LOOP_BATCH}x{LOOP_TOKENS - 1} (the last of each epoch "
+          f"{LOOP_ROWS % LOOP_BATCH} rows) in {reached} optimizer steps (accumulation {LOOP_ACCUM}); "
+          f"losses {losses_a[0]:.4f} -> {losses_a[-1]:.4f}; step p50 {p50 * 1e3:.3f} ms through the "
+          f"loader (min {min(timer[2:]) * 1e3:.3f}, max {max(timer[2:]) * 1e3:.3f}, steps 3-{reached}, "
+          f"the epoch's short last step included) against phase 13's compiled_step p50 "
+          f"{compiled_p50 * 1e3:.3f} ms at B=32 S=1024; scheduler counter {scheduler.step_count}, "
+          f"get_last_lr {lr:.6e} (advisory) beside the applied lr {ADAMW_LR:.6e}; launches {counts} [{card}]")
+    want = {"flash_fwd": layers * micro, "flash_dq": layers * micro, "flash_dkv": layers * micro,
+            "fused_adamw": leaves * steps}
+    for key, n in want.items():
+        if counts[key] != n:
+            raise AssertionError(f"loop {key}: {counts[key]} launches, expected {n}")
+    if any(counts[key] for key in ("paged_decode", "paged_verify", "quant_matmul")):
+        raise AssertionError(f"the training loop launched serving kernels: {counts}")
+    # adjust_scheduler (the default) ticks the counter on every micro-batch
+    if reached != steps or scheduler.step_count != micro or not all(map(math.isfinite, losses_a)):
+        raise AssertionError(f"run A reached step {reached}, scheduler {scheduler.step_count}: {losses_a}")
+    loop_profile(accelerator, model, optimizer, loader, scheduler, card, p50)
+    del accelerator, model, optimizer, loader, scheduler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        # run B: prefetch off, SIGTERM before micro-batch 10, one boundary save
+        fake_checkpoint(ckpt, 1)
+        fake_checkpoint(ckpt, 3)
+        accelerator, model, optimizer, loader, scheduler = loop_setup(dataset, prefetch=0)
+        manager = accelerator.checkpoint_manager(ckpt, total_limit=2)
+        try:
+            run_b = train_loop(accelerator, model, optimizer, loader, scheduler, rows, indices, manager=manager,
+                               kill_at=LOOP_SAVE_STEP * LOOP_ACCUM - 1)
+            exited = manager.exit_requested
+        finally:
+            manager.restore_signal_handlers()
+        losses_b, stopped, saves = run_b["losses"], run_b["step"], run_b["saves"]
+        kept = sorted(os.listdir(ckpt))
+        saved = os.path.join(ckpt, f"checkpoint_{LOOP_SAVE_STEP}")
+        nbytes = sum(os.path.getsize(os.path.join(saved, n)) for n in os.listdir(saved))
+        weights = sorted(n for n in os.listdir(saved) if n.startswith("model_"))
+        t1 = time.perf_counter()
+        problems = verify_checkpoint(saved)
+        verify_s = time.perf_counter() - t1
+        print(f"[loop-ckpt] run B (prefetch=0): SIGTERM before micro-batch {LOOP_SAVE_STEP * LOOP_ACCUM}, "
+              f"stopped at step {stopped} with {len(saves)} save(s), exit_requested {exited}; kept {kept} "
+              f"(total_limit 2); checkpoint {nbytes} bytes ({nbytes / 2**30:.3f} GiB) saved in "
+              f"{saves[0] if saves else float('nan'):.3f} s, weights as {weights} (safetensors installed: "
+              f"{has_safetensors()}); verify {verify_s:.3f} s, "
+              f"problems {problems}; losses 1-{stopped} equal run A's bit for bit: "
+              f"{losses_b == losses_a[:stopped]} [{card}]")
+        if not (stopped == LOOP_SAVE_STEP and len(saves) == 1 and exited):
+            raise AssertionError(f"preemption: stopped at {stopped} with {len(saves)} saves, exit {exited}")
+        if kept != ["checkpoint_3", f"checkpoint_{LOOP_SAVE_STEP}"] or problems:
+            raise AssertionError(f"rotation or manifest: kept {kept}, problems {problems}")
+        if losses_b != losses_a[:stopped]:
+            raise AssertionError(f"prefetch=0 losses {losses_b} differ from run A's {losses_a[:stopped]}")
+        del accelerator, model, optimizer, loader, scheduler, manager
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run C: a fresh Accelerator resumes past a torn and a damaged checkpoint
+        os.makedirs(os.path.join(ckpt, "checkpoint_9.tmp"))
+        with open(os.path.join(ckpt, "checkpoint_9.tmp", "model_0.safetensors"), "wb") as f:
+            f.write(b"torn")
+        fake_checkpoint(ckpt, 7, damaged=True)
+        accelerator, model, optimizer, loader, scheduler = loop_setup(dataset, prefetch=2)
+        manager = accelerator.checkpoint_manager(ckpt, handle_signals=())
+        t1 = time.perf_counter()
+        resume = manager.resume("auto")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        run_c = train_loop(accelerator, model, optimizer, loader, scheduler, rows, indices, step=resume.step,
+                           manager=manager, resume=resume)
+        losses_c, reached_c = run_c["losses"], run_c["step"]
+        params_c = tree_leaves(model.params)
+        equal = losses_c == losses_a[resume.step:] and all(torch.equal(a, c) for a, c in zip(params_a, params_c))
+        print(f"[loop-resume] run C: resume('auto') -> {os.path.basename(resume.path)} (step {resume.step}, "
+              f"epoch {resume.epoch}, loaders {resume.dataloaders}) past checkpoint_9.tmp and a damaged "
+              f"checkpoint_7, verify + load {load_s:.3f} s; trained steps {resume.step + 1}-{reached_c}; "
+              f"losses and final params bit-equal to run A: {equal}; batch elements off their sampler rows: "
+              f"A {run_a['bad']}, B {run_b['bad']}, C {run_c['bad']} [{card}]")
+        if not resume.path.endswith(f"checkpoint_{LOOP_SAVE_STEP}") or resume.dataloaders != [
+                {"epoch": 0, "position": LOOP_SAVE_STEP * LOOP_ACCUM}]:
+            raise AssertionError(f"resume picked {resume}")
+        if run_a["bad"] or run_b["bad"] or run_c["bad"]:
+            raise AssertionError("a batch on the card differs from its sampler rows")
+        if reached_c != steps:
+            raise AssertionError(f"run C reached step {reached_c}")
+        del accelerator, model, optimizer, loader, scheduler, manager
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not equal:
+            loop_spread_gate(dataset, rows, indices, losses_a, params_a, losses_c, params_c, resume.step, card)
+        del params_a, params_c
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1406,10 +1758,11 @@ def main() -> int:
     records["flash_dq"], records["flash_dkv"] = timed(
         "phase 11 flash backward kernels", phase_flash_backward, card)
     records["fused_adamw"] = timed("phase 12 adamw kernel", phase_adamw, card)
-    counts = timed("phase 13 training", phase_training, card)
+    _, compiled_p50 = timed("phase 13 training", phase_training, card)
+    timed("phase 13 training parity and learning", phase_training_parity, card)
+    counts = timed("phase 14 the training loop", phase_loop, card, compiled_p50)
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
         launches[name] = counts[name]
-    timed("phase 13 training parity and learning", phase_training_parity, card)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

@@ -195,10 +195,13 @@ def test_state_structure_mirrors_optax():
 
 
 def test_fused_adamw_rejects_schedules():
+    """``fused_adamw`` takes a scalar learning rate, as the JAX package's
+    does; the plain ``adamw`` takes a schedule, as ``optax.adamw`` does
+    (``tests/test_torch_scheduler.py`` holds it to optax)."""
     with pytest.raises(ValueError, match="scalar learning_rate"):
         fused_adamw(lambda step: 1e-3)
-    with pytest.raises(ValueError, match="scalar learning_rate"):
-        adamw(lambda step: 1e-3)
+    state = adamw(lambda step: 1e-3).init({"w": torch.ones(2)})
+    assert type(state[2]).__name__ == "ScaleByScheduleState" and int(state[2].count) == 0
 
 
 def test_weight_decay_defaults_to_optax_not_torch():

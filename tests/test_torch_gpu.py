@@ -651,3 +651,83 @@ def test_training_step_runs_each_kernel_once_per_layer(cuda, mixed_precision):
     layers = model.config.num_layers
     assert [a - b for a, b in zip(counts(), before)] == [3 * layers] * 3 + [3 * 12]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def _reset_training_state():
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    PartialState._reset_state()
+
+
+def test_prefetching_loader_on_the_card_yields_the_sampled_rows(cuda):
+    """300 shuffled batches of 4 rows through ``prefetch=3`` on the card,
+    the consumer's stream kept busy so the producer's copies run ahead:
+    every batch holds the rows its sampler picked (compared on the card,
+    in the consumer's stream, so a read before the copy landed or a buffer
+    reused too early would show), and the batches equal those of
+    ``prefetch=0``."""
+    from accelerate_tpu_torch.data_loader import BatchSampler, SeedableRandomSampler, prepare_data_loader
+
+    _reset_training_state()
+    PartialState(device=cuda)
+    rows = np.random.default_rng(0).integers(-2**31, 2**31 - 1, (1200, 33)).astype(np.int32)
+    dataset = [{"x": r} for r in rows]
+    sampler = BatchSampler(SeedableRandomSampler(len(rows), seed=5), 4)
+    sampler.set_epoch(1)
+    want = [torch.tensor(rows[b], device=cuda) for b in sampler]
+    got = {}
+    for prefetch in (3, 0):
+        loader = prepare_data_loader(dataset, batch_size=4, shuffle=True, seed=5, prefetch=prefetch)
+        loader.set_epoch(1)
+        bad = torch.zeros((), dtype=torch.int64, device=cuda)
+        sums = []
+        for batch, expected in zip(loader, want):
+            assert batch["x"].is_cuda
+            torch.cuda._sleep(200_000)  # the step: the consumer's stream lags the copies
+            bad += (batch["x"] != expected).sum()
+            sums.append(batch["x"].sum(dtype=torch.int64))
+        torch.cuda.synchronize()
+        assert int(bad) == 0 and loader.batches_yielded == len(want) == 300
+        got[prefetch] = torch.stack(sums).cpu()
+    assert torch.equal(got[3], got[0])
+
+
+class _TinyModel(torch.nn.Module):
+    """A two-leaf model with the port's ``apply`` and ``param_tree``."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.ones(8, 4))
+        self.b = torch.nn.Parameter(torch.zeros(4))
+
+    def param_tree(self):
+        return {"w": self.w, "b": self.b}
+
+    @staticmethod
+    def apply(params, x):
+        return x @ params["w"] + params["b"]
+
+
+def test_checkpoint_round_trips_cuda_rng_and_generators(cuda, tmp_path):
+    """save_state on the card, draw, load_state: the global CUDA RNG, the
+    port's CUDA and CPU generators and the model's params come back, so the
+    draws after the load repeat those after the save."""
+    from accelerate_tpu_torch.utils.random import generator, set_seed
+
+    _reset_training_state()
+    accelerator = Accelerator()
+    model, _ = accelerator.prepare(_TinyModel(), fused_adamw(1e-2))
+    set_seed(11)
+    torch.randn(3, device=cuda)
+    generator("cuda")
+    accelerator.save_state(str(tmp_path / "ckpt"))
+    draws = lambda: (torch.randn(5, device=cuda), torch.randn(5, generator=generator("cuda"), device=cuda),  # noqa: E731
+                     torch.randn(5, generator=generator("cpu")))
+    first = draws()
+    with torch.no_grad():
+        model.params["w"].add_(1.0)
+    accelerator.load_state(str(tmp_path / "ckpt"))
+    again = draws()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert torch.equal(model.params["w"], torch.ones(8, 4, device=cuda))
