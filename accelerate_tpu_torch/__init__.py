@@ -1,7 +1,8 @@
 """accelerate-tpu on PyTorch and CUDA: the port of ``accelerate_tpu`` to an
 NVIDIA H100.
 
-The port trains and serves llama models on one device. Training runs the
+The port trains llama (dense and mixture-of-experts) and BERT models and
+serves llama models on one device. Training runs the
 JAX package's entry points: ``Accelerator(mixed_precision=...)``,
 ``prepare_model``, ``prepare_optimizer`` and ``compiled_step(loss_fn)`` (or
 the eager ``backward`` + ``optimizer.step()``), with bf16 compute over fp32
@@ -10,7 +11,10 @@ master params, flash attention for sequences of at least
 and the training loop around them: ``prepare(model, optimizer, loader,
 schedule)``, the data loader with its prefetch and resume, the scheduler,
 ``save_state`` / ``load_state`` in the JAX package's checkpoint format, and
-``CheckpointManager`` (atomic saves, preemption, auto-resume).
+``CheckpointManager`` (atomic saves, preemption, auto-resume); residual
+dropout from explicit generators, and activation checkpointing under
+``CompilationConfig(remat_policy=...)``. ``examples/nlp_example.py`` is the
+reference's canonical loop (BERT on the bundled MRPC-like data).
 Serving runs a paged continuous-batching engine, with speculative decoding
 and quantized-resident (int8/int4) weights.
 
@@ -29,14 +33,14 @@ from .big_modeling import dispatch_model, make_layered_device_map
 from .data_loader import prepare_data_loader, skip_first_batches
 from .fault_tolerance import CheckpointManager, ResumePoint, latest_valid_checkpoint, verify_checkpoint
 from .logging import get_logger
-from .models import Llama, generate, get_config
+from .models import Bert, Llama, MoEBlock, generate, get_config
 from .ops.flash_attention import flash_attention, make_auto_attention
 from .ops.fused_adamw import adamw, fused_adamw
 from .ops.paged_attention import paged_decode_attention, paged_verify_attention
 from .ops.quant_matmul import quant_dot, quant_matmul
 from .optimizer import AcceleratedOptimizer
 from .resilience import RetryPolicy
-from .scheduler import AcceleratedScheduler
+from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving import ServingEngine, SpeculativeConfig
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
@@ -56,6 +60,7 @@ __all__ = [
     "AcceleratedScheduler",
     "Accelerator",
     "AcceleratorState",
+    "Bert",
     "CheckpointManager",
     "CompilationConfig",
     "DistributedType",
@@ -63,6 +68,7 @@ __all__ = [
     "GradientState",
     "Llama",
     "LossScaleKwargs",
+    "MoEBlock",
     "PartialState",
     "PreparedModel",
     "ProjectConfiguration",
@@ -93,4 +99,5 @@ __all__ = [
     "set_seed",
     "skip_first_batches",
     "verify_checkpoint",
+    "warmup_cosine_decay_schedule",
 ]

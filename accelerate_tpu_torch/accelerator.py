@@ -235,7 +235,11 @@ class Accelerator:
         and marked ``requires_grad``, or ``params`` loaded into them. Wires
         the attention hook: the flash dispatch whenever
         ``flash_attention_min_seq`` is set (on any device; a CPU run takes
-        the kernels' plain versions), else the einsum path."""
+        the kernels' plain versions; non-causal for a model whose
+        ``causal_attention`` is False, as BERT's), else the einsum path.
+        A model with the ``remat_layers`` hook checkpoints each layer under
+        the config's ``remat_policy``; the step wraps the whole loss
+        function of any other model instead."""
         if isinstance(model, PreparedModel):
             return model
         with torch.no_grad():
@@ -261,7 +265,10 @@ class Accelerator:
         if hasattr(model, "dot_fn"):
             model.dot_fn = None
         if hasattr(model, "remat_layers"):
-            model.remat_layers = False
+            # per layer, not the outer loss-fn wrap, which for the dot
+            # policies would keep every layer's products alive at once;
+            # always assigned: the model may be re-prepared under another config
+            model.remat_layers = self.compilation_config.checkpoint_policy() or False
         prepared = PreparedModel(model, model.param_tree())
         self._models.append(prepared)
         return prepared
@@ -375,15 +382,25 @@ class Accelerator:
             )
         return optimizer
 
-    def _loss_and_grads(self, loss_fn, params, batch, scale, has_aux: bool = False):
+    def _effective_remat(self, model: PreparedModel):
+        """The outer activation-checkpointing wrap of the loss function: the
+        config's policy for a model without the per-layer ``remat_layers``
+        hook, None for one with it (its layers are checkpointed already)."""
+        if hasattr(model.module, "remat_layers"):
+            return None
+        return self.compilation_config.checkpoint_policy()
+
+    def _loss_and_grads(self, loss_fn, model: PreparedModel, batch, scale, has_aux: bool = False):
         """``(loss fp32, aux, grads)`` of ``loss_fn`` over the compute-dtype
-        cast of ``params`` and ``batch``, times ``scale`` when given; the
-        grads are fp32, like the masters."""
+        cast of the model's params and ``batch``, times ``scale`` when
+        given; the grads are fp32, like the masters."""
         policy = self.state.precision_policy
+        params = model.params
         leaves = tree_leaves(params)
+        remat = self._effective_remat(model)
         with torch.enable_grad():
-            out = loss_fn(cast_floating(params, policy.compute_dtype),
-                          cast_floating(batch, policy.compute_dtype))
+            args = (cast_floating(params, policy.compute_dtype), cast_floating(batch, policy.compute_dtype))
+            out = loss_fn(*args) if remat is None else remat(loss_fn, *args)
             loss, aux = out if has_aux else (out, None)
             loss = loss.float()
             scaled = loss if scale is None else loss * scale
@@ -402,7 +419,7 @@ class Accelerator:
                 raise ValueError("backward() needs a prepared model.")
             model = self._models[-1]
         optimizer = self._optimizer_for(model)
-        loss, aux, grads = self._loss_and_grads(loss_fn, model.params, batch, optimizer.scale, has_aux)
+        loss, aux, grads = self._loss_and_grads(loss_fn, model, batch, optimizer.scale, has_aux)
         optimizer.accumulate_grads(grads)
         return (loss, aux) if has_aux else loss
 
@@ -495,12 +512,12 @@ class Accelerator:
             """The (unscaled) loss and the scaled grads, averaged over the
             microbatches."""
             if num_micro == 1:
-                loss, _, grads = self._loss_and_grads(loss_fn, model.params, batch, scale)
+                loss, _, grads = self._loss_and_grads(loss_fn, model, batch, scale)
                 return loss, grads
             total_loss, total = None, None
             for i in range(num_micro):
                 mb = tree_map(lambda x: _microbatch(x, i, num_micro), batch)
-                loss, _, grads = self._loss_and_grads(loss_fn, model.params, mb, scale)
+                loss, _, grads = self._loss_and_grads(loss_fn, model, mb, scale)
                 total_loss = loss if total_loss is None else total_loss + loss
                 total = grads if total is None else tree_map(torch.add, total, grads)
             return total_loss / num_micro, tree_map(lambda g: g / num_micro, total)

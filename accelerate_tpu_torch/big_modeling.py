@@ -24,6 +24,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from .models.bert import Bert
 from .models.llama import Llama
 from .ops.runtime import resolve_device
 from .utils.quantization import QuantizationConfig, QuantizedWeight, dequantize_weight, quantize_weight
@@ -288,6 +289,8 @@ def dispatch_model(
     arrays or tensors, any dtype); None takes the model's own weights.
     ``quantization`` packs the layer matrices as int8/int4 (W8A16/W4A16).
     ``device`` (None = CUDA) is where ``"device"`` components go."""
+    if isinstance(model, Bert):
+        raise NotImplementedError(f"dispatching bert (its streaming protocol) is {NOT_PORTED}")
     if not isinstance(model, Llama):
         raise TypeError(f"{type(model).__name__} cannot be dispatched: the port places llama models")
     if isinstance(device_map, str):

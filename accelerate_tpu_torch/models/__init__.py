@@ -1,5 +1,7 @@
-"""The llama family in PyTorch, with the JAX package's parameter layout."""
+"""The model zoo in PyTorch (llama, llama-MoE and bert), with the JAX
+package's parameter layout."""
 
+from .bert import Bert, layer_norm
 from .config import (
     TransformerConfig,
     get_config,
@@ -18,22 +20,39 @@ from .generation import (
     resolve_window_protocol,
 )
 from .llama import Llama, decoder_layer, rms_norm
+from .moe import MoEBlock, routed_mlp
+
+_ARCHS = {"llama": Llama, "bert": Bert}
+
+
+def build_model(name: str, **kwargs):
+    """Registry name -> model instance (``"llama-125m"``, ``"bert-base"``);
+    ``kwargs`` (``device``, ``dtype``, ``seed``) pass to the constructor.
+    The registry holds no gpt2 or t5 config yet (ROADMAP item 16)."""
+    config = get_config(name)
+    return _ARCHS[config.arch](config, **kwargs)
+
 
 __all__ = [
+    "Bert",
     "Llama",
+    "MoEBlock",
     "TransformerConfig",
+    "build_model",
     "decoder_layer",
     "forward_window_with_cache",
     "forward_with_cache",
     "generate",
     "get_config",
     "init_cache",
+    "layer_norm",
     "list_models",
     "make_sampler",
     "param_count",
     "resolve_decode_protocol",
     "resolve_window_protocol",
     "rms_norm",
+    "routed_mlp",
     "train_flops_per_step",
     "train_flops_per_token",
 ]

@@ -1,4 +1,4 @@
-"""Attention primitives of the llama family, in PyTorch.
+"""Attention primitives of the model zoo, in PyTorch.
 
 Counterpart of ``accelerate_tpu/models/attention.py``: the same layouts
 (``[B, S, N, D]`` activations), the same GQA convention (query head ``h``
@@ -34,6 +34,41 @@ def dense_init(generator: torch.Generator, shape: tuple, fan_in: int, device) ->
     """Scaled-normal initializer shared by the model zoo (fp32)."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
     return w / math.sqrt(fan_in)
+
+
+def dropout_keep(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    """The keep mask of inverted dropout: ``uniform [0, 1) < 1 - rate`` drawn
+    from ``generator`` (JAX's ``bernoulli(1 - rate)`` by the same rule)."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def dropout_with_mask(x: torch.Tensor, rate: float, keep: torch.Tensor) -> torch.Tensor:
+    """Inverted dropout under a given keep mask: ``where(keep, x / (1 - rate), 0)``."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout; the identity when ``generator`` is None (eval) or
+    ``rate <= 0``. The keep mask is drawn on ``x``'s device."""
+    if generator is None or rate <= 0.0:
+        return x
+    return dropout_with_mask(x, rate, dropout_keep(x.shape, rate, generator, x.device))
+
+
+def seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    """A fresh generator on ``device`` seeded with ``seed`` (None for None).
+    The models draw one seed per dropout site before their layer loop and
+    build each site's generator inside the layer, so a recomputed layer
+    (activation checkpointing) draws the same mask again."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def draw_seeds(generator: torch.Generator, n: int) -> list[int]:
+    """``n`` seeds from ``generator``, on its device (a CUDA generator's
+    draw waits for the card once)."""
+    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
 
 
 def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float = 10000.0, dtype=torch.float32):

@@ -1,8 +1,9 @@
-"""Model configurations: the llama part of the JAX package's registry.
+"""Model configurations: the llama and bert parts of the JAX package's registry.
 
 A copy, not an import: the port never imports ``accelerate_tpu``, even its
 pure-Python modules. Field names, defaults and the parameter count follow
-``accelerate_tpu/models/config.py`` so configs and checkpoints line up.
+``accelerate_tpu/models/config.py`` so configs and checkpoints line up. The
+gpt2 and t5 families come with ROADMAP item 16.
 """
 
 from __future__ import annotations
@@ -13,9 +14,9 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """Decoder geometry of the llama family."""
+    """One config for the decoder (llama) and encoder (bert) stacks."""
 
-    arch: str = "llama"
+    arch: str = "llama"  # "llama" | "bert"
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -27,8 +28,12 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    dropout_rate: float = 0.0  # residual dropout; every llama config has 0
-    # num_experts > 1 selects the routed-expert MLP, which the port does not have
+    # encoder-only extras
+    type_vocab_size: int = 2
+    num_labels: int = 2
+    dropout_rate: float = 0.0  # embedding and residual dropout; every registry config has 0
+    # mixture-of-experts (decoder): num_experts > 1 swaps the gated MLP for a
+    # top-k routed expert MLP (models/moe.py)
     num_experts: int = 1
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -75,6 +80,19 @@ _REGISTRY: dict[str, TransformerConfig] = {
         num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=256,
         num_experts=4, moe_top_k=2, moe_capacity_factor=2.0,
     ),
+    # bert family (encoder): the nlp_example's model (BERT-base MRPC)
+    "bert-tiny": TransformerConfig(
+        arch="bert", vocab_size=1024, hidden_size=128, intermediate_size=512,
+        num_layers=2, num_heads=2, max_seq_len=128,
+    ),
+    "bert-base": TransformerConfig(
+        arch="bert", vocab_size=30522, hidden_size=768, intermediate_size=3072,
+        num_layers=12, num_heads=12, max_seq_len=512, norm_eps=1e-12,
+    ),
+    "bert-large": TransformerConfig(
+        arch="bert", vocab_size=30522, hidden_size=1024, intermediate_size=4096,
+        num_layers=24, num_heads=16, max_seq_len=512, norm_eps=1e-12,
+    ),
 }
 
 
@@ -89,26 +107,40 @@ def list_models() -> list[str]:
 
 
 def param_count(config: TransformerConfig) -> int:
-    """Exact parameter count of a llama config, without materializing it."""
-    if config.arch != "llama":
-        raise ValueError(f"the port has only the llama family, got arch {config.arch!r}")
+    """Exact parameter count of a llama or bert config, without materializing it."""
     h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
     d, nh, nkv = config.dim_per_head, config.num_heads, config.kv_heads
-    if config.num_experts > 1:
-        mlp = h * config.num_experts + config.num_experts * 2 * h * i  # router + experts
-    else:
-        mlp = 3 * h * i  # gate, up, down
-    per_layer = (
-        h * (nh * d)          # q
-        + 2 * h * (nkv * d)   # k, v
-        + (nh * d) * h        # o
-        + mlp
-        + 2 * h               # two rmsnorms
+    if config.arch == "llama":
+        if config.num_experts > 1:
+            mlp = h * config.num_experts + config.num_experts * 2 * h * i  # router + experts
+        else:
+            mlp = 3 * h * i  # gate, up, down
+        per_layer = (
+            h * (nh * d)          # q
+            + 2 * h * (nkv * d)   # k, v
+            + (nh * d) * h        # o
+            + mlp
+            + 2 * h               # two rmsnorms
+        )
+        total = v * h + config.num_layers * per_layer + h  # embed + layers + final norm
+        if not config.tie_embeddings:
+            total += h * v  # lm head
+        return total
+    if config.arch == "bert":
+        embed = v * h + config.max_seq_len * h + config.type_vocab_size * h + 2 * h
+        per_layer = (
+            4 * (h * h + h)       # q,k,v,o with bias
+            + h * i + i           # mlp up
+            + i * h + h           # mlp down
+            + 4 * h               # two layernorms (scale+bias)
+        )
+        pooler = h * h + h
+        classifier = h * config.num_labels + config.num_labels
+        return embed + config.num_layers * per_layer + pooler + classifier
+    raise ValueError(
+        f"the port has the llama and bert families, got arch {config.arch!r} "
+        "(gpt2 and t5: ROADMAP item 16)"
     )
-    total = v * h + config.num_layers * per_layer + h  # embed + layers + final norm
-    if not config.tie_embeddings:
-        total += h * v  # lm head
-    return total
 
 
 def train_flops_per_token(config: TransformerConfig, seq_len: Optional[int] = None) -> float:

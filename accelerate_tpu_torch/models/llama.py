@@ -3,9 +3,12 @@
 Counterpart of ``accelerate_tpu/models/llama.py``. The parameters keep the
 JAX package's key paths and layouts: ``embed_tokens`` ``[V, H]``, the layer
 weights stacked on a leading layer axis under ``layers.*`` with ``[in, out]``
-matrices, ``final_norm`` and ``lm_head`` ``[H, V]``. Weights therefore cross
-between the packages with no transposes (``utils/params.load_jax_params``).
-The stacked layers run as a Python loop where the JAX package scans.
+matrices, ``final_norm`` and ``lm_head`` ``[H, V]``; an MoE config
+(``num_experts > 1``) has ``router``, ``moe_up`` and ``moe_down`` in place
+of the gated MLP's three matrices. Weights therefore cross between the
+packages with no transposes (``utils/params.load_jax_params``). The stacked
+layers run as a Python loop where the JAX package scans; ``remat_layers``
+checkpoints each layer (``utils/dataclasses.CompilationConfig``).
 """
 
 from __future__ import annotations
@@ -17,11 +20,25 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
-from .attention import apply_rotary, dense_init, dot_product_attention, resolve_dot, rotary_embedding
 from ..utils.params import flatten_tree
+from .attention import (
+    apply_rotary,
+    dense_init,
+    dot_product_attention,
+    draw_seeds,
+    dropout,
+    resolve_dot,
+    rotary_embedding,
+    seeded_generator,
+)
 from .config import TransformerConfig, get_config
+from .moe import routed_mlp
 
-LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
+
+def layer_keys(cfg: TransformerConfig) -> tuple[str, ...]:
+    """The keys of one layer's weights, in the JAX package's order."""
+    mlp = ("router", "moe_up", "moe_down") if cfg.num_experts > 1 else ("w_gate", "w_up", "w_down")
+    return ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm") + mlp
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -43,8 +60,12 @@ def decoder_layer(
     dot_fn=None,  # the projection hook, e.g. ops.quant_matmul.quant_dot
     attention_fn=None,  # e.g. ops.flash_attention.make_auto_attention(...)
     kv_mask: Optional[torch.Tensor] = None,  # raw [B, S] validity for attention_fn
+    dropout_generators: tuple = (None, None),  # the attention and MLP branches' masks
+    dropout_rate: float = 0.0,
+    return_aux: bool = False,  # also return the MoE load-balance term
 ):
-    """One llama decoder layer. Returns ``(h, new_cache_or_None)``.
+    """One llama decoder layer. Returns ``(h, new_cache_or_None)``, plus the
+    layer's MoE aux loss (the float 0.0 for a dense layer) with ``return_aux``.
 
     ``cache`` selects the attention path:
     - with an ``attend`` hook (the serving engine's paged decode), ``attend``
@@ -56,7 +77,9 @@ def decoder_layer(
 
     Without a cache, ``attention_fn(q, k, v, kv_mask)`` attends when set (the
     training step's flash hook), else the einsum path under ``mask``.
-    Every projection goes through ``dot_fn`` (plain ``@`` when None).
+    Every projection goes through ``dot_fn`` (plain ``@`` when None); an MoE
+    layer's experts do not. Residual dropout draws each branch's keep mask
+    from its generator (none: no dropout).
     """
     dot = resolve_dot(dot_fn)
     b, s = h.shape[:2]
@@ -86,27 +109,39 @@ def decoder_layer(
         attn = attention_fn(q, k, v, kv_mask)
     else:
         attn = dot_product_attention(q, k, v, mask=mask, causal=causal)
-    h = h + dot(attn.reshape(b, s, nh * d), lp["wo"])
+    h = h + dropout(dot(attn.reshape(b, s, nh * d), lp["wo"]), dropout_rate, dropout_generators[0])
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-    h = h + dot(F.silu(dot(x, lp["w_gate"])) * dot(x, lp["w_up"]), lp["w_down"])
+    if "router" in lp:
+        mlp_out, aux = routed_mlp(
+            x, lp["router"], lp["moe_up"], lp["moe_down"],
+            top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+        )
+    else:
+        mlp_out = dot(F.silu(dot(x, lp["w_gate"])) * dot(x, lp["w_up"]), lp["w_down"])
+        aux = 0.0
+    h = h + dropout(mlp_out, dropout_rate, dropout_generators[1])
+    if return_aux:
+        return h, new_cache, aux
     return h, new_cache
 
 
 def layer_shapes(cfg: TransformerConfig) -> dict:
     """The stacked ``[L, ...]`` shape of every layer weight."""
-    h, i = cfg.hidden_size, cfg.intermediate_size
+    h, i, e = cfg.hidden_size, cfg.intermediate_size, cfg.num_experts
     d, nh, nkv, L = cfg.dim_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
-    return {
+    shapes = {
         "attn_norm": (L, h),
         "wq": (L, h, nh * d),
         "wk": (L, h, nkv * d),
         "wv": (L, h, nkv * d),
         "wo": (L, nh * d, h),
         "mlp_norm": (L, h),
-        "w_gate": (L, h, i),
-        "w_up": (L, h, i),
-        "w_down": (L, i, h),
     }
+    if e > 1:
+        shapes.update(router=(L, h, e), moe_up=(L, e, h, i), moe_down=(L, e, i, h))
+    else:
+        shapes.update(w_gate=(L, h, i), w_up=(L, h, i), w_down=(L, i, h))
+    return shapes
 
 
 class _Layers(nn.Module):
@@ -137,10 +172,6 @@ class Llama(nn.Module):
         cfg = get_config(config) if isinstance(config, str) else config
         if cfg.arch != "llama":
             raise ValueError(f"Llama needs a llama config, got arch {cfg.arch!r}")
-        if cfg.num_experts > 1:
-            raise NotImplementedError("mixture-of-experts layers are not in the port yet")
-        if cfg.dropout_rate > 0:
-            raise NotImplementedError("residual dropout is not in the port yet (ROADMAP item 10)")
         self.config = cfg
         # the projection hook of every layer (None = plain matmul);
         # quantized-resident serving installs ops.quant_matmul.quant_dot
@@ -148,7 +179,8 @@ class Llama(nn.Module):
         # the attention hook of the training forward (None = einsum);
         # Accelerator.prepare_model installs the flash dispatch
         self.attention_fn = None
-        # per-layer activation checkpointing: off (the parallel slice, ROADMAP item 9)
+        # per-layer activation checkpointing, set by Accelerator.prepare_model:
+        # False = off, or a utils.dataclasses.Remat policy run around each layer
         self.remat_layers = False
         device = resolve_device(device)
         h, v = cfg.hidden_size, cfg.vocab_size
@@ -174,7 +206,8 @@ class Llama(nn.Module):
     @torch.no_grad()
     def init(self, seed: int) -> "Llama":
         """Draw every weight from ``seed`` (fp32 draws, cast to the model's
-        dtype), in the JAX package's order: embed, attention, MLP, lm_head."""
+        dtype), in the JAX package's order: embed, attention, MLP (router and
+        experts for an MoE config), lm_head."""
         cfg = self.config
         h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
         d, nh, nkv, L = cfg.dim_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
@@ -188,9 +221,15 @@ class Llama(nn.Module):
         lay.wv.copy_(dense_init(gen, (L, h, nkv * d), h, dev))
         lay.wo.copy_(dense_init(gen, (L, nh * d, h), nh * d, dev))
         lay.mlp_norm.fill_(1.0)
-        lay.w_gate.copy_(dense_init(gen, (L, h, i), h, dev))
-        lay.w_up.copy_(dense_init(gen, (L, h, i), h, dev))
-        lay.w_down.copy_(dense_init(gen, (L, i, h), i, dev))
+        if cfg.num_experts > 1:
+            e = cfg.num_experts
+            lay.router.copy_(dense_init(gen, (L, h, e), h, dev))
+            lay.moe_up.copy_(dense_init(gen, (L, e, h, i), h, dev))
+            lay.moe_down.copy_(dense_init(gen, (L, e, i, h), i, dev))
+        else:
+            lay.w_gate.copy_(dense_init(gen, (L, h, i), h, dev))
+            lay.w_up.copy_(dense_init(gen, (L, h, i), h, dev))
+            lay.w_down.copy_(dense_init(gen, (L, i, h), i, dev))
         self.final_norm.fill_(1.0)
         if not cfg.tie_embeddings:
             self.lm_head.copy_(dense_init(gen, (h, v), h, dev))
@@ -199,7 +238,7 @@ class Llama(nn.Module):
     def layer_params(self, index: int) -> dict:
         """Views of layer ``index``'s weights, keyed as in the JAX layer dict
         (a packed layer matrix gives its per-layer ``QuantizedWeight`` view)."""
-        return {name: getattr(self.layers, name)[index] for name in LAYER_KEYS}
+        return {name: getattr(self.layers, name)[index] for name in layer_keys(self.config)}
 
     def _shapes(self) -> dict:
         cfg = self.config
@@ -211,7 +250,7 @@ class Llama(nn.Module):
 
     def param_tree(self) -> dict:
         """The weights as the JAX package's nested param dict (no copies)."""
-        tree: dict = {"layers": {name: getattr(self.layers, name) for name in LAYER_KEYS}}
+        tree: dict = {"layers": {name: getattr(self.layers, name) for name in layer_keys(self.config)}}
         for name in self._shapes():
             if not name.startswith("layers."):
                 tree[name] = getattr(self, name)
@@ -252,13 +291,23 @@ class Llama(nn.Module):
         input_ids: torch.Tensor,  # [B, S] integer ids
         attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real
         positions: Optional[torch.Tensor] = None,
-    ) -> torch.Tensor:
+        dropout_generator: Optional[torch.Generator] = None,
+        return_aux: bool = False,
+    ):
         """Logits ``[B, S, V]`` in the params' dtype, with the weights taken
         from ``params`` (the JAX package's ``apply``, which a user's
         ``loss_fn`` calls; it shadows ``nn.Module.apply``): the training
         step passes its compute-dtype cast of the fp32 masters, so gradients
         flow back to them. The stacked layers run as a loop over views
-        unbound once per key."""
+        unbound once per key.
+
+        ``dropout_generator`` turns on ``config.dropout_rate`` residual
+        dropout: one seed per layer and branch is drawn from it before the
+        loop (the JAX package splits ``L * 2`` keys), and each layer builds
+        its branches' generators from its seeds, so a checkpointed layer
+        draws the same masks when it is recomputed. ``return_aux`` adds the
+        summed MoE load-balance loss (fp32; the float 0.0 for a dense
+        config) as a second output."""
         cfg = self.config
         s = input_ids.shape[1]
         h = params["embed_tokens"][input_ids.long()]
@@ -270,21 +319,35 @@ class Llama(nn.Module):
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
+        keys = layer_keys(cfg)
         layers = params["layers"]
         per_key = {
             name: layers[name].unbind(0) if isinstance(layers[name], torch.Tensor)
             else [layers[name][i] for i in range(cfg.num_layers)]
-            for name in LAYER_KEYS
+            for name in keys
         }
-        for i in range(cfg.num_layers):
-            h, _ = decoder_layer(
-                cfg, h, {name: per_key[name][i] for name in LAYER_KEYS}, cos, sin, mask,
-                causal=True, dot_fn=self.dot_fn, attention_fn=self.attention_fn,
-                kv_mask=attention_mask,
+        seeds = [None] * (2 * cfg.num_layers)
+        if dropout_generator is not None and cfg.dropout_rate > 0.0:
+            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers)
+
+        def layer(h, lp, seed_attn, seed_mlp):
+            h, _, aux = decoder_layer(
+                cfg, h, lp, cos, sin, mask, causal=True, dot_fn=self.dot_fn,
+                attention_fn=self.attention_fn, kv_mask=attention_mask,
+                dropout_generators=(seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device)),
+                dropout_rate=cfg.dropout_rate, return_aux=True,
             )
+            return h, aux
+
+        total_aux = 0.0
+        for i in range(cfg.num_layers):
+            args = (h, {name: per_key[name][i] for name in keys}, seeds[2 * i], seeds[2 * i + 1])
+            h, aux = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
+            total_aux = total_aux + aux
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         head = params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]
-        return h @ head.to(h.dtype)
+        logits = h @ head.to(h.dtype)
+        return (logits, total_aux) if return_aux else logits
 
     def forward(
         self,
@@ -296,21 +359,27 @@ class Llama(nn.Module):
         return self.apply(self.param_tree(), input_ids, attention_mask, positions)
 
     @staticmethod
-    def loss_fn(model: "Llama"):
+    def loss_fn(model: "Llama", dropout_generator: Optional[torch.Generator] = None):
         """Next-token cross-entropy over a batch ``{input_ids,
         [attention_mask]}``: log-softmax in fp32, the mask weighting the
-        targets' positions, as the JAX package's ``Llama.loss_fn``."""
+        targets' positions, as the JAX package's ``Llama.loss_fn``; an MoE
+        config adds the summed load-balance term. ``dropout_generator``
+        (the port's addition) turns residual dropout on: each call draws
+        its seeds from it."""
 
         def fn(params, batch):
             input_ids = batch["input_ids"]
             attention_mask = batch.get("attention_mask")
-            logits = model.apply(params, input_ids, attention_mask)
+            logits, aux = model.apply(params, input_ids, attention_mask,
+                                      dropout_generator=dropout_generator, return_aux=True)
             targets = input_ids[:, 1:].long()
             logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
             nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
             if attention_mask is not None:
                 w = attention_mask[:, 1:].float()
-                return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
-            return nll.mean()
+                loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+            else:
+                loss = nll.mean()
+            return loss + aux
 
         return fn

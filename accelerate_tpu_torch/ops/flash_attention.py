@@ -27,6 +27,12 @@ TMA fills with zeros, and store 32 columns). The dq kernel also computes
 so the backward launches nothing else. See the sources' headers for what
 they leave for later.
 
+Under activation checkpointing (``CompilationConfig.remat_policy``) a
+recomputed layer launches the forward kernel again, except under
+``"save_flash"``: :func:`flash_stash_contexts` keeps each forward's ``out``
+and ``lse`` from the checkpointed forward and hands them back to the
+recompute, whose autograd node then runs only the backward kernels.
+
 A tensor on the CPU takes the plain PyTorch versions
 (:func:`flash_forward_reference`, :func:`flash_delta_reference`,
 :func:`flash_backward_dq_reference`, :func:`flash_backward_dkv_reference`);
@@ -37,9 +43,11 @@ ROADMAP item 16) and the ring ``offsets`` entry (ROADMAP item 17) raise
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -344,11 +352,30 @@ def flash_backward(q, k, v, mask, limit, do, lse, out, causal: bool = True, scal
 
 class _FlashAttention(torch.autograd.Function):
     """The custom vjp of the JAX package: the forward saves ``out`` and
-    ``lse``; the backward is :func:`flash_backward`."""
+    ``lse``; the backward is :func:`flash_backward`. It returns ``lse`` too
+    (not differentiable), for the ``save_flash`` stash."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, limit, causal, scale):
         out, lse = flash_forward(q, k, v, mask, limit, causal, scale)
+        ctx.save_for_backward(q, k, v, mask, limit, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, mask, limit, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
+class _FlashFromSaved(torch.autograd.Function):
+    """The same vjp over an ``out`` and ``lse`` the forward kernel gave
+    before: a recomputed layer under ``save_flash`` launches no forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, limit, out, lse, causal, scale):
         ctx.save_for_backward(q, k, v, mask, limit, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
@@ -357,7 +384,56 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, mask, limit, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+class _Stash(threading.local):
+    """Per thread: ``"record"`` (a checkpointed forward keeps each flash
+    forward's ``out`` and ``lse``) or ``"replay"`` (its recompute, in the
+    backward's thread, takes them back in call order)."""
+
+    mode: Optional[str] = None
+    saved: Optional[list] = None
+    index = 0
+
+
+_STASH = _Stash()
+
+
+@contextlib.contextmanager
+def _stash_mode(mode: str, saved: list):
+    previous = (_STASH.mode, _STASH.saved, _STASH.index)
+    _STASH.mode, _STASH.saved, _STASH.index = mode, saved, 0
+    try:
+        yield
+    finally:
+        _STASH.mode, _STASH.saved, _STASH.index = previous
+
+
+def flash_stash_contexts():
+    """``(forward, recompute)`` context managers for
+    ``torch.utils.checkpoint``'s ``context_fn``: the checkpointed forward
+    records every flash forward's ``out`` and ``lse``, and the recompute
+    replays them instead of launching the kernel again
+    (``remat_policy="save_flash"``). Plain context managers, not a dispatch
+    mode: the rest of the region runs, and is recomputed, at full speed."""
+    saved: list = []
+    return _stash_mode("record", saved), _stash_mode("replay", saved)
+
+
+def flash_attention_core(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0):
+    """The differentiable flash attention over prepared operands: ``out``
+    ``[B, S, N, D]`` by the forward kernel; the backward is the dq and dk/dv
+    kernels. ``mask``/``limit`` come from :func:`_mask_limit`."""
+    causal, scale = bool(causal), float(scale)
+    if _STASH.mode == "replay":
+        out, lse = _STASH.saved[_STASH.index]
+        _STASH.index += 1
+        return _FlashFromSaved.apply(q, k, v, mask, limit, out, lse, causal, scale)
+    out, lse = _FlashAttention.apply(q, k, v, mask, limit, causal, scale)
+    if _STASH.mode == "record":
+        _STASH.saved.append((out.detach(), lse))
+    return out
 
 
 def flash_attention(
@@ -397,7 +473,7 @@ def flash_attention(
     mask = limit = None
     if kv_mask is not None:
         mask, limit = _mask_limit(kv_mask)
-    return _FlashAttention.apply(q, k, v, mask, limit, bool(causal), float(scale))
+    return flash_attention_core(q, k, v, mask, limit, causal, scale)
 
 
 def flash_attention_block(q, k, v, kv_mask=None, *, causal=False, q_offset=None, kv_offset=None, **_):

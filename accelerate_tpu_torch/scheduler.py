@@ -17,9 +17,39 @@ is advisory: ``get_last_lr()`` reports ``schedule_fn(counter)``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
+import torch
+
 from .state import GradientState, PartialState
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0, exponent: float = 1.0) -> Callable:
+    """optax's ``warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps``, then a cosine decay to
+    ``end_value`` at ``decay_steps``, in fp32 with optax's operation order.
+    The schedule takes a step count (an int or an integer tensor, whose
+    device it keeps) and returns an fp32 scalar tensor."""
+    if not decay_steps - warmup_steps > 0:
+        raise ValueError(f"decay_steps ({decay_steps}) must exceed warmup_steps ({warmup_steps})")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = float(decay_steps - warmup_steps)
+
+    def schedule(count):
+        count = torch.as_tensor(count)
+        if warmup_steps > 0:
+            frac = 1 - torch.clamp(count, 0, warmup_steps).to(torch.float32) / warmup_steps
+            warm = (init_value - peak_value) * frac + peak_value
+        else:  # optax's linear schedule over no steps is constant
+            warm = torch.full((), init_value, dtype=torch.float32, device=count.device)
+        decay_count = torch.clamp((count - warmup_steps).to(torch.float32), max=cosine_steps)
+        cosine = 0.5 * (1 + torch.cos(math.pi * decay_count / cosine_steps))
+        decayed = peak_value * ((1 - alpha) * cosine ** exponent + alpha)
+        return torch.where(count < warmup_steps, warm, decayed)
+
+    return schedule
 
 
 class AcceleratedScheduler:

@@ -1,9 +1,10 @@
 """Weights across packages: the JAX param tree into a port module.
 
 The JAX package keeps parameters as nested dicts (``{"layers": {"wq": ...}}``);
-the port's modules keep the same key paths as dotted parameter names
-(``layers.wq``) with the same shapes, so loading is a copy per leaf with no
-transposes. Every key path and shape is checked.
+the port's modules (llama, llama-MoE, bert, ``MoEBlock``) keep the same key
+paths as dotted parameter names (``layers.wq``, ``embeddings.word``) with
+the same shapes, so loading is a copy per leaf with no transposes. Every key
+path and shape is checked.
 """
 
 from __future__ import annotations

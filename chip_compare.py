@@ -86,7 +86,9 @@ def flash(cs, tag, card, flush) -> None:
     for name, geometry in cs.FLASH_GEOMETRIES.items():
         c = cs.flash_case(rng, geometry, torch.bfloat16)
         leaves = [c[n].detach().clone().requires_grad_() for n in "qkv"]
-        out = fa._FlashAttention.apply(*leaves, c["mask"], c["limit"], c["causal"], c["scale"])
+        # trees before the flash forward became an operator name it _FlashAttention.apply
+        attend = getattr(fa, "flash_attention_core", None) or fa._FlashAttention.apply
+        out = attend(*leaves, c["mask"], c["limit"], c["causal"], c["scale"])
         ms = cs.time_ms(lambda: torch.autograd.grad(out, leaves, c["do"], retain_graph=True), flush, iters=20)
         print(json.dumps({"tree": tag, "geometry": name, "backward_ms": ms, "card": card}), flush=True)
         del c, leaves, out

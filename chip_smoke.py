@@ -49,11 +49,12 @@ wall time:
    layer bytes against bf16's, the device memory ``from_streamed`` adds
    measured), profiled as in phase 3; then fp32 int8 and int4 tokens
    against ``generate()`` over the dequantized weights;
-10. the flash attention forward kernel against its plain version at five
+10. the flash attention forward kernel against its plain version at six
     geometries ((a) llama-125m at B=32, S=1024, causal; (b) B=8, S=4096;
     (c) B=4, S=2048, head dim 128, 32 query heads over 8 kv heads, a padded
     mask with a fully padded row; (d) non-causal under a mask; (e) B=4,
-    S=512, head dim 32, 4 query heads over 2, causal), in bf16 and
+    S=512, head dim 32, 4 query heads over 2, causal; (f) bert-base's
+    B=32, S=128, non-causal under a padding mask), in bf16 and
     fp32, two launches bit-identical, timed beside its bound, the plain
     version and SDPA;
 11. the dq and dk/dv kernels at the same geometries against the plain
@@ -91,9 +92,33 @@ wall time:
     stream over two profiled steps, the checkpoint's bytes and its save,
     verify and load seconds, and the weight format written.
 
+15. BERT: bert-base at full width and depth, B=32 S=128, bf16, random
+    weights from seed 0, through ``compiled_step``: (a) the JAX bench's
+    setup (``adamw(2e-5)``, the einsum attention the default hook takes at
+    S=128) and (b) ``flash_attention_min_seq=128``, ``fused_adamw(2e-5)``
+    and a right padding of seeded lengths 16-128: step p50 over 10 steps
+    after 3 warm-up, steps/s, MFU, peak memory; (b) launches each flash
+    kernel 12 times a step and adamw 25 (the leaves) and is profiled; (c)
+    fp32 B=2, three steps through the kernels against three through the
+    plain versions under the padding mask (1e-4 relative); (d) the port's
+    ``nlp_example`` for one epoch, printing its metric line;
+16. mixture of experts and dropout: llama-moe-tiny (4 experts, top 2, GQA
+    4/2 at head dim 32) trains 5 bf16 steps at B=8 S=256 through the flash
+    kernels (losses fall, the balance term is in them; peak memory of the
+    dense dispatch), the same in fp32 against the plain versions,
+    ``generate()`` of 8 tokens; bert-base with dropout 0.1: two runs from
+    one generator seed give equal losses, another seed others;
+17. activation checkpointing: llama-125m B=32 S=1024 bf16 under
+    ``remat_policy`` None, "full" and "save_flash": step p50, peak memory,
+    ``flash_fwd`` launches a step (12, 24, 12); fp32 B=2: one step's params
+    under "full", "save_flash" and "dots_with_no_batch_dims" against no
+    remat, and bert-base with dropout under "full": its grads against no
+    remat (equal, or within the gap of two runs without remat).
+
 The JSON line's launch counts of the four training kernels are phase 14's
-run A. The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+run A; phases 15-17 print their own. The line before the last is a JSON
+object describing each kernel; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -119,6 +144,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from accelerate_tpu_torch import (
     Accelerator,
     AcceleratorState,
+    Bert,
     CompilationConfig,
     GradientState,
     Llama,
@@ -141,6 +167,7 @@ from accelerate_tpu_torch import (
 from accelerate_tpu_torch.big_modeling import StreamedModel
 from accelerate_tpu_torch.checkpointing import has_safetensors
 from accelerate_tpu_torch.data_loader import BatchSampler, SeedableRandomSampler
+from accelerate_tpu_torch.examples import nlp_example
 from accelerate_tpu_torch.fault_tolerance import build_manifest, verify_checkpoint, write_manifest
 from accelerate_tpu_torch.models import train_flops_per_step
 from accelerate_tpu_torch.ops import flash_attention as fa
@@ -149,7 +176,7 @@ from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_referenc
 from accelerate_tpu_torch.ops.quant_matmul import quant_matmul_reference
 from accelerate_tpu_torch.ops.runtime import build_kernel, build_log
 from accelerate_tpu_torch.serving.engine import params_from_streamed
-from accelerate_tpu_torch.utils.params import tree_leaves
+from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves
 from accelerate_tpu_torch.utils.quantization import dequantize_weight, quantize_weight
 
 SEED = 0
@@ -951,6 +978,7 @@ FLASH_GEOMETRIES = {
     "c_gqa32x8_d128_masked": (4, 2048, 2048, 32, 8, 128, True, True),
     "d_bidirectional_masked": (8, 1024, 1024, 12, 12, 64, False, True),
     "e_d32_gqa4x2": (4, 512, 512, 4, 2, 32, True, False),  # llama-tiny's heads
+    "f_bert_s128_masked": (32, 128, 128, 12, 12, 64, False, True),  # bert-base's attention (phase 15)
 }
 # bf16 grads against the plain backward / autograd: within this share of each
 # gradient's largest magnitude (bf16 rounds p and dS before the products, in
@@ -1160,7 +1188,7 @@ def phase_flash_backward(card: str) -> tuple[dict, dict]:
             plain_dkv = time_ms(lambda: fa.flash_backward_dkv_reference(*ref_args), flush, iters=3)
             # the whole backward as autograd runs it, beside SDPA's backward the same way
             leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-            flash_out = fa._FlashAttention.apply(*leaves, mask, limit, c["causal"], c["scale"])
+            flash_out = fa.flash_attention_core(*leaves, mask, limit, c["causal"], c["scale"])
             backward = time_ms(lambda: torch.autograd.grad(flash_out, leaves, do, retain_graph=True),
                                flush, iters=20)
             eager, launches = backward_eager_ops((q, k, v, mask, limit, do, lse, out, c["causal"], c["scale"]))
@@ -1350,11 +1378,18 @@ def profile_train_step(step, batch, card: str, tag: str, steps: int = 2) -> None
     report_profile(prof, wall_us, steps, f"llama-125m bf16 training step, {tag}", card)
 
 
-def plain_attention(q, k, v, kv_mask=None):
+def plain_attention_of(causal: bool):
     """The flash dispatch's function by the kernels' plain forward, with
     autograd through it (no kernel)."""
-    mask = None if kv_mask is None else fa._mask_limit(kv_mask)[0]
-    return fa.flash_forward_reference(q, k, v, mask, True, 1.0 / math.sqrt(q.shape[-1]))[0]
+
+    def attention(q, k, v, kv_mask=None):
+        mask = None if kv_mask is None else fa._mask_limit(kv_mask)[0]
+        return fa.flash_forward_reference(q, k, v, mask, causal, 1.0 / math.sqrt(q.shape[-1]))[0]
+
+    return attention
+
+
+plain_attention = plain_attention_of(causal=True)
 
 
 def phase_training_parity(card: str) -> None:
@@ -1728,6 +1763,298 @@ def phase_loop(card: str, compiled_p50: float) -> dict:
     return counts
 
 
+# -- phases 15-17: BERT, MoE and dropout, activation checkpointing -------------
+
+BERT_LR = 2e-5
+BERT_BATCH, BERT_SEQ = 32, 128  # the JAX bench's bert-base row (bench.py:254-299)
+BERT_LEAVES = 25  # 5 embedding, 16 layer, 2 pooler and 2 classifier leaves
+
+
+def bert_setup(mixed_precision, tx, flash_min_seq=1024, config="bert-base", remat_policy=None):
+    """A seeded fp32 BERT prepared behind a fresh Accelerator."""
+    reset_training_state()
+    accelerator = Accelerator(
+        mixed_precision=mixed_precision,
+        compilation_config=CompilationConfig(flash_attention_min_seq=flash_min_seq, remat_policy=remat_policy),
+    )
+    cfg = get_config(config) if isinstance(config, str) else config
+    model = Bert(cfg, dtype=torch.float32, seed=SEED)
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(tx)
+    return accelerator, model
+
+
+def bert_batch(rng, batch, seq, vocab, padded: bool) -> dict:
+    """Random ids, two segments, labels; with ``padded`` a right padding of
+    seeded lengths 16..seq (one row at full length)."""
+    ids = rng.integers(0, vocab, (batch, seq))
+    out = {"input_ids": torch.tensor(ids.astype(np.int32), device="cuda"),
+           "token_type_ids": torch.tensor((np.arange(seq)[None, :] >= seq // 2).repeat(batch, 0).astype(np.int32),
+                                          device="cuda"),
+           "labels": torch.tensor(rng.integers(0, 2, (batch,)).astype(np.int32), device="cuda")}
+    if padded:
+        lengths = rng.integers(16, seq + 1, batch)
+        lengths[0] = seq
+        out["attention_mask"] = torch.tensor((np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32),
+                                             device="cuda")
+    return out
+
+
+def timed_steps(step, batch, warmup: int, steps: int) -> tuple[list, list]:
+    """(losses as device scalars, step seconds after ``warmup``): each step
+    ends in a synchronize."""
+    times, losses = [], []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        losses.append(step(batch))
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def phase_bert(card: str) -> dict:
+    """bert-base at full width and depth, B=32 S=128 bf16: (a) the bench's
+    setup (adamw, the einsum hook at S=128); (b) flash from 128 tokens,
+    fused adamw, a padding mask, with launch counts; (c) fp32 B=2 kernels
+    against plain versions; (d) the port's nlp_example for one epoch.
+    Returns (b)'s launch counts."""
+    cfg = get_config("bert-base")
+    counted = None
+    for tag, tx, min_seq, padded in (("a: adamw, einsum attention", adamw(BERT_LR), 1024, False),
+                                     ("b: fused_adamw, flash from 128, padding mask", fused_adamw(BERT_LR), 128,
+                                      True)):
+        accelerator, model = bert_setup("bf16", tx, min_seq)
+        step = accelerator.compiled_step(Bert.loss_fn(model))
+        batch = bert_batch(np.random.default_rng(SEED + 15), BERT_BATCH, BERT_SEQ, cfg.vocab_size, padded)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, times = timed_steps(step, batch, 3, 10)
+        counts = launch_counts()
+        p50 = float(np.median(times))
+        flops = train_flops_per_step(cfg, BERT_BATCH, BERT_SEQ)
+        losses = [float(x) for x in losses]
+        print(f"[bert] bert-base bf16 B={BERT_BATCH} S={BERT_SEQ} ({tag}): step p50 {p50 * 1e3:.3f} ms "
+              f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over 10 steps after 3 warm-up, "
+              f"{1.0 / p50:.2f} steps/s, MFU {flops / p50 / PEAK_FLOPS[torch.bfloat16]:.4f} ({flops:.3e} flops "
+              f"a step at 989 TFLOP/s), peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+              f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} over 13 steps [{card}]")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"non-finite bert loss: {losses}")
+        if any(counts[key] for key in ("paged_decode", "paged_verify", "quant_matmul")):
+            raise AssertionError(f"bert training launched serving kernels: {counts}")
+        if padded:
+            want = {"flash_fwd": 12 * 13, "flash_dq": 12 * 13, "flash_dkv": 12 * 13, "fused_adamw": BERT_LEAVES * 13}
+            counted = counts
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    step(batch)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            report_profile(prof, wall_us, 2, f"bert-base bf16 training step ({tag})", card)
+        else:
+            want = {key: 0 for key in WRAPPERS}
+        for key, n in want.items():
+            if counts[key] != n:
+                raise AssertionError(f"{key}: {counts[key]} launches, expected {n}")
+        del accelerator, model, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = bert_batch(np.random.default_rng(SEED + 16), 2, BERT_SEQ, cfg.vocab_size, padded=True)
+    losses = {}
+    for kind in ("kernels", "plain"):
+        if kind == "kernels":
+            accelerator, model = bert_setup("no", fused_adamw(BERT_LR), 128)
+        else:
+            accelerator, model = bert_setup("no", adamw(BERT_LR), 0)
+            model.attention_fn = plain_attention_of(causal=False)
+        step = accelerator.compiled_step(Bert.loss_fn(model))
+        reset_launches()
+        losses[kind] = [float(step(batch)) for _ in range(3)]
+        counts = launch_counts()
+        expected = 0 if kind == "plain" else 3 * cfg.num_layers
+        if counts["flash_fwd"] != expected or (kind == "plain" and any(counts.values())):
+            raise AssertionError(f"{kind} fp32 bert run launched {counts}")
+        del accelerator, model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["plain"]))
+    print(f"[bert-parity] bert-base fp32 B=2 S=128, padding mask, 3 steps: kernels {losses['kernels']} vs "
+          f"plain {losses['plain']}: max relative difference {rel:.3e} (tolerance 1e-4) [{card}]")
+    if not (rel <= 1e-4):
+        raise AssertionError("fp32 bert kernel steps differ from the plain steps")
+
+    reset_training_state()
+    metric = nlp_example.main(["--num_epochs", "1"])
+    print(f"[bert-example] accelerate_tpu_torch.examples.nlp_example, 1 epoch on the card: {metric} [{card}]")
+    if set(metric) != {"accuracy", "f1"}:
+        raise AssertionError(f"nlp_example returned {metric}")
+    return counted
+
+
+def phase_moe_dropout(card: str) -> dict:
+    """llama-moe-tiny (GQA 4/2, head dim 32) trains 5 bf16 steps at B=8
+    S=256 through the flash kernels, the loss carrying the balance term;
+    the same in fp32 against the plain versions; ``generate()`` of 8
+    tokens; bert-base with dropout 0.1: two runs from one generator seed
+    give equal losses. Returns the MoE run's launch counts."""
+    moe_cfg = get_config("llama-moe-tiny")
+    rng = np.random.default_rng(SEED + 17)
+    batch = random_batch(rng, 8, 256, moe_cfg.vocab_size)
+    accelerator, model = train_setup(moe_cfg, "bf16", fused_adamw(1e-3), flash_min_seq=256)
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = [float(step(batch)) for _ in range(5)]
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        _, aux = model.apply(model.param_tree(), batch["input_ids"], return_aux=True)
+    print(f"[moe] llama-moe-tiny bf16 B=8 S=256 (4 experts, top-2, capacity factor 2.0 -> "
+          f"{8 * 256} slots an expert): losses {[round(x, 4) for x in losses]}, aux term after them "
+          f"{float(aux):.5f}; peak memory {peak / 2**30:.3f} GiB; launches {counts} [{card}]")
+    want = {"flash_fwd": 2 * 5, "flash_dq": 2 * 5, "flash_dkv": 2 * 5, "fused_adamw": 12 * 5}
+    for key, n in want.items():
+        if counts[key] != n:
+            raise AssertionError(f"{key}: {counts[key]} launches, expected {n}")
+    if not (losses[-1] < losses[0] and float(aux) > 0 and all(math.isfinite(x) for x in losses)):
+        raise AssertionError("llama-moe-tiny did not learn, or its loss lacks the balance term")
+    new = generate(model, np.asarray([[1, 2, 3]], np.int32), max_new_tokens=8)
+    print(f"[moe] generate() on llama-moe-tiny: {new.tolist()} [{card}]")
+    if new.shape != (1, 11):
+        raise AssertionError(f"generate gave shape {new.shape}")
+    del accelerator, model, step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parity = {}
+    for kind in ("kernels", "plain"):
+        if kind == "kernels":
+            accelerator, model = train_setup(moe_cfg, "no", fused_adamw(1e-3), flash_min_seq=256)
+        else:
+            accelerator, model = train_setup(moe_cfg, "no", adamw(1e-3), flash_min_seq=0)
+            model.attention_fn = plain_attention
+        step = accelerator.compiled_step(Llama.loss_fn(model))
+        reset_launches()
+        parity[kind] = [float(step(batch)) for _ in range(3)]
+        if kind == "plain" and any(launch_counts().values()):
+            raise AssertionError(f"plain fp32 moe run launched {launch_counts()}")
+        del accelerator, model, step
+    rel = max(abs(a - b) / abs(b) for a, b in zip(parity["kernels"], parity["plain"]))
+    print(f"[moe-parity] llama-moe-tiny fp32 B=8 S=256, 3 steps: kernels {parity['kernels']} vs plain "
+          f"{parity['plain']}: max relative difference {rel:.3e} (tolerance 1e-4) [{card}]")
+    if not (rel <= 1e-4):
+        raise AssertionError("fp32 moe kernel steps differ from the plain steps")
+
+    dropout_cfg = get_config("bert-base").replace(dropout_rate=0.1)
+    batch = bert_batch(np.random.default_rng(SEED + 18), BERT_BATCH, BERT_SEQ, dropout_cfg.vocab_size, padded=True)
+    runs = []
+    for seed in (5, 5, 6):
+        accelerator, model = bert_setup("bf16", fused_adamw(BERT_LR), 128, config=dropout_cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        step = accelerator.compiled_step(Bert.loss_fn(model, dropout_generator=gen))
+        runs.append([float(step(batch)) for _ in range(2)])
+        del accelerator, model, step
+    print(f"[dropout] bert-base bf16 dropout 0.1, B=32 S=128, 2 steps: generator seed 5 {runs[0]}, again "
+          f"{runs[1]}, seed 6 {runs[2]} [{card}]")
+    if runs[0] != runs[1] or runs[0] == runs[2]:
+        raise AssertionError("dropout runs from one generator seed differ, or runs from two seeds agree")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+REMAT_POLICIES = (None, "full", "save_flash")
+
+
+def max_param_gap(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def phase_remat(card: str) -> None:
+    """llama-125m B=32 S=1024 bf16 under remat None, "full" and
+    "save_flash": step p50, peak memory and flash_fwd launches a step
+    (12 / 24 / 12); then fp32 B=2: one step's params under each policy
+    against no remat, and bert-base with dropout under "full": its grads
+    against no remat (equal, or within the gap of two runs without remat)."""
+    rng = np.random.default_rng(SEED + 19)
+    batch = random_batch(rng, 32, 1024, 32000)
+    for policy in REMAT_POLICIES:
+        reset_training_state()
+        accelerator = Accelerator(mixed_precision="bf16", compilation_config=CompilationConfig(
+            flash_attention_min_seq=1024, remat_policy=policy))
+        model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+        accelerator.prepare_model(model)
+        accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+        step = accelerator.compiled_step(Llama.loss_fn(model))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, times = timed_steps(step, batch, 3, 10)
+        counts = launch_counts()
+        p50 = float(np.median(times))
+        print(f"[remat] llama-125m bf16 B=32 S=1024 remat_policy={policy!r}: step p50 {p50 * 1e3:.3f} ms "
+              f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over 10 steps after 3 warm-up, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, flash_fwd "
+              f"{counts['flash_fwd'] / 13:.1f} launches a step (dq {counts['flash_dq'] / 13:.1f}, dkv "
+              f"{counts['flash_dkv'] / 13:.1f}); losses {float(losses[0]):.4f} -> {float(losses[-1]):.4f} [{card}]")
+        forwards = 24 if policy == "full" else 12
+        if (counts["flash_fwd"], counts["flash_dq"], counts["flash_dkv"]) != (forwards * 13, 12 * 13, 12 * 13):
+            raise AssertionError(f"remat_policy={policy!r}: launches {counts}")
+        del accelerator, model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    small = random_batch(rng, 2, 1024, 32000)
+    params = {}
+    for policy in (None, None) + REMAT_POLICIES[1:] + ("dots_with_no_batch_dims",):
+        reset_training_state()
+        accelerator = Accelerator(mixed_precision="no", compilation_config=CompilationConfig(
+            flash_attention_min_seq=1024, remat_policy=policy))
+        model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+        prepared = accelerator.prepare_model(model)
+        accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+        accelerator.compiled_step(Llama.loss_fn(model))(small)
+        tree = {k: v.detach().clone() for k, v in flatten_tree(prepared.params)}
+        params.setdefault(policy, []).append(tree)
+        del accelerator, model, prepared
+    spread = max_param_gap(params[None][0], params[None][1])
+    gaps = {policy: max_param_gap(params[policy][0], params[None][0]) for policy in params if policy is not None}
+    print(f"[remat-parity] llama-125m fp32 B=2 S=1024, one step: params' max gap to no remat {gaps} "
+          f"(two runs without remat: {spread}) [{card}]")
+    if any(gap > spread for gap in gaps.values()):
+        raise AssertionError("a remat policy's step differs from the step without remat")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dropout_cfg = get_config("bert-base").replace(dropout_rate=0.1)
+    batch = bert_batch(np.random.default_rng(SEED + 20), 2, BERT_SEQ, dropout_cfg.vocab_size, padded=True)
+    grads = {}
+    for policy in (None, None, "full"):
+        accelerator, model = bert_setup("no", fused_adamw(BERT_LR), 128, config=dropout_cfg, remat_policy=policy)
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        accelerator.backward(Bert.loss_fn(model, dropout_generator=gen), batch)
+        tree = {k: v.detach().clone() for k, v in flatten_tree(accelerator._optimizers[-1].grads)}
+        grads.setdefault(policy, []).append(tree)
+        del accelerator, model
+    spread = max_param_gap(grads[None][0], grads[None][1])
+    gap = max_param_gap(grads["full"][0], grads[None][0])
+    print(f"[remat-parity] bert-base fp32 dropout 0.1 B=2 S=128 under 'full': grads' max gap to no remat "
+          f"{gap} (two runs without remat: {spread}) [{card}]")
+    if gap > spread:
+        raise AssertionError("bert's grads under full remat differ from those without remat")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1763,6 +2090,9 @@ def main() -> int:
     counts = timed("phase 14 the training loop", phase_loop, card, compiled_p50)
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
         launches[name] = counts[name]
+    timed("phase 15 bert", phase_bert, card)
+    timed("phase 16 mixture of experts and dropout", phase_moe_dropout, card)
+    timed("phase 17 activation checkpointing", phase_remat, card)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

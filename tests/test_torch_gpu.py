@@ -731,3 +731,80 @@ def test_checkpoint_round_trips_cuda_rng_and_generators(cuda, tmp_path):
     for a, b in zip(first, again):
         assert torch.equal(a, b)
     assert torch.equal(model.params["w"], torch.ones(8, 4, device=cuda))
+
+
+def _plain_attention(causal):
+    """The flash dispatch's function by the kernels' plain forward, with
+    autograd through it (no kernel)."""
+
+    def attention(q, k, v, kv_mask=None):
+        mask = None if kv_mask is None else fa._mask_limit(kv_mask)[0]
+        return fa.flash_forward_reference(q, k, v, mask, causal, 1.0 / q.shape[-1] ** 0.5)[0]
+
+    return attention
+
+
+def test_bert_flash_path_matches_its_plain_path(cuda):
+    """bert-base's width (12 heads of 64, 2 layers) at B=4 S=128 in fp32,
+    non-causal under a padding mask: the logits (2e-5) and every gradient
+    (5e-4 of its largest magnitude) through the flash kernels against the
+    same model attending by the kernels' plain version; each flash kernel
+    launches once a layer."""
+    from accelerate_tpu_torch import Bert
+    from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("bert-base").replace(num_layers=2)
+    rng = np.random.default_rng(0)
+    mask = np.ones((4, 128), np.int32)
+    for row, length in enumerate((128, 100, 37, 16)):
+        mask[row, length:] = 0
+    batch = {"input_ids": torch.tensor(rng.integers(0, cfg.vocab_size, (4, 128)), device=cuda),
+             "attention_mask": torch.tensor(mask, device=cuda),
+             "labels": torch.tensor([0, 1, 1, 0], device=cuda)}
+    results = {}
+    for kind in ("kernels", "plain"):
+        model = Bert(cfg, seed=0)
+        model.attention_fn = (fa.make_auto_attention(128, causal=False) if kind == "kernels"
+                              else _plain_attention(causal=False))
+        params = tree_map(lambda p: p.detach().clone().requires_grad_(), model.param_tree())
+        before = fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches
+        logits = model.apply(params, batch["input_ids"], batch["attention_mask"])
+        loss = Bert.loss_fn(model)(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        after = fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches
+        it = iter(grads)
+        results[kind] = (logits.detach(), dict(flatten_tree(tree_map(lambda _: next(it), params))),
+                         [a - b for a, b in zip(after, before)])
+    assert results["kernels"][2] == [2 * 2, 2, 2] and results["plain"][2] == [0, 0, 0]
+    assert float((results["kernels"][0] - results["plain"][0]).abs().max()) <= 2e-5
+    for key, want in results["plain"][1].items():
+        got = results["kernels"][1][key]
+        assert float((got - want).abs().max()) <= 5e-4 * max(float(want.abs().max()), 1e-4), key
+
+
+@pytest.mark.parametrize("policy,forwards", [(None, 1), ("full", 2), ("save_flash", 1)])
+def test_remat_policies_launch_the_flash_forward_once_or_twice(cuda, policy, forwards):
+    """llama-tiny widened to head dim 64, flash from 128 tokens, B=2 S=256,
+    bf16, one compiled step: ``flash_fwd`` launches once a layer without
+    remat and under ``save_flash``, twice under ``"full"``; dq and dk/dv
+    once a layer under each; the loss equals the loss without remat."""
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    PartialState._reset_state()
+    accelerator = Accelerator(mixed_precision="bf16", compilation_config=CompilationConfig(
+        flash_attention_min_seq=128, remat_policy=policy))
+    model = Llama(get_config("llama-tiny").replace(hidden_size=256), seed=0)
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(fused_adamw(1e-3))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    batch = {"input_ids": torch.tensor(np.random.default_rng(0).integers(0, 1024, (2, 256)), device=cuda)}
+    counts = lambda: (fa.flash_forward.launches, fa.flash_backward_dq.launches,  # noqa: E731
+                      fa.flash_backward_dkv.launches)
+    before = counts()
+    loss = float(step(batch))
+    torch.cuda.synchronize()
+    layers = model.config.num_layers
+    assert [a - b for a, b in zip(counts(), before)] == [forwards * layers, layers, layers]
+    assert np.isfinite(loss)

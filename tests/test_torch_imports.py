@@ -48,3 +48,9 @@ def test_scan_catches_a_jax_import(tmp_path):
         "accelerate_tpu.models", "jax.numpy",
     ]
     assert not _forbidden("accelerate_tpu_torch.models")
+
+
+def test_scan_covers_the_model_zoo_and_the_examples():
+    scanned = {os.path.relpath(p, REPO_ROOT) for p in _port_sources()}
+    for name in ("models/bert.py", "models/moe.py", "examples/nlp_example.py", "examples/example_utils.py"):
+        assert os.path.join("accelerate_tpu_torch", name) in scanned

@@ -136,11 +136,15 @@ def test_load_jax_params_checks_keys_and_shapes(pair):
 
 
 def test_seeded_init_is_reproducible_and_moe_is_refused():
+    """Seeded init repeats. An MoE config, which the port refused before it
+    had the routed MLP, now builds with the expert weights in place of the
+    gated MLP's (its parity lives in test_torch_moe.py)."""
     a, b = Llama("llama-tiny", device="cpu", seed=4), Llama("llama-tiny", device="cpu", seed=4)
     for (name, pa), (_, pb) in zip(a.named_parameters(), b.named_parameters()):
         assert torch.equal(pa, pb), name
-    with pytest.raises(NotImplementedError):
-        Llama("llama-moe-tiny", device="cpu")
+    moe = dict(Llama("llama-moe-tiny", device="cpu").named_parameters())
+    assert {"layers.router", "layers.moe_up", "layers.moe_down"} <= set(moe)
+    assert "layers.w_gate" not in moe
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
