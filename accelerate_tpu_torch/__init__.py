@@ -1,8 +1,11 @@
 """accelerate-tpu on PyTorch and CUDA: the port of ``accelerate_tpu`` to an
 NVIDIA H100.
 
-The port trains llama (dense and mixture-of-experts) and BERT models and
-serves llama models on one device. Training runs the
+The port trains llama (dense and mixture-of-experts) and BERT models, on
+one device or across processes (data-parallel, ZeRO and FSDP over
+``torch.distributed``: ``ParallelismConfig``,
+``FullyShardedDataParallelPlugin``, ``debug_launcher``), and serves llama
+models on one device. Training runs the
 JAX package's entry points: ``Accelerator(mixed_precision=...)``,
 ``prepare_model``, ``prepare_optimizer`` and ``compiled_step(loss_fn)`` (or
 the eager ``backward`` + ``optimizer.step()``), with bf16 compute over fp32
@@ -32,6 +35,7 @@ from .accelerator import Accelerator, PreparedModel
 from .big_modeling import dispatch_model, make_layered_device_map
 from .data_loader import prepare_data_loader, skip_first_batches
 from .fault_tolerance import CheckpointManager, ResumePoint, latest_valid_checkpoint, verify_checkpoint
+from .launchers import debug_launcher
 from .logging import get_logger
 from .models import Bert, Llama, MoEBlock, generate, get_config
 from .ops.flash_attention import flash_attention, make_auto_attention
@@ -46,8 +50,11 @@ from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     CompilationConfig,
     DistributedType,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    InitProcessGroupKwargs,
     LossScaleKwargs,
+    ParallelismConfig,
     ProjectConfiguration,
 )
 from .utils.memory import find_executable_batch_size
@@ -64,11 +71,14 @@ __all__ = [
     "CheckpointManager",
     "CompilationConfig",
     "DistributedType",
+    "FullyShardedDataParallelPlugin",
     "GradientAccumulationPlugin",
     "GradientState",
+    "InitProcessGroupKwargs",
     "Llama",
     "LossScaleKwargs",
     "MoEBlock",
+    "ParallelismConfig",
     "PartialState",
     "PreparedModel",
     "ProjectConfiguration",
@@ -79,6 +89,7 @@ __all__ = [
     "ServingEngine",
     "SpeculativeConfig",
     "adamw",
+    "debug_launcher",
     "dispatch_model",
     "find_executable_batch_size",
     "flash_attention",

@@ -34,13 +34,24 @@ autograd graph, so every op computes in that dtype as in the JAX package
 and the gradients land on the masters in fp32. ``compiled_step`` runs
 eagerly in this slice (no ``torch.compile``, no CUDA graph: ROADMAP item
 15); it keeps the reference's microbatch split, cast, clip and update seam.
-The mesh, ZeRO, resilience, telemetry and analysis branches wait for later
-slices (ROADMAP items 9(b), 18, 19, 21): their methods raise
-``NotImplementedError`` naming the item.
+
+Across processes (``torchrun``, or ``launchers.debug_launcher``) each
+process feeds its share of every batch, and the mesh's ``data`` and
+``fsdp`` axes (``ParallelismConfig``, ``FullyShardedDataParallelPlugin``)
+decide where params and optimizer state live (``parallel/sharding.py``)
+and how the update runs (``parallel/zero.py``): by default the ZeRO
+sharded update, the JAX package's default on such a mesh, with params
+stored in the folded 1/N layout; ``ParallelismConfig(zero_stage=0)`` keeps
+the replicated update, whose gradients are all-reduced to the mean; FSDP
+stages 1/2 keep the params whole and shard the update, and ``cpu_offload``
+keeps the optimizer state in host memory. The resilience, telemetry and
+analysis branches wait for later slices (ROADMAP items 18, 19, 21): their
+methods raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from contextlib import contextmanager
 from typing import Any, Callable, Optional
@@ -48,19 +59,25 @@ from typing import Any, Callable, Optional
 import torch
 
 from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
+from .logging import get_logger
 from .ops import operations as ops
 from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value, scaled_optimizer_update
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState
+from .state import AcceleratorState, GradientState, job_world_size
 from .utils.dataclasses import (
     CompilationConfig,
+    FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
+    InitProcessGroupKwargs,
     KwargsHandler,
     LossScaleKwargs,
+    ParallelismConfig,
     ProjectConfiguration,
 )
 from .utils.memory import release_memory
-from .utils.params import tree_leaves, tree_map
+from .utils.params import tree_leaves, tree_map, tree_unflatten
+
+logger = get_logger(__name__)
 
 # distinguishes "argument omitted" from an explicit None (= clear the setting)
 _UNSET = object()
@@ -82,11 +99,22 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
 class PreparedModel:
     """A model bound to its fp32 master parameters: ``params`` is the JAX
     layout's tree of the module's own ``Parameter``s, which the optimizer
-    updates in place; ``module`` is the original."""
+    updates in place; ``module`` is the original. Across processes
+    ``layout`` (``parallel.zero.ShardedLayout``) says where each param is
+    stored; where it splits them, ``params`` holds this process's shards
+    and the module's own weights hold nothing until ``unwrap_model``."""
 
-    def __init__(self, module: Any, params: dict):
+    def __init__(self, module: Any, params: dict, layout=None):
         self.module = module
         self.params = params
+        self.layout = layout
+
+    def full_params(self) -> dict:
+        """The whole params (gathered from the shards: a collective when
+        they are split, which every process calls)."""
+        if self.layout is None or not self.layout.shards_params:
+            return self.params
+        return self.layout.gather_params(self.params)
 
 
 class Accelerator:
@@ -96,7 +124,8 @@ class Accelerator:
         split_batches: bool = False,
         mixed_precision: Optional[str] = None,
         gradient_accumulation_steps: Optional[int] = None,
-        parallelism: Any = None,
+        parallelism: Optional[ParallelismConfig] = None,
+        fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
         compilation_config: Optional[CompilationConfig] = None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         project_config: Optional[ProjectConfiguration] = None,
@@ -107,19 +136,34 @@ class Accelerator:
         kwargs_handlers: Optional[list[KwargsHandler]] = None,
         device=None,
     ):
-        """``device=None`` means CUDA (and raises without a card);
-        ``device="cpu"`` runs every kernel's plain version. The loader
-        options (``device_placement``, ``split_batches``, ``even_batches``,
-        ``dispatch_batches``) are the defaults of ``prepare_data_loader``."""
+        """``device=None`` means CUDA (``cuda:LOCAL_RANK`` across processes;
+        it raises without a card); ``device="cpu"`` runs every kernel's
+        plain version. The loader options (``device_placement``,
+        ``split_batches``, ``even_batches``, ``dispatch_batches``) are the
+        defaults of ``prepare_data_loader``. An ``InitProcessGroupKwargs``
+        among ``kwargs_handlers`` says how the processes meet."""
+        if fsdp_plugin is not None and parallelism is None:
+            parallelism = ParallelismConfig(fsdp=fsdp_plugin.fsdp_size or job_world_size())
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
         self.loss_scale_kwargs: Optional[LossScaleKwargs] = None
+        init_kwargs = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, LossScaleKwargs):
                 self.loss_scale_kwargs = handler
-        self.state = AcceleratorState(mixed_precision=mixed_precision, parallelism=parallelism, device=device)
+            elif isinstance(handler, InitProcessGroupKwargs):
+                init_kwargs = handler
+        self.state = AcceleratorState(mixed_precision=mixed_precision, parallelism=parallelism, device=device,
+                                      init_kwargs=init_kwargs)
+        self.fsdp_plugin = fsdp_plugin
+        self._resolve_zero()
         self.compilation_config = compilation_config or CompilationConfig()
+        if (fsdp_plugin is not None and fsdp_plugin.activation_checkpointing
+                and self.compilation_config.remat_policy is None):
+            # each layer recomputed in the backward but for the flash
+            # forward's out and lse; a copy: the config may be shared
+            self.compilation_config = dataclasses.replace(self.compilation_config, remat_policy="save_flash")
         if self.state.mixed_precision == "fp16" and self.loss_scale_kwargs is None:
             self.loss_scale_kwargs = LossScaleKwargs()
         if gradient_accumulation_plugin is None:
@@ -143,6 +187,30 @@ class Accelerator:
         self._load_model_hooks: list = []
         self._accum_step = 0
         self.flag_tensor: Optional[torch.Tensor] = None
+
+    def _resolve_zero(self) -> None:
+        """The reference's ZeRO resolution: ``zero_stage=None`` shards the
+        update wherever the mesh allows it, 0 keeps the replicated update, 1
+        or more requires the sharded one (and raises where it cannot run)."""
+        from .parallel.zero import zero_ineligible_reason
+
+        sizes = self.state.mesh_shape
+        requested = self.state.parallelism.zero_stage
+        reason = zero_ineligible_reason(sizes, self.fsdp_plugin)
+        if requested is not None and requested >= 1 and reason is not None:
+            raise ValueError(
+                f"zero_stage={requested} requested but the update cannot be sharded on this "
+                f"configuration: {reason}. Drop zero_stage or fix the mesh."
+            )
+        self._zero_update_sharding = reason is None and requested != 0
+        plugin = self.fsdp_plugin
+        if (requested != 0 and reason is not None and plugin is not None and plugin.cpu_offload
+                and plugin.stage >= 3 and zero_ineligible_reason(sizes, None) is None):
+            logger.warning(
+                f"ZeRO sharded update disabled: {reason}. Params and optimizer state keep the fsdp "
+                "layout, not folded over the data axes; drop cpu_offload for the folded 1/N layout, "
+                "or pass ParallelismConfig(zero_stage=0) to silence this."
+            )
 
     # -- topology passthrough ------------------------------------------------
 
@@ -181,6 +249,11 @@ class Accelerator:
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def mesh(self):
+        """The ``DeviceMesh`` over the processes (None at one process)."""
+        return self.state.mesh
 
     @property
     def mixed_precision(self) -> str:
@@ -229,6 +302,14 @@ class Accelerator:
 
     # -- prepare ---------------------------------------------------------------
 
+    def _partition_rules(self, module: Any):
+        """The model's partition rules; FSDP stages 1 and 2 keep params whole."""
+        from .parallel.sharding import PartitionRules
+
+        rules = list(module.partition_rules()) if hasattr(module, "partition_rules") else []
+        stage3 = self.fsdp_plugin is None or self.fsdp_plugin.stage >= 3
+        return PartitionRules(rules, fsdp_plugin=self.fsdp_plugin, apply_fsdp_to_params=stage3)
+
     def prepare_model(self, model: Any, params: Optional[dict] = None) -> PreparedModel:
         """Bind a model to its fp32 master parameters: the module's own
         parameters (its ``param_tree()``), moved to the device if needed
@@ -239,7 +320,13 @@ class Accelerator:
         ``causal_attention`` is False, as BERT's), else the einsum path.
         A model with the ``remat_layers`` hook checkpoints each layer under
         the config's ``remat_policy``; the step wraps the whole loss
-        function of any other model instead."""
+        function of any other model instead.
+
+        Across processes process 0's weights are broadcast to every process
+        (as DDP does), and each param is stored in the layout its partition
+        rules give (folded over the data axes under ZeRO): where that
+        splits it, the prepared model holds this process's shard and the
+        module's weight is emptied."""
         if isinstance(model, PreparedModel):
             return model
         with torch.no_grad():
@@ -269,21 +356,70 @@ class Accelerator:
             # policies would keep every layer's products alive at once;
             # always assigned: the model may be re-prepared under another config
             model.remat_layers = self.compilation_config.checkpoint_policy() or False
-        prepared = PreparedModel(model, model.param_tree())
+        tree = model.param_tree()
+        layout = None
+        if self.num_processes > 1:
+            tree, layout = self._distribute(model, tree)
+        prepared = PreparedModel(model, tree, layout)
         self._models.append(prepared)
         return prepared
 
+    @torch.no_grad()
+    def _distribute(self, model: Any, tree: dict):
+        """Process 0's weights on every process, stored in the model's layout."""
+        from .parallel.sharding import infer_shardings, zero_update_shardings
+        from .parallel.zero import ShardedLayout
+
+        for p in tree_leaves(tree):
+            p.copy_(ops.broadcast(p.data))
+        sizes = self.state.mesh_shape
+        specs = infer_shardings(tree, sizes, self._partition_rules(model))
+        if self._zero_update_sharding:
+            specs = zero_update_shardings(tree, specs, sizes)
+        layout = ShardedLayout(self.state, specs, specs)
+        if layout.shards_params:
+            stored = layout.store(tree)
+            for p in tree_leaves(tree):  # the shards are the masters now
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+            tree = stored
+        return tree, layout
+
     def prepare_optimizer(self, tx: Any, model: Optional[PreparedModel] = None) -> AcceleratedOptimizer:
+        """Bind a transform to a prepared model's masters. Across processes
+        the update runs in the model's layout, or for FSDP stages 1 and 2
+        sharded over ``fsdp`` while the params stay whole; under ZeRO a
+        transform that reads across leaves (a global-norm clip inside it)
+        is refused, since it would see only this process's shard."""
         if isinstance(tx, AcceleratedOptimizer):
             return tx
         if model is None:
             if not self._models:
                 raise ValueError("Prepare (or pass) the model before its optimizer.")
             model = self._models[-1]
+        plugin = self.fsdp_plugin
+        if model.layout is not None and plugin is not None and plugin.stage < 3:
+            from .parallel.sharding import infer_shardings
+            from .parallel.zero import ShardedLayout
+
+            rules = self._partition_rules(model.module).with_fsdp_applied()
+            update_specs = infer_shardings(model.params, self.state.mesh_shape, rules)
+            model.layout = ShardedLayout(self.state, model.layout.param_specs, update_specs)
+        if self._zero_update_sharding:
+            from .parallel.zero import tx_couples_across_leaves
+
+            if tx_couples_across_leaves(tx, model.params):
+                raise ValueError(
+                    "This optimizer transform couples gradient leaves (a global-norm clip inside "
+                    "it), which the ZeRO sharded update would compute over each process's 1/N "
+                    "shard. Use accelerator.clip_grad_norm_() (an exact cross-shard norm inside "
+                    "the step) or opt out with ParallelismConfig(zero_stage=0)."
+                )
         optimizer = AcceleratedOptimizer(
             tx,
             model.params,
             scaler=self.loss_scale_kwargs if self.state.precision_policy.requires_loss_scaling else None,
+            layout=model.layout,
+            cpu_offload=plugin is not None and plugin.cpu_offload,
         )
         self._optimizers.append(optimizer)
         return optimizer
@@ -390,36 +526,54 @@ class Accelerator:
             return None
         return self.compilation_config.checkpoint_policy()
 
-    def _loss_and_grads(self, loss_fn, model: PreparedModel, batch, scale, has_aux: bool = False):
+    def _loss_and_grads(self, loss_fn, model: PreparedModel, batch, scale, has_aux: bool = False,
+                        params: Optional[dict] = None, shards: int = 1):
         """``(loss fp32, aux, grads)`` of ``loss_fn`` over the compute-dtype
-        cast of the model's params and ``batch``, times ``scale`` when
-        given; the grads are fp32, like the masters."""
+        cast of the model's params (or the whole ``params`` gathered from
+        them) and ``batch``, times ``scale`` when given; the grads are fp32,
+        like the masters. ``shards`` > 1 divides the loss by that many batch
+        shards in the loss's own dtype (before the fp32 cast and the scale,
+        as the reference's sharded step does), so summing every process's
+        gradients gives the global mean."""
         policy = self.state.precision_policy
-        params = model.params
+        params = model.params if params is None else params
         leaves = tree_leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
         remat = self._effective_remat(model)
         with torch.enable_grad():
             args = (cast_floating(params, policy.compute_dtype), cast_floating(batch, policy.compute_dtype))
             out = loss_fn(*args) if remat is None else remat(loss_fn, *args)
             loss, aux = out if has_aux else (out, None)
+            if shards > 1:
+                loss = loss / shards
             loss = loss.float()
             scaled = loss if scale is None else loss * scale
             grads = torch.autograd.grad(scaled, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        it = iter(grads)
-        return loss.detach(), aux, tree_map(lambda _: next(it), params)
+        return loss.detach(), aux, tree_unflatten(params, grads)
 
     def backward(self, loss_fn: Callable, batch: Any = None, model: Optional[PreparedModel] = None,
                  has_aux: bool = False):
         """Compute gradients of ``loss_fn(params, batch)`` and accumulate
         them on the model's optimizer; returns the (unscaled) loss, with
-        ``has_aux`` ``(loss, aux)``."""
+        ``has_aux`` ``(loss, aux)``. Across processes ``batch`` is this
+        process's share and the loss returned is the global one."""
         if model is None:
             if not self._models:
                 raise ValueError("backward() needs a prepared model.")
             model = self._models[-1]
         optimizer = self._optimizer_for(model)
-        loss, aux, grads = self._loss_and_grads(loss_fn, model, batch, optimizer.scale, has_aux)
+        layout = model.layout
+        if layout is None:
+            loss, aux, grads = self._loss_and_grads(loss_fn, model, batch, optimizer.scale, has_aux)
+        else:
+            # this process's share of the batch: the gradients carry the 1/N
+            # that optimizer.step()'s reduction sums into the global mean
+            loss, aux, grads = self._loss_and_grads(loss_fn, model, batch, optimizer.scale, has_aux,
+                                                    params=layout.gather_params(model.params),
+                                                    shards=layout.shards)
+            loss = layout.psum(loss)
         optimizer.accumulate_grads(grads)
         return (loss, aux) if has_aux else loss
 
@@ -500,10 +654,17 @@ class Accelerator:
         """``step(batch) -> loss``: grads (summed over
         ``gradient_accumulation_steps`` microbatches split off the batch's
         leading dim, then averaged) -> unscale -> clip -> the update seam.
-        Run eagerly; the returned loss is a device scalar (no host sync)."""
+        Run eagerly; the returned loss is a device scalar (no host sync).
+        Across processes ``batch`` is this process's share and the step is
+        the sharded one of ``parallel.zero.build_zero_step``."""
         if model is None:
             model = self._models[-1]
         optimizer = self._optimizer_for(model)
+        if optimizer.layout is not None:
+            from .parallel.zero import build_zero_step
+
+            return build_zero_step(accelerator=self, loss_fn=loss_fn, model=model, optimizer=optimizer,
+                                   clip_grad_norm=clip_grad_norm, clip_grad_value=clip_grad_value)
         num_micro = self.gradient_state.num_steps
         tx = optimizer.tx
         scaler_cfg = optimizer.scaler
@@ -577,17 +738,26 @@ class Accelerator:
     # -- models and checkpoints ----------------------------------------------
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):  # noqa: ARG002 - parity
-        return model.module if isinstance(model, PreparedModel) else model
+        """The module; where its params are stored split across processes,
+        they are gathered into its weights first (a collective)."""
+        if not isinstance(model, PreparedModel):
+            return model
+        if model.layout is not None and model.layout.shards_params:
+            with torch.no_grad():
+                for p, full in zip(tree_leaves(model.module.param_tree()), tree_leaves(model.full_params())):
+                    p.data = full.detach()
+        return model.module
 
     def get_state_dict(self, model: PreparedModel, unwrap: bool = True):  # noqa: ARG002 - parity
-        """The params as a tree of host numpy arrays."""
-        return ops.to_numpy(model.params)
+        """The whole params as a tree of host numpy arrays (gathered across
+        processes: a collective)."""
+        return ops.to_numpy(model.full_params())
 
     def save_model(self, model: PreparedModel, save_directory: str, max_shard_size: str = "10GB",
                    safe_serialization: bool = True):
         from .checkpointing import save_model_weights
 
-        save_model_weights(model.params, save_directory, max_shard_size=max_shard_size,
+        save_model_weights(model.full_params(), save_directory, max_shard_size=max_shard_size,
                            safe_serialization=safe_serialization)
 
     def register_for_checkpointing(self, *objects) -> None:

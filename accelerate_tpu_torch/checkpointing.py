@@ -21,12 +21,15 @@ the manifest is written (``fault_tolerance.py``). The reference's
 ``atomic=False`` (write in place, no manifest) has no caller in the port and
 is left out.
 
-The port writes one process's unsharded checkpoint. Writing the sharded
-format (``sharded=True``: each process writes the chunks it holds) comes
-with the parallel slice (ROADMAP item 9(b)); reading one that the JAX
-package wrote is here, since the chunks carry their global offsets. The
-chaos harness's ``probe_io`` before a load comes with the resilience slice
-(ROADMAP item 18).
+Across processes the unsharded format holds the whole state (gathered:
+every process takes part, the main process writes), and ``sharded=True``
+writes the JAX package's sharded format: each process writes only the
+chunks it holds (``model_<i>.shard<p>.safetensors`` with a
+``.index.json`` naming each chunk ``"path@start0,start1,..."`` by its global
+offset), so neither side gathers. Either format loads into any number of
+processes, and into the JAX package on any mesh, since the chunks carry
+their offsets. The chaos harness's ``probe_io`` before a load comes with
+the resilience slice (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from .logging import get_logger
 from .ops.operations import to_numpy
 from .state import PartialState
 from .utils.constants import CHECKPOINT_DIR_PREFIX
-from .utils.params import state_leaves, state_unflatten
+from .utils.params import state_leaves, state_paths, state_unflatten, tree_leaves, tree_paths
 from .utils.random import restore_rng_state, rng_state
 
 logger = get_logger(__name__)
@@ -60,20 +63,9 @@ RNG_FILE = "random_states_{p}.pkl"
 CUSTOM_FILE = "custom_checkpoint_{i}.pkl"
 
 
-def _paths(tree: dict, prefix: str = ""):
-    """``("a/b/c", leaf)`` pairs of a nested dict, keys sorted as JAX orders them."""
-    for key in sorted(tree):
-        value = tree[key]
-        path = f"{prefix}{key}"
-        if isinstance(value, dict):
-            yield from _paths(value, path + "/")
-        else:
-            yield path, value
-
-
 def flatten_params(params: dict) -> dict[str, np.ndarray]:
     """A param tree as ``{"a/b/c": host numpy}``."""
-    return {path: to_numpy(leaf) for path, leaf in _paths(params)}
+    return {path: to_numpy(leaf) for path, leaf in tree_paths(params)}
 
 
 @torch.no_grad()
@@ -82,7 +74,7 @@ def unflatten_into(params: dict, flat: dict[str, np.ndarray]) -> dict:
     prepared model's params are its module's own parameters, which the
     optimizer holds too), each cast to its tensor's dtype. Raises
     ``KeyError`` for a missing path and ``ValueError`` for a shape."""
-    for path, leaf in _paths(params):
+    for path, leaf in tree_paths(params):
         if path not in flat:
             raise KeyError(f"checkpoint missing parameter {path!r}")
         value = np.asarray(flat[path])
@@ -148,11 +140,14 @@ def save_model_weights(
     safe_serialization: bool = True,
     weights_name: str = "model.safetensors",
 ) -> None:
-    """Write a model's weights, split into files of at most
-    ``max_shard_size`` with an ``<weights_name>.index.json`` when one file
-    would be larger."""
+    """Write a model's weights (whole: the main process writes), split into
+    files of at most ``max_shard_size`` with an
+    ``<weights_name>.index.json`` when one file would be larger."""
     state = PartialState()
     flat = flatten_params(params)
+    if not state.is_main_process:
+        state.wait_for_everyone()
+        return
     os.makedirs(save_directory, exist_ok=True)
     limit = _parse_size(max_shard_size)
     shards: list[dict[str, np.ndarray]] = [{}]
@@ -177,6 +172,56 @@ def save_model_weights(
         with open(os.path.join(save_directory, f"{weights_name}.index.json"), "w") as f:
             json.dump(index, f, indent=2)
     state.wait_for_everyone()
+
+
+def _chunk_key(path: str, start: tuple[int, ...]) -> str:
+    return f"{path}@{','.join(map(str, start))}"
+
+
+def _save_chunks(entries: list, save_directory: str, weights_name: str, safe_serialization: bool,
+                 layout=None) -> None:
+    """Write this process's chunks of ``(path, leaf, spec)`` entries (each
+    leaf this process's shard under ``layout``, or whole without one) and
+    their index, in the JAX package's sharded format."""
+    state = PartialState()
+    os.makedirs(save_directory, exist_ok=True)
+    proc = state.process_index
+    chunks: dict[str, np.ndarray] = {}
+    tensors: dict[str, dict] = {}
+    for path, leaf, spec in entries:
+        value = to_numpy(leaf)
+        if layout is None:
+            shape, start, writes = value.shape, (0,) * value.ndim, state.is_main_process
+        else:
+            shape = layout.full_shape(value.shape, spec)
+            start, writes = layout.chunk_start(shape, spec), layout.writes_chunk(spec)
+        tensors[path] = {"shape": list(shape), "dtype": str(value.dtype)}
+        if writes:
+            chunks[_chunk_key(path, start)] = np.array(value, order="C")  # keeps a scalar 0-d
+    base, ext = os.path.splitext(weights_name)
+    shard_name = f"{base}.shard{proc:05d}{ext}"
+    _save_flat(chunks, os.path.join(save_directory, shard_name), safe_serialization)
+    if not safe_serialization or not has_safetensors():
+        shard_name = shard_name.replace(".safetensors", ".npz")
+    index = {
+        "metadata": {"format": "accelerate-tpu-sharded", "process": proc},
+        "tensors": tensors,
+        "chunks": {key: shard_name for key in chunks},
+    }
+    with open(os.path.join(save_directory, f"{base}.shard{proc:05d}.index.json"), "w") as f:
+        json.dump(index, f, indent=2)
+    state.wait_for_everyone()
+
+
+def save_model_weights_sharded(params: dict, save_directory: str, weights_name: str = "model.safetensors",
+                               safe_serialization: bool = True, layout=None) -> None:
+    """Each process writes only the chunks it holds of the params stored
+    under ``layout`` (a ``parallel.zero.ShardedLayout``; None: whole params,
+    written by the main process): ``{base}.shard{p:05d}{ext}`` keyed
+    ``"path@start"`` and its ``.index.json``. A collective barrier ends it."""
+    specs = layout.pspecs if layout is not None else [()] * len(tree_leaves(params))
+    entries = [(path, leaf, spec) for (path, leaf), spec in zip(tree_paths(params), specs)]
+    _save_chunks(entries, save_directory, weights_name, safe_serialization, layout)
 
 
 def is_sharded_checkpoint(directory: str, weights_name: str = "model.safetensors") -> bool:
@@ -271,17 +316,25 @@ def _resolve_save_dir(accelerator, output_dir: Optional[str]) -> str:
     return output_dir
 
 
-def _remove_stale_format(output_dir: str, num_models: int, num_optimizers: int) -> None:
-    """Saving into a reused directory must leave no file of the sharded
+def _remove_stale_format(output_dir: str, sharded: bool, num_models: int, num_optimizers: int) -> None:
+    """Saving into a reused directory must leave no file of the other
     format behind: the loader would find it first and restore stale state."""
     doomed: list[str] = []
     for i in range(num_models):
         base, _ = os.path.splitext(MODEL_FILE.format(i=i))
-        doomed += glob.glob(os.path.join(output_dir, f"{base}.shard*"))
+        if sharded:
+            doomed += [os.path.join(output_dir, MODEL_FILE.format(i=i)),
+                       os.path.join(output_dir, f"{base}.npz")]
+            doomed += glob.glob(os.path.join(output_dir, f"{MODEL_FILE.format(i=i)}.index.json"))
+        else:
+            doomed += glob.glob(os.path.join(output_dir, f"{base}.shard*"))
     for i in range(num_optimizers):
         base, _ = os.path.splitext(OPTIMIZER_SHARDED_FILE.format(i=i))
-        doomed += glob.glob(os.path.join(output_dir, f"{base}.shard*"))
-        doomed.append(os.path.join(output_dir, OPTIMIZER_META_FILE.format(i=i)))
+        if sharded:
+            doomed.append(os.path.join(output_dir, OPTIMIZER_FILE.format(i=i)))
+        else:
+            doomed += glob.glob(os.path.join(output_dir, f"{base}.shard*"))
+            doomed.append(os.path.join(output_dir, OPTIMIZER_META_FILE.format(i=i)))
     for path in doomed:
         if os.path.exists(path):
             os.remove(path)
@@ -302,66 +355,104 @@ def save_accelerator_state(
     one. Under ``automatic_checkpoint_naming`` with ``total_limit`` the
     rotation runs after the commit. ``manifest_metadata`` (what
     ``CheckpointManager`` passes: step, epoch, loader positions) rides in
-    the manifest."""
+    the manifest. Across processes it is a collective: the main process
+    stages, writes the shared files and commits; each process writes its
+    RNG snapshot, and under ``sharded=True`` its own chunks."""
     from . import fault_tolerance as _ft
 
-    if sharded:
-        raise NotImplementedError(
-            "sharded=True (each process writes the chunks it holds) is not in the port yet "
-            "(ROADMAP item 9(b))"
-        )
     state = PartialState()
     final_dir = _resolve_save_dir(accelerator, output_dir)
     output_dir = _ft.staging_dir_for(final_dir)
-    if accelerator.project_configuration.automatic_checkpoint_naming:
-        _ft.garbage_collect_torn(os.path.dirname(final_dir))
-    elif os.path.exists(output_dir):
-        shutil.rmtree(output_dir, ignore_errors=True)
+    if state.is_main_process:
+        if accelerator.project_configuration.automatic_checkpoint_naming:
+            _ft.garbage_collect_torn(os.path.dirname(final_dir))
+        elif os.path.exists(output_dir):
+            shutil.rmtree(output_dir, ignore_errors=True)
+    state.wait_for_everyone()
     os.makedirs(output_dir, exist_ok=True)
     logger.info(f"Saving current state to {final_dir} (staged atomically)")
 
     for hook in accelerator._save_model_hooks:
         hook(accelerator._models, [], output_dir)
-    _remove_stale_format(output_dir, len(accelerator._models), len(accelerator._optimizers))
+    if state.is_main_process:
+        _remove_stale_format(output_dir, sharded, len(accelerator._models), len(accelerator._optimizers))
+    state.wait_for_everyone()
 
     for i, model in enumerate(accelerator._models):
-        save_model_weights(model.params, output_dir, safe_serialization=safe_serialization,
-                           weights_name=MODEL_FILE.format(i=i))
+        if sharded:
+            save_model_weights_sharded(model.params, output_dir, weights_name=MODEL_FILE.format(i=i),
+                                       safe_serialization=safe_serialization, layout=model.layout)
+        else:
+            save_model_weights(model.full_params(), output_dir, safe_serialization=safe_serialization,
+                               weights_name=MODEL_FILE.format(i=i))
     for i, optimizer in enumerate(accelerator._optimizers):
-        sd = optimizer.state_dict()
-        meta = {"step_count": sd["step_count"]}
-        if "scale" in sd:
-            meta["scale"] = float(sd["scale"])
-            meta["growth_tracker"] = int(sd["growth_tracker"])
-        arrays = {f"leaf_{j}": to_numpy(leaf) for j, leaf in enumerate(state_leaves(sd["opt_state"]))}
-        arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-        np.savez(os.path.join(output_dir, OPTIMIZER_FILE.format(i=i)), **arrays)
-    for i, scheduler in enumerate(accelerator._schedulers):
-        with open(os.path.join(output_dir, SCHEDULER_FILE.format(i=i)), "w") as f:
-            json.dump(scheduler.state_dict(), f)
-    for i, obj in enumerate(accelerator._custom_objects):
-        with open(os.path.join(output_dir, CUSTOM_FILE.format(i=i)), "wb") as f:
-            pickle.dump(obj.state_dict(), f)
+        meta = {"step_count": optimizer.step_count}
+        if optimizer.scaler is not None:
+            meta["scale"] = float(optimizer.scale)
+            meta["growth_tracker"] = int(optimizer.growth_tracker)
+        if sharded:
+            # the moments are the largest sharded state: each process writes its own chunks
+            leaves = state_leaves(optimizer.opt_state)
+            specs = optimizer.state_specs or [()] * len(leaves)
+            entries = list(zip(state_paths(optimizer.opt_state), leaves, specs))
+            _save_chunks(entries, output_dir, OPTIMIZER_SHARDED_FILE.format(i=i), safe_serialization,
+                         optimizer.layout)
+            if state.is_main_process:
+                with open(os.path.join(output_dir, OPTIMIZER_META_FILE.format(i=i)), "w") as f:
+                    json.dump(meta, f)
+        else:
+            opt_state = optimizer.state_dict()["opt_state"]  # whole: a collective across processes
+            if state.is_main_process:
+                arrays = {f"leaf_{j}": to_numpy(leaf) for j, leaf in enumerate(state_leaves(opt_state))}
+                arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+                np.savez(os.path.join(output_dir, OPTIMIZER_FILE.format(i=i)), **arrays)
+    if state.is_main_process:
+        for i, scheduler in enumerate(accelerator._schedulers):
+            with open(os.path.join(output_dir, SCHEDULER_FILE.format(i=i)), "w") as f:
+                json.dump(scheduler.state_dict(), f)
+        for i, obj in enumerate(accelerator._custom_objects):
+            with open(os.path.join(output_dir, CUSTOM_FILE.format(i=i)), "wb") as f:
+                pickle.dump(obj.state_dict(), f)
     with open(os.path.join(output_dir, RNG_FILE.format(p=state.process_index)), "wb") as f:
         pickle.dump(rng_state(), f)
     state.wait_for_everyone()
 
-    _ft._run_fault_hook("staged", output_dir)
-    metadata = dict(manifest_metadata or {})
-    metadata["sharded"] = sharded
-    _ft.write_manifest(output_dir, _ft.build_manifest(output_dir, step=metadata.get("step"), metadata=metadata))
-    _ft._run_fault_hook("manifest", output_dir)
-    _ft.commit_checkpoint(output_dir, final_dir)
+    if state.is_main_process:
+        _ft._run_fault_hook("staged", output_dir)
+        metadata = dict(manifest_metadata or {})
+        metadata["sharded"] = sharded
+        _ft.write_manifest(output_dir, _ft.build_manifest(output_dir, step=metadata.get("step"), metadata=metadata))
+        _ft._run_fault_hook("manifest", output_dir)
+        _ft.commit_checkpoint(output_dir, final_dir)
+    state.wait_for_everyone()
 
     project = accelerator.project_configuration
     if project.automatic_checkpoint_naming:
         project.iteration += 1
-        if project.total_limit is not None:
+        if state.is_main_process and project.total_limit is not None:
             existing = _ft.list_checkpoints(os.path.dirname(final_dir))
             for stale in existing[: max(len(existing) - project.total_limit, 0)]:
                 logger.info(f"Deleting {stale} to respect total_limit={project.total_limit}")
                 shutil.rmtree(stale, ignore_errors=True)
+        state.wait_for_everyone()
     return final_dir
+
+
+@torch.no_grad()
+def _load_params(model, flat: dict[str, np.ndarray]) -> None:
+    """Whole weights into a prepared model: into its params, or, where its
+    layout stores them split, each process's shard."""
+    layout = model.layout
+    if layout is None or not layout.shards_params:
+        unflatten_into(model.params, flat)
+        return
+    from .parallel.zero import shard_of
+
+    for (path, leaf), spec in zip(tree_paths(model.params), layout.pspecs):
+        if path not in flat:
+            raise KeyError(f"checkpoint missing parameter {path!r}")
+        full = torch.from_numpy(np.ascontiguousarray(flat[path]))
+        leaf.copy_(shard_of(full, spec, layout.mesh).to(leaf.dtype))
 
 
 def load_accelerator_state(
@@ -403,11 +494,11 @@ def load_accelerator_state(
         else:
             index = os.path.join(input_dir, f"{weights_name}.index.json")
             flat = load_model_weights(index if os.path.exists(index) else os.path.join(input_dir, weights_name))
-        unflatten_into(model.params, flat)
+        _load_params(model, flat)
     for i, optimizer in enumerate(accelerator._optimizers):
         if is_sharded_checkpoint(input_dir, OPTIMIZER_SHARDED_FILE.format(i=i)):
             flat = load_model_weights_sharded(input_dir, OPTIMIZER_SHARDED_FILE.format(i=i))
-            leaves = [flat[path] for path in _state_paths(optimizer.opt_state)]
+            leaves = [flat[path] for path in state_paths(optimizer.opt_state)]
             with open(os.path.join(input_dir, OPTIMIZER_META_FILE.format(i=i))) as f:
                 meta = json.load(f)
         else:
@@ -430,18 +521,3 @@ def load_accelerator_state(
         with open(rng_path, "rb") as f:
             restore_rng_state(pickle.load(f))
     state.wait_for_everyone()
-
-
-def _state_paths(tree, prefix: str = "") -> list[str]:
-    """The JAX package's key paths of an optimizer state's leaves (a
-    NamedTuple's field names, a tuple's indices, a dict's keys), in
-    ``state_leaves`` order: the keys of its sharded optimizer files."""
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return [p for name, item in zip(tree._fields, tree) for p in _state_paths(item, f"{prefix}{name}/")]
-    if isinstance(tree, (tuple, list)):
-        return [p for i, item in enumerate(tree) for p in _state_paths(item, f"{prefix}{i}/")]
-    if isinstance(tree, dict):
-        return [p for key in sorted(tree) for p in _state_paths(tree[key], f"{prefix}{key}/")]
-    if tree is None:
-        return []
-    return [prefix[:-1]]

@@ -4,7 +4,8 @@ Counterpart of ``accelerate_tpu/data_loader.py``. The samplers keep the
 reference's arithmetic: the shuffle is numpy's permutation of
 ``default_rng(seed + epoch)``, so the port yields the same indices in the
 same order as the JAX loader, and the shards (``BatchSamplerShard``,
-``IterableDatasetShard``) are the reference's at one process.
+``IterableDatasetShard``, the ``DataLoaderDispatcher``'s scatter) are the
+reference's: each process of a job loads its own share of every batch.
 
 Placement is the port's own design. ``default_collate`` stacks the rows
 with numpy and makes torch tensors of them; the loader then copies each
@@ -125,10 +126,10 @@ class BatchSamplerShard:
     - ``split_batches=False``: processes take whole batches round-robin.
 
     ``even_batches=True`` pads by cycling indices from the start so every
-    process sees as many batches of one size. At one process (this slice)
-    the shard is the whole sampler, except that ``even_batches`` pads an
-    epoch's short last batch to the full size by repeating its indices, as
-    the reference does.
+    process sees as many batches of one size. At one process the shard is
+    the whole sampler, except that ``even_batches`` pads an epoch's short
+    last batch to the full size by repeating its indices, as the reference
+    does.
     """
 
     def __init__(
@@ -560,12 +561,13 @@ class IterableDataLoaderShard(BaseDataLoader):
 
 class DataLoaderDispatcher(IterableDataLoaderShard):
     """The main process reads the dataset and hands each process its slice
-    of every batch, for datasets only one process can read. At one process
-    the slice is the whole batch, so this is the one-shard loader over the
-    dataset (a last partial batch padded from the first, as the reference
-    pads it) without prefetch, since the scatter's collectives must run on
-    the main thread in the step's order (the scatter across processes comes
-    with ROADMAP item 9(b))."""
+    of every batch, for datasets only one process can read. The main
+    process buffers ``batch_size * num_processes`` rows (a last partial
+    buffer padded from the first one unless ``drop_last``, as
+    ``IterableDatasetShard`` pads), broadcasts them, and each process
+    collates its slice; a broadcast of None ends the epoch. At one process
+    this is the one-shard loader over the dataset. No prefetch: the
+    broadcasts must run on the main thread in the step's order."""
 
     def __init__(
         self,
@@ -576,12 +578,43 @@ class DataLoaderDispatcher(IterableDataLoaderShard):
         drop_last: bool = False,
         device=None,
     ):
-        if PartialState().num_processes > 1:
-            raise NotImplementedError("DataLoaderDispatcher across processes (ROADMAP item 9(b))")
-        shard = IterableDatasetShard(dataset, batch_size=batch_size, num_processes=1, process_index=0,
+        total = batch_size * PartialState().num_processes
+        shard = IterableDatasetShard(dataset, batch_size=total, num_processes=1, process_index=0,
                                      drop_last=drop_last)
         super().__init__(shard, collate_fn=collate_fn, device_placement=device_placement, prefetch=0,
                          device=device)
+
+    def _local_batches(self):
+        state = self.state
+        if state.num_processes == 1:
+            yield from super()._local_batches()
+            return
+        if state.is_main_process:
+            rows = []
+            for row in self.dataset:  # the shard pads the last buffer to the full size
+                rows.append(row)
+                if len(rows) == self.total_batch_size:
+                    yield self._scatter(rows)
+                    rows = []
+            self._scatter(None)
+            return
+        while True:
+            batch = self._scatter(None)
+            if batch is None:
+                return
+            yield batch
+
+    def _scatter(self, rows):
+        """The main process's ``rows`` to every process; this process's
+        slice collated, or None at the end."""
+        from .ops.operations import broadcast_object_list
+
+        state = self.state
+        rows = broadcast_object_list([rows])[0]
+        if rows is None:
+            return None
+        share = len(rows) // state.num_processes
+        return self.collate_fn(rows[state.process_index * share:(state.process_index + 1) * share])
 
 
 # ---------------------------------------------------------------------------

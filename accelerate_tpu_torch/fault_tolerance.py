@@ -1,6 +1,6 @@
 """Fault-tolerant checkpointing: atomic commits, preemption handling, auto-resume.
 
-Counterpart of ``accelerate_tpu/fault_tolerance.py``, at one process:
+Counterpart of ``accelerate_tpu/fault_tolerance.py``:
 
 1. **The atomic commit** (``checkpointing.save_accelerator_state``): a save
    stages into ``<dir>.tmp``, a ``manifest.json`` records each file's size
@@ -18,11 +18,16 @@ Counterpart of ``accelerate_tpu/fault_tolerance.py``, at one process:
    rewinds a loader with ``set_epoch`` and ``skip_first_batches`` so the
    next batch is the one the stopped run would have consumed.
 
-The agreement of several processes on a preemption save, and on the
-checkpoint to resume, comes with the parallel slice (ROADMAP item 9(b));
-the chaos harness's I/O probe with the resilience slice (item 18); and the
-telemetry hub that ``_telemetry_pause`` will report save and restore time
-to with item 19.
+Across processes a save, a rotation and a resume are collectives: the
+main process collects torn directories, commits and rotates; the
+preemption flag is agreed with ``PartialState.any_process`` (a signal lands
+on one process, but every process must save at the same boundary), every
+``preemption_sync_every`` steps; ``resume("auto")`` takes the main
+process's choice of checkpoint. Whole-call retries run at one process only:
+re-entering a save's barriers on one process would deadlock the others.
+The chaos harness's I/O probe comes with the resilience slice (item 18),
+and the telemetry hub that ``_telemetry_pause`` will report save and
+restore time to with item 19.
 """
 
 from __future__ import annotations
@@ -91,7 +96,8 @@ def build_manifest(directory: str, step: Optional[int] = None, metadata: Optiona
         "format_version": MANIFEST_FORMAT_VERSION,
         "step": step,
         "files": files,
-        "topology": {"num_processes": state.num_processes, "num_devices": state.num_devices, "mesh": {}},
+        "topology": {"num_processes": state.num_processes, "num_devices": state.num_devices,
+                     "mesh": {axis: int(size) for axis, size in state.mesh_shape.items()}},
         "created": time.time(),
     }
     if metadata:
@@ -288,6 +294,7 @@ class CheckpointManager:
         sharded: bool = False,
         handle_signals: tuple = (signal.SIGTERM, signal.SIGINT),
         check_checksums: bool = True,
+        preemption_sync_every: int = 1,
         retry_policy: Optional[RetryPolicy] = None,
     ):
         self.accelerator = accelerator
@@ -303,6 +310,9 @@ class CheckpointManager:
         self.total_limit = total_limit if total_limit is not None else project.total_limit
         self.sharded = sharded
         self.check_checksums = check_checksums
+        # how often (in steps) should_save runs the preemption agreement, a
+        # collective across processes; keep it well under the grace window
+        self.preemption_sync_every = max(int(preemption_sync_every), 1)
         self.retry_policy = retry_policy if retry_policy is not None else DEFAULT_IO_RETRY
         self._preempted = False
         self._preempt_signum: Optional[int] = None
@@ -368,8 +378,12 @@ class CheckpointManager:
     # -- save --------------------------------------------------------------
 
     def should_save(self, step: int) -> bool:
-        """True at a periodic boundary, or once when a preemption is pending."""
-        if not self._saved_on_preemption and self.preemption_requested:
+        """True at a periodic boundary, or once when a preemption is pending.
+        The preemption check (a collective across processes) runs on steps
+        where ``step % preemption_sync_every == 0``, a gate every process
+        evaluates alike."""
+        if (not self._saved_on_preemption and step % self.preemption_sync_every == 0
+                and self.preemption_requested):
             return True
         return self.save_interval is not None and step > 0 and step % self.save_interval == 0
 
@@ -389,17 +403,20 @@ class CheckpointManager:
     def save(self, step: int, epoch: int = 0, metadata: Optional[dict] = None) -> str:
         """One atomic checkpoint ``checkpoint_<step>``: collect torn staging
         directories, stage and commit, then rotate (after the commit, so the
-        previous good checkpoint survives a kill during this call). The whole
-        call retries transient I/O errors."""
-        garbage_collect_torn(self.checkpoint_dir)
+        previous good checkpoint survives a kill during this call). At one
+        process the whole call retries transient I/O errors."""
+        state = PartialState()
+        if state.is_main_process:
+            garbage_collect_torn(self.checkpoint_dir)
         target = os.path.join(self.checkpoint_dir, f"{CHECKPOINT_DIR_PREFIX}_{step}")
         meta = {"step": int(step), "epoch": int(epoch), "dataloaders": self._dataloader_positions()}
         if metadata:
             meta.update(metadata)
+        save = self.accelerator.save_state
+        if state.num_processes == 1:
+            save = self.retry_policy.wrap(save)
         with self._telemetry_pause("checkpoint_save"):
-            self.retry_policy.wrap(self.accelerator.save_state)(
-                target, sharded=self.sharded, manifest_metadata=meta
-            )
+            save(target, sharded=self.sharded, manifest_metadata=meta)
         if self.preemption_requested:
             self._saved_on_preemption = True
             logger.info(f"Preemption save committed at step {step} -> {target}; exit when convenient.")
@@ -409,11 +426,14 @@ class CheckpointManager:
     def _rotate(self, keep: str) -> None:
         if self.total_limit is None:
             return
-        existing = list_checkpoints(self.checkpoint_dir)
-        doomed = [p for p in existing if p != keep]
-        for stale in doomed[: max(len(existing) - self.total_limit, 0)]:
-            logger.info(f"Rotating out {stale} (total_limit={self.total_limit})")
-            shutil.rmtree(stale, ignore_errors=True)
+        state = PartialState()
+        if state.is_main_process:
+            existing = list_checkpoints(self.checkpoint_dir)
+            doomed = [p for p in existing if p != keep]
+            for stale in doomed[: max(len(existing) - self.total_limit, 0)]:
+                logger.info(f"Rotating out {stale} (total_limit={self.total_limit})")
+                shutil.rmtree(stale, ignore_errors=True)
+        state.wait_for_everyone()
 
     # -- resume ------------------------------------------------------------
 
@@ -429,8 +449,15 @@ class CheckpointManager:
         that rewind the loaders."""
         if resume_from_checkpoint in (None, False):
             return None
+        state = PartialState()
         if resume_from_checkpoint == "auto":
-            path = self.latest_valid()
+            # one decision for every process: the main process's scan binds
+            # all (scans of their own could differ and deadlock the load)
+            path = self.latest_valid() if state.is_main_process else None
+            if state.num_processes > 1:
+                from .ops.operations import broadcast_object_list
+
+                path = broadcast_object_list([path])[0]
             if path is None:
                 logger.info(f"No valid checkpoint under {self.checkpoint_dir}; starting fresh.")
                 return None
@@ -439,8 +466,11 @@ class CheckpointManager:
             problems = verify_checkpoint(path, check_checksums=self.check_checksums)
             if problems:
                 raise ValueError(f"Refusing to resume from {path}: {'; '.join(problems[:5])}")
+        load = self.accelerator.load_state
+        if state.num_processes == 1:
+            load = self.retry_policy.wrap(load)
         with self._telemetry_pause("checkpoint_restore"):
-            self.retry_policy.wrap(self.accelerator.load_state)(path)
+            load(path)
         manifest = read_manifest(path) or {}
         meta = manifest.get("metadata", {})
         point = ResumePoint(

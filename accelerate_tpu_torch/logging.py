@@ -4,8 +4,7 @@ Counterpart of ``accelerate_tpu/logging.py``: ``get_logger`` returns a
 ``MultiProcessAdapter`` whose records carry ``process_index`` and
 ``local_process_index`` and which logs on the main process unless a call
 passes ``main_process_only=False``; ``in_order=True`` makes each process log
-in turn. Both go through the port's ``PartialState``, which runs one process
-until the parallel slice (ROADMAP item 9(b)).
+in turn. Both go through the port's ``PartialState``.
 """
 
 from __future__ import annotations
@@ -33,8 +32,9 @@ class MultiProcessAdapter(logging.LoggerAdapter):
 
         extra = kwargs.setdefault("extra", {})
         index = PartialState().process_index if PartialState._shared_state.get("_ready") else 0
+        local = PartialState().local_process_index if PartialState._shared_state.get("_ready") else 0
         extra.setdefault("process_index", index)
-        extra.setdefault("local_process_index", index)
+        extra.setdefault("local_process_index", local)
         return msg, kwargs
 
     def log(self, level, msg, *args, **kwargs):

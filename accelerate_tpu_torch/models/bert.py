@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..utils.constants import MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
 from .attention import dense_init, dot_product_attention, draw_seeds, dropout, resolve_dot, seeded_generator
 from .config import TransformerConfig, get_config
 
@@ -129,6 +130,21 @@ class Bert(nn.Module):
         """The weights as the JAX package's nested param dict (no copies)."""
         return {group: {name: getattr(getattr(self, group), name) for name in shapes}
                 for group, shapes in bert_shapes(self.config).items()}
+
+    def partition_rules(self) -> list[tuple[str, tuple]]:
+        """The JAX package's layout rules (every named axis has size 1 in the
+        port, which runs the data and fsdp axes)."""
+        t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
+        return [
+            (r"embeddings/word", (t, None)),
+            (r"layers/(wq|wk|wv|w_up)", (p, None, t)),
+            (r"layers/(bq|bk|bv|b_up)", (p, t)),
+            (r"layers/(wo|w_down)", (p, t, None)),
+            (r"layers/.*(norm|bo|b_down)", (p, None)),
+            (r"(norm|bias|bo|b_down)", (None,)),
+            (r"pooler/w", (None, t)),
+            (r"classifier", (None,)),
+        ]
 
     def apply(
         self,

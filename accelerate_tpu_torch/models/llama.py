@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..utils.constants import MESH_AXIS_EXPERT, MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
 from ..utils.params import flatten_tree
 from .attention import (
     apply_rotary,
@@ -281,6 +282,27 @@ class Llama(nn.Module):
             else:
                 object.__setattr__(owner, name, leaf)  # a packed QuantizedWeight
         return self
+
+    def partition_rules(self) -> list[tuple[str, tuple]]:
+        """The JAX package's layout rules (Megatron-style tensor parallelism:
+        attention by heads, the MLP by its intermediate dim; the stacked
+        layers' leading dim over ``pipeline``). The port runs only the data
+        and fsdp axes, so every axis named here has size 1 and the rules
+        place the fsdp and ZeRO splits as the JAX package does."""
+        t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
+        return [
+            (r"embed_tokens", (t, None)),
+            (r"layers/(wq|wk|wv)", (p, None, t)),
+            (r"layers/wo", (p, t, None)),
+            (r"layers/(w_gate|w_up)", (p, None, t)),
+            (r"layers/w_down", (p, t, None)),
+            (r"layers/router", (p, None, None)),
+            (r"layers/moe_up", (p, MESH_AXIS_EXPERT, None, t)),
+            (r"layers/moe_down", (p, MESH_AXIS_EXPERT, t, None)),
+            (r"layers/(attn_norm|mlp_norm)", (p, None)),
+            (r"final_norm", (None,)),
+            (r"lm_head", (None, t)),
+        ]
 
     def head(self) -> torch.Tensor:
         return self.embed_tokens.T if self.config.tie_embeddings else self.lm_head

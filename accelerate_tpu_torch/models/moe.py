@@ -11,9 +11,9 @@ square of the tokens. The experts are gelu MLPs (the tanh approximation,
 ``jax.nn.gelu``'s default), and the GShard load-balance loss rides along.
 
 The reference pins the expert dimension to an ``expert`` mesh axis
-(``_constrain_expert``); at one process there is nothing to pin, and an
-expert axis above 1 comes with ``ParallelismConfig``, which raises naming
-ROADMAP item 9(b) (``state.py``).
+(``_constrain_expert``); the port runs the data and fsdp axes, and an
+expert axis above 1 raises in ``ParallelismConfig``, naming ROADMAP item
+17 (expert parallelism).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..utils.constants import MESH_AXIS_EXPERT
 from .attention import dense_init
 
 
@@ -134,6 +135,14 @@ class MoEBlock(nn.Module):
         self.init(seed)
 
     @torch.no_grad()
+    def partition_rules(self) -> list[tuple[str, tuple]]:
+        """The JAX package's layout rules: the experts over ``expert`` (size 1
+        in the port until ROADMAP item 17)."""
+        return [
+            (r"router", (None, None)),
+            (r"w_(up|down)", (MESH_AXIS_EXPERT, None, None)),
+        ]
+
     def init(self, seed: int) -> "MoEBlock":
         """Draw the weights from ``seed`` in the JAX order: router, up, down."""
         h, f, e = self.hidden_size, self.intermediate_size, self.num_experts

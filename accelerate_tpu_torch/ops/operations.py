@@ -1,4 +1,4 @@
-"""Tree-recursive tensor utilities and the collectives, at one process.
+"""Tree-recursive tensor utilities and the collectives across processes.
 
 Counterpart of ``accelerate_tpu/ops/operations.py``, on torch tensors. Every
 function recurses over nested list, tuple (namedtuples included) and dict
@@ -7,11 +7,13 @@ each tensor leaf (and turns each numpy leaf into a tensor) there, with
 ``non_blocking`` where the source is pinned host memory.
 
 The collectives (``gather``, ``gather_object``, ``reduce``, ``broadcast``,
-``broadcast_object_list``, ``pad_across_processes``) run their one-process
-paths; with more than one process they raise until the parallel slice runs
-them on ``torch.distributed`` (ROADMAP item 9(b)). The reference's debug-mode
-check that every process's operand has the same shapes compares nothing at
-one process, so it comes with that slice too.
+``broadcast_object_list``, ``pad_across_processes``) run on
+``torch.distributed`` over every process of the job (``PartialState``) and
+return their inputs at one process. A tensor leaf stays a tensor (on the
+device it came from); a numpy leaf goes through a tensor on the
+collectives' device and comes back numpy. With ``ACCELERATE_DEBUG_MODE``
+set, the tensor collectives first check that every process passes the same
+shapes and raise ``DistributedOperationException`` naming each process's.
 """
 
 from __future__ import annotations
@@ -20,18 +22,13 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..state import PartialState
 
 
-def _one_process(operation: str) -> PartialState:
-    state = PartialState()
-    if state.num_processes > 1:
-        raise NotImplementedError(
-            f"{operation} across {state.num_processes} processes is not in the port yet "
-            "(ROADMAP item 9(b))"
-        )
-    return state
+class DistributedOperationException(Exception):
+    """A collective's operands differ in shape across the processes."""
 
 
 # ---------------------------------------------------------------------------
@@ -187,28 +184,91 @@ def concatenate(data, dim: int = 0):
 # ---------------------------------------------------------------------------
 
 
+def _verify_same_shapes(operation: str, tensor) -> None:
+    """Under ``ACCELERATE_DEBUG_MODE``: raise when the processes pass
+    operands of different shapes (a collective would hang or mix them)."""
+    state = PartialState()
+    if not state.debug or state.num_processes == 1:
+        return
+    shapes = gather_object([get_shape(recursively_apply(_as_tensor, tensor, test_type=is_array))])
+    if any(s != shapes[0] for s in shapes):
+        table = "\n".join(f"  - Process {i}: {s}" for i, s in enumerate(shapes))
+        raise DistributedOperationException(
+            f"Cannot apply the desired operation ({operation}) due to shape mismatches across processes:\n{table}"
+        )
+
+
+def _as_tensor(t) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(t)) if isinstance(t, np.ndarray) else t
+
+
+def _across(fn):
+    """A per-leaf collective ``fn(tensor on the collectives' device) ->
+    tensor`` as a leaf function: numpy leaves come back numpy, tensor leaves
+    return to their device."""
+    state = PartialState()
+
+    def _leaf(t):
+        x = _as_tensor(t)
+        out = fn(x.to(state.comm_device).contiguous())
+        if isinstance(t, np.ndarray):
+            return out.cpu().numpy()
+        return out.to(x.device)
+
+    return _leaf
+
+
 def gather(tensor):
-    """Every process's tensors concatenated along the leading dim: at one
-    process, the tensors themselves."""
-    _one_process("gather")
-    return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
+    """Every process's leaves concatenated along the leading dim (each
+    process passes the same shapes: ``pad_across_processes`` first where
+    they differ)."""
+    _verify_same_shapes("gather", tensor)
+    state = PartialState()
+    if state.num_processes == 1:
+        return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
+
+    def _gather(x):
+        x = x.reshape(1) if x.ndim == 0 else x
+        out = torch.empty((x.shape[0] * state.num_processes, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    return recursively_apply(_across(_gather), tensor, test_type=is_array, error_on_other_type=True)
 
 
 def gather_object(obj: list):
-    """Every process's list of objects, concatenated."""
-    _one_process("gather_object")
-    return list(obj)
+    """Every process's list of picklable objects, concatenated in process order."""
+    state = PartialState()
+    if state.num_processes == 1:
+        return list(obj)
+    rows: list = [None] * state.num_processes
+    dist.all_gather_object(rows, list(obj))
+    return [item for row in rows for item in row]
 
 
-def broadcast(tensor, from_process: int = 0):  # noqa: ARG001 - one process
-    """Each tensor leaf from ``from_process``."""
-    _one_process("broadcast")
-    return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
+def broadcast(tensor, from_process: int = 0):
+    """Each leaf as ``from_process`` holds it (every process passes leaves
+    of the same shapes)."""
+    _verify_same_shapes("broadcast", tensor)
+    state = PartialState()
+    if state.num_processes == 1:
+        return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
+
+    def _bcast(x):
+        x = x.clone()
+        dist.broadcast(x, src=from_process)
+        return x
+
+    return recursively_apply(_across(_bcast), tensor, test_type=is_array, error_on_other_type=True)
 
 
-def broadcast_object_list(object_list: list, from_process: int = 0):  # noqa: ARG001 - one process
-    """``object_list`` replaced in place by ``from_process``'s."""
-    _one_process("broadcast_object_list")
+def broadcast_object_list(object_list: list, from_process: int = 0):
+    """``object_list`` replaced in place by ``from_process``'s (picklable
+    objects); returns it."""
+    state = PartialState()
+    if state.num_processes == 1:
+        return object_list
+    dist.broadcast_object_list(object_list, src=from_process, device=state.comm_device)
     return object_list
 
 
@@ -217,15 +277,47 @@ def reduce(tensor, reduction: str = "mean", scale: float = 1.0):
     processes, times ``scale``."""
     if reduction not in ("sum", "mean"):
         raise ValueError(f"reduction must be 'sum' or 'mean', got {reduction!r}")
-    _one_process("reduce")
-    return recursively_apply(lambda t: t * scale, tensor, test_type=is_array, error_on_other_type=True)
+    _verify_same_shapes("reduce", tensor)
+    state = PartialState()
+    if state.num_processes == 1:
+        return recursively_apply(lambda t: t * scale, tensor, test_type=is_array, error_on_other_type=True)
+
+    def _reduce(x):
+        x = x.clone()
+        dist.all_reduce(x)
+        if reduction == "mean":
+            x = x / state.num_processes
+        return x * scale
+
+    return recursively_apply(_across(_reduce), tensor, test_type=is_array, error_on_other_type=True)
 
 
-def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):  # noqa: ARG001
-    """Each leaf padded along ``dim`` to the largest size over the
-    processes: at one process, unchanged."""
-    _one_process("pad_across_processes")
-    return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
+def pad_across_processes(tensor, dim: int = 0, pad_index: int = 0, pad_first: bool = False):
+    """Each leaf padded with ``pad_index`` along ``dim`` to the largest size
+    over the processes (at the front with ``pad_first``)."""
+    state = PartialState()
+    if state.num_processes == 1:
+        return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
+
+    def _pad(t):
+        if t.ndim == 0:
+            return t
+        sizes = gather_object([int(t.shape[dim])])
+        max_size = max(sizes)
+        if t.shape[dim] == max_size:
+            return t
+        new_shape = list(t.shape)
+        new_shape[dim] = max_size
+        index = [slice(None)] * t.ndim
+        index[dim] = slice(max_size - t.shape[dim], max_size) if pad_first else slice(0, t.shape[dim])
+        if isinstance(t, np.ndarray):
+            out = np.full(new_shape, pad_index, dtype=t.dtype)
+        else:
+            out = torch.full(new_shape, pad_index, dtype=t.dtype, device=t.device)
+        out[tuple(index)] = t
+        return out
+
+    return recursively_apply(_pad, tensor, test_type=is_array, error_on_other_type=True)
 
 
 def pad_input_tensors(tensor, batch_size: int, num_processes: int, dim: int = 0):

@@ -10,8 +10,17 @@ transforms (``ops.fused_adamw``: ``adamw``, ``fused_adamw``); a transform
 with a ``fused_apply`` updates params and state in one kernel pass per leaf.
 
 Where the JAX package donates buffers to a jitted update, the port updates
-the fp32 master parameters in place. Offloading the optimizer state to the
-host waits for the memory part of the parallel slice (ROADMAP item 9(c)).
+the fp32 master parameters in place.
+
+Across processes the optimizer carries its model's ``ShardedLayout``
+(``parallel/zero.py``): ``step()`` reduces the accumulated gradients into
+the update layout (a reduce-scatter, or an all-reduce for leaves updated
+whole), takes the sharded global norm, and updates each process's shard,
+so the optimizer state holds 1/N of the moments (in the folded layout of
+the JAX package) and the fused adamw kernel runs once per shard leaf. With
+``cpu_offload`` the state's tensors live in (pinned) host memory between
+steps and are brought to the device for the update, which still runs on
+the card.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import LossScaleKwargs
-from .utils.params import state_leaves, state_unflatten, tree_leaves, tree_map
+from .utils.params import state_leaves, state_unflatten, tree_leaves, tree_map, tree_unflatten
 
 
 @torch.no_grad()
@@ -80,13 +89,18 @@ def global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tree_leaves(grads)))
 
 
+def clip_grads(grads: dict, gnorm: torch.Tensor, clip_norm: Optional[float]) -> dict:
+    """``grads`` scaled to a global norm of at most ``clip_norm`` (None: as they are)."""
+    if clip_norm is None:
+        return grads
+    factor = torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0)
+    return tree_map(lambda g: g * factor, grads)
+
+
 def clip_by_global_norm(grads: dict, clip_norm: Optional[float]):
     """Global-norm clip shared by both update paths; returns ``(grads, gnorm)``."""
     gnorm = global_norm(grads)
-    if clip_norm is not None:
-        factor = torch.clamp(clip_norm / (gnorm + 1e-6), max=1.0)
-        grads = tree_map(lambda g: g * factor, grads)
-    return grads, gnorm
+    return clip_grads(grads, gnorm, clip_norm), gnorm
 
 
 def clip_by_value(grads: dict, clip_value: Optional[float]) -> dict:
@@ -97,24 +111,36 @@ def clip_by_value(grads: dict, clip_value: Optional[float]) -> dict:
 
 
 class AcceleratedOptimizer:
-    """A transform bound to a prepared model's fp32 master parameters."""
+    """A transform bound to a prepared model's fp32 master parameters (the
+    stored ones: shards under a sharded ``layout``)."""
 
     def __init__(
         self,
         tx,
         params: dict,  # the prepared model's master params, in the JAX layout
         scaler: Optional[LossScaleKwargs] = None,
+        layout=None,  # parallel.zero.ShardedLayout across processes
+        cpu_offload: bool = False,
     ):
         self.tx = tx
         self.gradient_state = GradientState()
         self.accelerator_state = AcceleratorState()
         self.scaler = scaler
         self.params = params
-        self.opt_state = tx.init(params)
+        self.layout = layout
+        self.cpu_offload = cpu_offload
+        device = self.device = tree_leaves(params)[0].device
+        update_params = params if layout is None else tree_unflatten(params, layout.update_params(params))
+        self.opt_state = tx.init(update_params)
+        # the spec of each state leaf (None at one process): a moment's is its param's
+        self.state_specs = None if layout is None else layout.state_specs(self.opt_state, tree_leaves(update_params))
+        if cpu_offload:  # every non-scalar leaf in host memory, pinned for copies to the card
+            self.opt_state = state_unflatten(self.opt_state, [
+                x if x.ndim == 0 else self._host(x.detach().to("cpu", copy=True)) for x in state_leaves(self.opt_state)
+            ])
         self._grads = None  # accumulated (summed) grads
         self._accum_count = 0
         self._step_count = 0
-        device = tree_leaves(params)[0].device
         self._skipped = torch.zeros((), dtype=torch.bool, device=device)
         if scaler is not None:
             self.scale = torch.tensor(scaler.init_scale, dtype=torch.float32, device=device)
@@ -136,11 +162,14 @@ class AcceleratedOptimizer:
 
     @property
     def grads(self) -> Optional[dict]:
-        """Current accumulated gradient (mean over the window so far), unscaled."""
+        """Current accumulated gradient (mean over the window so far),
+        unscaled; across processes the global one, summed over the
+        processes' shares (a collective)."""
         if self._grads is None:
             return None
         denom = float(self._accum_count) * (self.scale if self.scale is not None else 1.0)
-        return tree_map(lambda g: g.float() / denom, self._grads)
+        grads = tree_map(lambda g: g.float() / denom, self._grads)
+        return grads if self.layout is None else tree_map(self.layout.psum, grads)
 
     def set_clip_grad_norm(self, max_norm: Optional[float]) -> None:
         self._clip_norm = max_norm
@@ -161,17 +190,43 @@ class AcceleratedOptimizer:
             grads = tree_map(lambda g: g.float() / float(count), self._grads)
         else:
             grads = tree_map(lambda g: g.float(), self._grads)
+        if self.layout is not None:
+            grads = tree_unflatten(grads, self.layout.reduce(tree_leaves(grads)))
         grads = clip_by_value(grads, self._clip_value)
-        grads, gnorm = clip_by_global_norm(grads, self._clip_norm)
-        self.params, self.opt_state, scale, growth, self._skipped = scaled_optimizer_update(
-            self.tx, self.params, self.opt_state, grads, gnorm, self.scale,
-            self.growth_tracker, self.scaler,
-        )
-        if self.scaler is not None:
-            self.scale, self.growth_tracker = scale, growth
+        if self.layout is None:
+            grads, gnorm = clip_by_global_norm(grads, self._clip_norm)
+        else:
+            gnorm = self.layout.global_norm(tree_leaves(grads))
+            grads = clip_grads(grads, gnorm, self._clip_norm)
+        self.apply_update(grads, gnorm)
         self._grads = None
         self._accum_count = 0
         self._step_count += 1
+
+    def apply_update(self, grads: dict, gnorm) -> None:
+        """The update of reduced, unscaled and clipped ``grads`` (in the
+        update layout), shared by ``step()`` and ``compiled_step``: the
+        offloaded state is brought to the device and back, and params stored
+        whole but updated by shard are gathered again."""
+        params = self.params if self.layout is None else tree_unflatten(self.params, self.layout.update_params(self.params))
+        state = self.opt_state
+        if self.cpu_offload:
+            state = state_unflatten(state, [x.to(self.device, non_blocking=True) for x in state_leaves(state)])
+        params, state, scale, growth, self._skipped = scaled_optimizer_update(
+            self.tx, params, state, grads, gnorm, self.scale, self.growth_tracker, self.scaler,
+        )
+        if self.layout is not None:
+            self.layout.write_back(self.params, tree_leaves(params))
+        else:
+            self.params = params
+        if self.cpu_offload:
+            state = state_unflatten(state, [
+                host.copy_(new) if new.ndim else new
+                for host, new in zip(state_leaves(self.opt_state), state_leaves(state))
+            ])
+        self.opt_state = state
+        if self.scaler is not None:
+            self.scale, self.growth_tracker = scale, growth
 
     def zero_grad(self, set_to_none: bool = True) -> None:  # noqa: ARG002 - parity
         if self.gradient_state.sync_gradients:
@@ -192,29 +247,44 @@ class AcceleratedOptimizer:
         return self._step_count
 
     def state_dict(self) -> dict:
-        state: dict[str, Any] = {"opt_state": self.opt_state, "step_count": self._step_count}
+        """The step count, the fp16 scaler's state and the optimizer state,
+        whole: across processes its shards are gathered (a collective:
+        every process calls it)."""
+        opt_state = self.opt_state
+        if self.layout is not None:
+            leaves = [x.to(self.device) for x in state_leaves(opt_state)]
+            opt_state = state_unflatten(opt_state, self.layout.gather_state(leaves, self.state_specs))
+        state: dict[str, Any] = {"opt_state": opt_state, "step_count": self._step_count}
         if self.scaler is not None:
             state["scale"] = self.scale
             state["growth_tracker"] = self.growth_tracker
         return state
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore a :meth:`state_dict` whose ``opt_state`` leaves may be
-        numpy arrays (a checkpoint's): each leaf goes to the params' device
-        in the dtype of the state it replaces, and the fp16 loss scale and
-        growth tracker are restored."""
-        device = tree_leaves(self.params)[0].device
+        """Restore a :meth:`state_dict` whose ``opt_state`` leaves are whole
+        and may be numpy arrays (a checkpoint's): each leaf goes to the
+        params' device (to the host under ``cpu_offload``) in the dtype of
+        the state it replaces, cut to this process's shard across
+        processes, and the fp16 loss scale and growth tracker are restored."""
+        device = self.device
         current, loaded = state_leaves(self.opt_state), state_leaves(state["opt_state"])
         if len(loaded) != len(current):
             raise ValueError(f"the optimizer state holds {len(current)} leaves, got {len(loaded)}")
         leaves = [
-            torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x)).to(
-                device=device, dtype=old.dtype, copy=True
-            ).contiguous()
+            torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x)).to(device=device, dtype=old.dtype)
             for old, x in zip(current, loaded)
         ]
-        self.opt_state = state_unflatten(self.opt_state, leaves)
+        if self.layout is not None:
+            leaves = self.layout.shard_state(leaves, self.state_specs)
+        leaves = [x.to(old.device, copy=True).contiguous() for old, x in zip(current, leaves)]
+        self.opt_state = state_unflatten(self.opt_state, [
+            self._host(x) if self.cpu_offload and x.ndim else x for x in leaves
+        ])
         self._step_count = int(state.get("step_count", 0))
         if self.scaler is not None and "scale" in state:
             self.scale = torch.tensor(float(state["scale"]), dtype=torch.float32, device=device)
             self.growth_tracker = torch.tensor(int(state["growth_tracker"]), dtype=torch.int32, device=device)
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        """An offloaded state tensor: pinned when the params are on a card."""
+        return x.pin_memory() if self.device.type == "cuda" else x

@@ -82,8 +82,7 @@ class AcceleratedScheduler:
         if self.split_batches:
             self._counter += 1
         else:
-            # one tick per data shard: the number of processes until the
-            # parallel slice adds data-parallel devices (ROADMAP item 9(b))
+            # one tick per data shard: one device a process
             self._counter += PartialState().num_devices
 
     def get_last_lr(self) -> list[float]:

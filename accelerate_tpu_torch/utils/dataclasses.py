@@ -1,21 +1,33 @@
-"""Config dataclasses and enums of the training step.
+"""Config dataclasses and enums of the training step and its processes.
 
-Copies of the parts of ``accelerate_tpu/utils/dataclasses.py`` that one
-device needs, not imports: the port never imports the JAX package. Field
-names and defaults follow the reference, so user configs carry over. Values
-that need a later slice raise ``NotImplementedError`` naming their ROADMAP
-item.
+Copies of the parts of ``accelerate_tpu/utils/dataclasses.py`` the port
+needs, not imports: the port never imports the JAX package. Field names and
+defaults follow the reference, so user configs carry over. Values that need
+a later slice raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import enum
 import functools
+import os
 from dataclasses import asdict, dataclass
+from datetime import timedelta
 from typing import Any, Callable, Optional
 
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+
+from .constants import (
+    CANONICAL_MESH_AXES,
+    MESH_AXIS_DATA,
+    MESH_AXIS_EXPERT,
+    MESH_AXIS_FSDP,
+    MESH_AXIS_PIPELINE,
+    MESH_AXIS_SEQUENCE,
+    MESH_AXIS_TENSOR,
+)
+from .environment import parse_flag_from_env, parse_int_from_env
 
 
 class _StrEnum(str, enum.Enum):
@@ -24,11 +36,13 @@ class _StrEnum(str, enum.Enum):
 
 
 class DistributedType(_StrEnum):
-    """Primary distribution strategy. One device is ``NO``; the others wait
-    for the parallel slice (ROADMAP item 9)."""
+    """Primary distribution strategy, named as the JAX package names it. One
+    device is ``NO``; ``MULTI_GPU`` (the reference's name) is an alias of
+    ``DATA_PARALLEL``."""
 
     NO = "NO"
     DATA_PARALLEL = "DATA_PARALLEL"
+    MULTI_GPU = "DATA_PARALLEL"
     FSDP = "FSDP"
     TENSOR_PARALLEL = "TENSOR_PARALLEL"
     PIPELINE_PARALLEL = "PIPELINE_PARALLEL"
@@ -46,6 +60,29 @@ class PrecisionType(_StrEnum):
 class KwargsHandler:
     def to_kwargs(self) -> dict[str, Any]:
         return asdict(self)
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """How the processes of a job meet: the arguments of
+    ``torch.distributed.init_process_group``, positional as the reference's
+    ``(backend, init_method, timeout)``. ``backend`` is ``"nccl"`` or
+    ``"gloo"``; None picks NCCL for a CUDA device and gloo for the CPU.
+    ``init_method`` (None: the environment's, ``utils.environment.
+    get_multihost_env``) and ``timeout`` (None: PyTorch's default) go to
+    ``init_process_group`` as they are."""
+
+    backend: Optional[str] = None
+    init_method: Optional[str] = None
+    timeout: Optional[timedelta] = None
+
+    _KNOWN_BACKENDS = ("nccl", "gloo")
+
+    def __post_init__(self):
+        if self.backend is not None and self.backend not in self._KNOWN_BACKENDS:
+            raise ValueError(f"backend={self.backend!r}: the port runs {self._KNOWN_BACKENDS} (or None)")
+        if self.timeout is not None and not isinstance(self.timeout, timedelta):
+            raise TypeError(f"timeout must be a datetime.timedelta, got {type(self.timeout).__name__}")
 
 
 @dataclass
@@ -94,6 +131,121 @@ class ProjectConfiguration:
     def __post_init__(self):
         if self.logging_dir is None:
             self.logging_dir = self.project_dir
+
+
+# ---------------------------------------------------------------------------
+# Parallelism: one mesh over the processes
+# ---------------------------------------------------------------------------
+
+# the model-parallel axes: their collectives live inside the forward
+_MODEL_AXES = (MESH_AXIS_PIPELINE, MESH_AXIS_EXPERT, MESH_AXIS_SEQUENCE, MESH_AXIS_TENSOR)
+
+
+@dataclass
+class ParallelismConfig:
+    """Sizes of the mesh axes; ``data`` defaults to every process the other
+    axes leave over. A process is one device, so the sizes multiply to the
+    world size. The port runs the ``data`` and ``fsdp`` axes; ``pipeline``,
+    ``expert``, ``sequence`` and ``tensor`` above 1 raise, naming ROADMAP
+    item 17. ``zero_stage``: None shards the weight update over the data
+    axes wherever the configuration allows it (``parallel/zero.py``), 0
+    keeps the replicated update, 1 or more requires the sharded one."""
+
+    data: Optional[int] = None
+    fsdp: int = 1
+    pipeline: int = 1
+    expert: int = 1
+    sequence: int = 1
+    tensor: int = 1
+    zero_stage: Optional[int] = None
+
+    def __post_init__(self):
+        above = {axis: getattr(self, axis) for axis in _MODEL_AXES if getattr(self, axis) > 1}
+        if above:
+            raise NotImplementedError(
+                f"model-parallel mesh axes {above} (pipeline, expert, sequence and tensor "
+                "parallelism) are not in the port yet (ROADMAP item 17)"
+            )
+
+    @classmethod
+    def from_env(cls) -> "ParallelismConfig":
+        return cls(
+            data=parse_int_from_env("ACCELERATE_DATA_PARALLEL_SIZE"),
+            fsdp=parse_int_from_env("ACCELERATE_FSDP_SIZE", 1),
+            pipeline=parse_int_from_env("ACCELERATE_PIPELINE_SIZE", 1),
+            expert=parse_int_from_env("ACCELERATE_EXPERT_SIZE", 1),
+            sequence=parse_int_from_env("ACCELERATE_SEQUENCE_SIZE", 1),
+            tensor=parse_int_from_env("ACCELERATE_TENSOR_SIZE", 1),
+            zero_stage=parse_int_from_env("ACCELERATE_ZERO_STAGE"),
+        )
+
+    def axis_sizes(self, num_devices: int) -> dict[str, int]:
+        """Each canonical axis's size over ``num_devices`` devices."""
+        fixed = {
+            MESH_AXIS_FSDP: self.fsdp,
+            MESH_AXIS_PIPELINE: self.pipeline,
+            MESH_AXIS_EXPERT: self.expert,
+            MESH_AXIS_SEQUENCE: self.sequence,
+            MESH_AXIS_TENSOR: self.tensor,
+        }
+        prod = 1
+        for size in fixed.values():
+            prod *= size
+        if self.data is None:
+            if num_devices % prod != 0:
+                raise ValueError(
+                    f"Device count {num_devices} not divisible by model axes product {prod} "
+                    f"({fixed}); fix the axis sizes or the topology."
+                )
+            data = num_devices // prod
+        else:
+            data = self.data
+            if data * prod != num_devices:
+                raise ValueError(
+                    f"Mesh {dict(data=data, **fixed)} covers {data * prod} devices "
+                    f"but {num_devices} are present."
+                )
+        sizes = {MESH_AXIS_DATA: data, **fixed}
+        return {axis: sizes[axis] for axis in CANONICAL_MESH_AXES}
+
+    @property
+    def distributed_type(self) -> DistributedType:
+        return DistributedType.FSDP if self.fsdp > 1 else DistributedType.DATA_PARALLEL
+
+
+@dataclass
+class FullyShardedDataParallelPlugin:
+    """Parameter and optimizer-state sharding over the ``fsdp`` axis (the
+    reference's plugin, in the JAX package's mesh terms):
+
+    - ``stage`` 1 and 2: params replicated, the optimizer state (and the
+      reduced gradient) sharded over ``fsdp``: each process updates its
+      shard and the params are gathered again;
+    - ``stage`` 3: the params sharded too, gathered for each step's forward;
+    - ``cpu_offload``: the optimizer state lives in pinned host memory
+      between steps and is brought to the device for the update;
+    - ``min_weight_size``: tensors with fewer elements stay replicated;
+    - ``activation_checkpointing``: each layer recomputed in the backward
+      except the flash forward's out and lse (``remat_policy="save_flash"``).
+    """
+
+    fsdp_size: Optional[int] = None  # None = every process the other axes leave
+    stage: int = 3
+    min_weight_size: int = 2**12
+    cpu_offload: bool = False
+    activation_checkpointing: bool = False
+    state_dict_type: str = "SHARDED_STATE_DICT"  # or FULL_STATE_DICT
+
+    @classmethod
+    def from_env(cls) -> "FullyShardedDataParallelPlugin":
+        return cls(
+            fsdp_size=parse_int_from_env("ACCELERATE_FSDP_SIZE"),
+            stage=parse_int_from_env("ACCELERATE_FSDP_STAGE", 3),
+            min_weight_size=parse_int_from_env("ACCELERATE_FSDP_MIN_WEIGHT_SIZE", 2**12),
+            cpu_offload=parse_flag_from_env("ACCELERATE_FSDP_CPU_OFFLOAD", False),
+            activation_checkpointing=parse_flag_from_env("ACCELERATE_FSDP_ACTIVATION_CHECKPOINTING", False),
+            state_dict_type=os.environ.get("ACCELERATE_FSDP_STATE_DICT_TYPE", "SHARDED_STATE_DICT"),
+        )
 
 
 # matrix products without and with a batch dimension, as ATen runs them

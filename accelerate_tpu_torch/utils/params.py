@@ -47,6 +47,38 @@ def state_leaves(tree) -> list:
     return [tree]
 
 
+def state_paths(tree, prefix: str = "") -> list[str]:
+    """The JAX package's key paths of an optimizer state's leaves (a
+    NamedTuple's field names, a tuple's indices, a dict's keys, joined by
+    ``/``), in :func:`state_leaves` order: the keys of its sharded
+    optimizer files."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [p for name, item in zip(tree._fields, tree) for p in state_paths(item, f"{prefix}{name}/")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, item in enumerate(tree) for p in state_paths(item, f"{prefix}{i}/")]
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree) for p in state_paths(tree[key], f"{prefix}{key}/")]
+    if tree is None:
+        return []
+    return [prefix[:-1]]
+
+
+def tree_unflatten(tree, leaves: list):
+    """``tree``'s nested-dict structure with its leaves replaced by
+    ``leaves``, taken in :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def tree_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """``("a/b/c", leaf)`` pairs of a nested param dict, in
+    :func:`tree_leaves` order: the JAX package's ``param_path`` of each
+    leaf, which the partition rules match."""
+    if isinstance(tree, dict):
+        return [item for key in sorted(tree) for item in tree_paths(tree[key], f"{prefix}{key}/")]
+    return [(prefix[:-1], tree)]
+
+
 def state_unflatten(template, leaves: list):
     """``template``'s structure with its leaves replaced by ``leaves``, taken
     in :func:`state_leaves` order."""

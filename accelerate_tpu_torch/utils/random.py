@@ -38,8 +38,7 @@ _GENERATORS: dict[str, torch.Generator] = {}
 
 def set_seed(seed: int, device_specific: bool = False) -> None:
     """Seed Python, numpy, torch and the port's generators. With
-    ``device_specific`` the seed is offset by the process index, which is 0
-    for the single process this slice runs."""
+    ``device_specific`` the seed is offset by the process index."""
     if device_specific:
         from ..state import PartialState
 
@@ -119,9 +118,15 @@ def restore_rng_state(state: dict) -> None:
 
 
 def synchronize_rng_states() -> None:
-    """Give every process process 0's RNG states: nothing to do at one
-    process (the parallel slice, ROADMAP item 9(b), broadcasts them)."""
+    """Give every process process 0's RNG states (Python, numpy, torch CPU
+    and CUDA, the port's generators): its :func:`rng_state` snapshot is
+    broadcast and restored. A collective: every process calls it."""
+    from ..ops.operations import broadcast_object_list
     from ..state import PartialState
 
-    if PartialState().num_processes > 1:
-        raise NotImplementedError("synchronize_rng_states across processes (ROADMAP item 9(b))")
+    state = PartialState()
+    if state.num_processes == 1:
+        return
+    snapshot = broadcast_object_list([rng_state() if state.is_main_process else None])[0]
+    if not state.is_main_process:
+        restore_rng_state(snapshot)

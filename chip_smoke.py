@@ -113,10 +113,26 @@ wall time:
     ``flash_fwd`` launches a step (12, 24, 12); fp32 B=2: one step's params
     under "full", "save_flash" and "dots_with_no_batch_dims" against no
     remat, and bert-base with dropout under "full": its grads against no
-    remat (equal, or within the gap of two runs without remat).
+    remat (equal, or within the gap of two runs without remat);
+18. two processes sharing the card over gloo (NCCL refuses two processes
+    on one card), started by the port's ``debug_launcher``: (a) which of
+    ``all_reduce``, ``reduce_scatter_tensor``, ``all_gather_into_tensor``
+    and ``broadcast`` gloo takes on CUDA tensors; (b) llama-125m at full
+    width and depth, bf16 over fp32 masters, ``fused_adamw(3e-4)``, flash
+    on, global batch 16 (8 a process) at S=1024 under
+    ``ParallelismConfig(fsdp=2)``: 3 ZeRO ``compiled_step``s whose losses
+    both processes report alike and that lie within 5e-3 relative of one
+    process's steps on the whole batch, launches a process a step (each
+    flash kernel 12, ``fused_adamw`` once a shard leaf), the masters and
+    optimizer state a process against ``zero_update_state_bytes``, the
+    step p50 (gloo stages every collective through the host, so it says
+    nothing of NCCL), and the update gate: 10 eager updates of seeded
+    gradients at full width, the ZeRO update against the replicated one,
+    tolerance 0. Where gloo refuses a CUDA reduce-scatter or all-gather,
+    (b) runs the replicated data-parallel update and the gate is skipped.
 
 The JSON line's launch counts of the four training kernels are phase 14's
-run A; phases 15-17 print their own. The line before the last is a JSON
+run A; phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -147,7 +163,9 @@ from accelerate_tpu_torch import (
     Bert,
     CompilationConfig,
     GradientState,
+    InitProcessGroupKwargs,
     Llama,
+    ParallelismConfig,
     PartialState,
     QuantizationConfig,
     QuantizedWeight,
@@ -176,7 +194,7 @@ from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_referenc
 from accelerate_tpu_torch.ops.quant_matmul import quant_matmul_reference
 from accelerate_tpu_torch.ops.runtime import build_kernel, build_log
 from accelerate_tpu_torch.serving.engine import params_from_streamed
-from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves
+from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves
 from accelerate_tpu_torch.utils.quantization import dequantize_weight, quantize_weight
 
 SEED = 0
@@ -2055,6 +2073,220 @@ def phase_remat(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 18: two processes sharing the card over gloo --------------------------
+
+PROBED = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor", "broadcast")
+PAIR_BATCH, PAIR_SEQ = 16, 1024  # global: 8 rows a process
+PAIR_STEPS, PAIR_TIMED, GATE_STEPS = 3, 4, 10
+# the two-process losses against one process's at the same global batch:
+# bf16 rounds every product to 8 bits (2^-8 = 3.9e-3 relative), and the
+# halves' matmuls may tile otherwise than the whole batch's
+PAIR_LOSS_RTOL = 5e-3
+GLOO_TIMEOUT_S = 120
+
+
+def gloo_on_card() -> dict:
+    """Options of an Accelerator in one of two processes on cuda:0 over gloo
+    (NCCL refuses two processes on one card)."""
+    from datetime import timedelta
+
+    return dict(device="cuda:0", kwargs_handlers=[
+        InitProcessGroupKwargs("gloo", timeout=timedelta(seconds=GLOO_TIMEOUT_S))])
+
+
+def probe_gloo_cuda() -> dict:
+    """In each of two processes on cuda:0: which collectives gloo takes on
+    CUDA tensors, with their values checked ("ok"), or its refusal."""
+    import torch.distributed as dist
+
+    reset_training_state()
+    Accelerator(**gloo_on_card())
+    rank = dist.get_rank()
+    out = {"torch": torch.__version__}
+    for name in PROBED:
+        x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(x)
+                got, want = x, [10.0, 12.0, 14.0, 16.0]
+            elif name == "reduce_scatter_tensor":
+                got = torch.empty(2, device="cuda")
+                dist.reduce_scatter_tensor(got, x)
+                want = [10.0, 12.0] if rank == 0 else [14.0, 16.0]
+            elif name == "all_gather_into_tensor":
+                got = torch.empty(8, device="cuda")
+                dist.all_gather_into_tensor(got, x)
+                want = [0.0, 1.0, 2.0, 3.0, 10.0, 11.0, 12.0, 13.0]
+            else:
+                dist.broadcast(x, src=1)
+                got, want = x, [10.0, 11.0, 12.0, 13.0]
+            out[name] = "ok" if got.tolist() == want else f"wrong values {got.tolist()}"
+        except (RuntimeError, ValueError, NotImplementedError) as exc:  # the probe records a refusal
+            out[name] = f"refused: {type(exc).__name__}: {str(exc).splitlines()[0]}"
+    return out
+
+
+def pair_batches() -> list:
+    rng = np.random.default_rng(SEED + 18)
+    return [rng.integers(0, 32000, (PAIR_BATCH, PAIR_SEQ)).astype(np.int32) for _ in range(PAIR_STEPS)]
+
+
+def train_pair(zero: bool) -> dict:
+    """In each of two processes on cuda:0: llama-125m bf16 under
+    ParallelismConfig(fsdp=2) (the ZeRO update; with ``zero=False`` the
+    replicated data-parallel update), 3 compiled steps on this process's half of each global
+    batch (launches counted), then 4 timed steps."""
+    import torch.distributed as dist
+
+    reset_training_state()
+    # the replicated update runs data-parallel: fsdp's gathers need the sharded collectives
+    parallelism = ParallelismConfig(fsdp=2) if zero else ParallelismConfig(zero_stage=0)
+    accelerator = Accelerator(mixed_precision="bf16", parallelism=parallelism,
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    prepared = accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    rank, rows = dist.get_rank(), PAIR_BATCH // 2
+    shares = [{"input_ids": torch.tensor(b[rank * rows:(rank + 1) * rows], device="cuda")} for b in pair_batches()]
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = [float(step(batch)) for batch in shares]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    times = []
+    for i in range(PAIR_TIMED):
+        t0 = time.perf_counter()
+        step(shares[i % PAIR_STEPS])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    leaves = tree_leaves(prepared.params)
+    return {
+        "rank": rank, "losses": losses, "counts": counts, "times": times, "n_params": n_params,
+        "shard_leaves": len(leaves),
+        "stored_bytes": sum(p.numel() * p.element_size() for p in leaves),
+        "state_bytes": sum(x.numel() * x.element_size() for x in state_leaves(optimizer.opt_state) if x.ndim),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def update_gate_pair() -> dict:
+    """In each of two processes on cuda:0: the update-equivalence gate at
+    llama-125m's full width: 10 eager updates of seeded CUDA gradients
+    (each process its own draw) under the ZeRO update, then under the
+    replicated one, params and optimizer state gathered; the largest gap."""
+    import torch.distributed as dist
+
+    sides = {}
+    for zero_stage in (None, 0):
+        reset_training_state()
+        accelerator = Accelerator(parallelism=ParallelismConfig(zero_stage=zero_stage), **gloo_on_card())
+        model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+        shapes = {k: tuple(v.shape) for k, v in model.param_tree()["layers"].items()}
+        full = {k: tuple(v.shape) for k, v in model.param_tree().items() if k != "layers"}
+        prepared = accelerator.prepare_model(model)
+        optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+        gen = torch.Generator(device="cuda").manual_seed(1000 + dist.get_rank())
+        draw = lambda shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+        t0 = time.perf_counter()
+        for _ in range(GATE_STEPS):
+            grads = {k: draw(s) for k, s in full.items()}
+            grads["layers"] = {k: draw(s) for k, s in shapes.items()}
+            optimizer.accumulate_grads(grads)
+            optimizer.step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        state_bytes = sum(x.numel() * x.element_size() for x in state_leaves(optimizer.opt_state) if x.ndim)
+        sides[zero_stage] = (tree_leaves(prepared.full_params()),
+                             state_leaves(optimizer.state_dict()["opt_state"]), state_bytes, seconds)
+    (p_a, s_a, bytes_a, sec_a), (p_b, s_b, bytes_b, sec_b) = sides[None], sides[0]
+    with torch.no_grad():
+        gap = max(float((a - b).abs().max()) for a, b in zip(p_a + s_a, p_b + s_b))
+    return {"gap": gap, "state_bytes": (bytes_a, bytes_b), "seconds": (sec_a, sec_b)}
+
+
+def pair_job(zero: bool) -> dict:
+    out = {"train": train_pair(zero)}
+    if zero:
+        out["gate"] = update_gate_pair()
+    return out
+
+
+def phase_pair(card: str) -> None:
+    """(a) the gloo probe in two processes on the card; (b) llama-125m
+    through the ZeRO update (or, where gloo refuses a CUDA reduce-scatter or
+    all-gather, the replicated update) in two processes sharing cuda:0, held
+    against one process's steps on the same global batch, and the
+    update-equivalence gate at full width."""
+    from accelerate_tpu_torch.launchers import debug_launcher
+    from accelerate_tpu_torch.parallel.zero import zero_update_state_bytes
+
+    probes = debug_launcher(probe_gloo_cuda, num_processes=2, timeout=3 * GLOO_TIMEOUT_S)
+    print(f"[pair] gloo on CUDA tensors, two processes on cuda:0 (torch {probes[0]['torch']}): "
+          + ", ".join(f"{name}: {probes[0][name]}" for name in PROBED) + f" [{card}]")
+    if probes[0] != probes[1]:
+        raise AssertionError(f"the two processes probed differently: {probes}")
+    sharded = all(probes[0][name] == "ok" for name in ("reduce_scatter_tensor", "all_gather_into_tensor"))
+    if not (probes[0]["all_reduce"] == "ok" and probes[0]["broadcast"] == "ok"):
+        raise AssertionError("gloo refuses the replicated update's collectives on CUDA tensors")
+    ranks = debug_launcher(pair_job, (sharded,), num_processes=2, timeout=600)
+    update = "ZeRO sharded" if sharded else "replicated (gloo refused a CUDA reduce-scatter or all-gather)"
+    layers = 12
+    for out in ranks:
+        got = out["train"]
+        p50 = float(np.median(got["times"]))
+        print(f"[pair] rank {got['rank']}: llama-125m bf16 fused_adamw B={PAIR_BATCH // 2} of {PAIR_BATCH} "
+              f"S={PAIR_SEQ}, {'ParallelismConfig(fsdp=2)' if sharded else 'ParallelismConfig(zero_stage=0)'}, "
+              f"{update} update: losses "
+              f"{[round(x, 6) for x in got['losses']]}; launches {got['counts']} over {PAIR_STEPS} steps "
+              f"({got['shard_leaves']} shard leaves); step p50 {p50 * 1e3:.3f} ms (min "
+              f"{min(got['times']) * 1e3:.3f}, max {max(got['times']) * 1e3:.3f}) over {PAIR_TIMED} steps: gloo "
+              f"stages every collective through the host, so this says nothing of NCCL; peak memory "
+              f"{got['peak_gib']:.3f} GiB [{card}]")
+        want = {"flash_fwd": layers * PAIR_STEPS, "flash_dq": layers * PAIR_STEPS, "flash_dkv": layers * PAIR_STEPS,
+                "fused_adamw": got["shard_leaves"] * PAIR_STEPS}
+        for key, n in want.items():
+            if got["counts"][key] != n:
+                raise AssertionError(f"rank {got['rank']} {key}: {got['counts'][key]} launches, expected {n}")
+    if ranks[0]["train"]["losses"] != ranks[1]["train"]["losses"]:
+        raise AssertionError("the two processes report different global losses")
+    n_params = ranks[0]["train"]["n_params"]
+    per_rank, _ = zero_update_state_bytes(n_params, 4, 2 if sharded else 1)
+    replicated, _ = zero_update_state_bytes(n_params, 4, 1)
+    held = ranks[0]["train"]["stored_bytes"] + ranks[0]["train"]["state_bytes"]
+    print(f"[pair] optimizer state and fp32 masters a process: {held} bytes, zero_update_state_bytes "
+          f"{per_rank} ({'1/2 of ' if sharded else ''}the replicated layout's {replicated}) [{card}]")
+    if held != per_rank:
+        raise AssertionError(f"a process holds {held} bytes of masters and state, expected {per_rank}")
+
+    reset_training_state()
+    accelerator, model = train_setup("llama-125m", "bf16", fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    single = [float(step({"input_ids": torch.tensor(b, device="cuda")})) for b in pair_batches()]
+    pair = ranks[0]["train"]["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(pair, single)]
+    print(f"[pair] one process on the whole batch: losses {[round(x, 6) for x in single]}; relative gaps "
+          f"{[f'{g:.3e}' for g in gaps]} (tolerance {PAIR_LOSS_RTOL}) [{card}]")
+    if max(gaps) > PAIR_LOSS_RTOL:
+        raise AssertionError("the two processes' losses differ from one process's")
+    del accelerator, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_training_state()
+    if not sharded:
+        print("[pair] update gate not run: gloo refused a sharded collective on CUDA tensors; the sharded "
+              "step's card run waits for a two-card machine (NCCL)")
+        return
+    gate = ranks[0]["gate"]
+    print(f"[pair] update gate, llama-125m full width, {GATE_STEPS} eager updates of seeded gradients: "
+          f"sharded vs replicated max gap {gate['gap']} (tolerance 0); optimizer state a process "
+          f"{gate['state_bytes'][0]} vs {gate['state_bytes'][1]} bytes; {gate['seconds'][0]:.3f} s vs "
+          f"{gate['seconds'][1]:.3f} s over gloo [{card}]")
+    if any(out["gate"]["gap"] != 0.0 for out in ranks):
+        raise AssertionError("the sharded update differs from the replicated one")
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2093,6 +2325,7 @@ def main() -> int:
     timed("phase 15 bert", phase_bert, card)
     timed("phase 16 mixture of experts and dropout", phase_moe_dropout, card)
     timed("phase 17 activation checkpointing", phase_remat, card)
+    timed("phase 18 two processes on the card over gloo", phase_pair, card)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

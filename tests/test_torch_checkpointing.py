@@ -52,7 +52,12 @@ from accelerate_tpu_torch import (
     verify_checkpoint,
 )
 from accelerate_tpu_torch import fault_tolerance as ft
-from accelerate_tpu_torch.checkpointing import load_model_weights, save_model_weights
+from accelerate_tpu_torch.checkpointing import (
+    is_sharded_checkpoint,
+    load_model_weights,
+    load_model_weights_sharded,
+    save_model_weights,
+)
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.utils import memory
 from accelerate_tpu_torch.utils import random as port_random
@@ -433,7 +438,8 @@ def test_cuda_rng_states_go_to_the_cards_there_are(saved, cards, monkeypatch):
 def test_port_reads_a_sharded_checkpoint_of_the_jax_package(tmp_path):
     """The JAX package's ``sharded=True`` save at one process over an fsdp
     mesh of 2 (each weight in chunks): the port puts the chunks together
-    into its params and optimizer state; its own sharded save raises."""
+    into its params and optimizer state; its own sharded save (one process:
+    each leaf one whole chunk) writes the same format back."""
     plugin = FullyShardedDataParallelPlugin(stage=3, min_weight_size=16)
     jacc = JaxAccelerator(parallelism=ParallelismConfig(fsdp=2), fsdp_plugin=plugin)
 
@@ -459,8 +465,10 @@ def test_port_reads_a_sharded_checkpoint_of_the_jax_package(tmp_path):
     np.testing.assert_array_equal(model.params["w"].detach().numpy(), np.asarray(jmodel.params["w"]))
     np.testing.assert_array_equal(optimizer.opt_state[0].nu["w"].numpy(), np.asarray(jopt.opt_state[0].nu["w"]))
     assert int(optimizer.opt_state[0].count) == 1 and optimizer.step_count == 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        acc.save_state(str(tmp_path / "mine"), sharded=True)
+    acc.save_state(str(tmp_path / "mine"), sharded=True)
+    assert is_sharded_checkpoint(str(tmp_path / "mine"), "model_0.safetensors")
+    flat = load_model_weights_sharded(str(tmp_path / "mine"), "model_0.safetensors")
+    np.testing.assert_array_equal(flat["w"], np.asarray(jmodel.params["w"]))
 
 
 def test_model_weights_split_into_shards_with_an_index(tmp_path):

@@ -808,3 +808,43 @@ def test_remat_policies_launch_the_flash_forward_once_or_twice(cuda, policy, for
     layers = model.config.num_layers
     assert [a - b for a, b in zip(counts(), before)] == [forwards * layers, layers, layers]
     assert np.isfinite(loss)
+
+
+def test_two_processes_share_the_card_over_gloo(cuda):
+    """Phase 18 of ``chip_smoke.py`` at llama-tiny size: two processes on
+    cuda:0 over gloo, bf16, flash from 128 tokens, fused adamw, 3 steps on
+    halves of each global batch of 8 rows: under ZeRO over fsdp=2 and under
+    FSDP stage 3 with ``cpu_offload``. Both processes report the same global
+    losses, within 5e-3 relative of one process's steps on the whole batch
+    (bf16 rounds to 2^-8 relative); each launches every flash kernel once a
+    layer a step and fused adamw once a shard leaf a step; the offloaded
+    state lives in pinned host memory."""
+    import os
+    import sys
+
+    from accelerate_tpu_torch.launchers import debug_launcher
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_parallel_workers as workers
+
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 1024, (8, 128)).astype(np.int32) for _ in range(3)]
+    ranks = debug_launcher(workers.gpu_pair, (batches,), num_processes=2, timeout=600)
+    _reset_training_state()
+    acc = Accelerator(mixed_precision="bf16", compilation_config=CompilationConfig(flash_attention_min_seq=128))
+    model = Llama("llama-tiny", seed=0)
+    acc.prepare_model(model)
+    acc.prepare_optimizer(fused_adamw(1e-3))
+    step = acc.compiled_step(Llama.loss_fn(model))
+    single = [float(step({"input_ids": torch.tensor(b, device="cuda")})) for b in batches]
+    layers = model.config.num_layers
+    for name in ("zero", "offload"):
+        got = [ranks[r][name] for r in range(2)]
+        assert got[0]["losses"] == got[1]["losses"]
+        np.testing.assert_allclose(got[0]["losses"], single, rtol=5e-3)
+        for out in got:
+            want = {"flash_fwd": 3 * layers, "flash_dq": 3 * layers, "flash_dkv": 3 * layers,
+                    "fused_adamw": 3 * out["shard_leaves"]}
+            assert out["launches"] == want
+    assert all(ranks[r]["offload"]["state_pinned_on_host"] for r in range(2))
+    _reset_training_state()

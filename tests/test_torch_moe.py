@@ -24,6 +24,7 @@ from accelerate_tpu_torch import Accelerator, Llama, MoEBlock, adamw, generate, 
 from accelerate_tpu_torch.models import routed_mlp
 from accelerate_tpu_torch.models.llama import layer_keys
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
 from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves, tree_map
 
 
@@ -120,10 +121,11 @@ def test_moe_block_trains_under_accelerator():
 
 
 def test_expert_axis_above_one_raises_naming_the_parallel_slice():
-    """The expert axis comes with ParallelismConfig, which waits for item 9(b)."""
+    """An expert axis above 1 raises naming item 17 (model parallelism; the
+    parallel slice runs the data and fsdp axes)."""
     _reset()
-    with pytest.raises(NotImplementedError, match=r"9\(b\)"):
-        Accelerator(device="cpu", parallelism=object())
+    with pytest.raises(NotImplementedError, match="item 17"):
+        Accelerator(device="cpu", parallelism=ParallelismConfig(expert=2))
 
 
 @pytest.fixture(scope="module")

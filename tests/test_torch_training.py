@@ -47,6 +47,7 @@ from accelerate_tpu_torch import (
     load_jax_params,
 )
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig as PortParallelismConfig
 from accelerate_tpu_torch.utils.params import flatten_tree
 
 LR = 1e-3
@@ -284,8 +285,9 @@ def test_set_seed_makes_the_generators_repeat():
 
 
 def test_later_slices_raise_not_implemented():
-    """fp8, parallelism and the ring's flash block wait for their items
-    (``remat_policy`` raised here until activation checkpointing came)."""
+    """fp8, tensor parallelism and the ring's flash block wait for their
+    items (``remat_policy`` raised here until activation checkpointing came;
+    a ``ParallelismConfig`` until training across processes came)."""
     from accelerate_tpu_torch.ops.flash_attention import flash_attention_block
 
     _reset()
@@ -295,8 +297,8 @@ def test_later_slices_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         Accelerator(mixed_precision="fp8", device="cpu")
     _reset()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        Accelerator(parallelism=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+        Accelerator(parallelism=PortParallelismConfig(tensor=2), device="cpu")
     _reset()
 
 
