@@ -317,7 +317,8 @@ class Accelerator:
         the attention hook: the flash dispatch whenever
         ``flash_attention_min_seq`` is set (on any device; a CPU run takes
         the kernels' plain versions; non-causal for a model whose
-        ``causal_attention`` is False, as BERT's), else the einsum path.
+        ``causal_attention`` is False, as BERT's; T5's stacks pass their
+        ``causal`` and relative-position bias per call), else the einsum path.
         A model with the ``remat_layers`` hook checkpoints each layer under
         the config's ``remat_policy``; the step wraps the whole loss
         function of any other model instead.

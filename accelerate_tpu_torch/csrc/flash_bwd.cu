@@ -64,6 +64,26 @@
 // a counter, issuing dv's product before dS^T is computed. Not
 // here: one fused pass (dq by atomics, whose order changes from launch to launch).
 //
+// An additive fp32 score bias [1|B, NH, S, T] (T5's relative positions) has its own
+// variants, compiled beside the kernels without one, which stay as they were. Both kernels
+// add it where the forward does (after the scale, before the causal limit and the mask
+// penalty), each lane loading its accumulator-layout elements from global memory while the
+// score products run. The dq kernel with a bias (`flash_dq_bias_bf16_kernel`, one consumer,
+// two blocks an SM, 64-key tiles) also writes the bias's gradient dS = P * (dP - delta),
+// in fp32 before the scale, as the TPU kernel does:
+//  - a [B, ...] bias: a block per batch row, each writing its rows of dbias;
+//  - a [1, ...] bias: summed over the batch in a fixed order. The batch is cut into chunks
+//    (the wrapper picks them so that the blocks number about four an SM); a block walks the
+//    rows of its chunk one after the other, the producer reloading Q and dO for each, and
+//    accumulates dS into its own slab of a [chunks, NH, S, T] buffer (each lane reads back
+//    only what it wrote: no race, no atomics), then `dbias_sum_kernel` adds the chunks in
+//    order. The TPU kernel walks the batch innermost on its sequential grid instead; a
+//    [B, NH, S, T] scratch would be 403 MB a layer at t5-base's B = 32.
+// Tiles past a row's causal or mask bound hold exact zeros, and two launches give the same
+// bits. The dk/dv kernel with a bias runs 64-row q tiles (the 128-row S^T band and its bias
+// values do not fit its registers) and walks its batch rows of one kv head side by side, so
+// a broadcast bias is read from L2 by all but the first.
+//
 // Launch rules: the kernels run on the caller's stream, allocate nothing and do not
 // synchronise. The C entry points return cudaGetLastError() after the launch.
 
@@ -105,16 +125,22 @@ struct Team {
 // fit), else 64. Blocks that run side by side on an SM hide each other's prologue and
 // epilogue.
 template <int D, int kN>
-using DqTeam =
+using DqTeamNoBias =
     std::conditional_t<kN == 128, Team<1, 2>, std::conditional_t<D == 64, Team<1, 3>, Team<3, 1>>>;
+// With a bias (kBias), dq is one consumer and two blocks an SM with 64-key tiles at every head
+// dim: the tile's bias values and the dbias slab's stores take the registers that a third
+// block or 128-key tiles had, and one consumer walks its batch rows alone.
+template <int D, int kN, bool kBias>
+using DqTeam = std::conditional_t<kBias, Team<1, 2>, DqTeamNoBias<D, kN>>;
 using DkvTeam = Team<1, 2>;
 static_assert(kBlockQ == kBoxRows && kBlockK == kBoxRows && 4 * kBand == kBoxRows,
               "64-row tiles, one TMA box of rows, a warp band of 16");
 
-template <int D, int kN>
+template <int D, int kN, bool kBias>
 struct DqLayout {
-  static constexpr int kConsumers = DqTeam<D, kN>::kConsumers;
-  static constexpr int kStages = kN == 128 ? 2 : 3;  // two blocks of 128-key stages fit an SM
+  static constexpr int kConsumers = DqTeam<D, kN, kBias>::kConsumers;
+  // two blocks of 128-key stages, or of 64-key stages at D = 128, fit an SM
+  static constexpr int kStages = kN == 128 || (kBias && D == 128) ? 2 : 3;
   static constexpr int kTile = kBoxRows * D * 2;  // one 64-row tile: D / 64 boxes
   static constexpr int kKvTile = kN * D * 2;      // one K or V tile: [D / 64][kN rows][128 B]
   static constexpr int kQ = 0;                    // a tile per consumer; tiles 1024-byte aligned
@@ -123,7 +149,8 @@ struct DqLayout {
   static constexpr int kV = kK + kStages * kKvTile;
   static constexpr int kPen = kV + kStages * kKvTile;
   static constexpr int kBar = kPen + kStages * kN * 4;
-  static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
+  // full and empty per stage, Q/dO full, and with a bias Q/dO empty (the next batch row's)
+  static constexpr int kBytes = kBar + (2 * kStages + (kBias ? 2 : 1)) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // the base is rounded up to 1024 bytes
   // a consumer stops up to kConsumers - 1 tiles before the block's causal bound; the
   // producer never waits for those tiles' release
@@ -176,8 +203,42 @@ __device__ __forceinline__ void row_delta(float (&dl)[2], const bf16* dout, cons
   }
 }
 
+// The lane's elements of a dbias slab [S, T] at key tile col0: rows row0 and row0 + 8,
+// columns 2t, 2t+1 of each 8-column tile. Each lane reads back only what it wrote.
+template <int NT>
+__device__ __forceinline__ float2* dbias_at(float* slab, long long Tk, int row0, int col0, int t,
+                                            int n, int r) {
+  return reinterpret_cast<float2*>(slab + (row0 + 8LL * r) * Tk + col0 + n * 8 + 2 * t);
+}
+
+// the slab's partial sums of key tile col0, loaded before the tile's products so that their
+// latency hides behind them (zeros for the chunk's first batch row, which stores)
+template <int NT>
+__device__ __forceinline__ void dbias_load(float2 (&acc)[NT][2], const float* slab, long long Tk,
+                                           int row0, int col0, int t, bool first) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      acc[n][r] = first ? make_float2(0.f, 0.f)
+                        : *dbias_at<NT>(const_cast<float*>(slab), Tk, row0, col0, t, n, r);
+}
+
+// dS (before the scale) added to what dbias_load read, and stored
+template <int NT>
+__device__ __forceinline__ void dbias_store(float* slab, long long Tk, int row0, int col0, int t,
+                                            const float (&ds)[NT][4], const float2 (&acc)[NT][2]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *dbias_at<NT>(slab, Tk, row0, col0, t, n, r) =
+          make_float2(acc[n][r].x + ds[n][2 * r], acc[n][r].y + ds[n][2 * r + 1]);
+}
+
 template <int D, int kN>
-__global__ void __launch_bounds__(DqTeam<tile_dim(D), kN>::kThreads, DqTeam<tile_dim(D), kN>::kBlocks)
+__global__ void __launch_bounds__(DqTeam<tile_dim(D), kN, false>::kThreads,
+                                  DqTeam<tile_dim(D), kN, false>::kBlocks)
 flash_dq_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
     const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
@@ -192,8 +253,8 @@ flash_dq_bf16_kernel(
     bf16* __restrict__ dq,           // [B, S, NH, D]
     int S, int Tk, int NH, int KV, float scale, int causal) {
   constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dq band
-  using L = DqLayout<kDt, kN>;
-  using W = DqTeam<kDt, kN>;
+  using L = DqLayout<kDt, kN, false>;
+  using W = DqTeam<kDt, kN, false>;
   constexpr int kNt = kN / 8;  // 8-column tiles of a score band
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -369,18 +430,265 @@ flash_dq_bf16_kernel(
   store_rows<D / 8>(dq + q_off, q_row, acc, one);
 }
 
-template <int D, int kM>
+// The dq kernel with a bias: the same pipeline and products as flash_dq_bf16_kernel, 64-key
+// tiles, one consumer; each block walks the batch rows of its chunk, the producer reloading Q
+// and dO for each once the consumers have released them, and writes dS into its dbias slab.
+template <int D>
+__global__ void __launch_bounds__(DqTeam<tile_dim(D), 64, true>::kThreads,
+                                  DqTeam<tile_dim(D), 64, true>::kBlocks)
+flash_dq_bias_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
+    const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
+    const __grid_constant__ CUtensorMap k_map,   // k [B * T, KV, D]
+    const __grid_constant__ CUtensorMap v_map,   // v [B * T, KV, D]
+    const bf16* __restrict__ dout,   // [B, S, NH, D]
+    const bf16* __restrict__ out,    // [B, S, NH, D], the forward's output
+    const int* __restrict__ mask,    // [B, T] or null
+    const int* __restrict__ limit,   // [B] last valid key, or null
+    const float* __restrict__ bias,  // [1|B, NH, S, T] fp32
+    const float* __restrict__ lse,   // [B, NH, S]
+    float* __restrict__ delta,       // [B, NH, S], written here
+    bf16* __restrict__ dq,           // [B, S, NH, D]
+    float* dbias,                    // [chunks, NH, S, T] fp32
+    int B, int S, int Tk, int NH, int KV, int bias_batched, int chunk, float scale, int causal) {
+  constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dq band
+  constexpr int kN = 64;            // keys of a K/V tile
+  using L = DqLayout<kDt, kN, true>;
+  using W = DqTeam<kDt, kN, true>;
+  constexpr int kNt = kN / 8;  // 8-column tiles of a score band
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = smem + L::kQ;
+  unsigned char* dos = smem + L::kDo;
+  unsigned char* ks = smem + L::kK;
+  unsigned char* vs = smem + L::kV;
+  float* pen = reinterpret_cast<float*>(smem + L::kPen);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + L::kStages;
+  uint64_t* q_full = empty + L::kStages;
+  uint64_t* q_empty = q_full + 1;
+
+  // a block walks the batch rows [b_begin, b_end) of its chunk (one row for a [B, ...] bias);
+  // the chunks of one (head, q rows) are neighbours in the grid, heaviest (last rows) first
+  // under a causal mask
+  const int nb = (S + W::kRows - 1) / W::kRows;
+  const int rest = blockIdx.x / nb;
+  const int slot = blockIdx.x - rest * nb;
+  const int iq = causal ? nb - 1 - slot : slot;
+  const int chunks = (B + chunk - 1) / chunk;
+  const int part = rest % chunks;
+  const int h = rest / chunks;
+  const int b_begin = part * chunk;
+  const int b_end = min(B, b_begin + chunk);
+  const int g = h / (NH / KV);
+  const int q0 = iq * W::kRows;
+  static_assert(W::kConsumers == 1 && W::kRows == kBlockQ, "one consumer walks the batch rows");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool masked = mask != nullptr;
+
+  // k tiles of batch row b: up to the causal bound of the block's rows and the last valid key
+  auto k_tiles = [&](int b) {
+    int nk = Tk / kN;
+    if (causal) nk = min(nk, (q0 + W::kRows + kN - 1) / kN);
+    if (masked) nk = min(nk, (limit[b] + kN) / kN);  // limit -1 -> 0 tiles
+    return nk;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 32);         // the producer's lanes (one also expects the bytes)
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer warpgroup: its first warp streams; all four give registers back
+    setmaxnreg_dec<W::kProducerRegs>();
+    if (warp == 0) {
+      int it = 0;  // the ring's tile count over the block's batch rows
+      for (int b = b_begin; b < b_end; ++b) {
+        const int bi = b - b_begin;
+        const int nk = k_tiles(b);
+        if (lane == 0) {
+          if (bi > 0) mbar_wait(q_empty, (bi - 1) & 1);  // the last row's Q, dO are read
+          mbar_arrive_expect(q_full, 2 * L::kTile);
+          for (int c = 0; c < kDt / kBox; ++c) {
+            tma_load(qs + c * kBoxBytes, &q_map, q_full, c * kBox, h, b * S + q0);
+            tma_load(dos + c * kBoxBytes, &do_map, q_full, c * kBox, h, b * S + q0);
+          }
+        }
+        for (int j = 0; j < nk; ++j, ++it) {
+          const int stage = it % L::kStages;
+          const int use = it / L::kStages;
+          if (use > 0) mbar_wait(&empty[stage], (use - 1) & 1);  // the consumers released it
+          if (masked)  // in units of the unscaled product q.k, as the consumers take the scores
+            for (int i = lane; i < kN; i += 32)
+              pen[stage * kN + i] = mask_penalty(mask, 1LL * b * Tk + j * kN + i) / scale;
+          if (lane == 0) {
+            mbar_arrive_expect(&full[stage], 2 * L::kKvTile);
+            for (int c = 0; c < kDt / kBox; ++c)
+              for (int r = 0; r < kN / kBoxRows; ++r) {
+                const int off = stage * L::kKvTile + (c * (kN / kBoxRows) + r) * kBoxBytes;
+                const int row = b * Tk + j * kN + r * kBoxRows;
+                tma_load(ks + off, &k_map, &full[stage], c * kBox, g, row);
+                tma_load(vs + off, &v_map, &full[stage], c * kBox, g, row);
+              }
+          } else {
+            mbar_arrive(&full[stage]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup: query rows q0 .. q0 + 63; this lane's rows of its warp's
+  // band are row0 and row0 + 8, its columns 2t, 2t+1 of each 8-column tile
+  setmaxnreg_inc<W::kConsumerRegs>();
+  const int t = lane & 3;
+  const int row0 = q0 + (warp & 3) * kBand + (lane >> 2);
+  const long long q_row = 1LL * NH * D;
+  // p = exp(scale * s - lse) = 2^(s * scale * log2 e - lse * log2 e); a future key (causal)
+  // or a padded one takes NEG_INF / scale or the penalty / scale, so that scale * s is
+  // NEG_INF or carries the penalty as the plain version's; a bias enters as bias / scale
+  const float scale_log2 = scale * kLog2e;
+  const float neg_raw = kNegInf / scale;
+  const float inv_scale = 1.f / scale;
+  const uint64_t q_desc = sw128_desc(qs, 16, 1024);
+  const uint64_t do_desc = sw128_desc(dos, 16, 1024);
+  const uint64_t k_desc = sw128_desc(ks, 16, 1024);          // K-major B of Q.K^T
+  const uint64_t v_desc = sw128_desc(vs, 16, 1024);          // K-major B of dO.V^T
+  const uint64_t kt_desc = sw128_desc(ks, kBoxBytes, 1024);  // MN-major B of dS.K
+  // this block's dbias slab [S, T]: its chunk's partial sum (a [B, ...] bias: its batch row's)
+  float* slab = dbias + (1LL * part * NH + h) * S * Tk;
+  float acc[kDt / 8][4];
+  float s[kNt][4], dp[kNt][4];
+  zero(s);
+  zero(dp);
+
+  int it = 0;  // the ring's tile count over the block's batch rows, as the producer's
+  for (int b = b_begin; b < b_end; ++b) {
+    const int bi = b - b_begin;
+    const long long q_off = (1LL * b * S + row0) * q_row + 1LL * h * D;
+    const long long rows_off = (1LL * b * NH + h) * S + row0;
+    float dl[2];
+    row_delta<D>(dl, dout, out, q_off, q_row, t);
+    if (t == 0) {
+      delta[rows_off] = dl[0];
+      delta[rows_off + 8] = dl[1];
+    }
+    const float lse_log2[2] = {lse[rows_off] * kLog2e, lse[rows_off + 8] * kLog2e};
+    const int nk = k_tiles(b);
+    // this lane's bias row row0 of (batch row, head); row0 + 8 is 8 * Tk further
+    const float* bias_row =
+        bias + (1LL * (bias_batched ? b : 0) * NH + h) * S * Tk + 1LL * row0 * Tk + 2 * t;
+    zero(acc);
+    mbar_wait(q_full, bi & 1);
+
+    for (int j = 0; j < nk; ++j, ++it) {
+      const int stage = it % L::kStages;
+      mbar_wait(&full[stage], (it / L::kStages) & 1);
+      const uint64_t stage_off = (stage * L::kKvTile) >> 4;
+      const float* pst = pen + stage * kN;
+      float2 part[kNt][2];  // the slab's sums so far at this tile, read while the products run
+      dbias_load(part, slab, Tk, row0, j * kN, t, bi == 0);
+
+      // S = Q.K^T and dP = dO.V^T, two commit groups: P is computed while dP runs
+      pin(s);
+      pin(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kN>(s, q_desc + kmajor_step(kk), k_desc + stage_off + kmajor_step(kk), kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<kN>(dp, do_desc + kmajor_step(kk), v_desc + stage_off + kmajor_step(kk), kk > 0);
+      wgmma_commit();
+      float bv[kNt][4];  // the tile's bias at the lane's scores, loaded meanwhile
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 x =
+              __ldg(reinterpret_cast<const float2*>(bias_row + 8LL * r * Tk + j * kN + n * 8));
+          bv[n][2 * r] = x.x;
+          bv[n][2 * r + 1] = x.y;
+        }
+      wgmma_wait<1>();
+      pin(s);
+
+      // P, the causal test kept to the diagonal tiles
+      const bool diagonal = causal && j * kN + kN - 1 > q0;
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int c = n * 8 + 2 * t + (e & 1);
+          float v = fmaf(bv[n][e], inv_scale, s[n][e]);
+          if (diagonal && j * kN + c > row0 + 8 * r) v = neg_raw;
+          if (masked) v += pst[c];
+          s[n][e] = exp2_approx(fmaf(v, scale_log2, -lse_log2[r]));
+        }
+      wgmma_wait<0>();
+      pin(dp);
+      // dS = P * (dP - delta), the bias's gradient, then dS * scale
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]);
+      dbias_store(slab, Tk, row0, j * kN, t, s, part);
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= scale;
+      uint32_t ds[kNt / 2][4];
+      to_a(ds, s);  // dS * scale rounded to bf16: the register A operand of dS.K
+
+      // dq += dS.K: K is the MN-major B operand; a k16 step is 16 key rows
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kNt / 2; ++kk)
+        wgmma_rs<kDt>(acc, ds[kk], kt_desc + stage_off + mnmajor_step(kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
+    }
+    const float one[2] = {1.f, 1.f};
+    store_rows<D / 8>(dq + q_off, q_row, acc, one);
+    if (lane == 0) mbar_arrive(q_empty);  // this warp is done with the row's Q and dO
+    if (bi == 0) {
+      // the first row's tiles past its bound hold exact zeros; later rows add to them
+      float zeros[kNt][4];
+      float2 none[kNt][2];
+      zero(zeros);
+      dbias_load(none, slab, Tk, row0, 0, t, true);
+      for (int j = nk; j < Tk / kN; ++j) dbias_store(slab, Tk, row0, j * kN, t, zeros, none);
+    }
+  }
+}
+
+template <int D, int kM, bool kBias>
 __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
     const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
     const __grid_constant__ CUtensorMap k_map,   // k [B * T, KV, D]
     const __grid_constant__ CUtensorMap v_map,   // v [B * T, KV, D]
     const int* __restrict__ mask, const int* __restrict__ limit,
+    const float* __restrict__ bias,   // [1|B, NH, S, T] fp32 (kBias)
     const float* __restrict__ lse,    // [B, NH, S]
     const float* __restrict__ delta,  // [B, NH, S]
     bf16* __restrict__ dk,            // [B, T, KV, D]
     bf16* __restrict__ dv,            // [B, T, KV, D]
-    int S, int Tk, int NH, int KV, float scale, int causal) {
+    int B, int S, int Tk, int NH, int KV, int bias_batched, float scale, int causal) {
   constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dk, dv bands
   using L = DkvLayout<kDt, kM>;
   using W = DkvTeam;
@@ -397,12 +705,12 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
   uint64_t* kv_full = empty + L::kStages;
 
   // a kv head's blocks are neighbours in the grid, heaviest (first keys) first under a
-  // causal mask
+  // causal mask; with a bias, its batch rows follow each other too (they read one bias slab)
   const int nb = (Tk + W::kRows - 1) / W::kRows;
   const int rest = blockIdx.x / nb;
   const int ik = blockIdx.x - rest * nb;
-  const int g = rest % KV;
-  const int b = rest / KV;
+  const int g = kBias ? rest / B : rest % KV;
+  const int b = kBias ? rest % B : rest / KV;
   const int group = NH / KV;
   const int k0 = ik * W::kRows;
   const int tiles = min(W::kConsumers, (Tk - k0) / kBlockK);  // consumers with keys inside T
@@ -472,6 +780,7 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
   const int key0 = wk0 + (warp & 3) * kBand + (lane >> 2);
   const float scale_log2 = scale * kLog2e;
   const float neg_raw = kNegInf / scale;
+  const float inv_scale = 1.f / scale;  // the bias in units of the unscaled product
   float pen_raw[2] = {0.f, 0.f};  // in units of the unscaled product
   if (masked)
     for (int r = 0; r < 2; ++r)
@@ -496,6 +805,11 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     const int jq = lower + it % nq;
     const uint64_t stage_off = (stage * L::kQTile) >> 4;
     const float* lse_s = rows + stage * 2 * kM;
+    // the bias of query head h at this q tile's rows and the lane's keys key0, key0 + 8
+    const float* bias_tile =
+        kBias ? bias + (1LL * (bias_batched ? b : 0) * NH + g * group + it / nq) * S * Tk +
+                    1LL * jq * kM * Tk + key0
+              : nullptr;
     const float* delta_s = lse_s + kM;
 
     // S^T = K.Q^T and dP^T = V.dO^T, two commit groups: P^T is computed while dP^T runs
@@ -510,6 +824,14 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss<kM>(dpt, v_desc + kmajor_step(kk), do_desc + stage_off + kmajor_step(kk), kk > 0);
     wgmma_commit();
+    float bv[kBias ? kNt : 1][4];  // the bias at the lane's S^T entries, loaded meanwhile
+    if constexpr (kBias) {
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          bv[n][e] = __ldg(bias_tile + 1LL * (n * 8 + 2 * t + (e & 1)) * Tk + 8 * (e >> 1));
+    }
     wgmma_wait<1>();  // S^T is in; dP^T may still run
     pin(st);
 
@@ -523,6 +845,7 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
         const int r = e >> 1;
         const int c = n * 8 + 2 * t + (e & 1);  // query row of the q tile
         float v = st[n][e];
+        if constexpr (kBias) v = fmaf(bv[n][e], inv_scale, v);
         if (diagonal && key0 + 8 * r > jq * kM + c) v = neg_raw;
         v += pen_raw[r];
         st[n][e] = exp2_approx(fmaf(v, scale_log2, -((e & 1) ? l2.y : l2.x) * kLog2e));
@@ -679,8 +1002,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) {
       const int c = 2 * i + half;
-      const float s = score(s_band[r * L::kLdS + c], scale, causal, q_pos, j * kBlockK + c,
-                            masked, masked ? pen[c] : 0.f);
+      const float s = score<false>(s_band[r * L::kLdS + c], scale, 0.f, causal, q_pos,
+                                   j * kBlockK + c, masked, masked ? pen[c] : 0.f);
       const float p = expf(s - lse_r);
       ds_band[r * L::kLdS + c] = p * (dp_band[r * L::kLdS + c] - delta_r) * scale;
     }
@@ -702,6 +1025,142 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
   for (int c = half; c < D; c += 2) dqg[c] = s_band[r * kLdOut + c];
 }
 
+// flash_dq_f32_kernel with a bias: each block walks the batch rows of its chunk (grid z) and
+// writes dS into its dbias slab, as the bf16 kernel
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_dq_bias_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ bias,
+    const float* __restrict__ dout, const float* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ delta, float* __restrict__ dq, float* dbias, int B, int S, int Tk,
+    int NH, int KV, int bias_batched, int chunk, float scale, int causal) {
+  using L = DqF32Layout<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem + L::kQ);
+  float* dos = reinterpret_cast<float*>(smem + L::kDo);
+  float* ks = reinterpret_cast<float*>(smem + L::kK);
+  float* vs = reinterpret_cast<float*>(smem + L::kV);
+  float* pen = reinterpret_cast<float*>(smem + L::kPen);
+  float* scr = reinterpret_cast<float*>(smem + L::kScr);
+  float* dss = reinterpret_cast<float*>(smem + L::kDs);
+
+  const int iq = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b_begin = blockIdx.z * chunk;
+  const int b_end = min(B, b_begin + chunk);
+  const int g = h / (NH / KV);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const bool masked = mask != nullptr;
+  const long long q_row = 1LL * NH * D;
+  const long long kv_row = 1LL * KV * D;
+  const int r = lane >> 1;
+  const int half = lane & 1;
+  const int q_pos = iq * kBlockQ + warp * kBand + r;
+  float* s_band = scr + warp * L::kScratch;
+  float* dp_band = s_band + kBand * L::kLdS;
+  float* ds_band = dss + warp * kBand * L::kLdS;
+  const float* q_band = qs + warp * kBand * L::kLdT;
+  const float* do_band = dos + warp * kBand * L::kLdT;
+  // this row of the block's dbias slab [S, T]: its chunk's partial sum (or its batch row's)
+  float* slab_row = dbias + (1LL * blockIdx.z * NH + h) * S * Tk + 1LL * q_pos * Tk;
+
+  for (int b = b_begin; b < b_end; ++b) {
+    const bool first = b == b_begin;
+    const long long q_off = (1LL * b * S + 1LL * iq * kBlockQ) * q_row + 1LL * h * D;
+    const float* kg = k + 1LL * b * Tk * kv_row + 1LL * g * D;
+    const float* vg = v + 1LL * b * Tk * kv_row + 1LL * g * D;
+    const float* bias_row =
+        bias + (1LL * (bias_batched ? b : 0) * NH + h) * S * Tk + 1LL * q_pos * Tk;
+
+    int nk = Tk / kBlockK;
+    if (causal) nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+    if (masked) nk = min(nk, (limit[b] + kBlockK) / kBlockK);
+
+    auto load_kv = [&](int j) {
+      load_rows<float, D>(ks, L::kLdT, kg + 1LL * j * kBlockK * kv_row, kv_row, kBlockK);
+      load_rows<float, D>(vs, L::kLdT, vg + 1LL * j * kBlockK * kv_row, kv_row, kBlockK);
+      if (masked)
+        for (int i = tid; i < kBlockK; i += kThreads)
+          pen[i] = mask_penalty(mask, 1LL * b * Tk + j * kBlockK + i);
+    };
+
+    __syncthreads();  // the last batch row's tiles are read
+    load_rows<float, D>(qs, L::kLdT, q + q_off, q_row, kBlockQ);
+    load_rows<float, D>(dos, L::kLdT, dout + q_off, q_row, kBlockQ);
+    if (nk > 0) load_kv(0);
+    cp_async_commit();
+
+    const float lse_r = lse[(1LL * b * NH + h) * S + q_pos];
+    // delta = rowsum(dO * O) for the warp's 16 rows, each summed by the whole warp over
+    // columns lane, lane + 32, ... (coalesced); lanes 2r and 2r+1 keep row r's
+    float delta_r = 0.f;
+    {
+      const long long band =
+          (1LL * b * S + 1LL * iq * kBlockQ + warp * kBand) * q_row + 1LL * h * D;
+      for (int i = 0; i < kBand; ++i) {
+        float part = 0.f;
+#pragma unroll
+        for (int c = lane; c < D; c += 32)
+          part = fmaf(dout[band + i * q_row + c], out[band + i * q_row + c], part);
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+        part = __shfl_sync(0xffffffffu, part, 0);  // one order for every lane
+        if (i == r) delta_r = part;
+      }
+      if (half == 0) delta[(1LL * b * NH + h) * S + q_pos] = delta_r;
+    }
+    WarpAcc<D> dq_acc;
+    dq_acc.zero();
+
+    for (int j = 0; j < nk; ++j) {
+      cp_async_wait<0>();
+      __syncthreads();
+      {
+        WarpAcc<kBlockK> acc;
+        acc.zero();
+        warp_mma<true, kBlockK, D>(acc, q_band, L::kLdT, ks, L::kLdT);
+        acc.store(s_band, L::kLdS);
+        acc.zero();
+        warp_mma<true, kBlockK, D>(acc, do_band, L::kLdT, vs, L::kLdT);
+        acc.store(dp_band, L::kLdS);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i) {
+        const int c = 2 * i + half;
+        const float s = score<true>(s_band[r * L::kLdS + c], scale, bias_row[j * kBlockK + c],
+                                    causal, q_pos, j * kBlockK + c, masked,
+                                    masked ? pen[c] : 0.f);
+        const float p = expf(s - lse_r);
+        const float dsb = p * (dp_band[r * L::kLdS + c] - delta_r);  // the bias's gradient
+        float* d = slab_row + j * kBlockK + c;
+        *d = first ? dsb : *d + dsb;
+        ds_band[r * L::kLdS + c] = dsb * scale;
+      }
+      __syncwarp();
+      warp_mma<false, D, kBlockK>(dq_acc, ds_band, L::kLdS, ks, L::kLdT);
+      __syncthreads();
+      if (j + 1 < nk) {
+        load_kv(j + 1);
+        cp_async_commit();
+      }
+    }
+    cp_async_wait<0>();
+
+    // stage the band's dq through its scratch, then write its rows
+    constexpr int kLdOut = padded_f32(D);
+    dq_acc.store(s_band, kLdOut);
+    __syncwarp();
+    float* dqg = dq + (1LL * b * S + q_pos) * q_row + 1LL * h * D;
+    for (int c = half; c < D; c += 2) dqg[c] = s_band[r * kLdOut + c];
+    __syncwarp();
+    if (first)  // tiles past the first row's bound: exact zeros
+      for (int c = nk * kBlockK + half; c < Tk; c += 2) slab_row[c] = 0.f;
+  }
+}
+
 template <int D>
 struct DkvF32Layout {
   static constexpr int kLdT = padded_f32(D);
@@ -719,12 +1178,13 @@ struct DkvF32Layout {
   static constexpr int kBytes = kDst + align128(4LL * kBlockK * kLdS);
 };
 
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
-    float* __restrict__ dv, int S, int Tk, int NH, int KV, float scale, int causal) {
+    const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ bias,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
+    int Tk, int NH, int KV, int bias_batched, float scale, int causal) {
   using L = DkvF32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem + L::kK);
@@ -790,6 +1250,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
     cp_async_wait<0>();
     __syncthreads();
     const int jq = lower + it % nq;
+    // the bias of query head h at this q tile's rows and the row's key
+    const float* bias_col =
+        kBias ? bias + (1LL * (bias_batched ? b : 0) * NH + g * group + it / nq) * S * Tk +
+                    1LL * jq * kBlockQ * Tk + k_pos
+              : nullptr;
     {
       WarpAcc<kBlockQ> acc;  // S^T = K.Q^T and dP^T = V.dO^T for the band's keys
       acc.zero();
@@ -803,8 +1268,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
 #pragma unroll
     for (int i = 0; i < kBlockQ / 2; ++i) {
       const int c = 2 * i + half;  // query row of the q tile
-      const float s = score(s_band[r * L::kLdS + c], scale, causal, jq * kBlockQ + c, k_pos,
-                            masked, penalty);
+      const float s = score<kBias>(s_band[r * L::kLdS + c], scale,
+                                   kBias ? bias_col[1LL * c * Tk] : 0.f, causal, jq * kBlockQ + c,
+                                   k_pos, masked, penalty);
       const float p = expf(s - rows[c]);
       pt_band[r * L::kLdS + c] = p;
       dst_band[r * L::kLdS + c] = p * (dp_band[r * L::kLdS + c] - rows[kBlockQ + c]) * scale;
@@ -870,52 +1336,80 @@ cudaError_t prepare_bf16(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D, int kN>
+template <int D, int kN, bool kBias>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const int* mask,
-                           const int* limit, const void* dout, const void* out, const float* lse,
-                           float* delta, void* dq, int B, int S, int Tk, int NH, int KV,
-                           float scale, int causal, cudaStream_t stream) {
-  using L = DqLayout<tile_dim(D), kN>;
-  using W = DqTeam<tile_dim(D), kN>;
-  auto kernel = flash_dq_bf16_kernel<D, kN>;
-  cudaError_t err = prepare_bf16<W>(kernel, L::kAlloc);  // first: see prepare_bf16
-  if (err != cudaSuccess) return err;
+                           const int* limit, const float* bias, const void* dout, const void* out,
+                           const float* lse, float* delta, void* dq, float* dbias, int B, int S,
+                           int Tk, int NH, int KV, int bias_batched, int chunk, float scale,
+                           int causal, cudaStream_t stream) {
+  using L = DqLayout<tile_dim(D), kN, kBias>;
+  using W = DqTeam<tile_dim(D), kN, kBias>;
   CUtensorMap maps[4];
-  if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((S + W::kRows - 1) / W::kRows) * NH * B;
-  kernel<<<grid, W::kThreads, L::kAlloc, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(dout),
-      static_cast<const bf16*>(out), mask, limit, lse, delta, static_cast<bf16*>(dq), S, Tk, NH,
-      KV, scale, causal);
+  if constexpr (kBias) {
+    auto kernel = flash_dq_bias_bf16_kernel<D>;
+    cudaError_t err = prepare_bf16<W>(kernel, L::kAlloc);  // first: see prepare_bf16
+    if (err != cudaSuccess) return err;
+    if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
+    const int chunks = (B + chunk - 1) / chunk;  // a block per chunk of batch rows
+    const unsigned grid = static_cast<unsigned>((S + W::kRows - 1) / W::kRows) * NH * chunks;
+    kernel<<<grid, W::kThreads, L::kAlloc, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(out), mask, limit, bias, lse, delta, static_cast<bf16*>(dq),
+        dbias, B, S, Tk, NH, KV, bias_batched, chunk, scale, causal);
+  } else {
+    auto kernel = flash_dq_bf16_kernel<D, kN>;
+    cudaError_t err = prepare_bf16<W>(kernel, L::kAlloc);  // first: see prepare_bf16
+    if (err != cudaSuccess) return err;
+    if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
+    const unsigned grid = static_cast<unsigned>((S + W::kRows - 1) / W::kRows) * NH * B;
+    kernel<<<grid, W::kThreads, L::kAlloc, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(dout),
+        static_cast<const bf16*>(out), mask, limit, lse, delta, static_cast<bf16*>(dq), S, Tk, NH,
+        KV, scale, causal);
+  }
   return cudaGetLastError();
 }
 
-template <int D, int kM>
+template <int D, int kM, bool kBias>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const int* mask,
-                            const int* limit, const void* dout, const float* lse,
-                            const float* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
-                            int KV, float scale, int causal, cudaStream_t stream) {
+                            const int* limit, const float* bias, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv, int B,
+                            int S, int Tk, int NH, int KV, int bias_batched, float scale,
+                            int causal, cudaStream_t stream) {
   using L = DkvLayout<tile_dim(D), kM>;
-  auto kernel = flash_dkv_bf16_kernel<D, kM>;
+  auto kernel = flash_dkv_bf16_kernel<D, kM, kBias>;
   cudaError_t err = prepare_bf16<DkvTeam>(kernel, L::kAlloc);  // first: see prepare_bf16
   if (err != cudaSuccess) return err;
   CUtensorMap maps[4];
   if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((Tk + DkvTeam::kRows - 1) / DkvTeam::kRows) * KV * B;
-  kernel<<<grid, DkvTeam::kThreads, L::kAlloc, stream>>>(maps[0], maps[1], maps[2], maps[3], mask,
-                                                   limit, lse, delta, static_cast<bf16*>(dk),
-                                                   static_cast<bf16*>(dv), S, Tk, NH, KV, scale,
-                                                   causal);
+  kernel<<<grid, DkvTeam::kThreads, L::kAlloc, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, limit, bias, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, S, Tk, NH, KV, bias_batched, scale, causal);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const int* mask,
-                          const int* limit, const void* dout, const void* out, const float* lse,
-                          float* delta, void* dq, int B, int S, int Tk, int NH, int KV,
-                          float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_dq_f32_kernel<D>;
+                          const int* limit, const float* bias, const void* dout, const void* out,
+                          const float* lse, float* delta, void* dq, float* dbias, int B, int S,
+                          int Tk, int NH, int KV, int bias_batched, int chunk, float scale,
+                          int causal, cudaStream_t stream) {
   const int smem = DqF32Layout<D>::kBytes;
+  if (bias != nullptr) {
+    auto kernel = flash_dq_bias_f32_kernel<D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(S / kBlockQ, NH, (B + chunk - 1) / chunk);
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        mask, limit, bias, static_cast<const float*>(dout), static_cast<const float*>(out), lse,
+        delta, static_cast<float*>(dq), dbias, B, S, Tk, NH, KV, bias_batched, chunk, scale,
+        causal);
+    return cudaGetLastError();
+  }
+  auto kernel = flash_dq_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kBlockQ, NH, B);
@@ -928,19 +1422,39 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const int
 
 template <int D>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const int* mask,
-                           const int* limit, const void* dout, const float* lse,
-                           const float* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
-                           int KV, float scale, int causal, cudaStream_t stream) {
-  auto kernel = flash_dkv_f32_kernel<D>;
+                           const int* limit, const float* bias, const void* dout,
+                           const float* lse, const float* delta, void* dk, void* dv, int B,
+                           int S, int Tk, int NH, int KV, int bias_batched, float scale,
+                           int causal, cudaStream_t stream) {
+  auto kernel = bias != nullptr ? flash_dkv_f32_kernel<D, true> : flash_dkv_f32_kernel<D, false>;
   const int smem = DkvF32Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(Tk / kBlockK, KV, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      mask, limit, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, Tk, NH, KV, scale, causal);
+      mask, limit, bias, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), S, Tk, NH, KV, bias_batched, scale, causal);
   return cudaGetLastError();
+}
+
+// dbias = the sum of the chunks' partial dbias slabs [chunks, n], in chunk order: the
+// broadcast bias's batch-summed gradient, the same bits at every launch. n = NH * S * T, a
+// multiple of 4.
+__global__ void __launch_bounds__(256) dbias_sum_kernel(const float4* __restrict__ part,
+                                                        float4* __restrict__ dbias, long long n4,
+                                                        int chunks) {
+  const long long i = 1LL * blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 acc = part[i];
+  for (int c = 1; c < chunks; ++c) {
+    const float4 x = part[c * n4 + i];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  dbias[i] = acc;
 }
 
 bool valid(int B, int S, int Tk, int NH, int KV, const void* mask, const void* limit) {
@@ -948,86 +1462,137 @@ bool valid(int B, int S, int Tk, int NH, int KV, const void* mask, const void* l
          Tk % kBlockK == 0 && (mask == nullptr) == (limit == nullptr);
 }
 
+// the dq kernel for a dtype and head dim; with a bias, 64-key tiles (see DqTeam)
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* m, const int* lim,
+                      const float* bs, const void* dout, const void* out, const float* l,
+                      float* dl, void* dq, float* db, int B, int S, int Tk, int NH, int KV, int D,
+                      int batched, int chunk, float scale, int causal, int dtype,
+                      cudaStream_t s) {
+  const bool bias = bs != nullptr;
+  if (dtype == 1 && bias && D == 64)
+    return launch_dq_bf16<64, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
+                                        NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && bias && D == 32)
+    return launch_dq_bf16<32, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
+                                        NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && bias && D == 128)
+    return launch_dq_bf16<128, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
+                                         NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && D == 64 && causal && Tk % 128 == 0)  // see DqTeam
+    return launch_dq_bf16<64, 128, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
+                                          Tk, NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && D == 32 && causal && Tk % 128 == 0)
+    return launch_dq_bf16<32, 128, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
+                                          Tk, NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && D == 32)
+    return launch_dq_bf16<32, 64, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
+                                         NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && D == 64)
+    return launch_dq_bf16<64, 64, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
+                                         NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 1 && D == 128)
+    return launch_dq_bf16<128, 64, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
+                                          Tk, NH, KV, batched, chunk, scale, causal, s);
+  if (dtype == 0 && D == 64)
+    return launch_dq_f32<64>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
+                             batched, chunk, scale, causal, s);
+  if (dtype == 0 && D == 128)
+    return launch_dq_f32<128>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
+                              batched, chunk, scale, causal, s);
+  if (dtype == 0 && D == 32)
+    return launch_dq_f32<32>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
+                             batched, chunk, scale, causal, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Layouts as flash_forward's; dout and out (the forward's output) like q, lse fp32
-// [B, NH, S]. Writes delta = rowsum(dout * out), fp32 [B, NH, S], and dq like q.
-// Returns a cudaError_t (0 = launched).
+// [B, NH, S]. Writes delta = rowsum(dout * out), fp32 [B, NH, S], and dq like q. With a bias
+// (fp32 [B, NH, S, T], bias_batched 1, or [1, NH, S, T], 0) it writes the bias's gradient
+// dbias too (fp32, shaped like the bias; null without a bias): per batch row, or summed over
+// the batch,
+// where each block walks bias_chunk batch rows into its chunk's slab of dbias_part (fp32
+// [ceil(B / bias_chunk), NH, S, T]; dbias itself when that is one chunk) and a second kernel
+// sums the chunks in order. Returns a cudaError_t (0 = launched).
 int flash_backward_dq(const void* q, const void* k, const void* v, const void* mask,
-                      const void* limit, const void* dout, const void* out, const void* lse,
-                      void* delta, void* dq, int B, int S, int Tk, int NH, int KV, int D,
-                      float scale, int causal, int dtype, void* stream) {
+                      const void* limit, const void* bias, const void* dout, const void* out,
+                      const void* lse, void* delta, void* dq, void* dbias, void* dbias_part,
+                      int B, int S, int Tk, int NH, int KV, int D, int bias_batched,
+                      int bias_chunk, float scale, int causal, int dtype, void* stream) {
   if (!valid(B, S, Tk, NH, KV, mask, limit)) return cudaErrorInvalidValue;
-  const int* m = static_cast<const int*>(mask);
-  const int* lim = static_cast<const int*>(limit);
-  const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  const float* bs = static_cast<const float*>(bias);
+  float* db = static_cast<float*>(dbias);
+  const int chunk = bs == nullptr || bias_batched ? 1 : bias_chunk;  // [B, ...]: a block a row
+  if (chunk < 1 || (bs == nullptr) != (db == nullptr)) return cudaErrorInvalidValue;
+  const int chunks = (B + chunk - 1) / chunk;
+  const bool summed = bs != nullptr && !bias_batched && chunks > 1;
+  if (summed && dbias_part == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64 && causal && Tk % 128 == 0)  // see DqTeam
-    return launch_dq_bf16<64, 128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
-                                   scale, causal, s);
-  if (dtype == 1 && D == 32 && causal && Tk % 128 == 0)
-    return launch_dq_bf16<32, 128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
-                                   scale, causal, s);
-  if (dtype == 1 && D == 32)
-    return launch_dq_bf16<32, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
-                                  causal, s);
-  if (dtype == 1 && D == 64)
-    return launch_dq_bf16<64, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
-                                  causal, s);
-  if (dtype == 1 && D == 128)
-    return launch_dq_bf16<128, 64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV,
-                                   scale, causal, s);
-  if (dtype == 0 && D == 64)
-    return launch_dq_f32<64>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
-                             causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_dq_f32<128>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
-                              causal, s);
-  if (dtype == 0 && D == 32)
-    return launch_dq_f32<32>(q, k, v, m, lim, dout, out, l, dl, dq, B, S, Tk, NH, KV, scale,
-                             causal, s);
-  return cudaErrorInvalidValue;
+  cudaError_t err = launch_dq(q, k, v, static_cast<const int*>(mask),
+                              static_cast<const int*>(limit), bs, dout, out,
+                              static_cast<const float*>(lse), static_cast<float*>(delta), dq,
+                              summed ? static_cast<float*>(dbias_part) : db, B, S, Tk, NH, KV, D,
+                              bias_batched, chunk, scale, causal, dtype, s);
+  if (err != cudaSuccess || !summed) return err;
+  const long long n4 = 1LL * NH * S * Tk / 4;
+  const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
+  dbias_sum_kernel<<<blocks, 256, 0, s>>>(static_cast<const float4*>(dbias_part),
+                                          reinterpret_cast<float4*>(db), n4, chunks);
+  return cudaGetLastError();
 }
 
-// delta as flash_backward_dq writes it; dk and dv like k. Returns a cudaError_t (0 =
-// launched).
+// delta as flash_backward_dq writes it; bias as there; dk and dv like k. Returns a
+// cudaError_t (0 = launched).
 int flash_backward_dkv(const void* q, const void* k, const void* v, const void* mask,
-                       const void* limit, const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int B, int S, int Tk, int NH, int KV, int D,
-                       float scale, int causal, int dtype, void* stream) {
+                       const void* limit, const void* bias, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
+                       int KV, int D, int bias_batched, float scale, int causal, int dtype,
+                       void* stream) {
   if (!valid(B, S, Tk, NH, KV, mask, limit)) return cudaErrorInvalidValue;
   const int* m = static_cast<const int*>(mask);
   const int* lim = static_cast<const int*>(limit);
+  const float* bs = static_cast<const float*>(bias);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  const int bb = bias_batched;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // with a bias, 64-row q tiles: the 128-row S^T band and its bias values would not fit
+  if (dtype == 1 && bs != nullptr && D == 64)
+    return launch_dkv_bf16<64, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                         KV, bb, scale, causal, s);
+  if (dtype == 1 && bs != nullptr && D == 32)
+    return launch_dkv_bf16<32, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                         KV, bb, scale, causal, s);
+  if (dtype == 1 && bs != nullptr && D == 128)
+    return launch_dkv_bf16<128, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                          KV, bb, scale, causal, s);
   if (dtype == 1 && D == 64 && S % 128 == 0)  // see DkvTeam
-    return launch_dkv_bf16<64, 128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                                    causal, s);
+    return launch_dkv_bf16<64, 128, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                           KV, bb, scale, causal, s);
   if (dtype == 1 && D == 32 && S % 128 == 0)
-    return launch_dkv_bf16<32, 128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                                    causal, s);
+    return launch_dkv_bf16<32, 128, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                           KV, bb, scale, causal, s);
   if (dtype == 1 && D == 32)
-    return launch_dkv_bf16<32, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                                   causal, s);
+    return launch_dkv_bf16<32, 64, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                          KV, bb, scale, causal, s);
   if (dtype == 1 && D == 64)
-    return launch_dkv_bf16<64, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                                   causal, s);
+    return launch_dkv_bf16<64, 64, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                          KV, bb, scale, causal, s);
   if (dtype == 1 && D == 128)
-    return launch_dkv_bf16<128, 64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                                    causal, s);
+    return launch_dkv_bf16<128, 64, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                           KV, bb, scale, causal, s);
   if (dtype == 0 && D == 64)
-    return launch_dkv_f32<64>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                              causal, s);
+    return launch_dkv_f32<64>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
+                              scale, causal, s);
   if (dtype == 0 && D == 128)
-    return launch_dkv_f32<128>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                               causal, s);
+    return launch_dkv_f32<128>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
+                               scale, causal, s);
   if (dtype == 0 && D == 32)
-    return launch_dkv_f32<32>(q, k, v, m, lim, dout, l, dl, dk, dv, B, S, Tk, NH, KV, scale,
-                              causal, s);
+    return launch_dkv_f32<32>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
+                              scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -175,11 +175,14 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long stride, const fl
 
 // ---- both -----------------------------------------------------------------------------------
 
-// The score recipe of all three kernels, on one fp32 product: times the scale, NEG_INF where
-// the key lies after the query (causal), plus the key's mask penalty (0 or -1e30).
-__device__ __forceinline__ float score(float qk, float scale, bool causal, int q_pos, int k_pos,
-                                       bool masked, float penalty) {
+// The score recipe of all three kernels, on one fp32 product: times the scale, plus the
+// additive bias (kBias), NEG_INF where the key lies after the query (causal), plus the key's
+// mask penalty (0 or -1e30).
+template <bool kBias>
+__device__ __forceinline__ float score(float qk, float scale, float bias, bool causal, int q_pos,
+                                       int k_pos, bool masked, float penalty) {
   float s = qk * scale;
+  if (kBias) s += bias;
   if (causal && k_pos > q_pos) s = kNegInf;
   if (masked) s += penalty;
   return s;

@@ -38,6 +38,14 @@
 //   one-dimensional grid, heaviest first, so they share their K/V tiles through L2 while the
 //   light tiles of the triangle fill the tail. (All heads' heaviest tiles first balanced the
 //   tail too, but read K/V from device memory again for every q tile.)
+// An additive fp32 score bias [1|B, NH, S, T] (T5's relative positions) is a compile-time
+// variant (kBias): each lane loads its accumulator-layout elements of the tile's bias from
+// global memory while the Q.K^T product runs (no shared memory), and adds them after the
+// scale, before the causal limit and the mask penalty, as the TPU kernel's `_block_scores`.
+// The batch rows of one (head, q tile) are neighbours in the grid of that variant, so a
+// broadcast bias (12.6 MB at t5-base's encoder) is read from device memory about once and
+// from L2 by the other rows; it holds three blocks an SM at D = 64 for the bias's registers.
+// The variant without a bias compiles as before.
 // fp32 takes CUDA-core FMAs, the band's scores and output through shared memory (the tensor
 // cores take fp32 only as TF32). Tried and measured slower on the H100, so not here: two
 // 64-row tiles per warpgroup sharing each K/V tile; a persistent grid; issuing the next
@@ -76,20 +84,26 @@ struct FwdLayout {
   static constexpr int kBar = kPen + kStages * kBlockK * 4;
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // the base is rounded up to 1024 bytes
-  // blocks an SM holds: at D = 64 four (96 registers a thread), at D = 128 two
-  static constexpr int kBlocksPerSm = D == 64 ? 4 : 2;
 };
 
-template <int D>
-__global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPerSm) flash_fwd_bf16_kernel(
+// blocks an SM holds: at D = 64 four (96 registers a thread), at D = 128 two; with a bias a
+// lane holds its 32 bias values of the tile too: three at D = 64
+__host__ __device__ constexpr int fwd_blocks_per_sm(int D, bool bias) {
+  return bias && D == 64 ? 3 : (D == 64 ? 4 : 2);
+}
+
+template <int D, bool kBias>
+__global__ void __launch_bounds__(kFwdThreads, fwd_blocks_per_sm(tile_dim(D), kBias))
+flash_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,  // q [B * S, NH, D]
     const __grid_constant__ CUtensorMap k_map,  // k [B * T, KV, D]
     const __grid_constant__ CUtensorMap v_map,  // v [B * T, KV, D]
     const int* __restrict__ mask,    // [B, T] or null
     const int* __restrict__ limit,   // [B] last valid key, or null
+    const float* __restrict__ bias,  // [1|B, NH, S, T] fp32 (kBias)
     bf16* __restrict__ out,          // [B, S, NH, D]
     float* __restrict__ lse,         // [B, NH, S]
-    int B, int S, int Tk, int NH, int KV, float scale, int causal) {
+    int B, int S, int Tk, int NH, int KV, int bias_batched, float scale, int causal) {
   constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the output band
   using L = FwdLayout<kDt>;
   constexpr int kNt = kBlockK / 8;  // 8-column tiles of a score band
@@ -109,8 +123,9 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPe
   const int rest = blockIdx.x / nq;
   const int slot = blockIdx.x - rest * nq;
   const int iq = causal ? nq - 1 - slot : slot;
-  const int h = rest % NH;
-  const int b = rest / NH;
+  // with a bias, the batch rows of one (head, q tile) follow each other: they read one bias tile
+  const int h = kBias ? rest / B : rest % NH;
+  const int b = kBias ? rest % B : rest / NH;
   const int g = h / (NH / KV);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -167,8 +182,13 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPe
   // / scale, so that scale * s is NEG_INF or carries the penalty as the plain version's.
   const float scale_log2 = scale * kLog2e;
   const float neg_raw = kNegInf / scale;
+  const float inv_scale = 1.f / scale;  // the bias in units of the unscaled product
   const int t = lane & 3;
   const int row0 = iq * kBlockQ + warp * kBand + (lane >> 2);
+  // this lane's bias row row0 of this (batch row, head); row0 + 8 is 8 * Tk further
+  const float* bias_row =
+      kBias ? bias + (1LL * (bias_batched ? b : 0) * NH + h) * S * Tk + 1LL * row0 * Tk + 2 * t
+            : nullptr;
   // wgmma descriptors of the Q tile and of stage 0's K and V tiles; a stage or a k16 step
   // moves the start address (bits 0-13, in 16-byte units), which never carries
   const uint64_t q_desc = sw128_desc(qs, 16, 1024);
@@ -195,6 +215,18 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPe
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss_n64(s, q_desc + kmajor_step(kk), k_desc + stage_off + kmajor_step(kk), kk > 0);
     wgmma_commit();
+    float bv[kBias ? kNt : 1][4];  // the tile's bias at the lane's scores, loaded while Q.K^T runs
+    if constexpr (kBias) {
+#pragma unroll
+      for (int n = 0; n < kNt; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 x = __ldg(reinterpret_cast<const float2*>(
+              bias_row + 8LL * r * Tk + j * kBlockK + n * 8));
+          bv[n][2 * r] = x.x;
+          bv[n][2 * r + 1] = x.y;
+        }
+    }
     wgmma_wait_all();
     pin(s);
 
@@ -209,6 +241,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPe
       for (int e = 0; e < 4; ++e) {
         const int c = n * 8 + 2 * t + (e & 1);
         float v = s[n][e];
+        if constexpr (kBias) v = fmaf(bv[n][e], inv_scale, v);
         if (diagonal && j * kBlockK + c > row0 + 8 * (e >> 1)) v = neg_raw;
         if (masked) v += pst[c];
         s[n][e] = v;
@@ -268,14 +301,15 @@ __global__ void __launch_bounds__(kFwdThreads, FwdLayout<tile_dim(D)>::kBlocksPe
       lse[(1LL * b * NH + h) * S + row0 + 8 * r] = m_run[r] + logf(l_safe[r]);
 }
 
-template <int D>
+template <int D, bool kBias>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask,
-                        const int* limit, void* out, float* lse, int B, int S, int Tk, int NH,
-                        int KV, float scale, int causal, cudaStream_t stream) {
+                        const int* limit, const float* bias, void* out, float* lse, int B, int S,
+                        int Tk, int NH, int KV, int bias_batched, float scale, int causal,
+                        cudaStream_t stream) {
   using L = FwdLayout<tile_dim(D)>;
   // a runtime call first: it makes the device's context current on this thread, which the
   // tensor-map encoder (a driver call) needs (hopper.cuh `encode_map`)
-  auto kernel = flash_fwd_bf16_kernel<D>;
+  auto kernel = flash_fwd_bf16_kernel<D, kBias>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return err;
@@ -287,10 +321,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
       !encode_map(encode, &v_map, v, 1LL * B * Tk, KV, D))
     return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>(S / kBlockQ) * NH * B;
-  kernel<<<grid, kFwdThreads, L::kAlloc, stream>>>(q_map, k_map, v_map, mask, limit,
+  kernel<<<grid, kFwdThreads, L::kAlloc, stream>>>(q_map, k_map, v_map, mask, limit, bias,
                                                    static_cast<bf16*>(out), lse, B, S, Tk, NH,
-                                                   KV, scale, causal);
+                                                   KV, bias_batched, scale, causal);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask,
+                        const int* limit, const float* bias, void* out, float* lse, int B, int S,
+                        int Tk, int NH, int KV, int bias_batched, float scale, int causal,
+                        cudaStream_t stream) {
+  return bias != nullptr
+             ? launch_bf16<D, true>(q, k, v, mask, limit, bias, out, lse, B, S, Tk, NH, KV,
+                                    bias_batched, scale, causal, stream)
+             : launch_bf16<D, false>(q, k, v, mask, limit, bias, out, lse, B, S, Tk, NH, KV,
+                                     bias_batched, scale, causal, stream);
 }
 
 // --------------------------------------------------------------------------------------
@@ -312,11 +358,12 @@ struct F32Layout {
   static constexpr int kBytes = kO + align128(4LL * kBlockQ * kLdO);
 };
 
-template <int D>
+template <int D, bool kBias>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ mask, const int* __restrict__ limit, float* __restrict__ out,
-    float* __restrict__ lse, int S, int Tk, int NH, int KV, float scale, int causal) {
+    const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ bias,
+    float* __restrict__ out, float* __restrict__ lse, int S, int Tk, int NH, int KV,
+    int bias_batched, float scale, int causal) {
   using L = F32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -368,6 +415,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
   float m_run = kMInit;
   float l_run = 0.f;
   for (int c = half; c < D; c += 2) o_band[r * L::kLdO + c] = 0.f;
+  // this row's bias, [1|B, NH, S, T] fp32
+  const float* bias_row =
+      kBias ? bias + (1LL * (bias_batched ? b : 0) * NH + h) * S * Tk + 1LL * q_pos * Tk : nullptr;
 
   for (int j = 0; j < nk; ++j) {
     cp_async_wait<0>();
@@ -384,8 +434,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) {
       const int c = 2 * i + half;
-      sv[i] = score(s_band[r * L::kLdS + c], scale, causal, q_pos, j * kBlockK + c, masked,
-                    masked ? pen[c] : 0.f);
+      sv[i] = score<kBias>(s_band[r * L::kLdS + c], scale,
+                           kBias ? bias_row[j * kBlockK + c] : 0.f, causal, q_pos,
+                           j * kBlockK + c, masked, masked ? pen[c] : 0.f);
       mx = fmaxf(mx, sv[i]);
     }
     const float m_new = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -423,19 +474,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
   if (half == 0) lse[(1LL * b * NH + h) * S + q_pos] = m_run + logf(l_safe);
 }
 
-template <typename Layout, typename T>
-cudaError_t launch_f32(void (*kernel)(const T*, const T*, const T*, const int*, const int*, T*,
-                                  float*, int, int, int, int, float, int),
-                   const void* q, const void* k, const void* v, const int* mask,
-                   const int* limit, void* out, float* lse, int B, int S, int Tk, int NH, int KV,
-                   float scale, int causal, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout::kBytes);
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* mask,
+                       const int* limit, const float* bias, void* out, float* lse, int B, int S,
+                       int Tk, int NH, int KV, int bias_batched, float scale, int causal,
+                       cudaStream_t stream) {
+  auto kernel = bias != nullptr ? flash_fwd_f32_kernel<D, true> : flash_fwd_f32_kernel<D, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         F32Layout<D>::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kBlockQ, NH, B);
-  kernel<<<grid, kThreads, Layout::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask, limit,
-      static_cast<T*>(out), lse, S, Tk, NH, KV, scale, causal);
+  kernel<<<grid, kThreads, F32Layout<D>::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      mask, limit, bias, static_cast<float*>(out), lse, S, Tk, NH, KV, bias_batched, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -445,33 +497,39 @@ extern "C" {
 
 // q [B, S, NH, D], k / v [B, T, KV, D], out like q: contiguous, dtype 0 = float32,
 // 1 = bfloat16. mask int32 [B, T] and limit int32 [B] (last valid key, -1 for none), both
-// null without a mask. lse fp32 [B, NH, S]. S and T multiples of 64, D 32, 64 or 128.
-// Returns a cudaError_t (0 = launched).
+// null without a mask. bias fp32 [B, NH, S, T] (bias_batched 1) or [1, NH, S, T] (0), or null.
+// lse fp32 [B, NH, S]. S and T multiples of 64, D 32, 64 or 128. Returns a cudaError_t
+// (0 = launched).
 int flash_forward(const void* q, const void* k, const void* v, const void* mask,
-                  const void* limit, void* out, void* lse, int B, int S, int Tk, int NH, int KV,
-                  int D, float scale, int causal, int dtype, void* stream) {
+                  const void* limit, const void* bias, void* out, void* lse, int B, int S, int Tk,
+                  int NH, int KV, int D, int bias_batched, float scale, int causal, int dtype,
+                  void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || NH % KV != 0 || S % kBlockQ || Tk % kBlockK ||
       (mask == nullptr) != (limit == nullptr))
     return cudaErrorInvalidValue;
   const int* m = static_cast<const int*>(mask);
   const int* lim = static_cast<const int*>(limit);
+  const float* bs = static_cast<const float*>(bias);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_bf16<64>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
+                           causal, s);
   if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_bf16<128>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
+                            causal, s);
   if (dtype == 1 && D == 32)
-    return launch_bf16<32>(q, k, v, m, lim, out, l, B, S, Tk, NH, KV, scale, causal, s);
+    return launch_bf16<32>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
+                           causal, s);
   if (dtype == 0 && D == 64)
-    return launch_f32<F32Layout<64>, float>(flash_fwd_f32_kernel<64>, q, k, v, m, lim, out, l,
-                                            B, S, Tk, NH, KV, scale, causal, s);
+    return launch_f32<64>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
+                          causal, s);
   if (dtype == 0 && D == 128)
-    return launch_f32<F32Layout<128>, float>(flash_fwd_f32_kernel<128>, q, k, v, m, lim, out, l,
-                                             B, S, Tk, NH, KV, scale, causal, s);
+    return launch_f32<128>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
+                           causal, s);
   if (dtype == 0 && D == 32)
-    return launch_f32<F32Layout<32>, float>(flash_fwd_f32_kernel<32>, q, k, v, m, lim, out, l,
-                                            B, S, Tk, NH, KV, scale, causal, s);
+    return launch_f32<32>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
+                          causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,4 @@
-"""The model zoo in PyTorch (llama, llama-MoE and bert), with the JAX
+"""The model zoo in PyTorch (llama, llama-MoE, t5 and bert), with the JAX
 package's parameter layout."""
 
 from .bert import Bert, layer_norm
@@ -21,14 +21,15 @@ from .generation import (
 )
 from .llama import Llama, decoder_layer, rms_norm
 from .moe import MoEBlock, routed_mlp
+from .t5 import T5
 
-_ARCHS = {"llama": Llama, "bert": Bert}
+_ARCHS = {"llama": Llama, "bert": Bert, "t5": T5}
 
 
 def build_model(name: str, **kwargs):
-    """Registry name -> model instance (``"llama-125m"``, ``"bert-base"``);
-    ``kwargs`` (``device``, ``dtype``, ``seed``) pass to the constructor.
-    The registry holds no gpt2 or t5 config yet (ROADMAP item 16)."""
+    """Registry name -> model instance (``"llama-125m"``, ``"t5-base"``,
+    ``"bert-base"``); ``kwargs`` (``device``, ``dtype``, ``seed``) pass to
+    the constructor. The registry holds no gpt2 config yet (ROADMAP item 13)."""
     config = get_config(name)
     return _ARCHS[config.arch](config, **kwargs)
 
@@ -37,6 +38,7 @@ __all__ = [
     "Bert",
     "Llama",
     "MoEBlock",
+    "T5",
     "TransformerConfig",
     "build_model",
     "decoder_layer",

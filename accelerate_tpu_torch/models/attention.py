@@ -114,14 +114,18 @@ def dot_product_attention(
     mask: Optional[torch.Tensor] = None,  # broadcastable to [B, N, S, T], True = attend
     causal: bool = False,
     scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,  # [1|B, N, S, T] additive (T5 rel bias)
 ) -> torch.Tensor:
-    """Grouped-query attention; softmax in fp32."""
+    """Grouped-query attention; softmax in fp32. ``bias`` is added to the
+    fp32 logits before the causal limit and the mask."""
     s, d = q.shape[1], q.shape[3]
     t = k.shape[1]
     if scale is None:
         # the JAX package rounds sqrt(d) to q's dtype before inverting
         scale = 1.0 / round_to_dtype(math.sqrt(d), q.dtype)
     logits = grouped_scores(q * round_to_dtype(scale, q.dtype), k).to(torch.float32)
+    if bias is not None:
+        logits = logits + bias.to(torch.float32)
     if causal:
         causal_mask = torch.ones((s, t), dtype=torch.bool, device=q.device).tril(t - s)
         logits = torch.where(causal_mask, logits, NEG_INF)

@@ -1,9 +1,9 @@
-"""Model configurations: the llama and bert parts of the JAX package's registry.
+"""Model configurations: the llama, t5 and bert parts of the JAX package's registry.
 
 A copy, not an import: the port never imports ``accelerate_tpu``, even its
 pure-Python modules. Field names, defaults and the parameter count follow
 ``accelerate_tpu/models/config.py`` so configs and checkpoints line up. The
-gpt2 and t5 families come with ROADMAP item 16.
+gpt2 family comes with ROADMAP item 13.
 """
 
 from __future__ import annotations
@@ -14,9 +14,10 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """One config for the decoder (llama) and encoder (bert) stacks."""
+    """One config for the decoder (llama), encoder (bert) and
+    encoder-decoder (t5) stacks."""
 
-    arch: str = "llama"  # "llama" | "bert"
+    arch: str = "llama"  # "llama" | "bert" | "t5"
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -37,6 +38,11 @@ class TransformerConfig:
     num_experts: int = 1
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
+    # encoder-decoder (t5) extras: relative-position bias bucketing and the
+    # decoder's BOS (t5 starts generation from the pad token)
+    rel_buckets: int = 32
+    rel_max_distance: int = 128
+    decoder_start_token_id: int = 0
 
     @property
     def kv_heads(self) -> int:
@@ -80,6 +86,34 @@ _REGISTRY: dict[str, TransformerConfig] = {
         num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=256,
         num_experts=4, moe_top_k=2, moe_capacity_factor=2.0,
     ),
+    # t5 family (encoder-decoder): num_layers counts the layers of each stack;
+    # v1.0 geometry (ReLU feed-forward, tied embeddings with d_model^-0.5
+    # logit scaling)
+    "t5-tiny": TransformerConfig(
+        arch="t5", vocab_size=1024, hidden_size=128, intermediate_size=256,
+        num_layers=2, num_heads=4, head_dim=32, max_seq_len=256,
+        tie_embeddings=True, rel_buckets=8, rel_max_distance=32,
+    ),
+    "t5-small": TransformerConfig(
+        arch="t5", vocab_size=32128, hidden_size=512, intermediate_size=2048,
+        num_layers=6, num_heads=8, head_dim=64, max_seq_len=512, tie_embeddings=True,
+    ),
+    "t5-base": TransformerConfig(
+        arch="t5", vocab_size=32128, hidden_size=768, intermediate_size=3072,
+        num_layers=12, num_heads=12, head_dim=64, max_seq_len=512, tie_embeddings=True,
+    ),
+    "t5-large": TransformerConfig(
+        arch="t5", vocab_size=32128, hidden_size=1024, intermediate_size=4096,
+        num_layers=24, num_heads=16, head_dim=64, max_seq_len=512, tie_embeddings=True,
+    ),
+    "t5-3b": TransformerConfig(
+        arch="t5", vocab_size=32128, hidden_size=1024, intermediate_size=16384,
+        num_layers=24, num_heads=32, head_dim=128, max_seq_len=512, tie_embeddings=True,
+    ),
+    "t5-11b": TransformerConfig(
+        arch="t5", vocab_size=32128, hidden_size=1024, intermediate_size=65536,
+        num_layers=24, num_heads=128, head_dim=128, max_seq_len=512, tie_embeddings=True,
+    ),
     # bert family (encoder): the nlp_example's model (BERT-base MRPC)
     "bert-tiny": TransformerConfig(
         arch="bert", vocab_size=1024, hidden_size=128, intermediate_size=512,
@@ -107,7 +141,7 @@ def list_models() -> list[str]:
 
 
 def param_count(config: TransformerConfig) -> int:
-    """Exact parameter count of a llama or bert config, without materializing it."""
+    """Exact parameter count of a llama, t5 or bert config, without materializing it."""
     h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
     d, nh, nkv = config.dim_per_head, config.num_heads, config.kv_heads
     if config.arch == "llama":
@@ -126,6 +160,19 @@ def param_count(config: TransformerConfig) -> int:
         if not config.tie_embeddings:
             total += h * v  # lm head
         return total
+    if config.arch == "t5":
+        inner = nh * d
+        attn = 4 * h * inner  # q, k, v (h -> inner) and o (inner -> h)
+        ff = 2 * h * i
+        enc_layer = attn + ff + 2 * h  # two rmsnorms
+        dec_layer = 2 * attn + ff + 3 * h  # self and cross attention, three norms
+        rel = 2 * config.rel_buckets * nh  # one table per stack
+        return (
+            v * h  # shared embedding (tied head)
+            + config.num_layers * (enc_layer + dec_layer)
+            + rel
+            + 2 * h  # encoder and decoder final norms
+        )
     if config.arch == "bert":
         embed = v * h + config.max_seq_len * h + config.type_vocab_size * h + 2 * h
         per_layer = (
@@ -138,8 +185,8 @@ def param_count(config: TransformerConfig) -> int:
         classifier = h * config.num_labels + config.num_labels
         return embed + config.num_layers * per_layer + pooler + classifier
     raise ValueError(
-        f"the port has the llama and bert families, got arch {config.arch!r} "
-        "(gpt2 and t5: ROADMAP item 16)"
+        f"the port has the llama, t5 and bert families, got arch {config.arch!r} "
+        "(gpt2: ROADMAP item 13)"
     )
 
 

@@ -33,12 +33,20 @@ recomputed layer launches the forward kernel again, except under
 and ``lse`` from the checkpointed forward and hands them back to the
 recompute, whose autograd node then runs only the backward kernels.
 
+An additive fp32 score ``bias`` ``[1|B, N, S, T]`` (T5's relative
+positions) is a compile-time variant of each kernel: added to the scaled
+scores before the causal limit and the mask penalty, as the JAX package's
+``_block_scores`` does, with its exact gradient ``dbias = p·(dP - delta)``
+from the dq kernel, per batch row for a ``[B, ...]`` bias and summed over the
+batch in a fixed order for a ``[1, ...]`` one (each dq block walks a chunk of
+batch rows into its own slab; a second kernel sums the chunks in order), so
+two launches give the same bits. The no-bias kernels are unchanged.
+
 A tensor on the CPU takes the plain PyTorch versions
 (:func:`flash_forward_reference`, :func:`flash_delta_reference`,
 :func:`flash_backward_dq_reference`, :func:`flash_backward_dkv_reference`);
-a CUDA tensor launches the kernels or raises. The additive ``bias`` (T5,
-ROADMAP item 16) and the ring ``offsets`` entry (ROADMAP item 17) raise
-``NotImplementedError``.
+a CUDA tensor launches the kernels or raises. The ring ``offsets`` entry
+(ROADMAP item 17) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -97,11 +105,14 @@ def _mask_limit(kv_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, mask, causal: bool, scale: float) -> torch.Tensor:
+def _scores(q, k, mask, causal: bool, scale: float, bias=None) -> torch.Tensor:
     """``[B, N, S, T]`` fp32 scores with the kernels' one recipe: q·k from
-    the operands' values summed in fp32, times ``scale``, causal positions
-    set to NEG_INF, then the mask penalty ``(m - 1)·1e30`` added."""
+    the operands' values summed in fp32, times ``scale``, plus the fp32
+    ``bias``, causal positions set to NEG_INF, then the mask penalty
+    ``(m - 1)·1e30`` added."""
     s = grouped_scores(q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
     if causal:
         q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
         k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
@@ -111,12 +122,12 @@ def _scores(q, k, mask, causal: bool, scale: float) -> torch.Tensor:
     return s
 
 
-def flash_forward_reference(q, k, v, mask=None, causal: bool = True, scale: float = 1.0):
+def flash_forward_reference(q, k, v, mask=None, causal: bool = True, scale: float = 1.0, bias=None):
     """Plain version of the forward kernel: ``(out [B, S, N, D], lse [B, N,
     S] fp32)``. ``p = exp(s - m)`` is rounded to v's dtype before ``P·V``
     (the kernel's accumulator takes the same rounded p), ``l`` sums the fp32
     p, and ``out = acc / max(l, 1e-30)``."""
-    s = _scores(q, k, mask, causal, scale)
+    s = _scores(q, k, mask, causal, scale, bias)
     m = torch.clamp(s.amax(dim=-1), min=M_INIT)  # [B, N, S]
     p = torch.exp(s - m[..., None])
     l_safe = torch.clamp(p.sum(dim=-1), min=1e-30)
@@ -131,15 +142,16 @@ def flash_delta_reference(do, out) -> torch.Tensor:
     return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
 
 
-def _backward_terms(q, k, v, mask, do, lse, delta, causal, scale):
-    """``(p fp32, ds rounded to k's dtype)`` of the backward kernels:
-    ``p = exp(s - lse)``, ``dS = p·(dP - delta)``, ``ds = (dS·scale)``
-    rounded, with ``dP = dO·Vᵀ`` summed in fp32."""
-    s = _scores(q, k, mask, causal, scale)
+def _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias=None):
+    """``(p fp32, dS fp32, ds rounded to k's dtype)`` of the backward
+    kernels: ``p = exp(s - lse)``, ``dS = p·(dP - delta)`` (the bias's
+    gradient), ``ds = (dS·scale)`` rounded, with ``dP = dO·Vᵀ`` summed in
+    fp32."""
+    s = _scores(q, k, mask, causal, scale, bias)
     p = torch.exp(s - lse[..., None])
     dp = grouped_scores(do.float(), v.float())
-    ds = (p * (dp - delta[..., None]) * scale).to(k.dtype)
-    return p, ds
+    dsb = p * (dp - delta[..., None])
+    return p, dsb, (dsb * scale).to(k.dtype)
 
 
 def _group_sum(x: torch.Tensor, kv: int) -> torch.Tensor:
@@ -149,17 +161,23 @@ def _group_sum(x: torch.Tensor, kv: int) -> torch.Tensor:
     return x.reshape(b, t, kv, n // kv, d).sum(dim=3)
 
 
-def flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0):
-    """Plain version of the dq kernel: ``dq = ds·K`` summed in fp32, in q's dtype."""
-    _, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale)
-    return grouped_output(ds.float(), k.float()).to(q.dtype)
+def flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0, bias=None):
+    """Plain version of the dq kernel: ``dq = ds·K`` summed in fp32, in q's
+    dtype. With a ``bias``, ``(dq, dbias)``: ``dbias`` fp32 shaped like the
+    bias, ``dS`` per batch row for a ``[B, ...]`` bias and summed over the
+    batch for a ``[1, ...]`` one."""
+    _, dsb, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias)
+    dq = grouped_output(ds.float(), k.float()).to(q.dtype)
+    if bias is None:
+        return dq
+    return dq, (dsb if bias.shape[0] == q.shape[0] else dsb.sum(dim=0, keepdim=True))
 
 
-def flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0):
+def flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0, bias=None):
     """Plain version of the dk/dv kernel: ``dv = pᵀ·dO`` with p rounded to
     dO's dtype, ``dk = dsᵀ·Q``, both summed in fp32 over the kv head's query
     heads, in k's and v's dtypes."""
-    p, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale)
+    p, _, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias)
     kv = k.shape[2]
     dv = torch.einsum("bnst,bsnd->btnd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bnst,bsnd->btnd", ds.float(), q.float())
@@ -171,12 +189,20 @@ def flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal=True, sca
 # ---------------------------------------------------------------------------
 
 
+# the C entry points' argument types, in order: the pointers, the ints, then scale, causal,
+# dtype and the stream (tests/test_torch_flash_attention.py holds them against csrc/)
+_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+ARGTYPES = {
+    "flash_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + _TAIL,
+    "flash_backward_dq": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + _TAIL,
+    "flash_backward_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + _TAIL,
+}
+
+
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
     lib = load_kernel(FWD_SOURCE)
-    lib.flash_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    lib.flash_forward.argtypes = ARGTYPES["flash_forward"]
     lib.flash_forward.restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
@@ -186,20 +212,17 @@ def _fwd_library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = load_kernel(BWD_SOURCE)
-    args = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.flash_backward_dq.argtypes = args
-    lib.flash_backward_dq.restype = ctypes.c_int
-    lib.flash_backward_dkv.argtypes = args
-    lib.flash_backward_dkv.restype = ctypes.c_int
+    for name in ("flash_backward_dq", "flash_backward_dkv"):
+        getattr(lib, name).argtypes = ARGTYPES[name]
+        getattr(lib, name).restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q, k, v, mask, limit, *rows) -> tuple[int, int, int, int, int, int]:
-    """What a launch needs; returns ``(B, S, T, NH, KV, D)``."""
+def _check(q, k, v, mask, limit, *rows, bias=None) -> tuple[int, int, int, int, int, int]:
+    """What a launch needs; returns ``(B, S, T, NH, KV, D)``. ``bias`` (fp32
+    ``[1|B, NH, S, T]``) is exempt from the operands' one dtype."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash attention takes [B, S, N, D] tensors")
     b, s, nh, d = q.shape
@@ -224,6 +247,11 @@ def _check(q, k, v, mask, limit, *rows) -> tuple[int, int, int, int, int, int]:
         if limit is None or limit.dtype != torch.int32 or tuple(limit.shape) != (b,):
             raise ValueError(f"limit must be int32 [{b}]")
         tensors += [mask, limit]
+    if bias is not None:
+        if bias.dtype != torch.float32 or bias.dim() != 4 or bias.shape[0] not in (1, b) \
+                or tuple(bias.shape[1:]) != (nh, s, t):
+            raise ValueError(f"bias must be float32 [1|{b}, {nh}, {s}, {t}], got {bias.dtype} {tuple(bias.shape)}")
+        tensors.append(bias)
     for x in tensors:
         if x.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, one is on {x.device}")
@@ -241,36 +269,48 @@ def _raise_on(code: int, lib: ctypes.CDLL, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.flash_error_string(code).decode()} ({code})")
 
 
-def flash_forward(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0):
+def _bias_operand(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The bias as the kernels take it: contiguous fp32."""
+    return None if bias is None else bias.to(torch.float32).contiguous()
+
+
+def _batched(bias: Optional[torch.Tensor], b: int) -> int:
+    """1 when ``bias`` has a row per batch row (and B > 1), else 0."""
+    return int(bias is not None and bias.shape[0] == b and b > 1)
+
+
+def flash_forward(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0, bias=None):
     """Forward kernel: ``(out [B, S, N, D] in q's dtype, lse [B, N, S]
-    fp32)``. ``mask``/``limit`` come from :func:`_mask_limit`."""
+    fp32)``. ``mask``/``limit`` come from :func:`_mask_limit`; ``bias`` is
+    an additive ``[1|B, N, S, T]`` score bias (the kernel reads it in fp32)."""
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, mask, causal, scale)
+        return flash_forward_reference(q, k, v, mask, causal, scale, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    b, s, t, nh, kv, d = _check(q, k, v, mask, limit)
+    q, k, v, bias = q.contiguous(), k.contiguous(), v.contiguous(), _bias_operand(bias)
+    b, s, t, nh, kv, d = _check(q, k, v, mask, limit, bias=bias)
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     lib = _fwd_library()
     with torch.cuda.device(q.device):
         code = lib.flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit),
-            out.data_ptr(), lse.data_ptr(), b, s, t, nh, kv, d, scale, int(causal),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias),
+            out.data_ptr(), lse.data_ptr(), b, s, t, nh, kv, d, _batched(bias, b), scale, int(causal),
             _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(code, lib, "flash_forward")
     flash_forward.launches += 1
+    flash_forward.bias_launches += bias is not None
     return out, lse
 
 
-def _backward_args(q, k, v, mask, limit, do, rows, out=None):
+def _backward_args(q, k, v, mask, limit, do, rows, out=None, bias=None):
     """Contiguous operands and their dims; ``rows`` are the fp32 ``[B, N,
     S]`` row inputs by name (lse, and delta for the dk/dv kernel)."""
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
     if out is not None:
         out = out.contiguous()
-    dims = _check(q, k, v, mask, limit, do, *([] if out is None else [out]))
+    dims = _check(q, k, v, mask, limit, do, *([] if out is None else [out]), bias=bias)
     b, s, _, nh, _, _ = dims
     for x in (do, out):
         if x is not None and tuple(x.shape) != tuple(q.shape):
@@ -285,69 +325,115 @@ def _backward_args(q, k, v, mask, limit, do, rows, out=None):
     return q, k, v, do, out, dims
 
 
-def flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0):
+def dbias_chunk(b: int, nh: int, s: int, sms: int) -> int:
+    """Batch rows a dq block walks for a broadcast bias's gradient: the
+    batch splits into chunks so that the blocks (one per 64 query rows,
+    head and chunk) number about four per SM; each chunk's partial sum is
+    written once, and a second kernel adds the chunks in order."""
+    chunks = min(b, max(1, math.ceil(4 * sms / (nh * (s // TILE)))))
+    return math.ceil(b / chunks)
+
+
+def flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0,
+                      bias=None):
     """dq kernel: one block per (batch, head, 64 q rows at head dim 64, 192
     at 128), k tiles up to the forward's bound. It also computes ``delta =
     rowsum(dO·O)`` fp32 ``[B, N, S]`` for its rows from ``do`` and the
     forward's ``out``; returns ``(dq, delta)``, delta for
-    :func:`flash_backward_dkv`."""
+    :func:`flash_backward_dkv`. With a ``bias``, ``(dq, delta, dbias)``,
+    ``dbias`` fp32 shaped like the bias."""
     if q.device.type == "cpu":
         delta = flash_delta_reference(do, out)
-        return flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal, scale), delta
+        args = (q, k, v, mask, do, lse, delta, causal, scale)
+        if bias is None:
+            return flash_backward_dq_reference(*args), delta
+        dq, dbias = flash_backward_dq_reference(*args, bias)
+        return dq, delta, dbias
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
-    q, k, v, do, out, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, {"lse": lse}, out)
+    bias = _bias_operand(bias)
+    q, k, v, do, out, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, {"lse": lse}, out, bias)
     dq = torch.empty_like(q)
     delta = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
+    dbias = part = None
+    chunk = 1
+    if bias is not None:
+        dbias = torch.empty_like(bias)
+        part = dbias
+        if not _batched(bias, b):
+            chunk = dbias_chunk(b, nh, s, torch.cuda.get_device_properties(q.device).multi_processor_count)
+            chunks = math.ceil(b / chunk)
+            if chunks > 1:
+                part = torch.empty((chunks, nh, s, t), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         code = lib.flash_backward_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), do.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, t, nh, kv, d,
-            scale, int(causal), _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias), do.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias), _ptr(part),
+            b, s, t, nh, kv, d, _batched(bias, b), chunk, scale, int(causal), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(code, lib, "flash_backward_dq")
     flash_backward_dq.launches += 1
-    return dq, delta
+    flash_backward_dq.bias_launches += bias is not None
+    return (dq, delta) if bias is None else (dq, delta, dbias)
 
 
-def flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal: bool = True, scale: float = 1.0):
+def flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal: bool = True, scale: float = 1.0,
+                       bias=None):
     """dk/dv kernel: one block per (batch, kv head, 64 keys), looping over
     the q tiles from the causal lower bound and over the kv head's query
     heads, so dk and dv accumulate without atomics. ``delta`` is what
-    :func:`flash_backward_dq` returns."""
+    :func:`flash_backward_dq` returns; ``bias`` the forward's."""
     if q.device.type == "cpu":
-        return flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal, scale)
+        return flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal, scale, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     rows = {"lse": lse, "delta": delta}
-    q, k, v, do, _, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, rows)
+    bias = _bias_operand(bias)
+    q, k, v, do, _, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, rows, bias=bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         code = lib.flash_backward_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), do.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, nh, kv, d,
-            scale, int(causal), _DTYPE_CODES[q.dtype],
+            _batched(bias, b), scale, int(causal), _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(code, lib, "flash_backward_dkv")
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.bias_launches += bias is not None
     return dk, dv
 
 
-flash_forward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+# launches of each kernel, and of those the bias variant's
+for _wrapper in (flash_forward, flash_backward_dq, flash_backward_dkv):
+    _wrapper.launches = _wrapper.bias_launches = 0
 
 
-def flash_backward(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0):
-    """The whole backward, ``(dq, dk, dv)``: the dq kernel (which also
-    writes delta), then the dk/dv kernel. On the CPU, the plain versions
-    with ``delta`` by :func:`flash_delta_reference`."""
-    dq, delta = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale)
-    dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale)
-    return dq, dk, dv
+def flash_backward(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0, bias=None):
+    """The whole backward, ``(dq, dk, dv)``, with a ``bias`` ``(dq, dk, dv,
+    dbias)``: the dq kernel (which also writes delta and dbias), then the
+    dk/dv kernel. On the CPU, the plain versions with ``delta`` by
+    :func:`flash_delta_reference`."""
+    if bias is None:
+        dq, delta = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale)
+        dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale)
+        return dq, dk, dv
+    dq, delta, dbias = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale, bias)
+    dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale, bias)
+    return dq, dk, dv, dbias
+
+
+def _vjp(ctx, do):
+    """The backward of both autograd functions: ``(dq, dk, dv, dbias)``,
+    dbias in the bias's dtype (None without a bias)."""
+    q, k, v, mask, limit, bias, out, lse = ctx.saved_tensors
+    if bias is None:
+        return (*flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale), None)
+    dq, dk, dv, dbias = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale, bias)
+    return dq, dk, dv, dbias.to(bias.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -356,18 +442,17 @@ class _FlashAttention(torch.autograd.Function):
     (not differentiable), for the ``save_flash`` stash."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, limit, causal, scale):
-        out, lse = flash_forward(q, k, v, mask, limit, causal, scale)
-        ctx.save_for_backward(q, k, v, mask, limit, out, lse)
+    def forward(ctx, q, k, v, mask, limit, bias, causal, scale):
+        out, lse = flash_forward(q, k, v, mask, limit, causal, scale, *([] if bias is None else [bias]))
+        ctx.save_for_backward(q, k, v, mask, limit, bias, out, lse)
         ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.scale = causal, scale
         return out, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, mask, limit, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv, dbias = _vjp(ctx, do)
+        return dq, dk, dv, None, None, dbias, None, None
 
 
 class _FlashFromSaved(torch.autograd.Function):
@@ -375,16 +460,15 @@ class _FlashFromSaved(torch.autograd.Function):
     before: a recomputed layer under ``save_flash`` launches no forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, limit, out, lse, causal, scale):
-        ctx.save_for_backward(q, k, v, mask, limit, out, lse)
+    def forward(ctx, q, k, v, mask, limit, bias, out, lse, causal, scale):
+        ctx.save_for_backward(q, k, v, mask, limit, bias, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, mask, limit, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None, None, None, None, None
+        dq, dk, dv, dbias = _vjp(ctx, do)
+        return dq, dk, dv, None, None, dbias, None, None, None, None
 
 
 class _Stash(threading.local):
@@ -421,16 +505,17 @@ def flash_stash_contexts():
     return _stash_mode("record", saved), _stash_mode("replay", saved)
 
 
-def flash_attention_core(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0):
+def flash_attention_core(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0, bias=None):
     """The differentiable flash attention over prepared operands: ``out``
     ``[B, S, N, D]`` by the forward kernel; the backward is the dq and dk/dv
-    kernels. ``mask``/``limit`` come from :func:`_mask_limit`."""
+    kernels. ``mask``/``limit`` come from :func:`_mask_limit`; ``bias``
+    ``[1|B, N, S, T]`` gets its gradient from the dq kernel."""
     causal, scale = bool(causal), float(scale)
     if _STASH.mode == "replay":
         out, lse = _STASH.saved[_STASH.index]
         _STASH.index += 1
-        return _FlashFromSaved.apply(q, k, v, mask, limit, out, lse, causal, scale)
-    out, lse = _FlashAttention.apply(q, k, v, mask, limit, causal, scale)
+        return _FlashFromSaved.apply(q, k, v, mask, limit, bias, out, lse, causal, scale)
+    out, lse = _FlashAttention.apply(q, k, v, mask, limit, bias, causal, scale)
     if _STASH.mode == "record":
         _STASH.saved.append((out.detach(), lse))
     return out
@@ -446,19 +531,16 @@ def flash_attention(
     bwd_block_q: Optional[int] = None,
     bwd_block_k: Optional[int] = None,
     causal: bool = True,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,  # [1|B, N, S, T] additive (T5 rel bias)
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash attention with the ``attention_fn`` hook signature, and the
     JAX package's dispatch: a shape that cannot tile (a length that is no
     multiple of 128 after its blocks adapt, or causal with S != T) takes the
-    einsum path; every other shape runs the kernels, masks and the
-    non-causal mode included. The block arguments only feed that rule."""
-    if bias is not None:
-        raise NotImplementedError(
-            "an additive attention bias and its gradient (T5) are not in the port yet "
-            "(ROADMAP item 16)"
-        )
+    einsum path; every other shape runs the kernels, masks, the non-causal
+    mode and an additive ``bias`` with its exact gradient included (pass
+    ``scale=1.0`` for T5, which folds 1/sqrt(d) into its init). The block
+    arguments only feed that rule."""
     b, s, n, d = q.shape
     t = k.shape[1]
     bq, bk = _fit_block(block_q, s), _fit_block(block_k, t)
@@ -467,13 +549,16 @@ def flash_attention(
     untileable = any(x % 128 for x in (bq, bk, bbq, bbk)) or s % bq or t % bk or s % bbq or t % bbk
     if untileable or (causal and s != t):
         mask = None if kv_mask is None else kv_mask[:, None, None, :].bool()
-        return dot_product_attention(q, k, v, mask=mask, causal=causal, scale=scale)
+        return dot_product_attention(q, k, v, mask=mask, causal=causal, scale=scale, bias=bias)
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    if bias is not None and bias.shape[0] not in (1, b):
+        # the kernels know a broadcast or a batched bias only
+        raise ValueError(f"bias batch dim must be 1 or {b}, got {bias.shape[0]}")
     mask = limit = None
     if kv_mask is not None:
         mask, limit = _mask_limit(kv_mask)
-    return flash_attention_core(q, k, v, mask, limit, causal, scale)
+    return flash_attention_core(q, k, v, mask, limit, causal, scale, bias)
 
 
 def flash_attention_block(q, k, v, kv_mask=None, *, causal=False, q_offset=None, kv_offset=None, **_):
@@ -487,17 +572,18 @@ def flash_attention_block(q, k, v, kv_mask=None, *, causal=False, q_offset=None,
 
 def make_auto_attention(min_seq: int = 1024, causal: bool = True):
     """Per-shape dispatch: sequences of at least ``min_seq`` tokens run the
-    flash kernels, shorter ones the einsum path. ``causal`` is the
-    model-level default; a per-call ``causal`` overrides it."""
+    flash kernels, shorter ones the einsum path, a ``bias`` on either.
+    ``causal`` is the model-level default; a per-call ``causal`` overrides
+    it, so one hook serves T5's bidirectional encoder and causal decoder."""
 
     def attention(q, k, v, kv_mask=None, bias=None, scale=None, causal=None):
         causal_ = make_causal if causal is None else causal
         if q.shape[1] >= min_seq:
             return flash_attention(q, k, v, kv_mask, causal=causal_, bias=bias, scale=scale)
-        if bias is not None:
-            raise NotImplementedError("an additive attention bias is not in the port yet (ROADMAP item 16)")
         mask = None if kv_mask is None else kv_mask[:, None, None, :].bool()
-        return dot_product_attention(q, k, v, mask=mask, causal=causal_, scale=scale)
+        return dot_product_attention(q, k, v, mask=mask, causal=causal_, scale=scale, bias=bias)
 
     make_causal = causal
+    # the hook takes bias, scale and causal: T5 engages only a hook that says so
+    attention.supports_bias = True
     return attention

@@ -11,9 +11,9 @@ unpacked with ``git archive``) and each PART one of:
   prints as such;
 - ``serving``: one serving pass of phase 3 (llama-1b bf16, 16 requests x 64
   new tokens), its decode step p50 and p99;
-- ``flash``: the whole flash attention backward as autograd runs it
-  (``torch.autograd.grad`` through the flash function, bf16, at
-  ``chip_smoke.FLASH_GEOMETRIES``);
+- ``flash``: the flash forward, dq and dk/dv kernels without a bias, each
+  alone, and the whole backward as autograd runs it (``torch.autograd.grad``
+  through the flash function), bf16, at ``chip_smoke.FLASH_GEOMETRIES``;
 - ``training``: ``chip_smoke.phase_training`` (the bf16 llama-125m step at
   B=32 S=1024 and B=8 S=4096).
 
@@ -90,8 +90,18 @@ def flash(cs, tag, card, flush) -> None:
         attend = getattr(fa, "flash_attention_core", None) or fa._FlashAttention.apply
         out = attend(*leaves, c["mask"], c["limit"], c["causal"], c["scale"])
         ms = cs.time_ms(lambda: torch.autograd.grad(out, leaves, c["do"], retain_graph=True), flush, iters=20)
-        print(json.dumps({"tree": tag, "geometry": name, "backward_ms": ms, "card": card}), flush=True)
-        del c, leaves, out
+        args = (c["q"], c["k"], c["v"], c["mask"], c["limit"])
+        fwd_out, lse = fa.flash_forward(*args, c["causal"], c["scale"])
+        _, delta = fa.flash_backward_dq(*args, c["do"], lse, fwd_out, c["causal"], c["scale"])
+        kernels = {
+            "fwd_ms": cs.time_ms(lambda: fa.flash_forward(*args, c["causal"], c["scale"]), flush, iters=20),
+            "dq_ms": cs.time_ms(lambda: fa.flash_backward_dq(*args, c["do"], lse, fwd_out, c["causal"], c["scale"]),
+                                flush, iters=20),
+            "dkv_ms": cs.time_ms(lambda: fa.flash_backward_dkv(*args, c["do"], lse, delta, c["causal"], c["scale"]),
+                                 flush, iters=20),
+        }
+        print(json.dumps({"tree": tag, "geometry": name, "backward_ms": ms, **kernels, "card": card}), flush=True)
+        del c, leaves, out, fwd_out, lse, delta
         torch.cuda.empty_cache()
 
 

@@ -129,7 +129,31 @@ wall time:
     nothing of NCCL), and the update gate: 10 eager updates of seeded
     gradients at full width, the ZeRO update against the replicated one,
     tolerance 0. Where gloo refuses a CUDA reduce-scatter or all-gather,
-    (b) runs the replicated data-parallel update and the gate is skipped.
+    (b) runs the replicated data-parallel update and the gate is skipped;
+19. T5: t5-base at full width and depth (12 + 12 layers, random weights
+    from seed 0 by ``build_model``) in bf16 over fp32 masters through
+    ``Accelerator`` -> ``prepare_model`` -> ``prepare_optimizer(
+    fused_adamw(1e-4))`` -> ``compiled_step(T5.loss_fn)`` with flash from
+    128 tokens, B=32, 512 encoder and 128 decoder tokens under a seeded
+    right padding on both sides: step p50 over 10 steps after 3 warm-up,
+    positions/s and real tokens/s, MFU (each weight counted at the
+    positions it multiplies, and by ``train_flops_per_step``), peak memory,
+    launches a step (each flash kernel 36, 24 of them the bias variant;
+    adamw 26) and one profiled step; then fp32 B=2: one backward's 26
+    gradients through the kernels, no further from the plain flash's than
+    the einsum path's are (t5-base's saturated softmaxes at init move
+    gradients by percents with the order of fp32 sums), and 3 steps at lr
+    2e-5 within 1e-4 relative; then a 64-token sub-vocabulary batch whose
+    loss must fall by 1 nat in 20 steps.
+
+Phase 10b, run after phase 11: the bias variants of the three flash
+kernels at t5-base's encoder attention (B=32, S=T=512, 12 heads of 64,
+non-causal, seeded padding 256-512, broadcast fp32 bias) and decoder
+self-attention (S=T=128, causal), and with a batched bias, bf16 and fp32:
+forward, dq with dbias and dk/dv against their plain versions, two
+launches bit-identical (dbias included), each kernel timed beside its
+bound and plain version, and SDPA with the bias and mask penalty as a float
+``attn_mask`` (forward, and the whole backward with the bias's gradient).
 
 The JSON line's launch counts of the four training kernels are phase 14's
 run A; phases 15-18 print their own. The line before the last is a JSON
@@ -158,6 +182,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from accelerate_tpu_torch import (
+    T5,
     Accelerator,
     AcceleratorState,
     Bert,
@@ -176,6 +201,7 @@ from accelerate_tpu_torch import (
     fused_adamw,
     generate,
     get_config,
+    make_auto_attention,
     make_layered_device_map,
     paged_decode_attention,
     paged_verify_attention,
@@ -187,7 +213,7 @@ from accelerate_tpu_torch.checkpointing import has_safetensors
 from accelerate_tpu_torch.data_loader import BatchSampler, SeedableRandomSampler
 from accelerate_tpu_torch.examples import nlp_example
 from accelerate_tpu_torch.fault_tolerance import build_manifest, verify_checkpoint, write_manifest
-from accelerate_tpu_torch.models import train_flops_per_step
+from accelerate_tpu_torch.models import build_model, train_flops_per_step
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_reference, bias_corrections
@@ -227,12 +253,16 @@ WRAPPERS = {"paged_decode": paged_decode_attention, "paged_verify": paged_verify
             "flash_dq": fa.flash_backward_dq, "flash_dkv": fa.flash_backward_dkv,
             "fused_adamw": adamw_leaf}  # each counts the launches of its kernel
 PROJECTIONS = 7  # wq wk wv wo w_gate w_up w_down: the quantized matrices of a layer
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def reset_launches() -> None:
-    """Every kernel's count to 0, just before a path is driven."""
+    """Every kernel's count to 0, just before a path is driven (the flash
+    wrappers' count of bias launches too)."""
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    for name in FLASH_KERNELS:
+        WRAPPERS[name].bias_launches = 0
 
 
 def launch_counts() -> dict:
@@ -370,13 +400,13 @@ def phase_environment() -> str:
 def kernel_name(mangled: str) -> str:
     """``flash_dq_bf16_kernel<64, 128>`` from an Itanium-mangled kernel
     name: the length-prefixed identifier that ends in ``_kernel``, and its
-    int template arguments."""
+    int and bool template arguments (a bool as 0 or 1)."""
     for run in re.finditer(r"\d+", mangled):
         for k in range(len(run.group())):  # the length may follow other digits
             ident = mangled[run.end():run.end() + int(run.group()[k:])]
             if ident.endswith("_kernel") and ident.isidentifier():
-                args = re.match(r"I((?:Li\d+E)+)E", mangled[run.end() + len(ident):])
-                values = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[run.end() + len(ident):])
+                values = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
                 return ident + (f"<{', '.join(values)}>" if values else "")
     return mangled
 
@@ -1043,16 +1073,18 @@ def flash_bound_ms(case, kind: str) -> tuple[float, str]:
     written; 4 products. bwd, the whole backward as one function: q, k, v,
     out, dO, lse read, dq, dk, dv written; 5 products (q.k, dO.v, dS.K,
     P^T.dO, dS^T.Q, as a one-pass kernel would do them). Each counts the
-    mask too."""
+    mask too, and a bias once where it is read (fp32), with dbias (as large)
+    where it is written."""
     q, k = case["q"], case["k"]
     esize = q.element_size()
     nq, nk = q.numel(), k.numel()
     rows = q.shape[0] * q.shape[2] * q.shape[1] * 4  # one fp32 [B, N, S] row set
     mask = 0 if case["mask"] is None else case["mask"].numel() * 4 + case["limit"].numel() * 4
-    tensors = {"fwd": (2 * nq + 2 * nk) * esize + rows,
-               "dq": (4 * nq + 2 * nk) * esize + 2 * rows,
-               "dkv": (2 * nq + 4 * nk) * esize + 2 * rows,
-               "bwd": (4 * nq + 4 * nk) * esize + rows}[kind]
+    bias = 0 if case.get("bias") is None else case["bias"].numel() * 4  # read once; dbias as big
+    tensors = {"fwd": (2 * nq + 2 * nk) * esize + rows + bias,
+               "dq": (4 * nq + 2 * nk) * esize + 2 * rows + 2 * bias,
+               "dkv": (2 * nq + 4 * nk) * esize + 2 * rows + bias,
+               "bwd": (4 * nq + 4 * nk) * esize + rows + 2 * bias}[kind]
     products = {"fwd": 2, "dq": 3, "dkv": 4, "bwd": 5}[kind]
     flops = 2.0 * products * q.shape[3] * q.shape[2] * attended_pairs(case)
     t_bytes = (tensors + mask) / HBM_BYTES_PER_S * 1e3
@@ -1246,6 +1278,139 @@ def phase_flash_backward(card: str) -> tuple[dict, dict]:
                          plain_ms=plain_dkv, bound_ms=b_dkv, bound_by=by_dkv, **common),
                 )
             del c, dq_args, dkv_args, ref_args, q, k, v, do, out, lse, delta, want_delta, dq, dk, dv
+            torch.cuda.empty_cache()
+    return records
+
+
+# -- phase 10b: the bias kernels -----------------------------------------------
+
+BIAS_GEOMETRIES = {
+    # name: (B, S, T, NH, KV, D, causal, (shortest, longest) key length, bias batched)
+    "t5_base_encoder": (32, 512, 512, 12, 12, 64, False, (256, 512), False),
+    "t5_base_decoder": (32, 128, 128, 12, 12, 64, True, (64, 128), False),
+    "batched_encoder": (4, 512, 512, 12, 12, 64, False, (256, 512), True),
+}
+
+
+def bias_case(rng, geometry, dtype):
+    """Inputs on the card, a seeded right padding of each row (row 0 at full
+    length) and an fp32 bias [1|B, NH, S, T] of T5's scale (0.1)."""
+    b, s, t, nh, kv, d, causal, (shortest, longest), batched = geometry
+    case = flash_case(rng, (b, s, t, nh, kv, d, causal, False), dtype)
+    lengths = rng.integers(shortest, longest + 1, b)
+    lengths[0] = t
+    case["kv_mask"] = torch.tensor((np.arange(t)[None, :] < lengths[:, None]).astype(np.int32), device="cuda")
+    case["mask"], case["limit"] = fa._mask_limit(case["kv_mask"])
+    case["bias"] = torch.tensor(rng.standard_normal((b if batched else 1, nh, s, t), dtype=np.float32) * 0.1,
+                                device="cuda")
+    case["scale"] = 1.0  # T5's
+    return case
+
+
+def sdpa_bias_inputs(case, requires_grad=False):
+    """[B, N, S, D] copies and a bias leaf for SDPA, and its float mask: the
+    bias plus the key penalty (and NEG_INF past the causal limit), in q's
+    dtype as SDPA takes it."""
+    qh, kh, vh = (case[n].transpose(1, 2).contiguous().requires_grad_(requires_grad) for n in "qkv")
+    bias = case["bias"].detach().clone().requires_grad_(requires_grad)
+    s, t = qh.shape[2], kh.shape[2]
+    penalty = (case["kv_mask"].float()[:, None, None, :] - 1.0) * 1e30
+    if case["causal"]:
+        penalty = penalty + torch.ones((s, t), device="cuda").triu(1)[None, None] * -1e30
+    mask = (bias + penalty).to(qh.dtype)
+    return qh, kh, vh, bias, mask
+
+
+def phase_flash_bias(card: str) -> dict:
+    """The bias variants of the three flash kernels at t5-base's attention
+    (encoder: B=32, S=T=512, non-causal; decoder self-attention: S=T=128,
+    causal; both under a seeded padding, broadcast bias) and with a batched
+    bias: forward, dq with dbias and dk/dv against the plain versions, two
+    launches bit-identical (dbias included), each kernel timed beside its
+    bound and the plain version, and SDPA with the bias and the mask as a
+    float ``attn_mask`` (forward, and the whole backward with the bias's
+    gradient) as the yardstick. Returns the bf16 records by geometry."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 20)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    records = {}
+    for name, geometry in BIAS_GEOMETRIES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            c = bias_case(rng, geometry, dtype)
+            q, k, v, do, mask, limit, bias = (c[n] for n in ("q", "k", "v", "do", "mask", "limit", "bias"))
+            causal, scale = c["causal"], c["scale"]
+            fwd_args = (q, k, v, mask, limit, causal, scale, bias)
+
+            def run():
+                out, lse = fa.flash_forward(*fwd_args)
+                dq, delta, dbias = fa.flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale, bias)
+                dk, dv = fa.flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale, bias)
+                return dict(out=out, lse=lse, dq=dq, delta=delta, dbias=dbias, dk=dk, dv=dv)
+
+            got, again = run(), run()
+            identical = all(torch.equal(got[key], again[key]) for key in got)
+            del again
+            want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale, bias)
+            torch.cuda.synchronize()
+            errors = {"out": (float((got["out"].float() - want_out.float()).abs().max()), TOLERANCE[dtype]),
+                      "lse": (float((got["lse"] - want_lse).abs().max()), 1e-4)}
+            del want_out, want_lse
+            want_delta = fa.flash_delta_reference(do, got["out"])
+            delta_tol = 1e-4 * max(float(want_delta.abs().max()), 1.0)
+            errors["delta"] = (float((got["delta"] - want_delta).abs().max()), delta_tol)
+            ref_args = (q, k, v, mask, do, got["lse"], want_delta, causal, scale, bias)
+            want = dict(zip(("dq", "dbias"), fa.flash_backward_dq_reference(*ref_args)))
+            for key in ("dq", "dbias"):
+                errors[key] = grad_error(got[key], want[key], dtype)
+            del want
+            want = dict(zip(("dk", "dv"), fa.flash_backward_dkv_reference(*ref_args)))
+            for key in ("dk", "dv"):
+                errors[key] = grad_error(got[key], want[key], dtype)
+            del want
+            torch.cuda.empty_cache()
+            dq_args = (q, k, v, mask, limit, do, got["lse"], got["out"], causal, scale, bias)
+            dkv_args = (q, k, v, mask, limit, do, got["lse"], got["delta"], causal, scale, bias)
+            ms = {"fwd": time_ms(lambda: fa.flash_forward(*fwd_args), flush, iters=20),
+                  "dq": time_ms(lambda: fa.flash_backward_dq(*dq_args), flush, iters=20),
+                  "dkv": time_ms(lambda: fa.flash_backward_dkv(*dkv_args), flush, iters=20)}
+            plain = {"fwd": time_ms(lambda: fa.flash_forward_reference(q, k, v, mask, causal, scale, bias),
+                                    flush, iters=3),
+                     "dq": time_ms(lambda: fa.flash_backward_dq_reference(*ref_args), flush, iters=3),
+                     "dkv": time_ms(lambda: fa.flash_backward_dkv_reference(*ref_args), flush, iters=3)}
+            bounds = {kind: flash_bound_ms(c, kind) for kind in ("fwd", "dq", "dkv", "bwd")}
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+            flash_out = fa.flash_attention_core(*leaves[:3], mask, limit, causal, scale, leaves[3])
+            backward = time_ms(lambda: torch.autograd.grad(flash_out, leaves, do, retain_graph=True),
+                               flush, iters=20)
+            del leaves, flash_out
+            qh, kh, vh, bias_leaf, sdpa_mask = sdpa_bias_inputs(c)
+            library_fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=sdpa_mask, scale=scale),
+                                  flush, iters=20)
+            del qh, kh, vh, bias_leaf, sdpa_mask
+            qh, kh, vh, bias_leaf, sdpa_mask = sdpa_bias_inputs(c, requires_grad=True)
+            sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=sdpa_mask, scale=scale)
+            do_h = do.transpose(1, 2).contiguous()
+            library_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh, bias_leaf), do_h,
+                                                              retain_graph=True), flush, iters=20)
+            del qh, kh, vh, bias_leaf, sdpa_mask, sdpa_out, do_h
+            worst = ", ".join(f"{key} {e:.3e} (tol {t:.1e})" for key, (e, t) in errors.items())
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            chunk = fa.dbias_chunk(q.shape[0], q.shape[2], q.shape[1], sms) if bias.shape[0] == 1 else 1
+            timing = "; ".join(
+                f"{kind} {ms[kind]:.4f} ms (plain {plain[kind]:.4f}, bound {bounds[kind][0]:.4f} {bounds[kind][1]}, "
+                f"{bounds[kind][0] / ms[kind]:.1%})" for kind in ("fwd", "dq", "dkv"))
+            print(f"[flash-bias] {name} {str(dtype).split('.')[-1]} (bias [{bias.shape[0]}, ...], {chunk} batch "
+                  f"rows a dq block): {worst}; two launches bit-identical (dbias included): {identical}; "
+                  f"{timing}; whole backward through autograd {backward:.4f} ms (bound {bounds['bwd'][0]:.4f} "
+                  f"{bounds['bwd'][1]}); SDPA with the bias as a float mask: forward library_ms {library_fwd:.4f}, "
+                  f"backward with dbias library_ms {library_bwd:.4f} [{card}]")
+            if any(not (e <= t) for e, t in errors.values()) or not identical:
+                raise AssertionError(f"the bias kernels disagree at {name} {dtype}: {errors}, identical {identical}")
+            if dtype == torch.bfloat16:
+                records[name] = {kind: dict(ms=ms[kind], plain_ms=plain[kind], bound_ms=bounds[kind][0],
+                                            bound_by=bounds[kind][1]) for kind in ms}
+                records[name]["library_ms"] = dict(fwd=library_fwd, bwd=library_bwd, flash_bwd=backward)
+            del c, q, k, v, do, mask, limit, bias, got, ref_args, dq_args, dkv_args, fwd_args
             torch.cuda.empty_cache()
     return records
 
@@ -2287,6 +2452,215 @@ def phase_pair(card: str) -> None:
         raise AssertionError("the sharded update differs from the replicated one")
 
 
+# -- phase 19: T5 ----------------------------------------------------------------
+
+T5_BATCH, T5_ENC, T5_DEC = 32, 512, 128  # T5's input length; targets of 128
+T5_LEAVES = 26  # embedding, 2 bias tables, 2 final norms, 8 encoder and 13 decoder leaves
+T5_LEARN_LR = 3e-3
+
+
+def t5_setup(mixed_precision, tx, flash_min_seq=128, config="t5-base"):
+    """A seeded fp32 T5 (``build_model``) prepared behind a fresh Accelerator."""
+    reset_training_state()
+    accelerator = Accelerator(
+        mixed_precision=mixed_precision,
+        compilation_config=CompilationConfig(flash_attention_min_seq=flash_min_seq),
+    )
+    model = build_model(config, dtype=torch.float32, seed=SEED)
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(tx)
+    return accelerator, model
+
+
+def t5_batch(rng, batch, vocab, sub_vocab=None) -> dict:
+    """Encoder ids and labels (from ``sub_vocab`` when given) with a seeded
+    right padding on both sides: encoder lengths 128-512, decoder 32-128,
+    row 0 at full length."""
+    ids = rng.integers(0, vocab, (batch, T5_ENC))
+    labels = rng.integers(0, vocab, (batch, T5_DEC))
+    if sub_vocab is not None:
+        ids, labels = sub_vocab[ids % len(sub_vocab)], sub_vocab[labels % len(sub_vocab)]
+    enc_len = rng.integers(128, T5_ENC + 1, batch)
+    dec_len = rng.integers(32, T5_DEC + 1, batch)
+    enc_len[0], dec_len[0] = T5_ENC, T5_DEC
+    return {
+        "input_ids": torch.tensor(ids.astype(np.int32), device="cuda"),
+        "labels": torch.tensor(labels.astype(np.int32), device="cuda"),
+        "attention_mask": torch.tensor((np.arange(T5_ENC)[None] < enc_len[:, None]).astype(np.int32), device="cuda"),
+        "decoder_attention_mask": torch.tensor((np.arange(T5_DEC)[None] < dec_len[:, None]).astype(np.int32),
+                                               device="cuda"),
+    }
+
+
+def t5_train_flops(cfg, batch: int, enc: int, dec: int) -> float:
+    """Training flops of one T5 step (6 per parameter a token, as
+    ``train_flops_per_token``, and 12·H·S a layer a token for the attention
+    products), each weight counted at the positions it multiplies: the
+    encoder's at the encoder's, the decoder's self attention, cross q and o,
+    feed-forward and the tied head at the decoder's, the cross k and v at
+    the encoder's; attention products: encoder self over S_enc, decoder self
+    over S_dec, cross over S_enc."""
+    h, i, L, v = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers, cfg.vocab_size
+    inner = cfg.num_heads * cfg.dim_per_head
+    te, td = batch * enc, batch * dec
+    dense = 6.0 * L * ((4 * h * inner + 2 * h * i) * te + (6 * h * inner + 2 * h * i) * td + 2 * h * inner * te)
+    head = 6.0 * v * h * td
+    attention = 12.0 * L * h * (enc * te + dec * td + enc * td)
+    return dense + head + attention
+
+
+def plain_t5_attention(q, k, v, kv_mask=None, bias=None, scale=None, causal=None):
+    """The flash dispatch's function by the kernels' plain forward, bias and
+    all, with autograd through it (no kernel)."""
+    mask = None if kv_mask is None else fa._mask_limit(kv_mask)[0]
+    return fa.flash_forward_reference(q, k, v, mask, causal, scale, bias)[0]
+
+
+plain_t5_attention.supports_bias = True
+
+
+def phase_t5(card: str) -> None:
+    """t5-base at full width and depth in bf16 over fp32 masters through
+    ``Accelerator`` -> ``prepare_model`` -> ``prepare_optimizer(
+    fused_adamw(1e-4))`` -> ``compiled_step(T5.loss_fn)`` with flash from
+    128 tokens: B=32, 512 encoder and 128 decoder tokens, padded on both
+    sides; step p50 over 10 steps after 3 warm-up, tokens/s, MFU, peak
+    memory, launches a step (each flash kernel 36, 24 of them the bias
+    variant; adamw 26) and one profiled step. Then fp32 B=2: one backward's
+    26 gradients through the kernels, the plain flash and the einsum path
+    (the kernels no further from the plain flash than the einsum path is),
+    and 3 steps through the kernels against 3 through the plain versions;
+    and bf16 B=8 on a 64-token sub-vocabulary, whose loss must fall by 1
+    nat in 20 steps."""
+    accelerator, model = t5_setup("bf16", fused_adamw(1e-4))
+    cfg = model.config
+    step = accelerator.compiled_step(T5.loss_fn(model))
+    rng = np.random.default_rng(SEED + 19)
+    batch = t5_batch(rng, T5_BATCH, cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = timed_steps(step, batch, 3, 10)
+    counts = launch_counts()
+    bias_counts = {name: WRAPPERS[name].bias_launches for name in FLASH_KERNELS}
+    p50 = float(np.median(times))
+    flops = t5_train_flops(cfg, T5_BATCH, T5_ENC, T5_DEC)
+    formula = train_flops_per_step(cfg, T5_BATCH, T5_ENC)
+    positions = T5_BATCH * (T5_ENC + T5_DEC)
+    real = int(batch["attention_mask"].sum()) + int(batch["decoder_attention_mask"].sum())
+    losses = [float(x) for x in losses]
+    print(f"[t5] t5-base bf16 fused_adamw B={T5_BATCH} S_enc={T5_ENC} S_dec={T5_DEC}: step p50 {p50 * 1e3:.3f} ms "
+          f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over 10 steps after 3 warm-up, "
+          f"{positions / p50:.1f} positions/s ({real / p50:.1f} real tokens/s, encoder and decoder), MFU "
+          f"{flops / p50 / PEAK_FLOPS[torch.bfloat16]:.4f} ({flops:.3e} flops a step, each weight at the positions "
+          f"it multiplies; train_flops_per_step at the encoder's length, every weight at every encoder position: "
+          f"{formula:.3e}, MFU {formula / p50 / PEAK_FLOPS[torch.bfloat16]:.4f}; 989 TFLOP/s), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches {counts}, of them with a bias {bias_counts}, over 13 steps [{card}]")
+    layers = cfg.num_layers
+    want = {"flash_fwd": 3 * layers * 13, "flash_dq": 3 * layers * 13, "flash_dkv": 3 * layers * 13,
+            "fused_adamw": T5_LEAVES * 13}
+    for key, n in want.items():
+        if counts[key] != n:
+            raise AssertionError(f"{key}: {counts[key]} launches, expected {n}")
+    if any(n != 2 * layers * 13 for n in bias_counts.values()):
+        raise AssertionError(f"bias launches {bias_counts}, expected {2 * layers * 13} each")
+    if any(counts[key] for key in ("paged_decode", "paged_verify", "quant_matmul")):
+        raise AssertionError(f"t5 training launched serving kernels: {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite t5 loss: {losses}")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, wall_us, 1, "t5-base bf16 training step", card)
+    del accelerator, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = t5_batch(np.random.default_rng(SEED + 21), 2, cfg.vocab_size)
+    model = build_model("t5-base", dtype=torch.float32, seed=SEED)
+    grads = {}
+    for kind, hook in (("kernels", make_auto_attention(128)), ("plain", plain_t5_attention), ("einsum", None)):
+        model.attention_fn = hook
+        leaves = {k: p.detach().clone().requires_grad_() for k, p in flatten_tree(model.param_tree())}
+        params = {"encoder": {}, "layers": {}}
+        for key, leaf in leaves.items():
+            group, _, name = key.rpartition(".")
+            (params[group] if group else params)[name] = leaf
+        reset_launches()
+        loss = T5.loss_fn(model)(params, batch)
+        loss.backward()
+        grads[kind] = (float(loss.detach()), {k: leaf.grad for k, leaf in leaves.items()},
+                       launch_counts()["flash_dq"])
+        del leaves, params, loss
+
+    def worst_gap(a, b):  # the largest gap of a leaf's gradients, over that leaf's largest magnitude
+        gaps = {k: float((grads[a][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
+                for k, g in grads[b][1].items()}
+        return max(gaps.items(), key=lambda kv: kv[1])
+
+    kernel_gap, plain_gap = worst_gap("kernels", "plain"), worst_gap("einsum", "plain")
+    print(f"[t5-parity] t5-base fp32 B=2, one backward of all 26 leaves: loss kernels {grads['kernels'][0]!r}, "
+          f"plain flash {grads['plain'][0]!r}, einsum {grads['einsum'][0]!r}; worst gradient gap kernels vs plain "
+          f"{kernel_gap[1]:.3e} ({kernel_gap[0]}), einsum vs plain {plain_gap[1]:.3e} ({plain_gap[0]}), each of "
+          f"the leaf's largest magnitude (the gate: the kernels no further from the plain version than the "
+          f"einsum path is, or 1e-4); dq launches {grads['kernels'][2]}, {grads['plain'][2]}, {grads['einsum'][2]} "
+          f"[{card}]")
+    if (grads["kernels"][2] != 3 * layers or grads["plain"][2] or grads["einsum"][2]
+            or not (kernel_gap[1] <= max(1e-4, plain_gap[1]))):
+        raise AssertionError(f"t5 gradients through the kernels: {kernel_gap}, the plain paths' spread {plain_gap}")
+    del model, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Adam's first steps move a weight by about lr whatever its gradient's size, and t5-base's
+    # gradients at init move by percents with the order of fp32 sums (above): at lr 1e-4 the
+    # third losses differed by 1.27e-4 relative, the first equal in every printed digit. So the
+    # steps take bert's lr, as phase 15(c)
+    parity = {}
+    for kind in ("kernels", "plain"):
+        if kind == "kernels":
+            accelerator, model = t5_setup("no", fused_adamw(BERT_LR))
+        else:
+            accelerator, model = t5_setup("no", adamw(BERT_LR), flash_min_seq=0)
+            model.attention_fn = plain_t5_attention
+        step = accelerator.compiled_step(T5.loss_fn(model))
+        reset_launches()
+        parity[kind] = [float(step(batch)) for _ in range(3)]
+        counts = launch_counts()
+        expected = 0 if kind == "plain" else 3 * 3 * layers
+        if counts["flash_fwd"] != expected or (kind == "plain" and any(counts.values())):
+            raise AssertionError(f"{kind} fp32 t5 run launched {counts}")
+        del accelerator, model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(parity["kernels"], parity["plain"]))
+    print(f"[t5-parity] t5-base fp32 B=2 S_enc={T5_ENC} S_dec={T5_DEC}, padded, lr {BERT_LR}, 3 steps: kernels "
+          f"{parity['kernels']} vs plain {parity['plain']}: max relative difference {rel:.3e} (tolerance 1e-4) "
+          f"[{card}]")
+    if not (rel <= 1e-4):
+        raise AssertionError("fp32 t5 kernel steps differ from the plain steps")
+
+    # the tied head's logits start small (the d_model^-0.5 scale): at lr 1e-3 the loss fell
+    # 0.517 nat in 20 steps, evenly
+    accelerator, model = t5_setup("bf16", fused_adamw(T5_LEARN_LR))
+    step = accelerator.compiled_step(T5.loss_fn(model))
+    rng = np.random.default_rng(SEED + 22)
+    batch = t5_batch(rng, 8, cfg.vocab_size, sub_vocab=rng.choice(cfg.vocab_size, size=64, replace=False))
+    curve = [float(step(batch)) for _ in range(20)]
+    print(f"[t5-learn] t5-base bf16 B=8, 64-token sub-vocabulary, lr {T5_LEARN_LR}: loss {curve[0]:.4f} -> "
+          f"{curve[-1]:.4f} "
+          f"over 20 steps (needs a fall of 1 nat); curve {[round(x, 3) for x in curve]} [{card}]")
+    if not (curve[0] - curve[-1] >= 1.0):
+        raise AssertionError("the t5 loss did not fall by 1 nat on the sub-vocabulary batch")
+    del accelerator, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2316,6 +2690,7 @@ def main() -> int:
     records["flash_fwd"] = timed("phase 10 flash forward kernel", phase_flash_forward, card)
     records["flash_dq"], records["flash_dkv"] = timed(
         "phase 11 flash backward kernels", phase_flash_backward, card)
+    timed("phase 10b flash bias kernels", phase_flash_bias, card)
     records["fused_adamw"] = timed("phase 12 adamw kernel", phase_adamw, card)
     _, compiled_p50 = timed("phase 13 training", phase_training, card)
     timed("phase 13 training parity and learning", phase_training_parity, card)
@@ -2326,6 +2701,7 @@ def main() -> int:
     timed("phase 16 mixture of experts and dropout", phase_moe_dropout, card)
     timed("phase 17 activation checkpointing", phase_remat, card)
     timed("phase 18 two processes on the card over gloo", phase_pair, card)
+    timed("phase 19 t5", phase_t5, card)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

@@ -21,6 +21,7 @@ import torch
 
 from accelerate_tpu.models.attention import dot_product_attention as jax_dot_product_attention
 from accelerate_tpu.ops.flash_attention import flash_attention as jax_flash_attention
+from accelerate_tpu_torch.models.attention import dot_product_attention
 from accelerate_tpu_torch.ops import flash_attention as fa
 
 FWD_TOL, GRAD_TOL = 2e-5, 5e-4
@@ -124,14 +125,136 @@ def test_auto_attention_switches_at_min_seq():
 
 
 def test_bias_and_ring_offsets_raise():
+    """An additive bias runs, through ``flash_attention`` and the auto hook
+    (which says so by ``supports_bias``), and equals the einsum path with
+    the same bias; a bias whose batch dim is neither 1 nor B raises, as the
+    ring block entry with its global offsets does (ROADMAP item 17)."""
     q, k, v, _ = _case(n=2, kv=2)
     t = [torch.tensor(x) for x in (q, k, v)]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        fa.flash_attention(*t, bias=torch.zeros((1, 2, 256, 256)))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        fa.make_auto_attention(min_seq=1024)(*t, bias=torch.zeros((1, 2, 256, 256)))
+    bias = torch.tensor(np.random.default_rng(1).normal(size=(1, 2, 256, 256)).astype(np.float32))
+    want = dot_product_attention(*t, causal=True, bias=bias)
+    np.testing.assert_allclose(fa.flash_attention(*t, bias=bias).numpy(), want.numpy(), rtol=FWD_TOL, atol=FWD_TOL)
+    hook = fa.make_auto_attention(min_seq=1024)
+    assert hook.supports_bias
+    np.testing.assert_allclose(hook(*t, bias=bias).numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="bias batch dim must be 1 or 6, got 2"):
+        fa.flash_attention(*(x.repeat(3, 1, 1, 1) for x in t), bias=bias.repeat(2, 1, 1, 1))
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         fa.flash_attention_block(*t, q_offset=0, kv_offset=256, causal=True)
+
+
+def _bias_case(bias_batch, b=2, s=256, n=4, d=64, seed=0):
+    return np.random.default_rng(seed + 100).normal(size=(bias_batch, n, s, s)).astype(np.float32)
+
+
+def _jax_bias(q, k, v, do, mask, bias, **kwargs):
+    """JAX forward and the vjp of q, k, v and the bias."""
+    jm = None if mask is None else jnp.asarray(mask)
+    out, vjp = jax.vjp(
+        lambda a, b, c, e: jax_flash_attention(a, b, c, jm, bias=e, **kwargs),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+    )
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port_bias(q, k, v, do, mask, bias, **kwargs):
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v, bias)]
+    out = fa.flash_attention(*leaves[:3], None if mask is None else torch.tensor(mask), bias=leaves[3], **kwargs)
+    out.backward(torch.tensor(do))
+    return out.detach().numpy(), [x.grad.numpy() for x in leaves]
+
+
+BIAS_CASES = {
+    # name: (bias batch, causal, masked, kv heads of 4, head dim, scale)
+    "broadcast_bidirectional_masked": (1, False, True, 4, 64, 1.0),
+    "batched_bidirectional_masked": (2, False, True, 4, 64, 1.0),
+    "broadcast_causal_gqa4x2": (1, True, False, 2, 64, None),
+    "batched_causal_masked_gqa4x2": (2, True, True, 2, 64, None),
+    "broadcast_causal_masked_d32": (1, True, True, 4, 32, 1.0),
+    "broadcast_bidirectional_gqa4x2_d32": (1, False, False, 2, 32, None),
+}
+
+
+@pytest.mark.parametrize("case", list(BIAS_CASES))
+def test_bias_forward_and_all_grads_match_jax(case):
+    """The plain flash with an additive bias (what the kernels compute: the
+    bias after the scale, before the causal limit and the mask penalty)
+    against JAX's kernels in interpret mode: out, dq, dk, dv and dbias, the
+    last summed over the batch for a [1, ...] bias and per row for a
+    [B, ...] one; masked rows of batch row 0 from 200 (mid-tile), of row 1
+    from 90."""
+    bias_batch, causal, masked, kv, d, scale = BIAS_CASES[case]
+    seed = list(BIAS_CASES).index(case)
+    q, k, v, do = _case(kv=kv, d=d, seed=30 + seed)
+    bias = _bias_case(bias_batch, d=d, seed=seed)
+    mask = None
+    if masked:
+        mask = np.ones((2, 256), np.int32)
+        mask[0, 200:] = 0
+        mask[1, 90:] = 0
+    kwargs = dict(causal=causal, scale=scale)
+    port = _port_bias(q, k, v, do, mask, bias, **kwargs)
+    want = _jax_bias(q, k, v, do, mask, bias, **kwargs)
+    np.testing.assert_allclose(port[0], want[0], rtol=FWD_TOL, atol=FWD_TOL)
+    for g, w, name in zip(port[1], want[1], ("q", "k", "v", "bias")):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("bias_batch", [1, 2], ids=["broadcast", "batched"])
+def test_plain_dbias_matches_autograd_through_the_plain_forward(bias_batch):
+    """The plain dq version's dbias (what the dq kernel writes) against
+    autograd through the plain forward with the bias, GQA, causal, a mask;
+    and the dq wrapper on CPU tensors returns it beside dq and delta."""
+    q, k, v, do = _case(kv=2, seed=40 + bias_batch)
+    bias = torch.tensor(_bias_case(bias_batch, seed=bias_batch))
+    mask, limit = fa._mask_limit(torch.tensor(np.r_[np.ones((1, 256)), [[1] * 100 + [0] * 156]]))
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    leaves = [x.clone().requires_grad_() for x in (tq, tk, tv, bias)]
+    out, lse = fa.flash_forward_reference(*leaves[:3], mask, True, 0.125, leaves[3])
+    out.backward(tdo)
+    out, lse = out.detach(), lse.detach()
+    delta = fa.flash_delta_reference(tdo, out)
+    args = (tq, tk, tv, mask, tdo, lse, delta, True, 0.125, bias)
+    dq, dbias = fa.flash_backward_dq_reference(*args)
+    dk, dv = fa.flash_backward_dkv_reference(*args)
+    for got, leaf in zip((dq, dk, dv, dbias), leaves):
+        assert got.shape == leaf.shape
+        np.testing.assert_allclose(got.numpy(), leaf.grad.numpy(), rtol=GRAD_TOL, atol=GRAD_TOL)
+    got = fa.flash_backward_dq(tq, tk, tv, mask, limit, tdo, lse, out, True, 0.125, bias)
+    assert len(got) == 3
+    np.testing.assert_array_equal(got[0].numpy(), dq.numpy())
+    np.testing.assert_array_equal(got[2].numpy(), dbias.numpy())
+
+
+def test_dbias_chunks_cover_the_batch():
+    """The broadcast bias's batch chunks (one dq block a chunk of rows and
+    64 query rows and head): about four blocks an SM, every row in one
+    chunk, never more chunks than rows."""
+    for b, nh, s in ((32, 12, 512), (32, 12, 128), (2, 4, 256), (1, 12, 512), (7, 2, 64)):
+        chunk = fa.dbias_chunk(b, nh, s, 132)
+        chunks = -(-b // chunk)
+        assert 1 <= chunk <= b and (chunks - 1) * chunk < b <= chunks * chunk
+    assert fa.dbias_chunk(32, 12, 512, 132) == 6  # t5-base's encoder: 6 chunks of 96 blocks
+    assert fa.dbias_chunk(32, 12, 128, 132) == 2  # its decoder: 16 chunks of 24
+
+
+@pytest.mark.parametrize("entry,source", [("flash_forward", "flash_fwd"), ("flash_backward_dq", "flash_bwd"),
+                                          ("flash_backward_dkv", "flash_bwd")])
+def test_ctypes_signature_matches_the_c_entry_point(entry, source):
+    """The argument types the wrappers declare for ``ctypes`` are those of
+    the C entry point in ``csrc/<source>.cu``, one by one: a missing int
+    would shift every later argument."""
+    import ctypes
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "accelerate_tpu_torch", "csrc", f"{source}.cu")
+    params = re.search(rf"int {entry}\(([^)]*)\)", open(csrc).read()).group(1)
+    kinds = {"void*": ctypes.c_void_p, "float": ctypes.c_float, "int": ctypes.c_int}
+    declared = [kinds[re.sub(r"^const |\s+\w+$", "", p.strip()).replace(" ", "")] for p in params.split(",")]
+    assert declared == fa.ARGTYPES[entry]
 
 
 def test_plain_backward_matches_autograd_through_the_plain_forward():

@@ -469,6 +469,101 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, geometry):
             assert torch.count_nonzero(x) == 0
 
 
+# the bias kernels: (B, S, T, NH, KV, D, causal, masked, bias batched). t5-base's attention at
+# B=12 (encoder, 2 batch rows a dq block, 6 chunks summed) and B=32 (decoder self-attention)
+BIAS_GEOMETRIES = {
+    "enc_broadcast_masked": (12, 256, 256, 12, 12, 64, False, True, False),
+    "dec_broadcast_causal_masked": (32, 128, 128, 12, 12, 64, True, True, False),
+    "batched_causal_gqa_masked": (2, 256, 256, 4, 2, 64, True, True, True),
+    "d32_broadcast_causal_gqa": (3, 192, 192, 4, 2, 32, True, False, False),
+    "d128_broadcast_masked": (4, 128, 128, 4, 4, 128, False, True, False),
+}
+
+
+def _bias_case(device, dtype, geometry, seed=0):
+    """A flash case with an fp32 bias [1|B, NH, S, T]."""
+    q, k, v, do, mask, limit, causal, scale = _flash_case(device, dtype, geometry[:8], seed)
+    b, s, t, nh = geometry[0], geometry[1], geometry[2], geometry[3]
+    rng = np.random.default_rng(seed + 1)
+    bias = torch.tensor(rng.standard_normal((b if geometry[8] else 1, nh, s, t), dtype=np.float32), device=device)
+    return q, k, v, do, mask, limit, causal, scale, bias
+
+
+def _bias_launch(q, k, v, do, mask, limit, causal, scale, bias):
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale, bias)
+    dq, delta, dbias = fa.flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale, bias)
+    dk, dv = fa.flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale, bias)
+    return out, lse, dq, delta, dbias, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geometry", list(BIAS_GEOMETRIES.values()), ids=list(BIAS_GEOMETRIES))
+def test_flash_bias_kernels_match_plain_versions(cuda, dtype, geometry):
+    """The bias variants of the forward, dq (with dbias) and dk/dv kernels
+    against their plain versions, with the tolerances of the kernels
+    without a bias (dbias like the other grads); two launches bit-identical,
+    dbias included (no atomics: a broadcast bias's batch sum runs in a fixed
+    order); a fully padded batch row gives exact zeros, in its dbias rows
+    too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, mask, limit, causal, scale, bias = _bias_case(cuda, dtype, geometry)
+    before = (fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    out, lse, dq, delta, dbias, dk, dv = _bias_launch(q, k, v, do, mask, limit, causal, scale, bias)
+    again = _bias_launch(q, k, v, do, mask, limit, causal, scale, bias)
+    torch.cuda.synchronize()
+    after = (fa.flash_forward.launches, fa.flash_backward_dq.launches, fa.flash_backward_dkv.launches)
+    assert after == tuple(x + 2 for x in before)
+    for name, a, b in zip(("out", "lse", "dq", "delta", "dbias", "dk", "dv"), (out, lse, dq, delta, dbias, dk, dv),
+                          again):
+        assert torch.equal(a, b), f"{name} differs between two launches"
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale, bias)
+    assert float((out.float() - want_out.float()).abs().max()) <= TOLERANCE[dtype]
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    want_delta = fa.flash_delta_reference(do, out)
+    assert float((delta - want_delta).abs().max()) <= DELTA_TOLERANCE * float(want_delta.abs().max().clamp(min=1))
+    ref_args = (q, k, v, mask, do, lse, want_delta, causal, scale, bias)
+    want_dq, want_dbias = fa.flash_backward_dq_reference(*ref_args)
+    grads = {"dq": (dq, want_dq), "dbias": (dbias, want_dbias)}
+    grads.update(zip(("dk", "dv"), zip((dk, dv), fa.flash_backward_dkv_reference(*ref_args))))
+    assert dbias.shape == bias.shape and dbias.dtype == torch.float32
+    for name, (got, want) in grads.items():
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - want.float()).abs().max())
+        tol = 5e-4 if dtype == torch.float32 else 2e-2 * float(want.float().abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+    if mask is not None:
+        for x in (out[-1], dq[-1], dk[-1], dv[-1]) + ((dbias[-1],) if geometry[8] else ()):
+            assert torch.count_nonzero(x) == 0
+
+
+@pytest.mark.parametrize("bias_batch", [1, 2], ids=["broadcast", "batched"])
+def test_flash_attention_bias_grads_match_autograd_through_plain(cuda, bias_batch):
+    """fp32 ``flash_attention`` with a bias (the autograd function over the
+    kernels) against autograd through the plain forward: all four grads,
+    dbias in the bias's dtype; with a bias that needs no grad, q's, k's and
+    v's grads unchanged."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    geometry = (2, 256, 256, 4, 2, 64, False, True, bias_batch == 2)
+    q, k, v, do, mask, _, causal, _, bias = _bias_case(cuda, torch.float32, geometry, seed=4)
+    kv_mask = mask
+    grads = {}
+    for kind in ("kernel", "plain"):
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, bias)]
+        if kind == "kernel":
+            out = fa.flash_attention(*leaves[:3], kv_mask, causal=causal, bias=leaves[3], scale=1.0)
+        else:
+            out = fa.flash_forward_reference(*leaves[:3], mask, causal, 1.0, leaves[3])[0]
+        out.backward(do)
+        grads[kind] = [x.grad for x in leaves]
+    for name, got, want in zip(("dq", "dk", "dv", "dbias"), grads["kernel"], grads["plain"]):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        assert float((got - want).abs().max()) <= 5e-4, name
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    fa.flash_attention(*leaves, kv_mask, causal=causal, bias=bias, scale=1.0).backward(do)
+    for name, got, want in zip(("dq", "dk", "dv"), (x.grad for x in leaves), grads["kernel"]):
+        assert torch.equal(got, want), name
+
+
 @pytest.mark.parametrize(
     "geometry",
     [(2, 192, 320, 4, 4, 64, True, False), (2, 320, 192, 4, 2, 64, False, True),

@@ -46,13 +46,14 @@ from accelerate_tpu.data_loader import IterableDatasetShard as JaxIterableDatase
 from accelerate_tpu.data_loader import SeedableRandomSampler as JaxSeedableRandomSampler
 from accelerate_tpu.models import Bert as JaxBert
 from accelerate_tpu.models import Llama as JaxLlama
+from accelerate_tpu.models import T5 as JaxT5
 from accelerate_tpu.parallel import sharding as jax_sharding
 from accelerate_tpu.parallel.zero import zero_update_state_bytes as jax_zero_update_state_bytes
 from accelerate_tpu.state import AcceleratorState as JaxAcceleratorState
 from accelerate_tpu.state import GradientState as JaxGradientState
 from accelerate_tpu.state import PartialState as JaxPartialState
 from accelerate_tpu.utils.constants import CANONICAL_MESH_AXES
-from accelerate_tpu_torch import Accelerator, Bert, Llama
+from accelerate_tpu_torch import T5, Accelerator, Bert, Llama
 from accelerate_tpu_torch.launchers import debug_launcher
 from accelerate_tpu_torch.parallel import sharding as port_sharding
 from accelerate_tpu_torch.parallel.zero import zero_update_state_bytes
@@ -200,13 +201,14 @@ def _jax_mesh(data, fsdp):
 
 
 @pytest.mark.parametrize("data,fsdp", [(2, 1), (4, 1), (2, 2), (4, 2)])
-@pytest.mark.parametrize("model_name", ["llama-tiny", "bert-tiny"])
+@pytest.mark.parametrize("model_name", ["llama-tiny", "bert-tiny", "t5-tiny"])
 def test_partition_rules_give_the_jax_specs(model_name, data, fsdp):
     """Every leaf's spec under the model's rules (stage 3), with the ZeRO
     fold over the data axes, and stage 1/2's optimizer-state layout: the
-    JAX package's ``PartitionSpec`` entry for entry."""
-    jax_model, port_model = ((JaxLlama(model_name), Llama(model_name, device="cpu")) if "llama" in model_name
-                             else (JaxBert(model_name), Bert(model_name, device="cpu")))
+    JAX package's ``PartitionSpec`` entry for entry (T5's rules match its
+    nested ``encoder/`` and ``layers/`` paths)."""
+    classes = {"llama": (JaxLlama, Llama), "bert": (JaxBert, Bert), "t5": (JaxT5, T5)}[model_name.split("-")[0]]
+    jax_model, port_model = classes[0](model_name), classes[1](model_name, device="cpu")
     shapes = jax.eval_shape(jax_model.init, jax.random.key(0))
     mesh = _jax_mesh(data, fsdp)
     sizes = dict(mesh.shape)
