@@ -64,6 +64,7 @@ from .ops import operations as ops
 from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value, scaled_optimizer_update
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, job_world_size
+from .utils.constants import MESH_AXIS_SEQUENCE
 from .utils.dataclasses import (
     CompilationConfig,
     FullyShardedDataParallelPlugin,
@@ -102,12 +103,33 @@ class PreparedModel:
     updates in place; ``module`` is the original. Across processes
     ``layout`` (``parallel.zero.ShardedLayout``) says where each param is
     stored; where it splits them, ``params`` holds this process's shards
-    and the module's own weights hold nothing until ``unwrap_model``."""
+    and the module's own weights hold nothing until ``unwrap_model``.
+    Callable like the JAX package's: ``prepared(input_ids, ...)``."""
 
-    def __init__(self, module: Any, params: dict, layout=None):
+    def __init__(self, module: Any, params: dict, layout=None, policy=None):
         self.module = module
         self.params = params
         self.layout = layout
+        self.policy = policy
+
+    def __call__(self, *args, **kwargs):
+        """The module's ``apply`` over the compute-dtype cast of the whole
+        params, without gradients. Under a sequence axis every process of a
+        sequence group passes the same global rows and gets its chunk's
+        outputs (:meth:`sequence_span`)."""
+        params = self.full_params()
+        with torch.no_grad():
+            if self.policy is not None:
+                params = cast_floating(params, self.policy.compute_dtype)
+            return self.module.apply(params, *args, **kwargs)
+
+    def sequence_span(self, length: int) -> tuple[int, int]:
+        """``(start, stop)``: the positions of a sequence of ``length`` this
+        process runs (its ring chunk under a sequence axis, else all)."""
+        from .models.attention import sequence_chunk
+
+        start, stop, _, _ = sequence_chunk(getattr(self.module, "attention_fn", None), length)
+        return start, stop
 
     def full_params(self) -> dict:
         """The whole params (gathered from the shards: a collective when
@@ -319,6 +341,11 @@ class Accelerator:
         the kernels' plain versions; non-causal for a model whose
         ``causal_attention`` is False, as BERT's; T5's stacks pass their
         ``causal`` and relative-position bias per call), else the einsum path.
+        Under a sequence axis the hook is ring attention over the sequence
+        group (non-causal for such a model), before the flash dispatch, as
+        in the JAX package: each process then runs its chunk of the
+        sequence, and the losses and gradients are summed over the group
+        (``parallel/zero.py``).
         A model with the ``remat_layers`` hook checkpoints each layer under
         the config's ``remat_policy``; the step wraps the whole loss
         function of any other model instead.
@@ -340,9 +367,18 @@ class Accelerator:
                 load_jax_params(model, params)
         for p in model.parameters():
             p.requires_grad_(True)
+        if self.state.mesh_shape[MESH_AXIS_SEQUENCE] > 1 and not getattr(model, "sequence_chunks", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} under a sequence axis (a model that runs its chunk of the "
+                "sequence: llama, bert) is not in the port yet (ROADMAP item 17)"
+            )
         if hasattr(model, "attention_fn"):
             causal = getattr(model, "causal_attention", True)
-            if self.compilation_config.flash_attention_min_seq:
+            if self.state.mesh_shape[MESH_AXIS_SEQUENCE] > 1:
+                from .parallel.ring_attention import make_ring_attention
+
+                model.attention_fn = make_ring_attention(self.state.mesh, causal=causal)
+            elif self.compilation_config.flash_attention_min_seq:
                 from .ops.flash_attention import make_auto_attention
 
                 model.attention_fn = make_auto_attention(
@@ -361,7 +397,7 @@ class Accelerator:
         layout = None
         if self.num_processes > 1:
             tree, layout = self._distribute(model, tree)
-        prepared = PreparedModel(model, tree, layout)
+        prepared = PreparedModel(model, tree, layout, self.state.precision_policy)
         self._models.append(prepared)
         return prepared
 

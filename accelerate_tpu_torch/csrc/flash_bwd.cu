@@ -84,6 +84,19 @@
 // values do not fit its registers) and walks its batch rows of one kv head side by side, so
 // a broadcast bias is read from L2 by all but the first.
 //
+// The ring-block variants (kRing; the TPU kernels' `has_offsets` and the lse cotangent,
+// reached through `flash_attention_block`), without a bias, compare global positions as the
+// forward's: the difference q_offset - kv_offset (one runtime int) moves dq's k-tile bound,
+// dk/dv's first q tile and both diagonal tests. dq also reads the cotangent of the forward's
+// lse and writes delta = rowsum(dO * O) - dlse, so dS = P * (dP - rowsum(dO * O) + dlse) in
+// both kernels, as the TPU kernels fold dlse into delta. A block wholly in its keys' past
+// (dq) or its queries' future (dk/dv) makes no trip: the producer streams nothing after the
+// fixed operand (dk/dv: not even that), no consumer waits on a stage, and dq, dk and dv are
+// written as exact zeros. The shift and dlse are read only inside `if constexpr (kRing)`
+// branches, each beside the statement the kernels without the variant keep as it was: those
+// must compile as before, and reading the unused shift there (even adding a constant 0)
+// changed their machine code (the dq kernel grew by a sixth and ran 6-9% slower on the H100).
+//
 // Launch rules: the kernels run on the caller's stream, allocate nothing and do not
 // synchronise. The C entry points return cudaGetLastError() after the launch.
 
@@ -236,7 +249,7 @@ __device__ __forceinline__ void dbias_store(float* slab, long long Tk, int row0,
           make_float2(acc[n][r].x + ds[n][2 * r], acc[n][r].y + ds[n][2 * r + 1]);
 }
 
-template <int D, int kN>
+template <int D, int kN, bool kRing>
 __global__ void __launch_bounds__(DqTeam<tile_dim(D), kN, false>::kThreads,
                                   DqTeam<tile_dim(D), kN, false>::kBlocks)
 flash_dq_bf16_kernel(
@@ -251,7 +264,9 @@ flash_dq_bf16_kernel(
     const float* __restrict__ lse,   // [B, NH, S]
     float* __restrict__ delta,       // [B, NH, S], written here
     bf16* __restrict__ dq,           // [B, S, NH, D]
-    int S, int Tk, int NH, int KV, float scale, int causal) {
+    int S, int Tk, int NH, int KV, float scale, int causal,
+    const float* __restrict__ dlse,  // kRing: [B, NH, S], the lse cotangent
+    int shift) {                     // kRing: q_offset - kv_offset
   constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dq band
   using L = DqLayout<kDt, kN, false>;
   using W = DqTeam<kDt, kN, false>;
@@ -282,7 +297,12 @@ flash_dq_bf16_kernel(
   const bool masked = mask != nullptr;
 
   int nk = Tk / kN;
-  if (causal) nk = min(nk, (q0 + W::kRows + kN - 1) / kN);
+  if (causal) {
+    if constexpr (kRing)  // a block wholly in the keys' past: zero tiles, dq 0
+      nk = min(nk, causal_tiles(q0 + W::kRows - 1 + shift, kN));
+    else
+      nk = min(nk, (q0 + W::kRows + kN - 1) / kN);
+  }
   if (masked) nk = min(nk, (limit[b] + kN) / kN);  // limit -1 -> 0 tiles
 
   if (threadIdx.x == 0) {
@@ -346,13 +366,21 @@ flash_dq_bf16_kernel(
   const long long rows_off = (1LL * b * NH + h) * S + row0;
   float dl[2];
   row_delta<D>(dl, dout, out, q_off, q_row, t);
+  if constexpr (kRing) {  // delta = rowsum(dO * O) - dlse: the lse cotangent rides in delta
+    dl[0] -= dlse[rows_off];
+    dl[1] -= dlse[rows_off + 8];
+  }
   if (t == 0) {
     delta[rows_off] = dl[0];
     delta[rows_off + 8] = dl[1];
   }
   const float lse_log2[2] = {lse[rows_off] * kLog2e, lse[rows_off + 8] * kLog2e};
   // the causal bound of this warpgroup's rows: the block's last tile lies wholly past them
-  const int nk_own = causal ? min(nk, (wq0 + kBlockQ + kN - 1) / kN) : nk;
+  int nk_own;
+  if constexpr (kRing)
+    nk_own = causal ? min(nk, causal_tiles(wq0 + kBlockQ - 1 + shift, kN)) : nk;
+  else
+    nk_own = causal ? min(nk, (wq0 + kBlockQ + kN - 1) / kN) : nk;
 
   // p = exp(scale * s - lse) = 2^(s * scale * log2 e - lse * log2 e); a future key (causal)
   // or a padded one takes NEG_INF / scale or the penalty / scale, so that scale * s is
@@ -393,7 +421,11 @@ flash_dq_bf16_kernel(
     pin(s);
 
     // P, the causal test kept to the diagonal tiles
-    const bool diagonal = causal && j * kN + kN - 1 > wq0;
+    bool diagonal;
+    if constexpr (kRing)
+      diagonal = causal && j * kN + kN - 1 > wq0 + shift;
+    else
+      diagonal = causal && j * kN + kN - 1 > wq0;
 #pragma unroll
     for (int n = 0; n < kNt; ++n)
 #pragma unroll
@@ -401,7 +433,11 @@ flash_dq_bf16_kernel(
         const int r = e >> 1;
         const int c = n * 8 + 2 * t + (e & 1);
         float v = s[n][e];
-        if (diagonal && j * kN + c > row0 + 8 * r) v = neg_raw;
+        if constexpr (kRing) {
+          if (diagonal && j * kN + c > row0 + 8 * r + shift) v = neg_raw;
+        } else {
+          if (diagonal && j * kN + c > row0 + 8 * r) v = neg_raw;
+        }
         if (masked) v += pst[c];
         s[n][e] = exp2_approx(fmaf(v, scale_log2, -lse_log2[r]));
       }
@@ -676,7 +712,7 @@ flash_dq_bias_bf16_kernel(
   }
 }
 
-template <int D, int kM, bool kBias>
+template <int D, int kM, bool kBias, bool kRing>
 __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,   // q [B * S, NH, D]
     const __grid_constant__ CUtensorMap do_map,  // dO [B * S, NH, D]
@@ -688,7 +724,8 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     const float* __restrict__ delta,  // [B, NH, S]
     bf16* __restrict__ dk,            // [B, T, KV, D]
     bf16* __restrict__ dv,            // [B, T, KV, D]
-    int B, int S, int Tk, int NH, int KV, int bias_batched, float scale, int causal) {
+    int B, int S, int Tk, int NH, int KV, int bias_batched, float scale, int causal,
+    int shift) {  // kRing: q_offset - kv_offset
   constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the dk, dv bands
   using L = DkvLayout<kDt, kM>;
   using W = DkvTeam;
@@ -718,9 +755,14 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
   const int lane = threadIdx.x & 31;
   const bool masked = mask != nullptr;
 
-  // q-tile bounds: causal, q tiles wholly before the block's first key see none of it; mask,
+  // q-tile bounds: causal, q tiles wholly before the block's first key see none of it (in a
+  // ring block, every q tile may: a block wholly in the queries' future makes no trip); mask,
   // a block past the last valid key contributes nothing (its rows get exact zeros)
-  const int lower = causal ? k0 / kM : 0;
+  int lower;
+  if constexpr (kRing)
+    lower = causal ? max(k0 - shift, 0) / kM : 0;
+  else
+    lower = causal ? k0 / kM : 0;
   int upper = S / kM;
   if (masked && k0 > limit[b]) upper = lower;
   const int nq = max(upper - lower, 0);
@@ -836,7 +878,11 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
     pin(st);
 
     // P^T; the causal test on the tiles where some key follows some query
-    const bool diagonal = causal && wk0 + kBlockK - 1 > jq * kM;
+    bool diagonal;
+    if constexpr (kRing)
+      diagonal = causal && wk0 + kBlockK - 1 > jq * kM + shift;
+    else
+      diagonal = causal && wk0 + kBlockK - 1 > jq * kM;
 #pragma unroll
     for (int n = 0; n < kNt; ++n) {
       const float2 l2 = *reinterpret_cast<const float2*>(lse_s + n * 8 + 2 * t);
@@ -846,7 +892,11 @@ __global__ void __launch_bounds__(DkvTeam::kThreads, DkvTeam::kBlocks) flash_dkv
         const int c = n * 8 + 2 * t + (e & 1);  // query row of the q tile
         float v = st[n][e];
         if constexpr (kBias) v = fmaf(bv[n][e], inv_scale, v);
-        if (diagonal && key0 + 8 * r > jq * kM + c) v = neg_raw;
+        if constexpr (kRing) {
+          if (diagonal && key0 + 8 * r > jq * kM + c + shift) v = neg_raw;
+        } else {
+          if (diagonal && key0 + 8 * r > jq * kM + c) v = neg_raw;
+        }
         v += pen_raw[r];
         st[n][e] = exp2_approx(fmaf(v, scale_log2, -((e & 1) ? l2.y : l2.x) * kLog2e));
       }
@@ -910,12 +960,13 @@ struct DqF32Layout {
   static constexpr int kBytes = kDs + align128(4LL * kBlockQ * kLdS);
 };
 
-template <int D>
+template <int D, bool kRing>
 __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ dout,
     const float* __restrict__ out, const float* __restrict__ lse, float* __restrict__ delta,
-    float* __restrict__ dq, int S, int Tk, int NH, int KV, float scale, int causal) {
+    float* __restrict__ dq, int S, int Tk, int NH, int KV, float scale, int causal,
+    const float* __restrict__ dlse, int shift) {  // kRing: the lse cotangent, q_off - kv_off
   using L = DqF32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -941,7 +992,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
   const float* vg = v + 1LL * b * Tk * kv_row + 1LL * g * D;
 
   int nk = Tk / kBlockK;
-  if (causal) nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+  if (causal) {
+    if constexpr (kRing)
+      nk = min(nk, causal_tiles(iq * kBlockQ + kBlockQ - 1 + shift, kBlockK));
+    else
+      nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+  }
   if (masked) nk = min(nk, (limit[b] + kBlockK) / kBlockK);
 
   auto load_kv = [&](int j) {
@@ -976,6 +1032,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
       part = __shfl_sync(0xffffffffu, part, 0);  // one order for every lane
       if (i == r) delta_r = part;
     }
+    if constexpr (kRing) delta_r -= dlse[(1LL * b * NH + h) * S + q_pos];
     if (half == 0) delta[(1LL * b * NH + h) * S + q_pos] = delta_r;
   }
   float* s_band = scr + warp * L::kScratch;
@@ -1002,8 +1059,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) {
       const int c = 2 * i + half;
-      const float s = score<false>(s_band[r * L::kLdS + c], scale, 0.f, causal, q_pos,
-                                   j * kBlockK + c, masked, masked ? pen[c] : 0.f);
+      float s;
+      if constexpr (kRing)
+        s = score<false>(s_band[r * L::kLdS + c], scale, 0.f, causal, q_pos + shift,
+                         j * kBlockK + c, masked, masked ? pen[c] : 0.f);
+      else
+        s = score<false>(s_band[r * L::kLdS + c], scale, 0.f, causal, q_pos, j * kBlockK + c,
+                         masked, masked ? pen[c] : 0.f);
       const float p = expf(s - lse_r);
       ds_band[r * L::kLdS + c] = p * (dp_band[r * L::kLdS + c] - delta_r) * scale;
     }
@@ -1178,13 +1240,13 @@ struct DkvF32Layout {
   static constexpr int kBytes = kDst + align128(4LL * kBlockK * kLdS);
 };
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kRing>
 __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ bias,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int S,
-    int Tk, int NH, int KV, int bias_batched, float scale, int causal) {
+    int Tk, int NH, int KV, int bias_batched, float scale, int causal, int shift) {
   using L = DkvF32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem + L::kK);
@@ -1208,10 +1270,14 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
   const long long kv_row = 1LL * KV * D;
   const long long kv_off = (1LL * b * Tk + 1LL * ik * kBlockK) * kv_row + 1LL * g * D;
 
-  const int lower = causal ? (ik * kBlockK) / kBlockQ : 0;
+  int lower;
+  if constexpr (kRing)
+    lower = causal ? max(ik * kBlockK - shift, 0) / kBlockQ : 0;
+  else
+    lower = causal ? (ik * kBlockK) / kBlockQ : 0;
   int upper = S / kBlockQ;
   if (masked && ik * kBlockK > limit[b]) upper = lower;
-  const int nq = upper - lower;
+  const int nq = kRing ? max(upper - lower, 0) : upper - lower;
   const int n_iter = group * nq;
 
   auto load_q = [&](int it) {
@@ -1268,9 +1334,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(
 #pragma unroll
     for (int i = 0; i < kBlockQ / 2; ++i) {
       const int c = 2 * i + half;  // query row of the q tile
-      const float s = score<kBias>(s_band[r * L::kLdS + c], scale,
-                                   kBias ? bias_col[1LL * c * Tk] : 0.f, causal, jq * kBlockQ + c,
-                                   k_pos, masked, penalty);
+      float s;
+      if constexpr (kRing)
+        s = score<false>(s_band[r * L::kLdS + c], scale, 0.f, causal, jq * kBlockQ + c + shift,
+                         k_pos, masked, penalty);
+      else
+        s = score<kBias>(s_band[r * L::kLdS + c], scale, kBias ? bias_col[1LL * c * Tk] : 0.f,
+                         causal, jq * kBlockQ + c, k_pos, masked, penalty);
       const float p = expf(s - rows[c]);
       pt_band[r * L::kLdS + c] = p;
       dst_band[r * L::kLdS + c] = p * (dp_band[r * L::kLdS + c] - rows[kBlockQ + c]) * scale;
@@ -1336,12 +1406,13 @@ cudaError_t prepare_bf16(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D, int kN, bool kBias>
+template <int D, int kN, bool kBias, bool kRing = false>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const int* mask,
                            const int* limit, const float* bias, const void* dout, const void* out,
                            const float* lse, float* delta, void* dq, float* dbias, int B, int S,
                            int Tk, int NH, int KV, int bias_batched, int chunk, float scale,
-                           int causal, cudaStream_t stream) {
+                           int causal, cudaStream_t stream, const float* dlse = nullptr,
+                           int shift = 0) {
   using L = DqLayout<tile_dim(D), kN, kBias>;
   using W = DqTeam<tile_dim(D), kN, kBias>;
   CUtensorMap maps[4];
@@ -1357,7 +1428,7 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const in
         static_cast<const bf16*>(out), mask, limit, bias, lse, delta, static_cast<bf16*>(dq),
         dbias, B, S, Tk, NH, KV, bias_batched, chunk, scale, causal);
   } else {
-    auto kernel = flash_dq_bf16_kernel<D, kN>;
+    auto kernel = flash_dq_bf16_kernel<D, kN, kRing>;
     cudaError_t err = prepare_bf16<W>(kernel, L::kAlloc);  // first: see prepare_bf16
     if (err != cudaSuccess) return err;
     if ((err = encode_maps(maps, q, dout, k, v, B, S, Tk, NH, KV, D)) != cudaSuccess) return err;
@@ -1365,19 +1436,19 @@ cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v, const in
     kernel<<<grid, W::kThreads, L::kAlloc, stream>>>(
         maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(dout),
         static_cast<const bf16*>(out), mask, limit, lse, delta, static_cast<bf16*>(dq), S, Tk, NH,
-        KV, scale, causal);
+        KV, scale, causal, dlse, shift);
   }
   return cudaGetLastError();
 }
 
-template <int D, int kM, bool kBias>
+template <int D, int kM, bool kBias, bool kRing = false>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const int* mask,
                             const int* limit, const float* bias, const void* dout,
                             const float* lse, const float* delta, void* dk, void* dv, int B,
                             int S, int Tk, int NH, int KV, int bias_batched, float scale,
-                            int causal, cudaStream_t stream) {
+                            int causal, cudaStream_t stream, int shift = 0) {
   using L = DkvLayout<tile_dim(D), kM>;
-  auto kernel = flash_dkv_bf16_kernel<D, kM, kBias>;
+  auto kernel = flash_dkv_bf16_kernel<D, kM, kBias, kRing>;
   cudaError_t err = prepare_bf16<DkvTeam>(kernel, L::kAlloc);  // first: see prepare_bf16
   if (err != cudaSuccess) return err;
   CUtensorMap maps[4];
@@ -1385,16 +1456,17 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v, const i
   const unsigned grid = static_cast<unsigned>((Tk + DkvTeam::kRows - 1) / DkvTeam::kRows) * KV * B;
   kernel<<<grid, DkvTeam::kThreads, L::kAlloc, stream>>>(
       maps[0], maps[1], maps[2], maps[3], mask, limit, bias, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), B, S, Tk, NH, KV, bias_batched, scale, causal);
+      static_cast<bf16*>(dv), B, S, Tk, NH, KV, bias_batched, scale, causal, shift);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kRing = false>
 cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const int* mask,
                           const int* limit, const float* bias, const void* dout, const void* out,
                           const float* lse, float* delta, void* dq, float* dbias, int B, int S,
                           int Tk, int NH, int KV, int bias_batched, int chunk, float scale,
-                          int causal, cudaStream_t stream) {
+                          int causal, cudaStream_t stream, const float* dlse = nullptr,
+                          int shift = 0) {
   const int smem = DqF32Layout<D>::kBytes;
   if (bias != nullptr) {
     auto kernel = flash_dq_bias_f32_kernel<D>;
@@ -1409,24 +1481,26 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const int
         causal);
     return cudaGetLastError();
   }
-  auto kernel = flash_dq_f32_kernel<D>;
+  auto kernel = flash_dq_f32_kernel<D, kRing>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / kBlockQ, NH, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       mask, limit, static_cast<const float*>(dout), static_cast<const float*>(out), lse, delta,
-      static_cast<float*>(dq), S, Tk, NH, KV, scale, causal);
+      static_cast<float*>(dq), S, Tk, NH, KV, scale, causal, dlse, shift);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kRing = false>
 cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const int* mask,
                            const int* limit, const float* bias, const void* dout,
                            const float* lse, const float* delta, void* dk, void* dv, int B,
                            int S, int Tk, int NH, int KV, int bias_batched, float scale,
-                           int causal, cudaStream_t stream) {
-  auto kernel = bias != nullptr ? flash_dkv_f32_kernel<D, true> : flash_dkv_f32_kernel<D, false>;
+                           int causal, cudaStream_t stream, int shift = 0) {
+  auto kernel = kRing ? flash_dkv_f32_kernel<D, false, true>
+                      : (bias != nullptr ? flash_dkv_f32_kernel<D, true, false>
+                                         : flash_dkv_f32_kernel<D, false, false>);
   const int smem = DkvF32Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1434,7 +1508,7 @@ cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const in
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       mask, limit, bias, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), S, Tk, NH, KV, bias_batched, scale, causal);
+      static_cast<float*>(dv), S, Tk, NH, KV, bias_batched, scale, causal, shift);
   return cudaGetLastError();
 }
 
@@ -1462,46 +1536,106 @@ bool valid(int B, int S, int Tk, int NH, int KV, const void* mask, const void* l
          Tk % kBlockK == 0 && (mask == nullptr) == (limit == nullptr);
 }
 
-// the dq kernel for a dtype and head dim; with a bias, 64-key tiles (see DqTeam)
+// the dq kernel for a dtype and head dim; with a bias, 64-key tiles (see DqTeam). kRing: the
+// ring-block variant at sh = q_offset - kv_offset with the lse cotangent dlse, without a bias
+template <bool kRing>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const int* m, const int* lim,
                       const float* bs, const void* dout, const void* out, const float* l,
                       float* dl, void* dq, float* db, int B, int S, int Tk, int NH, int KV, int D,
-                      int batched, int chunk, float scale, int causal, int dtype,
-                      cudaStream_t s) {
+                      int batched, int chunk, float scale, int causal, int dtype, cudaStream_t s,
+                      const float* dlse, int sh) {
   const bool bias = bs != nullptr;
   if (dtype == 1 && bias && D == 64)
-    return launch_dq_bf16<64, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
-                                        NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<64, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH,
+                                        KV, batched, chunk, scale, causal, s);
   if (dtype == 1 && bias && D == 32)
-    return launch_dq_bf16<32, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
-                                        NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<32, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH,
+                                        KV, batched, chunk, scale, causal, s);
   if (dtype == 1 && bias && D == 128)
     return launch_dq_bf16<128, 64, true>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
                                          NH, KV, batched, chunk, scale, causal, s);
   if (dtype == 1 && D == 64 && causal && Tk % 128 == 0)  // see DqTeam
-    return launch_dq_bf16<64, 128, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
-                                          Tk, NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<64, 128, false, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B,
+                                                 S, Tk, NH, KV, batched, chunk, scale, causal, s,
+                                                 dlse, sh);
   if (dtype == 1 && D == 32 && causal && Tk % 128 == 0)
-    return launch_dq_bf16<32, 128, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
-                                          Tk, NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<32, 128, false, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B,
+                                                 S, Tk, NH, KV, batched, chunk, scale, causal, s,
+                                                 dlse, sh);
   if (dtype == 1 && D == 32)
-    return launch_dq_bf16<32, 64, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
-                                         NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<32, 64, false, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
+                                                Tk, NH, KV, batched, chunk, scale, causal, s, dlse,
+                                                sh);
   if (dtype == 1 && D == 64)
-    return launch_dq_bf16<64, 64, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk,
-                                         NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<64, 64, false, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
+                                                Tk, NH, KV, batched, chunk, scale, causal, s, dlse,
+                                                sh);
   if (dtype == 1 && D == 128)
-    return launch_dq_bf16<128, 64, false>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S,
-                                          Tk, NH, KV, batched, chunk, scale, causal, s);
+    return launch_dq_bf16<128, 64, false, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B,
+                                                 S, Tk, NH, KV, batched, chunk, scale, causal, s,
+                                                 dlse, sh);
   if (dtype == 0 && D == 64)
-    return launch_dq_f32<64>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
-                             batched, chunk, scale, causal, s);
+    return launch_dq_f32<64, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
+                                    batched, chunk, scale, causal, s, dlse, sh);
   if (dtype == 0 && D == 128)
-    return launch_dq_f32<128>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
-                              batched, chunk, scale, causal, s);
+    return launch_dq_f32<128, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH,
+                                     KV, batched, chunk, scale, causal, s, dlse, sh);
   if (dtype == 0 && D == 32)
-    return launch_dq_f32<32>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
-                             batched, chunk, scale, causal, s);
+    return launch_dq_f32<32, kRing>(q, k, v, m, lim, bs, dout, out, l, dl, dq, db, B, S, Tk, NH, KV,
+                                    batched, chunk, scale, causal, s, dlse, sh);
+  return cudaErrorInvalidValue;
+}
+
+// the dk/dv kernel for a dtype and head dim; kRing: the ring-block variant at sh = q_offset -
+// kv_offset, without a bias
+template <bool kRing>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* mask,
+                       const void* limit, const void* bias, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv, int B, int S, int Tk, int NH, int KV,
+                       int D, int bias_batched, float scale, int causal, int dtype, void* stream,
+                       int sh) {
+  if (!valid(B, S, Tk, NH, KV, mask, limit)) return cudaErrorInvalidValue;
+  const int* m = static_cast<const int*>(mask);
+  const int* lim = static_cast<const int*>(limit);
+  const float* bs = static_cast<const float*>(bias);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const int bb = bias_batched;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // with a bias, 64-row q tiles: the 128-row S^T band and its bias values would not fit
+  if (dtype == 1 && bs != nullptr && D == 64)
+    return launch_dkv_bf16<64, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV,
+                                         bb, scale, causal, s);
+  if (dtype == 1 && bs != nullptr && D == 32)
+    return launch_dkv_bf16<32, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV,
+                                         bb, scale, causal, s);
+  if (dtype == 1 && bs != nullptr && D == 128)
+    return launch_dkv_bf16<128, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
+                                          KV, bb, scale, causal, s);
+  if (dtype == 1 && D == 64 && S % 128 == 0)  // see DkvTeam
+    return launch_dkv_bf16<64, 128, false, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S,
+                                                  Tk, NH, KV, bb, scale, causal, s, sh);
+  if (dtype == 1 && D == 32 && S % 128 == 0)
+    return launch_dkv_bf16<32, 128, false, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S,
+                                                  Tk, NH, KV, bb, scale, causal, s, sh);
+  if (dtype == 1 && D == 32)
+    return launch_dkv_bf16<32, 64, false, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk,
+                                                 NH, KV, bb, scale, causal, s, sh);
+  if (dtype == 1 && D == 64)
+    return launch_dkv_bf16<64, 64, false, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk,
+                                                 NH, KV, bb, scale, causal, s, sh);
+  if (dtype == 1 && D == 128)
+    return launch_dkv_bf16<128, 64, false, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S,
+                                                  Tk, NH, KV, bb, scale, causal, s, sh);
+  if (dtype == 0 && D == 64)
+    return launch_dkv_f32<64, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
+                                     scale, causal, s, sh);
+  if (dtype == 0 && D == 128)
+    return launch_dkv_f32<128, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV,
+                                      bb, scale, causal, s, sh);
+  if (dtype == 0 && D == 32)
+    return launch_dkv_f32<32, kRing>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
+                                     scale, causal, s, sh);
   return cudaErrorInvalidValue;
 }
 
@@ -1531,11 +1665,12 @@ int flash_backward_dq(const void* q, const void* k, const void* v, const void* m
   const bool summed = bs != nullptr && !bias_batched && chunks > 1;
   if (summed && dbias_part == nullptr) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_dq(q, k, v, static_cast<const int*>(mask),
-                              static_cast<const int*>(limit), bs, dout, out,
-                              static_cast<const float*>(lse), static_cast<float*>(delta), dq,
-                              summed ? static_cast<float*>(dbias_part) : db, B, S, Tk, NH, KV, D,
-                              bias_batched, chunk, scale, causal, dtype, s);
+  cudaError_t err = launch_dq<false>(q, k, v, static_cast<const int*>(mask),
+                                     static_cast<const int*>(limit), bs, dout, out,
+                                     static_cast<const float*>(lse), static_cast<float*>(delta),
+                                     dq, summed ? static_cast<float*>(dbias_part) : db, B, S, Tk,
+                                     NH, KV, D, bias_batched, chunk, scale, causal, dtype, s,
+                                     nullptr, 0);
   if (err != cudaSuccess || !summed) return err;
   const long long n4 = 1LL * NH * S * Tk / 4;
   const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
@@ -1551,49 +1686,38 @@ int flash_backward_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
                        int KV, int D, int bias_batched, float scale, int causal, int dtype,
                        void* stream) {
-  if (!valid(B, S, Tk, NH, KV, mask, limit)) return cudaErrorInvalidValue;
-  const int* m = static_cast<const int*>(mask);
-  const int* lim = static_cast<const int*>(limit);
-  const float* bs = static_cast<const float*>(bias);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const int bb = bias_batched;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // with a bias, 64-row q tiles: the 128-row S^T band and its bias values would not fit
-  if (dtype == 1 && bs != nullptr && D == 64)
-    return launch_dkv_bf16<64, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                         KV, bb, scale, causal, s);
-  if (dtype == 1 && bs != nullptr && D == 32)
-    return launch_dkv_bf16<32, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                         KV, bb, scale, causal, s);
-  if (dtype == 1 && bs != nullptr && D == 128)
-    return launch_dkv_bf16<128, 64, true>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                          KV, bb, scale, causal, s);
-  if (dtype == 1 && D == 64 && S % 128 == 0)  // see DkvTeam
-    return launch_dkv_bf16<64, 128, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                           KV, bb, scale, causal, s);
-  if (dtype == 1 && D == 32 && S % 128 == 0)
-    return launch_dkv_bf16<32, 128, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                           KV, bb, scale, causal, s);
-  if (dtype == 1 && D == 32)
-    return launch_dkv_bf16<32, 64, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                          KV, bb, scale, causal, s);
-  if (dtype == 1 && D == 64)
-    return launch_dkv_bf16<64, 64, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                          KV, bb, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return launch_dkv_bf16<128, 64, false>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH,
-                                           KV, bb, scale, causal, s);
-  if (dtype == 0 && D == 64)
-    return launch_dkv_f32<64>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
-                              scale, causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_dkv_f32<128>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
-                               scale, causal, s);
-  if (dtype == 0 && D == 32)
-    return launch_dkv_f32<32>(q, k, v, m, lim, bs, dout, l, dl, dk, dv, B, S, Tk, NH, KV, bb,
-                              scale, causal, s);
-  return cudaErrorInvalidValue;
+  return launch_dkv<false>(q, k, v, mask, limit, bias, dout, lse, delta, dk, dv, B, S, Tk, NH,
+                           KV, D, bias_batched, scale, causal, dtype, stream, 0);
+}
+
+// The ring-block variant of flash_backward_dq (the TPU kernels' `has_offsets` and the lse
+// cotangent), without a bias: causal over global positions (query row i at q_offset + i, key
+// j at kv_offset + j), and delta = rowsum(dout * out) - dlse (dlse fp32 [B, NH, S], the
+// cotangent of the forward's lse), which flash_backward_dkv_ring then reads. A block wholly
+// in its keys' past writes dq = 0. Returns a cudaError_t (0 = launched).
+int flash_backward_dq_ring(const void* q, const void* k, const void* v, const void* mask,
+                           const void* limit, const void* dout, const void* out, const void* lse,
+                           const void* dlse, void* delta, void* dq, int B, int S, int Tk, int NH,
+                           int KV, int D, int q_offset, int kv_offset, float scale, int causal,
+                           int dtype, void* stream) {
+  if (!valid(B, S, Tk, NH, KV, mask, limit) || dlse == nullptr) return cudaErrorInvalidValue;
+  return launch_dq<true>(q, k, v, static_cast<const int*>(mask), static_cast<const int*>(limit),
+                         nullptr, dout, out, static_cast<const float*>(lse),
+                         static_cast<float*>(delta), dq, nullptr, B, S, Tk, NH, KV, D, 0, 1, scale,
+                         causal, dtype, static_cast<cudaStream_t>(stream),
+                         static_cast<const float*>(dlse), q_offset - kv_offset);
+}
+
+// The ring-block variant of flash_backward_dkv, without a bias: causal over global positions
+// as flash_backward_dq_ring; a block of keys wholly in the queries' future makes no trip and
+// writes dk = dv = 0. Returns a cudaError_t (0 = launched).
+int flash_backward_dkv_ring(const void* q, const void* k, const void* v, const void* mask,
+                            const void* limit, const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int B, int S, int Tk, int NH,
+                            int KV, int D, int q_offset, int kv_offset, float scale, int causal,
+                            int dtype, void* stream) {
+  return launch_dkv<true>(q, k, v, mask, limit, nullptr, dout, lse, delta, dk, dv, B, S, Tk, NH,
+                          KV, D, 0, scale, causal, dtype, stream, q_offset - kv_offset);
 }
 
 const char* flash_error_string(int code) {

@@ -188,6 +188,13 @@ __device__ __forceinline__ float score(float qk, float scale, float bias, bool c
   return s;
 }
 
+// The key tiles of `tile` keys that a causal row range sees when its last row may attend key
+// index `last` (local, past the row's own index by q_offset - kv_offset in a ring block): zero
+// when `last` is negative, a block wholly before its keys (the ring's future blocks).
+__device__ __forceinline__ int causal_tiles(int last, int tile) {
+  return (max(last + 1, 0) + tile - 1) / tile;
+}
+
 __device__ __forceinline__ float mask_penalty(const int* mask, long long index) {
   return (static_cast<float>(mask[index]) - 1.f) * kPenalty;
 }

@@ -46,6 +46,14 @@
 // broadcast bias (12.6 MB at t5-base's encoder) is read from device memory about once and
 // from L2 by the other rows; it holds three blocks an SM at D = 64 for the bias's registers.
 // The variant without a bias compiles as before.
+// The ring-block variant (kRing; the TPU kernel's `has_offsets`, reached through
+// `flash_attention_block`) compares global positions: query row i sits at q_offset + i, key j
+// at kv_offset + j, and only their difference (one runtime int) enters the k-tile bound and
+// the diagonal test, so one build serves the ring's diagonal, past and future blocks. A block
+// wholly in its keys' past (the future blocks) runs no key tile: its producer copies Q only,
+// its consumers wait on nothing else and write out = 0 and lse = M_INIT + log(1e-30), which
+// the ring's merge weighs at exactly 0. The shift is read only inside `if constexpr (kRing)`
+// branches, so the kernels without the variant compile as before (flash_bwd.cu says why).
 // fp32 takes CUDA-core FMAs, the band's scores and output through shared memory (the tensor
 // cores take fp32 only as TF32). Tried and measured slower on the H100, so not here: two
 // 64-row tiles per warpgroup sharing each K/V tile; a persistent grid; issuing the next
@@ -92,7 +100,7 @@ __host__ __device__ constexpr int fwd_blocks_per_sm(int D, bool bias) {
   return bias && D == 64 ? 3 : (D == 64 ? 4 : 2);
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kRing>
 __global__ void __launch_bounds__(kFwdThreads, fwd_blocks_per_sm(tile_dim(D), kBias))
 flash_fwd_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,  // q [B * S, NH, D]
@@ -103,7 +111,8 @@ flash_fwd_bf16_kernel(
     const float* __restrict__ bias,  // [1|B, NH, S, T] fp32 (kBias)
     bf16* __restrict__ out,          // [B, S, NH, D]
     float* __restrict__ lse,         // [B, NH, S]
-    int B, int S, int Tk, int NH, int KV, int bias_batched, float scale, int causal) {
+    int B, int S, int Tk, int NH, int KV, int bias_batched, float scale, int causal,
+    int shift) {  // kRing: q_offset - kv_offset, the queries' global lead over the keys
   constexpr int kDt = tile_dim(D);  // columns of a shared-memory tile and of the output band
   using L = FwdLayout<kDt>;
   constexpr int kNt = kBlockK / 8;  // 8-column tiles of a score band
@@ -133,7 +142,12 @@ flash_fwd_bf16_kernel(
   const bool masked = mask != nullptr;
 
   int nk = Tk / kBlockK;
-  if (causal) nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+  if (causal) {
+    if constexpr (kRing)  // a block wholly in the keys' past: zero tiles, out 0
+      nk = min(nk, causal_tiles(iq * kBlockQ + kBlockQ - 1 + shift, kBlockK));
+    else
+      nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+  }
   if (masked) nk = min(nk, (limit[b] + kBlockK) / kBlockK);  // limit -1 -> 0 tiles
 
   if (tid == 0) {
@@ -233,7 +247,11 @@ flash_fwd_bf16_kernel(
     // online softmax over the lane's two rows; a row's four lanes reduce by shuffles. The
     // score recipe is flash_common.cuh `score`'s (scale, causal limit, mask penalty, a
     // running max from M_INIT), the causal test kept to the diagonal tile
-    const bool diagonal = causal && j * kBlockK + kBlockK - 1 > iq * kBlockQ;
+    bool diagonal;
+    if constexpr (kRing)
+      diagonal = causal && j * kBlockK + kBlockK - 1 > iq * kBlockQ + shift;
+    else
+      diagonal = causal && j * kBlockK + kBlockK - 1 > iq * kBlockQ;
     float mx[2] = {neg_raw, neg_raw};
 #pragma unroll
     for (int n = 0; n < kNt; ++n)
@@ -242,7 +260,11 @@ flash_fwd_bf16_kernel(
         const int c = n * 8 + 2 * t + (e & 1);
         float v = s[n][e];
         if constexpr (kBias) v = fmaf(bv[n][e], inv_scale, v);
-        if (diagonal && j * kBlockK + c > row0 + 8 * (e >> 1)) v = neg_raw;
+        if constexpr (kRing) {
+          if (diagonal && j * kBlockK + c > row0 + 8 * (e >> 1) + shift) v = neg_raw;
+        } else {
+          if (diagonal && j * kBlockK + c > row0 + 8 * (e >> 1)) v = neg_raw;
+        }
         if (masked) v += pst[c];
         s[n][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
@@ -301,15 +323,15 @@ flash_fwd_bf16_kernel(
       lse[(1LL * b * NH + h) * S + row0 + 8 * r] = m_run[r] + logf(l_safe[r]);
 }
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kRing = false>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask,
                         const int* limit, const float* bias, void* out, float* lse, int B, int S,
                         int Tk, int NH, int KV, int bias_batched, float scale, int causal,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int shift = 0) {
   using L = FwdLayout<tile_dim(D)>;
   // a runtime call first: it makes the device's context current on this thread, which the
   // tensor-map encoder (a driver call) needs (hopper.cuh `encode_map`)
-  auto kernel = flash_fwd_bf16_kernel<D, kBias>;
+  auto kernel = flash_fwd_bf16_kernel<D, kBias, kRing>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kAlloc);
   if (err != cudaSuccess) return err;
@@ -323,20 +345,21 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* 
   const unsigned grid = static_cast<unsigned>(S / kBlockQ) * NH * B;
   kernel<<<grid, kFwdThreads, L::kAlloc, stream>>>(q_map, k_map, v_map, mask, limit, bias,
                                                    static_cast<bf16*>(out), lse, B, S, Tk, NH,
-                                                   KV, bias_batched, scale, causal);
+                                                   KV, bias_batched, scale, causal, shift);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const int* mask,
-                        const int* limit, const float* bias, void* out, float* lse, int B, int S,
-                        int Tk, int NH, int KV, int bias_batched, float scale, int causal,
-                        cudaStream_t stream) {
+// the bf16 kernel with or without a bias (the ring variant takes none)
+template <int D, bool kRing>
+cudaError_t launch_bf16_any(const void* q, const void* k, const void* v, const int* mask,
+                            const int* limit, const float* bias, void* out, float* lse, int B,
+                            int S, int Tk, int NH, int KV, int bias_batched, float scale,
+                            int causal, cudaStream_t stream, int shift) {
   return bias != nullptr
              ? launch_bf16<D, true>(q, k, v, mask, limit, bias, out, lse, B, S, Tk, NH, KV,
                                     bias_batched, scale, causal, stream)
-             : launch_bf16<D, false>(q, k, v, mask, limit, bias, out, lse, B, S, Tk, NH, KV,
-                                     bias_batched, scale, causal, stream);
+             : launch_bf16<D, false, kRing>(q, k, v, mask, limit, bias, out, lse, B, S, Tk, NH,
+                                            KV, bias_batched, scale, causal, stream, shift);
 }
 
 // --------------------------------------------------------------------------------------
@@ -358,12 +381,12 @@ struct F32Layout {
   static constexpr int kBytes = kO + align128(4LL * kBlockQ * kLdO);
 };
 
-template <int D, bool kBias>
+template <int D, bool kBias, bool kRing>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ mask, const int* __restrict__ limit, const float* __restrict__ bias,
     float* __restrict__ out, float* __restrict__ lse, int S, int Tk, int NH, int KV,
-    int bias_batched, float scale, int causal) {
+    int bias_batched, float scale, int causal, int shift) {
   using L = F32Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem + L::kQ);
@@ -388,7 +411,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
   const float* vg = v + 1LL * b * Tk * kv_row + 1LL * g * D;
 
   int nk = Tk / kBlockK;
-  if (causal) nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+  if (causal) {
+    if constexpr (kRing)
+      nk = min(nk, causal_tiles(iq * kBlockQ + kBlockQ - 1 + shift, kBlockK));
+    else
+      nk = min(nk, (iq * kBlockQ + kBlockQ + kBlockK - 1) / kBlockK);
+  }
   if (masked) nk = min(nk, (limit[b] + kBlockK) / kBlockK);
 
   auto load_kv = [&](int j) {
@@ -434,9 +462,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) {
       const int c = 2 * i + half;
-      sv[i] = score<kBias>(s_band[r * L::kLdS + c], scale,
-                           kBias ? bias_row[j * kBlockK + c] : 0.f, causal, q_pos,
-                           j * kBlockK + c, masked, masked ? pen[c] : 0.f);
+      if constexpr (kRing)
+        sv[i] = score<kBias>(s_band[r * L::kLdS + c], scale, 0.f, causal, q_pos + shift,
+                             j * kBlockK + c, masked, masked ? pen[c] : 0.f);
+      else
+        sv[i] = score<kBias>(s_band[r * L::kLdS + c], scale,
+                             kBias ? bias_row[j * kBlockK + c] : 0.f, causal, q_pos,
+                             j * kBlockK + c, masked, masked ? pen[c] : 0.f);
       mx = fmaxf(mx, sv[i]);
     }
     const float m_new = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -474,12 +506,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
   if (half == 0) lse[(1LL * b * NH + h) * S + q_pos] = m_run + logf(l_safe);
 }
 
-template <int D>
+template <int D, bool kRing = false>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* mask,
                        const int* limit, const float* bias, void* out, float* lse, int B, int S,
                        int Tk, int NH, int KV, int bias_batched, float scale, int causal,
-                       cudaStream_t stream) {
-  auto kernel = bias != nullptr ? flash_fwd_f32_kernel<D, true> : flash_fwd_f32_kernel<D, false>;
+                       cudaStream_t stream, int shift = 0) {
+  auto kernel = kRing ? flash_fwd_f32_kernel<D, false, true>
+                      : (bias != nullptr ? flash_fwd_f32_kernel<D, true, false>
+                                         : flash_fwd_f32_kernel<D, false, false>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          F32Layout<D>::kBytes);
   if (err != cudaSuccess) return err;
@@ -487,8 +521,44 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const int* m
   kernel<<<grid, kThreads, F32Layout<D>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       mask, limit, bias, static_cast<float*>(out), lse, S, Tk, NH, KV, bias_batched, scale,
-      causal);
+      causal, shift);
   return cudaGetLastError();
+}
+
+// the kernel for a dtype and head dim; kRing: the ring-block variant at shift = q_offset -
+// kv_offset, without a bias
+template <bool kRing>
+cudaError_t launch_forward(const void* q, const void* k, const void* v, const void* mask,
+                           const void* limit, const void* bias, void* out, void* lse, int B,
+                           int S, int Tk, int NH, int KV, int D, int bias_batched, float scale,
+                           int causal, int dtype, void* stream, int sh) {
+  if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || NH % KV != 0 || S % kBlockQ || Tk % kBlockK ||
+      (mask == nullptr) != (limit == nullptr))
+    return cudaErrorInvalidValue;
+  const int* m = static_cast<const int*>(mask);
+  const int* lim = static_cast<const int*>(limit);
+  const float* bs = static_cast<const float*>(bias);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D == 64)
+    return launch_bf16_any<64, kRing>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched,
+                                      scale, causal, s, sh);
+  if (dtype == 1 && D == 128)
+    return launch_bf16_any<128, kRing>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV,
+                                       bias_batched, scale, causal, s, sh);
+  if (dtype == 1 && D == 32)
+    return launch_bf16_any<32, kRing>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched,
+                                      scale, causal, s, sh);
+  if (dtype == 0 && D == 64)
+    return launch_f32<64, kRing>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched,
+                                 scale, causal, s, sh);
+  if (dtype == 0 && D == 128)
+    return launch_f32<128, kRing>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched,
+                                  scale, causal, s, sh);
+  if (dtype == 0 && D == 32)
+    return launch_f32<32, kRing>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched,
+                                 scale, causal, s, sh);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -504,33 +574,20 @@ int flash_forward(const void* q, const void* k, const void* v, const void* mask,
                   const void* limit, const void* bias, void* out, void* lse, int B, int S, int Tk,
                   int NH, int KV, int D, int bias_batched, float scale, int causal, int dtype,
                   void* stream) {
-  if (B <= 0 || S <= 0 || Tk <= 0 || KV <= 0 || NH % KV != 0 || S % kBlockQ || Tk % kBlockK ||
-      (mask == nullptr) != (limit == nullptr))
-    return cudaErrorInvalidValue;
-  const int* m = static_cast<const int*>(mask);
-  const int* lim = static_cast<const int*>(limit);
-  const float* bs = static_cast<const float*>(bias);
-  float* l = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
-                           causal, s);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
-                            causal, s);
-  if (dtype == 1 && D == 32)
-    return launch_bf16<32>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
-                           causal, s);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
-                          causal, s);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
-                           causal, s);
-  if (dtype == 0 && D == 32)
-    return launch_f32<32>(q, k, v, m, lim, bs, out, l, B, S, Tk, NH, KV, bias_batched, scale,
-                          causal, s);
-  return cudaErrorInvalidValue;
+  return launch_forward<false>(q, k, v, mask, limit, bias, out, lse, B, S, Tk, NH, KV, D,
+                               bias_batched, scale, causal, dtype, stream, 0);
+}
+
+// The ring-block variant (the TPU kernel's `has_offsets`): as flash_forward without a bias,
+// causal over global positions, query row i at q_offset + i and key j at kv_offset + j. A
+// block wholly in its keys' past (q_offset + S - 1 < kv_offset) runs no key tile and writes
+// out = 0 and lse = M_INIT + log(1e-30). One build serves every offset.
+int flash_forward_ring(const void* q, const void* k, const void* v, const void* mask,
+                       const void* limit, void* out, void* lse, int B, int S, int Tk, int NH,
+                       int KV, int D, int q_offset, int kv_offset, float scale, int causal,
+                       int dtype, void* stream) {
+  return launch_forward<true>(q, k, v, mask, limit, nullptr, out, lse, B, S, Tk, NH, KV, D, 0,
+                              scale, causal, dtype, stream, q_offset - kv_offset);
 }
 
 const char* flash_error_string(int code) {

@@ -578,7 +578,7 @@ class DataLoaderDispatcher(IterableDataLoaderShard):
         drop_last: bool = False,
         device=None,
     ):
-        total = batch_size * PartialState().num_processes
+        total = batch_size * PartialState().batch_shards
         shard = IterableDatasetShard(dataset, batch_size=total, num_processes=1, process_index=0,
                                      drop_last=drop_last)
         super().__init__(shard, collate_fn=collate_fn, device_placement=device_placement, prefetch=0,
@@ -613,8 +613,9 @@ class DataLoaderDispatcher(IterableDataLoaderShard):
         rows = broadcast_object_list([rows])[0]
         if rows is None:
             return None
-        share = len(rows) // state.num_processes
-        return self.collate_fn(rows[state.process_index * share:(state.process_index + 1) * share])
+        share = len(rows) // state.batch_shards
+        index = state.batch_shard_index
+        return self.collate_fn(rows[index * share:(index + 1) * share])
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +642,10 @@ def prepare_data_loader(
     dataset (``__len__`` and ``__getitem__``), an iterable dataset, a torch
     ``DataLoader`` (its dataset, batch size, ``drop_last``, custom collate
     and shuffle are taken over) or a prepared loader (returned as it is).
-    ``device=None`` is the process's device."""
+    ``device=None`` is the process's device. The batches shard over the
+    mesh's batch axes (data and fsdp): the processes of one sequence group
+    take the same rows, as the JAX package's batch spec ``(data, fsdp)``
+    does."""
     if isinstance(dataloader_or_dataset, BaseDataLoader):
         return dataloader_or_dataset
 
@@ -674,7 +678,7 @@ def prepare_data_loader(
             )
         return DataLoaderDispatcher(
             dataset,
-            batch_size=batch_size if not split_batches else batch_size // state.num_processes,
+            batch_size=batch_size if not split_batches else batch_size // state.batch_shards,
             collate_fn=collate_fn,
             device_placement=device_placement,
             drop_last=drop_last,
@@ -686,8 +690,8 @@ def prepare_data_loader(
         shard = IterableDatasetShard(
             dataset,
             batch_size=batch_size,
-            num_processes=state.num_processes,
-            process_index=state.process_index,
+            num_processes=state.batch_shards,
+            process_index=state.batch_shard_index,
             drop_last=drop_last,
             split_batches=split_batches,
         )
@@ -699,8 +703,8 @@ def prepare_data_loader(
     sampler = SeedableRandomSampler(n, seed=seed) if shuffle else SequentialSampler(n)
     shard = BatchSamplerShard(
         BatchSampler(sampler, batch_size=batch_size, drop_last=drop_last),
-        num_processes=state.num_processes,
-        process_index=state.process_index,
+        num_processes=state.batch_shards,
+        process_index=state.batch_shard_index,
         split_batches=split_batches,
         even_batches=even_batches,
     )

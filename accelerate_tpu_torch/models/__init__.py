@@ -1,6 +1,7 @@
 """The model zoo in PyTorch (llama, llama-MoE, t5 and bert), with the JAX
 package's parameter layout."""
 
+from .attention import dot_product_attention, rotary_embedding
 from .bert import Bert, layer_norm
 from .config import (
     TransformerConfig,
@@ -42,6 +43,7 @@ __all__ = [
     "TransformerConfig",
     "build_model",
     "decoder_layer",
+    "dot_product_attention",
     "forward_window_with_cache",
     "forward_with_cache",
     "generate",
@@ -54,6 +56,7 @@ __all__ = [
     "resolve_decode_protocol",
     "resolve_window_protocol",
     "rms_norm",
+    "rotary_embedding",
     "routed_mlp",
     "train_flops_per_step",
     "train_flops_per_token",

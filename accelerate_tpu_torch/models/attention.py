@@ -71,6 +71,24 @@ def draw_seeds(generator: torch.Generator, n: int) -> list[int]:
     return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
 
 
+def sequence_chunk(attention_fn, length: int):
+    """This process's share of a sequence of ``length`` under the training
+    hook ``attention_fn``: ``(start, stop, attention_fn, counts)``. A ring
+    hook (``parallel/ring_attention.py``: it has a ``span``) gives this
+    process's chunk, which the model runs with the hook, its loss terms
+    counting here; when the ring size does not divide the length, the whole
+    sequence through the exact einsum path (no hook), its terms counting on
+    ring index 0 only (every process computes the same ones). Any other
+    hook: the whole sequence, the hook, and True."""
+    span = getattr(attention_fn, "span", None)
+    if span is None:
+        return 0, length, attention_fn, True
+    chunk = span(length)
+    if chunk is None:
+        return 0, length, None, attention_fn.index == 0
+    return chunk[0], chunk[1], attention_fn, True
+
+
 def rotary_embedding(positions: torch.Tensor, head_dim: int, theta: float = 10000.0, dtype=torch.float32):
     """RoPE cos/sin tables for ``positions`` [..., S] -> two [..., S, D/2] tensors."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim

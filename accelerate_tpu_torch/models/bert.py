@@ -23,7 +23,15 @@ from torch import nn
 
 from ..ops.runtime import resolve_device
 from ..utils.constants import MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
-from .attention import dense_init, dot_product_attention, draw_seeds, dropout, resolve_dot, seeded_generator
+from .attention import (
+    dense_init,
+    dot_product_attention,
+    draw_seeds,
+    dropout,
+    resolve_dot,
+    seeded_generator,
+    sequence_chunk,
+)
 from .config import TransformerConfig, get_config
 
 
@@ -74,6 +82,8 @@ class Bert(nn.Module):
 
     # bidirectional attention: prepare_model builds the non-causal dispatch
     causal_attention = False
+    # under a ring hook (a sequence axis) apply runs this process's chunk
+    sequence_chunks = True
 
     def __init__(
         self,
@@ -163,18 +173,29 @@ class Bert(nn.Module):
         and one per layer and branch are drawn from it before the loop (the
         JAX package splits its key, then ``L * 2`` keys), and each layer
         builds its generators from its seeds, so a checkpointed layer draws
-        the same masks when it is recomputed."""
+        the same masks when it is recomputed.
+
+        Under a ring hook (a sequence axis; ``sequence_chunk``) the batch
+        holds the global rows and this process runs its chunk (learned
+        positions at the chunk's offset) through the non-causal ring. The
+        pooler reads position 0, which the chunk at offset 0 holds: the
+        logits are that process's, and zeros elsewhere (still a function
+        of the chunk, so every process's backward runs its ring's hops)."""
         cfg = self.config
         s = input_ids.shape[1]
         if s > cfg.max_seq_len:
             # learned positions: an index past the table would fail later and
             # less clearly (JAX's take would clamp it)
             raise ValueError(f"sequence length {s} exceeds max_seq_len {cfg.max_seq_len}")
+        start, stop, attention_fn, counts = sequence_chunk(self.attention_fn, s)
         emb = params["embeddings"]
         if position_ids is None:
-            position_ids = torch.arange(s, device=input_ids.device)[None, :]
+            position_ids = torch.arange(start, stop, device=input_ids.device)[None, :]
+        else:
+            position_ids = position_ids[..., start:stop]
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
+        input_ids, token_type_ids = input_ids[:, start:stop], token_type_ids[:, start:stop]
         h = emb["word"][input_ids.long()] + emb["position"][position_ids.long()] + emb["token_type"][
             token_type_ids.long()]
         h = layer_norm(h, emb["norm_scale"], emb["norm_bias"], cfg.norm_eps)
@@ -185,19 +206,21 @@ class Bert(nn.Module):
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
+            attention_mask = attention_mask[:, start:stop]
 
         def layer(h, lp, seed_attn, seed_mlp):
             generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
-            return self._block(h, lp, mask, generators, kv_mask=attention_mask)
+            return self._block(h, lp, mask, generators, kv_mask=attention_mask, attention_fn=attention_fn)
 
         per_key = {name: w.unbind(0) for name, w in params["layers"].items()}
         for i in range(cfg.num_layers):
             args = (h, {name: w[i] for name, w in per_key.items()}, seeds[1 + 2 * i], seeds[2 + 2 * i])
             h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
         pooled = torch.tanh(h[:, 0] @ params["pooler"]["w"] + params["pooler"]["b"])
-        return pooled @ params["classifier"]["w"] + params["classifier"]["b"]
+        logits = pooled @ params["classifier"]["w"] + params["classifier"]["b"]
+        return logits if start == 0 and counts else logits * 0.0
 
-    def _block(self, h, lp: dict, mask, generators=(None, None), kv_mask=None) -> torch.Tensor:
+    def _block(self, h, lp: dict, mask, generators=(None, None), kv_mask=None, attention_fn=None) -> torch.Tensor:
         """One encoder layer (post-norm): attention, dropout, residual,
         layernorm; gelu MLP, dropout, residual, layernorm."""
         cfg = self.config
@@ -208,8 +231,8 @@ class Bert(nn.Module):
         q = (dot(h, lp["wq"]) + lp["bq"]).reshape(b, s, nh, d)
         k = (dot(h, lp["wk"]) + lp["bk"]).reshape(b, s, nh, d)
         v = (dot(h, lp["wv"]) + lp["bv"]).reshape(b, s, nh, d)
-        if self.attention_fn is not None:
-            attn = self.attention_fn(q, k, v, kv_mask)
+        if attention_fn is not None:
+            attn = attention_fn(q, k, v, kv_mask)
         else:
             attn = dot_product_attention(q, k, v, mask=mask)
         attn_out = dot(attn.reshape(b, s, nh * d), lp["wo"]) + lp["bo"]
@@ -233,7 +256,9 @@ class Bert(nn.Module):
         """Softmax cross-entropy over a batch ``{input_ids, [attention_mask],
         [token_type_ids], labels}``, log-softmax in fp32, as the JAX
         package's ``Bert.loss_fn``. ``dropout_generator`` (the port's
-        addition) turns dropout on: each call draws its seeds from it."""
+        addition) turns dropout on: each call draws its seeds from it.
+        Under a sequence axis the loss counts on the process that holds
+        position 0 (``apply``) and is zero elsewhere."""
 
         def fn(params, batch):
             logits = model.apply(
@@ -241,6 +266,8 @@ class Bert(nn.Module):
                 dropout_generator=dropout_generator,
             ).float()
             logp = torch.log_softmax(logits, dim=-1)
-            return -torch.gather(logp, -1, batch["labels"].long()[:, None]).mean()
+            loss = -torch.gather(logp, -1, batch["labels"].long()[:, None]).mean()
+            start, _, _, counts = sequence_chunk(model.attention_fn, batch["input_ids"].shape[1])
+            return loss if start == 0 and counts else loss * 0.0
 
         return fn

@@ -31,6 +31,7 @@ from .attention import (
     resolve_dot,
     rotary_embedding,
     seeded_generator,
+    sequence_chunk,
 )
 from .config import TransformerConfig, get_config
 from .moe import routed_mlp
@@ -161,6 +162,9 @@ class Llama(nn.Module):
     """A llama-style causal LM. ``seed`` draws the initial weights from a
     ``torch.Generator`` on the model's device; they need not match the JAX
     package's threefry draws (parity tests load JAX weights instead)."""
+
+    # under a ring hook (a sequence axis) apply runs this process's chunk
+    sequence_chunks = True
 
     def __init__(
         self,
@@ -329,18 +333,29 @@ class Llama(nn.Module):
         its branches' generators from its seeds, so a checkpointed layer
         draws the same masks when it is recomputed. ``return_aux`` adds the
         summed MoE load-balance loss (fp32; the float 0.0 for a dense
-        config) as a second output."""
+        config) as a second output.
+
+        Under a ring hook (a sequence axis) the batch holds the global rows
+        and this process runs its chunk of the sequence from the embeddings
+        on (rotary positions at the chunk's offset; ``sequence_chunk``):
+        the logits are the chunk's ``[B, S/n, V]``."""
         cfg = self.config
-        s = input_ids.shape[1]
-        h = params["embed_tokens"][input_ids.long()]
+        start, stop, attention_fn, _ = sequence_chunk(self.attention_fn, input_ids.shape[1])
+        if attention_fn is not None and stop - start < input_ids.shape[1] and cfg.num_experts > 1:
+            raise NotImplementedError(
+                "MoE layers under a sequence axis (routing capacity and the load-balance term over "
+                "the whole sequence) are not in the port yet (ROADMAP item 17(b))"
+            )
+        h = params["embed_tokens"][input_ids[:, start:stop].long()]
         if positions is None:
-            positions = torch.arange(s, device=h.device)[None, :]
-        elif positions.dim() == 1:
-            positions = positions[None, :]
+            positions = torch.arange(start, stop, device=h.device)[None, :]
+        else:
+            positions = (positions[None, :] if positions.dim() == 1 else positions)[..., start:stop]
         cos, sin = rotary_embedding(positions, cfg.dim_per_head, cfg.rope_theta, dtype=h.dtype)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
+            attention_mask = attention_mask[:, start:stop]
         keys = layer_keys(cfg)
         layers = params["layers"]
         per_key = {
@@ -355,7 +370,7 @@ class Llama(nn.Module):
         def layer(h, lp, seed_attn, seed_mlp):
             h, _, aux = decoder_layer(
                 cfg, h, lp, cos, sin, mask, causal=True, dot_fn=self.dot_fn,
-                attention_fn=self.attention_fn, kv_mask=attention_mask,
+                attention_fn=attention_fn, kv_mask=attention_mask,
                 dropout_generators=(seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device)),
                 dropout_rate=cfg.dropout_rate, return_aux=True,
             )
@@ -387,21 +402,38 @@ class Llama(nn.Module):
         targets' positions, as the JAX package's ``Llama.loss_fn``; an MoE
         config adds the summed load-balance term. ``dropout_generator``
         (the port's addition) turns residual dropout on: each call draws
-        its seeds from it."""
+        its seeds from it.
+
+        Under a sequence axis each process takes the terms of its chunk's
+        positions, normalized by the whole batch's count, so the terms
+        summed over the sequence group are the loss (``Accelerator`` sums
+        the losses and gradients there): a chunk's last target is the next
+        chunk's first token, which the global rows hold, and the sequence's
+        last position has none."""
 
         def fn(params, batch):
             input_ids = batch["input_ids"]
             attention_mask = batch.get("attention_mask")
             logits, aux = model.apply(params, input_ids, attention_mask,
                                       dropout_generator=dropout_generator, return_aux=True)
-            targets = input_ids[:, 1:].long()
-            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            s = input_ids.shape[1]
+            start, stop, _, counts = sequence_chunk(model.attention_fn, s)
+            if stop - start == s:
+                targets = input_ids[:, 1:].long()
+                logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+                nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+                if attention_mask is not None:
+                    w = attention_mask[:, 1:].float()
+                    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+                else:
+                    loss = nll.mean()
+                return loss + aux if counts else (loss + aux) * 0.0
+            targets = input_ids[:, start + 1:stop + 1].long()
+            logp = torch.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
             nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-            if attention_mask is not None:
-                w = attention_mask[:, 1:].float()
-                loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
-            else:
-                loss = nll.mean()
-            return loss + aux
+            if attention_mask is None:
+                return nll.sum() / (input_ids.shape[0] * (s - 1))
+            w = attention_mask[:, start + 1:stop + 1].float()
+            return (nll * w).sum() / torch.clamp(attention_mask[:, 1:].float().sum(), min=1.0)
 
         return fn

@@ -42,11 +42,22 @@ batch in a fixed order for a ``[1, ...]`` one (each dq block walks a chunk of
 batch rows into its own slab; a second kernel sums the chunks in order), so
 two launches give the same bits. The no-bias kernels are unchanged.
 
+The ring-block entry :func:`flash_attention_block` (the JAX package's,
+which ``parallel/ring_attention.py`` calls once per ring step) returns
+``(out, lse)``, both differentiable, with causality over global positions
+``q_offset + i`` and ``kv_offset + j``: each kernel has a ring variant that
+takes the offsets as two runtime ints (``flash_forward_ring`` and the two
+``*_ring`` backward entry points of ``csrc/``), so one build serves the
+ring's diagonal, past and future blocks; a future block makes no trip and
+gives ``out = 0`` and ``lse = M_INIT + log(1e-30)`` exactly. Its backward
+takes the cotangent of ``lse`` too, folded into delta by the dq kernel
+(``delta = rowsum(dO·O) - dlse``), as the TPU kernels do.
+
 A tensor on the CPU takes the plain PyTorch versions
 (:func:`flash_forward_reference`, :func:`flash_delta_reference`,
-:func:`flash_backward_dq_reference`, :func:`flash_backward_dkv_reference`);
-a CUDA tensor launches the kernels or raises. The ring ``offsets`` entry
-(ROADMAP item 17) raises ``NotImplementedError``.
+:func:`flash_backward_dq_reference`, :func:`flash_backward_dkv_reference`,
+each with the ring's ``offsets``); a CUDA tensor launches the kernels or
+raises.
 """
 
 from __future__ import annotations
@@ -105,29 +116,33 @@ def _mask_limit(kv_mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, mask, causal: bool, scale: float, bias=None) -> torch.Tensor:
+def _scores(q, k, mask, causal: bool, scale: float, bias=None, offsets=None) -> torch.Tensor:
     """``[B, N, S, T]`` fp32 scores with the kernels' one recipe: q·k from
     the operands' values summed in fp32, times ``scale``, plus the fp32
     ``bias``, causal positions set to NEG_INF, then the mask penalty
-    ``(m - 1)·1e30`` added."""
+    ``(m - 1)·1e30`` added. ``offsets`` ``(q_offset, kv_offset)`` place
+    query row i at ``q_offset + i`` and key j at ``kv_offset + j`` for the
+    causal comparison (a ring block)."""
     s = grouped_scores(q.float(), k.float()) * scale
     if bias is not None:
         s = s + bias.float()
     if causal:
-        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
-        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        q_off, k_off = offsets or (0, 0)
+        q_pos = q_off + torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = k_off + torch.arange(k.shape[1], device=q.device)[None, :]
         s = torch.where(k_pos <= q_pos, s, NEG_INF)
     if mask is not None:
         s = s + (mask.float()[:, None, None, :] - 1.0) * -NEG_INF
     return s
 
 
-def flash_forward_reference(q, k, v, mask=None, causal: bool = True, scale: float = 1.0, bias=None):
+def flash_forward_reference(q, k, v, mask=None, causal: bool = True, scale: float = 1.0, bias=None,
+                            offsets=None):
     """Plain version of the forward kernel: ``(out [B, S, N, D], lse [B, N,
     S] fp32)``. ``p = exp(s - m)`` is rounded to v's dtype before ``P·V``
     (the kernel's accumulator takes the same rounded p), ``l`` sums the fp32
     p, and ``out = acc / max(l, 1e-30)``."""
-    s = _scores(q, k, mask, causal, scale, bias)
+    s = _scores(q, k, mask, causal, scale, bias, offsets)
     m = torch.clamp(s.amax(dim=-1), min=M_INIT)  # [B, N, S]
     p = torch.exp(s - m[..., None])
     l_safe = torch.clamp(p.sum(dim=-1), min=1e-30)
@@ -136,18 +151,21 @@ def flash_forward_reference(q, k, v, mask=None, causal: bool = True, scale: floa
     return out, m + torch.log(l_safe)
 
 
-def flash_delta_reference(do, out) -> torch.Tensor:
+def flash_delta_reference(do, out, dlse=None) -> torch.Tensor:
     """``delta = rowsum(dO·O)`` in fp32, ``[B, N, S]``: the backward's row
-    term, as the JAX package computes it outside its kernels."""
-    return (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    term, as the JAX package computes it outside its kernels; minus the
+    lse cotangent ``dlse`` ``[B, N, S]`` where the lse is an output (a ring
+    block), so that ``dS = p·(dP - rowsum(dO·O) + dlse)``."""
+    delta = (do.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    return delta if dlse is None else delta - dlse.float()
 
 
-def _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias=None):
+def _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias=None, offsets=None):
     """``(p fp32, dS fp32, ds rounded to k's dtype)`` of the backward
     kernels: ``p = exp(s - lse)``, ``dS = p·(dP - delta)`` (the bias's
     gradient), ``ds = (dS·scale)`` rounded, with ``dP = dO·Vᵀ`` summed in
     fp32."""
-    s = _scores(q, k, mask, causal, scale, bias)
+    s = _scores(q, k, mask, causal, scale, bias, offsets)
     p = torch.exp(s - lse[..., None])
     dp = grouped_scores(do.float(), v.float())
     dsb = p * (dp - delta[..., None])
@@ -161,23 +179,25 @@ def _group_sum(x: torch.Tensor, kv: int) -> torch.Tensor:
     return x.reshape(b, t, kv, n // kv, d).sum(dim=3)
 
 
-def flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0, bias=None):
+def flash_backward_dq_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0, bias=None,
+                                offsets=None):
     """Plain version of the dq kernel: ``dq = ds·K`` summed in fp32, in q's
     dtype. With a ``bias``, ``(dq, dbias)``: ``dbias`` fp32 shaped like the
     bias, ``dS`` per batch row for a ``[B, ...]`` bias and summed over the
     batch for a ``[1, ...]`` one."""
-    _, dsb, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias)
+    _, dsb, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias, offsets)
     dq = grouped_output(ds.float(), k.float()).to(q.dtype)
     if bias is None:
         return dq
     return dq, (dsb if bias.shape[0] == q.shape[0] else dsb.sum(dim=0, keepdim=True))
 
 
-def flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0, bias=None):
+def flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal=True, scale=1.0, bias=None,
+                                 offsets=None):
     """Plain version of the dk/dv kernel: ``dv = pᵀ·dO`` with p rounded to
     dO's dtype, ``dk = dsᵀ·Q``, both summed in fp32 over the kv head's query
     heads, in k's and v's dtypes."""
-    p, _, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias)
+    p, _, ds = _backward_terms(q, k, v, mask, do, lse, delta, causal, scale, bias, offsets)
     kv = k.shape[2]
     dv = torch.einsum("bnst,bsnd->btnd", p.to(do.dtype).float(), do.float())
     dk = torch.einsum("bnst,bsnd->btnd", ds.float(), q.float())
@@ -196,14 +216,19 @@ ARGTYPES = {
     "flash_forward": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + _TAIL,
     "flash_backward_dq": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + _TAIL,
     "flash_backward_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + _TAIL,
+    # the ring-block variants: no bias; B, S, T, NH, KV, D, q_offset, kv_offset
+    "flash_forward_ring": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + _TAIL,
+    "flash_backward_dq_ring": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + _TAIL,
+    "flash_backward_dkv_ring": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + _TAIL,
 }
 
 
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
     lib = load_kernel(FWD_SOURCE)
-    lib.flash_forward.argtypes = ARGTYPES["flash_forward"]
-    lib.flash_forward.restype = ctypes.c_int
+    for name in ("flash_forward", "flash_forward_ring"):
+        getattr(lib, name).argtypes = ARGTYPES[name]
+        getattr(lib, name).restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
     lib.flash_error_string.restype = ctypes.c_char_p
     return lib
@@ -212,7 +237,7 @@ def _fwd_library() -> ctypes.CDLL:
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
     lib = load_kernel(BWD_SOURCE)
-    for name in ("flash_backward_dq", "flash_backward_dkv"):
+    for name in ("flash_backward_dq", "flash_backward_dkv", "flash_backward_dq_ring", "flash_backward_dkv_ring"):
         getattr(lib, name).argtypes = ARGTYPES[name]
         getattr(lib, name).restype = ctypes.c_int
     lib.flash_error_string.argtypes = [ctypes.c_int]
@@ -279,12 +304,23 @@ def _batched(bias: Optional[torch.Tensor], b: int) -> int:
     return int(bias is not None and bias.shape[0] == b and b > 1)
 
 
-def flash_forward(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0, bias=None):
+def _ring_operands(bias, offsets) -> tuple[int, int]:
+    """The ring variants' ``(q_offset, kv_offset)`` as ints; they take no bias."""
+    if bias is not None:
+        raise ValueError("the ring-block kernels take no bias")
+    q_off, k_off = offsets
+    return int(q_off), int(k_off)
+
+
+def flash_forward(q, k, v, mask=None, limit=None, causal: bool = True, scale: float = 1.0, bias=None,
+                  offsets=None):
     """Forward kernel: ``(out [B, S, N, D] in q's dtype, lse [B, N, S]
     fp32)``. ``mask``/``limit`` come from :func:`_mask_limit`; ``bias`` is
-    an additive ``[1|B, N, S, T]`` score bias (the kernel reads it in fp32)."""
+    an additive ``[1|B, N, S, T]`` score bias (the kernel reads it in fp32).
+    ``offsets`` ``(q_offset, kv_offset)`` (ints) run the ring-block variant:
+    causal over global positions, no bias."""
     if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, mask, causal, scale, bias)
+        return flash_forward_reference(q, k, v, mask, causal, scale, bias, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     q, k, v, bias = q.contiguous(), k.contiguous(), v.contiguous(), _bias_operand(bias)
@@ -292,15 +328,24 @@ def flash_forward(q, k, v, mask=None, limit=None, causal: bool = True, scale: fl
     out = torch.empty_like(q)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     lib = _fwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        code = lib.flash_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias),
-            out.data_ptr(), lse.data_ptr(), b, s, t, nh, kv, d, _batched(bias, b), scale, int(causal),
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if offsets is None:
+            code = lib.flash_forward(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias),
+                out.data_ptr(), lse.data_ptr(), b, s, t, nh, kv, d, _batched(bias, b), scale, int(causal),
+                _DTYPE_CODES[q.dtype], stream,
+            )
+        else:
+            code = lib.flash_forward_ring(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), out.data_ptr(),
+                lse.data_ptr(), b, s, t, nh, kv, d, *_ring_operands(bias, offsets), scale, int(causal),
+                _DTYPE_CODES[q.dtype], stream,
+            )
     _raise_on(code, lib, "flash_forward")
     flash_forward.launches += 1
     flash_forward.bias_launches += bias is not None
+    flash_forward.ring_launches += offsets is not None
     return out, lse
 
 
@@ -335,24 +380,31 @@ def dbias_chunk(b: int, nh: int, s: int, sms: int) -> int:
 
 
 def flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0,
-                      bias=None):
+                      bias=None, offsets=None, dlse=None):
     """dq kernel: one block per (batch, head, 64 q rows at head dim 64, 192
     at 128), k tiles up to the forward's bound. It also computes ``delta =
     rowsum(dO·O)`` fp32 ``[B, N, S]`` for its rows from ``do`` and the
     forward's ``out``; returns ``(dq, delta)``, delta for
     :func:`flash_backward_dkv`. With a ``bias``, ``(dq, delta, dbias)``,
-    ``dbias`` fp32 shaped like the bias."""
+    ``dbias`` fp32 shaped like the bias. ``offsets`` or ``dlse`` (the lse
+    cotangent, fp32 ``[B, N, S]``) run the ring-block variant, which writes
+    ``delta = rowsum(dO·O) - dlse``."""
     if q.device.type == "cpu":
-        delta = flash_delta_reference(do, out)
+        delta = flash_delta_reference(do, out, dlse)
         args = (q, k, v, mask, do, lse, delta, causal, scale)
         if bias is None:
-            return flash_backward_dq_reference(*args), delta
+            return flash_backward_dq_reference(*args, offsets=offsets), delta
         dq, dbias = flash_backward_dq_reference(*args, bias)
         return dq, delta, dbias
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     bias = _bias_operand(bias)
-    q, k, v, do, out, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, {"lse": lse}, out, bias)
+    rows = {"lse": lse}
+    ring = offsets is not None or dlse is not None
+    if ring:
+        q_off, k_off = _ring_operands(bias, offsets or (0, 0))
+        rows["dlse"] = dlse = torch.zeros_like(lse) if dlse is None else dlse.to(torch.float32).contiguous()
+    q, k, v, do, out, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, rows, out, bias)
     dq = torch.empty_like(q)
     delta = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     dbias = part = None
@@ -366,27 +418,37 @@ def flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal: bool = True, s
             if chunks > 1:
                 part = torch.empty((chunks, nh, s, t), dtype=torch.float32, device=q.device)
     lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        code = lib.flash_backward_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias), do.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias), _ptr(part),
-            b, s, t, nh, kv, d, _batched(bias, b), chunk, scale, int(causal), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if ring:
+            code = lib.flash_backward_dq_ring(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), do.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), dlse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                b, s, t, nh, kv, d, q_off, k_off, scale, int(causal), _DTYPE_CODES[q.dtype], stream,
+            )
+        else:
+            code = lib.flash_backward_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias), do.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(dbias), _ptr(part),
+                b, s, t, nh, kv, d, _batched(bias, b), chunk, scale, int(causal), _DTYPE_CODES[q.dtype],
+                stream,
+            )
     _raise_on(code, lib, "flash_backward_dq")
     flash_backward_dq.launches += 1
     flash_backward_dq.bias_launches += bias is not None
+    flash_backward_dq.ring_launches += ring
     return (dq, delta) if bias is None else (dq, delta, dbias)
 
 
 def flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal: bool = True, scale: float = 1.0,
-                       bias=None):
+                       bias=None, offsets=None):
     """dk/dv kernel: one block per (batch, kv head, 64 keys), looping over
     the q tiles from the causal lower bound and over the kv head's query
     heads, so dk and dv accumulate without atomics. ``delta`` is what
-    :func:`flash_backward_dq` returns; ``bias`` the forward's."""
+    :func:`flash_backward_dq` returns; ``bias`` the forward's. ``offsets``
+    run the ring-block variant."""
     if q.device.type == "cpu":
-        return flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal, scale, bias)
+        return flash_backward_dkv_reference(q, k, v, mask, do, lse, delta, causal, scale, bias, offsets)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     rows = {"lse": lse, "delta": delta}
@@ -394,32 +456,43 @@ def flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal: bool = True
     q, k, v, do, _, (b, s, t, nh, kv, d) = _backward_args(q, k, v, mask, limit, do, rows, bias=bias)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _bwd_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        code = lib.flash_backward_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, nh, kv, d,
-            _batched(bias, b), scale, int(causal), _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if offsets is None:
+            code = lib.flash_backward_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), _ptr(bias), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, nh, kv, d,
+                _batched(bias, b), scale, int(causal), _DTYPE_CODES[q.dtype], stream,
+            )
+        else:
+            code = lib.flash_backward_dkv_ring(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(limit), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, nh, kv, d,
+                *_ring_operands(bias, offsets), scale, int(causal), _DTYPE_CODES[q.dtype], stream,
+            )
     _raise_on(code, lib, "flash_backward_dkv")
     flash_backward_dkv.launches += 1
     flash_backward_dkv.bias_launches += bias is not None
+    flash_backward_dkv.ring_launches += offsets is not None
     return dk, dv
 
 
-# launches of each kernel, and of those the bias variant's
+# launches of each kernel, and of those the bias and the ring-block variants'
 for _wrapper in (flash_forward, flash_backward_dq, flash_backward_dkv):
-    _wrapper.launches = _wrapper.bias_launches = 0
+    _wrapper.launches = _wrapper.bias_launches = _wrapper.ring_launches = 0
 
 
-def flash_backward(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0, bias=None):
+def flash_backward(q, k, v, mask, limit, do, lse, out, causal: bool = True, scale: float = 1.0, bias=None,
+                   offsets=None, dlse=None):
     """The whole backward, ``(dq, dk, dv)``, with a ``bias`` ``(dq, dk, dv,
     dbias)``: the dq kernel (which also writes delta and dbias), then the
     dk/dv kernel. On the CPU, the plain versions with ``delta`` by
-    :func:`flash_delta_reference`."""
+    :func:`flash_delta_reference`. ``offsets`` and ``dlse`` (a ring block's
+    global positions and lse cotangent) run the ring-block variants."""
     if bias is None:
-        dq, delta = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale)
-        dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale)
+        dq, delta = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale, offsets=offsets,
+                                      dlse=dlse)
+        dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale, offsets=offsets)
         return dq, dk, dv
     dq, delta, dbias = flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale, bias)
     dk, dv = flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale, bias)
@@ -471,10 +544,34 @@ class _FlashFromSaved(torch.autograd.Function):
         return dq, dk, dv, None, None, dbias, None, None, None, None
 
 
+class _FlashBlock(torch.autograd.Function):
+    """The ring block's vjp (the JAX package's ``_flash_attention_lse_bnsd``):
+    ``out`` and ``lse`` are both outputs, and the backward takes the lse
+    cotangent, folded into delta by the dq kernel. ``saved`` is a
+    recompute's ``(out, lse)`` from the ``save_flash`` stash (no forward
+    launch), else None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, limit, causal, scale, offsets, saved):
+        out, lse = saved if saved is not None else flash_forward(q, k, v, mask, limit, causal, scale,
+                                                                 offsets=offsets)
+        ctx.save_for_backward(q, k, v, mask, limit, out, lse)
+        ctx.causal, ctx.scale, ctx.offsets = causal, scale, offsets
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, mask, limit, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, mask, limit, do, lse, out, ctx.causal, ctx.scale,
+                                    offsets=ctx.offsets, dlse=dlse.contiguous())
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 class _Stash(threading.local):
     """Per thread: ``"record"`` (a checkpointed forward keeps each flash
     forward's ``out`` and ``lse``) or ``"replay"`` (its recompute, in the
-    backward's thread, takes them back in call order)."""
+    backward's thread, takes them back in call order). A ring layer's
+    blocks are kept and replayed the same way, one entry a block."""
 
     mode: Optional[str] = None
     saved: Optional[list] = None
@@ -561,13 +658,91 @@ def flash_attention(
     return flash_attention_core(q, k, v, mask, limit, causal, scale, bias)
 
 
-def flash_attention_block(q, k, v, kv_mask=None, *, causal=False, q_offset=None, kv_offset=None, **_):
-    """The ring-attention block entry with ``(out, lse)`` and global
-    offsets: not in the port yet."""
-    raise NotImplementedError(
-        "flash_attention_block (ring blocks with global offsets and an lse "
-        "cotangent) is not in the port yet (ROADMAP item 17)"
-    )
+def flash_block_core(q, k, v, mask=None, limit=None, causal: bool = False, scale: float = 1.0, offsets=None):
+    """The differentiable ring block over prepared operands: ``(out [B, S,
+    N, D], lse [B, N, S] fp32)`` by the forward kernel (its ring variant
+    under ``offsets``); the backward is the dq and dk/dv kernels with the
+    lse cotangent. Under ``save_flash`` the stash keeps and replays each
+    block's ``(out, lse)`` as it does a layer's one flash call."""
+    causal, scale = bool(causal), float(scale)
+    saved = None
+    if _STASH.mode == "replay":
+        saved = _STASH.saved[_STASH.index]
+        _STASH.index += 1
+    out, lse = _FlashBlock.apply(q, k, v, mask, limit, causal, scale, offsets, saved)
+    if _STASH.mode == "record":
+        _STASH.saved.append((out.detach(), lse.detach()))
+    return out, lse
+
+
+def _einsum_attention_lse(q, k, v, kv_mask, causal, q_offset, kv_offset, scale):
+    """The block entry's exact fallback, with its ``(out, lse)`` contract
+    (the JAX package's ``_einsum_attention_lse``): a row that attends no key
+    gives ``out = 0`` and ``lse = M_INIT + log(1e-30)``."""
+    s, d = q.shape[1], q.shape[3]
+    t = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    scores = grouped_scores(q, k).to(torch.float32) * scale
+    if causal:
+        q_pos = (0 if q_offset is None else int(q_offset)) + torch.arange(s, device=q.device)
+        k_pos = (0 if kv_offset is None else int(kv_offset)) + torch.arange(t, device=q.device)
+        scores = torch.where(k_pos[None, :] <= q_pos[:, None], scores, NEG_INF)
+    if kv_mask is not None:
+        scores = torch.where(kv_mask[:, None, None, :] != 0, scores, NEG_INF)
+    m = torch.clamp(scores.amax(dim=-1), min=M_INIT)  # [B, N, S]
+    p = torch.exp(scores - m[..., None])
+    l_safe = torch.clamp(p.sum(dim=-1), min=1e-30)
+    out = grouped_output((p / l_safe[..., None]).to(q.dtype), v)
+    return out, (m + torch.log(l_safe)).transpose(1, 2)
+
+
+def flash_attention_block(
+    q: torch.Tensor,  # [B, S, N, D]
+    k: torch.Tensor,  # [B, T, KV, D]
+    v: torch.Tensor,  # [B, T, KV, D]
+    kv_mask: Optional[torch.Tensor] = None,  # [B, T] key validity
+    *,
+    causal: bool = False,
+    q_offset: Optional[int] = None,  # global position of q[:, 0]
+    kv_offset: Optional[int] = None,  # global position of k[:, 0]
+    block_q: int = 256,
+    block_k: int = 512,
+    bwd_block_q: Optional[int] = None,
+    bwd_block_k: Optional[int] = None,
+    scale: Optional[float] = None,
+):
+    """One attention block with its online-softmax statistics: ``(out,
+    lse)``, ``out`` ``[B, S, N, D]`` the block's normalized attention and
+    ``lse`` ``[B, S, N]`` fp32 its log-sum-exp, what a ring merge needs.
+    Both outputs are differentiable (the merge weighs blocks by lse).
+
+    ``causal`` compares global positions ``q_offset + i >= kv_offset + j``
+    (the offsets are ints: the ring's rotation index is known on the host),
+    so one build of each kernel serves the ring's diagonal, past and future
+    blocks (a future block makes no trip: ``out`` 0 and ``lse`` very
+    negative, exactly). Without offsets causal S != T compares local
+    positions (top-left). The JAX package's dispatch: an untileable shape
+    takes the exact einsum fallback; the block arguments only feed that
+    rule."""
+    b, s, n, d = q.shape
+    t = k.shape[1]
+    bq, bk = _fit_block(block_q, s), _fit_block(block_k, t)
+    bbq = _fit_block(bwd_block_q or BWD_BLOCK_Q, s)
+    bbk = _fit_block(bwd_block_k or BWD_BLOCK_K, t)
+    untileable = any(x % 128 for x in (bq, bk, bbq, bbk)) or s % bq or t % bk or s % bbq or t % bbk
+    if untileable:
+        return _einsum_attention_lse(q, k, v, kv_mask, causal, q_offset, kv_offset, scale)
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = limit = None
+    if kv_mask is not None:
+        mask, limit = _mask_limit(kv_mask)
+    offsets = None
+    if causal and (q_offset is not None or kv_offset is not None):
+        offsets = (int(q_offset or 0), int(kv_offset or 0))
+    out, lse = flash_block_core(q, k, v, mask, limit, causal, scale, offsets)
+    return out, lse.transpose(1, 2)
 
 
 def make_auto_attention(min_seq: int = 1024, causal: bool = True):

@@ -159,8 +159,46 @@ def find_batch_size(data):
     return None
 
 
+def find_device(data):
+    """The device of the first tensor in the tree, or None."""
+    if isinstance(data, Mapping):
+        for v in data.values():
+            d = find_device(v)
+            if d is not None:
+                return d
+    elif isinstance(data, (tuple, list)):
+        for v in data:
+            d = find_device(v)
+            if d is not None:
+                return d
+    elif isinstance(data, torch.Tensor):
+        return data.device
+    return None
+
+
 def get_shape(data):
     return recursively_apply(lambda t: list(t.shape), data)
+
+
+def get_data_structure(data):
+    """The tree's skeleton, a ``TensorInformation`` (shape, dtype) per tensor."""
+    from ..utils.dataclasses import TensorInformation
+
+    return recursively_apply(lambda t: TensorInformation(shape=tuple(t.shape), dtype=t.dtype), data)
+
+
+def initialize_tensors(data_structure):
+    """Empty tensors (on the host) shaped as a :func:`get_data_structure` skeleton."""
+    from ..utils.dataclasses import TensorInformation
+
+    return recursively_apply(lambda ti: torch.empty(ti.shape, dtype=ti.dtype), data_structure,
+                             test_type=lambda x: isinstance(x, TensorInformation))
+
+
+def listify(data):
+    """Tensors and arrays as nested Python lists."""
+    return recursively_apply(lambda t: np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t).tolist(), data,
+                             test_type=is_array)
 
 
 def slice_tensors(data, tensor_slice, process_index=None, num_processes=None):  # noqa: ARG001 - parity

@@ -35,6 +35,13 @@ group ranks its members by process index (data outermost), while a spec
 over ``("fsdp", "data")`` numbers its chunks fsdp-major: the chunks are
 permuted into group order around the collective.
 
+Under a sequence axis every process of a sequence group runs one chunk of
+the same rows (``parallel/ring_attention.py``), its loss terms normalized
+by the whole batch's count: the gradients and the loss are summed over the
+``sequence`` axis as well as over the batch axes (the 1/N prescale counts
+the batch shards only), and ZeRO is ineligible, as in the JAX package, so
+the replicated update runs.
+
 Bit-exactness: the 1/N factor and the loss scale are powers of two, so they
 commute exactly through the backward and the sums; at two processes a
 reduce-scatter and an all-reduce add the same two terms (``a + b == b +
@@ -198,11 +205,14 @@ def _reduce_scatter(g: torch.Tensor, dim: int, axes: tuple[str, ...], mesh: _Mes
     return out.movedim(0, dim).contiguous()
 
 
-def make_grad_reducer(specs: list[Spec], batch_axes: tuple[str, ...], mesh: _Mesh) -> Callable:
+def make_grad_reducer(specs: list[Spec], batch_axes: tuple[str, ...], mesh: _Mesh,
+                      sum_axes: tuple[str, ...] = ()) -> Callable:
     """``reduce(grad leaves) -> shard leaves``: each leaf reduce-scattered
     into its spec's layout (summing over the batch axes the spec splits it
-    over), then all-reduced over the batch axes it does not. The gradients
-    carry the 1/N batch prescale, so the sums are the global mean."""
+    over), then all-reduced over the batch axes it does not and over
+    ``sum_axes`` (``sequence``: each process holds its chunk's share). The
+    gradients carry the 1/N batch prescale, so the sums are the global
+    mean."""
 
     def reduce(grads: list) -> list:
         out = []
@@ -212,7 +222,7 @@ def make_grad_reducer(specs: list[Spec], batch_axes: tuple[str, ...], mesh: _Mes
                 if any(a in batch_axes for a in axes):
                     g = _reduce_scatter(g, dim, axes, mesh)
                     consumed.extend(a for a in axes if a in batch_axes)
-            rest = tuple(a for a in batch_axes if a not in consumed)
+            rest = tuple(a for a in batch_axes if a not in consumed) + sum_axes
             if rest:
                 g = g.contiguous()
                 dist.all_reduce(g, group=mesh.state.group(rest))
@@ -251,10 +261,13 @@ class ShardedLayout:
         self.pspecs = tree_leaves(param_specs)
         self.uspecs = tree_leaves(update_specs)
         self.batch_axes = zero_batch_axes(self.mesh.sizes)
+        # the loss's 1/N prescale: the batch shards; a sequence group's
+        # processes hold shares of one shard's loss, summed
         self.shards = 1
         for axis in self.batch_axes:
             self.shards *= self.mesh.sizes[axis]
-        self.reduce = make_grad_reducer(self.uspecs, self.batch_axes, self.mesh)
+        self.sum_axes = (MESH_AXIS_SEQUENCE,) if self.mesh.sizes[MESH_AXIS_SEQUENCE] > 1 else ()
+        self.reduce = make_grad_reducer(self.uspecs, self.batch_axes, self.mesh, self.sum_axes)
         self.param_dims = [sharded_dims(s, self.mesh.sizes) for s in self.pspecs]
         update_dims = [sharded_dims(s, self.mesh.sizes) for s in self.uspecs]
         # which leaves update where they are stored (the others are stored
@@ -300,10 +313,12 @@ class ShardedLayout:
         return shardings_like(opt_state, shaped, self.update_specs)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the batch axes (every process's share of a loss)."""
+        """``x`` summed over the batch axes and ``sequence`` (every
+        process's share of a loss)."""
         x = x.clone()
-        if self.batch_axes:
-            dist.all_reduce(x, group=self.mesh.state.group(self.batch_axes))
+        axes = self.batch_axes + self.sum_axes
+        if axes:
+            dist.all_reduce(x, group=self.mesh.state.group(axes))
         return x
 
     def shard_state(self, full_leaves: list, specs: list[Spec]) -> list:

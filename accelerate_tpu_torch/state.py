@@ -180,13 +180,42 @@ class PartialState:
     def group(self, axes: tuple[str, ...]):
         """The process group over the mesh axes ``axes`` (each of size above
         1): members differ only on those axes, ranked in ascending process
-        index. Every nontrivial axis together is the whole world."""
+        index. Every nontrivial axis together is the whole world; one axis is
+        the mesh's group; several axes of a mesh with more live axes (the
+        batch axes and ``sequence`` on a mesh of three) are made on first
+        use, one group for each set of members, by every process in the same
+        order: a collective call."""
         live = {axis for axis in CANONICAL_MESH_AXES if self.mesh_shape[axis] > 1}
         if set(axes) == live:
             return dist.group.WORLD
         if len(axes) == 1:
             return self.mesh.get_group(axes[0])
-        raise ValueError(f"no process group over {axes} on the mesh {self.mesh_shape}")
+        if not set(axes) <= live:
+            raise ValueError(f"no process group over {axes} on the mesh {self.mesh_shape}")
+        key = tuple(sorted(axes))
+        groups = self.__dict__.setdefault("_axis_groups", {})
+        if key not in groups:
+            members: dict = {}
+            for rank in range(self.num_processes):
+                coords = rank_coords(rank, self.mesh_shape)
+                members.setdefault(tuple(coords[a] for a in CANONICAL_MESH_AXES if a not in axes), []).append(rank)
+            for ranks in members.values():  # every process makes every group
+                made = dist.new_group(ranks)
+                if self.process_index in ranks:
+                    groups[key] = made
+        return groups[key]
+
+    @property
+    def batch_shards(self) -> int:
+        """How many shards a global batch splits into: the data and fsdp
+        axes' sizes (processes of one sequence group take the same rows)."""
+        return self.mesh_shape["data"] * self.mesh_shape["fsdp"]
+
+    @property
+    def batch_shard_index(self) -> int:
+        """Which shard of a global batch this process takes (data-major)."""
+        coords = self.mesh_coords
+        return coords["data"] * self.mesh_shape["fsdp"] + coords["fsdp"]
 
     @property
     def comm_device(self) -> torch.device:

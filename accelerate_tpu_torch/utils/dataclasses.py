@@ -57,6 +57,14 @@ class PrecisionType(_StrEnum):
 
 
 @dataclass
+class TensorInformation:
+    """A tensor's shape and dtype (``ops.operations.get_data_structure``)."""
+
+    shape: tuple
+    dtype: Any
+
+
+@dataclass
 class KwargsHandler:
     def to_kwargs(self) -> dict[str, Any]:
         return asdict(self)
@@ -137,17 +145,18 @@ class ProjectConfiguration:
 # Parallelism: one mesh over the processes
 # ---------------------------------------------------------------------------
 
-# the model-parallel axes: their collectives live inside the forward
-_MODEL_AXES = (MESH_AXIS_PIPELINE, MESH_AXIS_EXPERT, MESH_AXIS_SEQUENCE, MESH_AXIS_TENSOR)
+# the model-parallel axes the port does not run yet: their collectives live inside the forward
+_MODEL_AXES = (MESH_AXIS_PIPELINE, MESH_AXIS_EXPERT, MESH_AXIS_TENSOR)
 
 
 @dataclass
 class ParallelismConfig:
     """Sizes of the mesh axes; ``data`` defaults to every process the other
     axes leave over. A process is one device, so the sizes multiply to the
-    world size. The port runs the ``data`` and ``fsdp`` axes; ``pipeline``,
-    ``expert``, ``sequence`` and ``tensor`` above 1 raise, naming ROADMAP
-    item 17. ``zero_stage``: None shards the weight update over the data
+    world size. The port runs the ``data``, ``fsdp`` and ``sequence`` axes (a
+    sequence axis: ring attention over its processes,
+    ``parallel/ring_attention.py``); ``pipeline``, ``expert`` and ``tensor``
+    above 1 raise, naming ROADMAP item 17. ``zero_stage``: None shards the weight update over the data
     axes wherever the configuration allows it (``parallel/zero.py``), 0
     keeps the replicated update, 1 or more requires the sharded one."""
 
@@ -163,7 +172,7 @@ class ParallelismConfig:
         above = {axis: getattr(self, axis) for axis in _MODEL_AXES if getattr(self, axis) > 1}
         if above:
             raise NotImplementedError(
-                f"model-parallel mesh axes {above} (pipeline, expert, sequence and tensor "
+                f"model-parallel mesh axes {above} (pipeline, expert and tensor "
                 "parallelism) are not in the port yet (ROADMAP item 17)"
             )
 
@@ -210,7 +219,15 @@ class ParallelismConfig:
 
     @property
     def distributed_type(self) -> DistributedType:
-        return DistributedType.FSDP if self.fsdp > 1 else DistributedType.DATA_PARALLEL
+        """The JAX package's naming: one live model axis names the type (a
+        sequence axis ``TENSOR_PARALLEL``, as there), two or more ``HYBRID``."""
+        active = [axis for axis, size in ((MESH_AXIS_FSDP, self.fsdp), (MESH_AXIS_SEQUENCE, self.sequence))
+                  if size > 1]
+        if len(active) > 1:
+            return DistributedType.HYBRID
+        if not active:
+            return DistributedType.DATA_PARALLEL
+        return DistributedType.FSDP if active[0] == MESH_AXIS_FSDP else DistributedType.TENSOR_PARALLEL
 
 
 @dataclass

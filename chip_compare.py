@@ -15,9 +15,15 @@ unpacked with ``git archive``) and each PART one of:
   alone, and the whole backward as autograd runs it (``torch.autograd.grad``
   through the flash function), bf16, at ``chip_smoke.FLASH_GEOMETRIES``;
 - ``training``: ``chip_smoke.phase_training`` (the bf16 llama-125m step at
-  B=32 S=1024 and B=8 S=4096).
+  B=32 S=1024 and B=8 S=4096);
+- ``sass``: no timing: both trees' flash sources (``flash_fwd.cu``,
+  ``flash_bwd.cu``) compiled to machine code, and every kernel of the other
+  tree held against this tree's of the same name (a template argument
+  ``false`` that this tree appends, a variant the other lacks, dropped),
+  instruction by instruction with constants and addresses masked: one JSON
+  line a kernel that differs, and a count of those that do not.
 
-Without a PART it runs all four. Each tree runs in a process of its own, in
+Without a PART it runs the four timed parts. Each tree runs in a process of its own, in
 the order other, this, this, other, so that a drift of the card shows as a
 difference between the two runs of one tree; both run this tree's
 geometries. Each run builds its kernels. It needs a CUDA card and exits
@@ -32,6 +38,7 @@ import subprocess
 import sys
 
 PARTS = ("paged", "serving", "flash", "training")
+SASS_SOURCES = ("flash_fwd", "flash_bwd")
 
 
 def paged(cs, tag, card, flush, geometries, windows) -> None:
@@ -124,14 +131,81 @@ def run_one(tag: str, parts: list, shapes: dict) -> None:
         serving(cs, tag, card)
 
 
+def kernel_sass(cubin: str, cuobjdump: str) -> dict:
+    """``{kernel name and template arguments: [instructions]}`` of a cubin,
+    NOPs dropped, constants and addresses masked."""
+    import re
+
+    listing = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in listing.splitlines():
+        found = re.match(r"\s+Function : (\S+)", line)
+        if found:
+            # the identifier after its length prefix, and its int and bool template arguments
+            ident = re.search(r"\d((?:flash|dbias)\w*?_kernel)(I(?:L[ib]\d+E)+E)?", found.group(1))
+            name = ident.group(1) + (ident.group(2) or "")
+            out[name] = []
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            ins = re.sub(r"/\*[0-9a-f]{4}\*/|/\* 0x[0-9a-f]+ \*/", "", line).strip()
+            if not ins.startswith("NOP"):
+                out[name].append(re.sub(r"0x[0-9a-f]+", "#", ins))
+    return out
+
+
+def sass(other_root: str) -> None:
+    """Each flash kernel's machine code in both trees (``sass`` above)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from accelerate_tpu_torch.ops.runtime import NVCC_FLAGS, _nvcc
+
+    roots = {"other": other_root, "this": os.path.dirname(os.path.abspath(__file__))}
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    cuobjdump = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        def build(job):
+            tag, name = job
+            cubin = os.path.join(tmp, f"{tag}_{name}.cubin")
+            source = os.path.join(roots[tag], "accelerate_tpu_torch", "csrc", f"{name}.cu")
+            subprocess.run([_nvcc(), *flags, "-cubin", "-o", cubin, source], check=True)
+            return kernel_sass(cubin, cuobjdump)
+
+        jobs = [(tag, name) for tag in roots for name in SASS_SOURCES]
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            built = dict(zip(jobs, pool.map(build, jobs)))
+    for name in SASS_SOURCES:
+        other, this = built[("other", name)], built[("this", name)]
+        same, matched = 0, set()
+        for kernel, code in sorted(other.items()):
+            match = kernel
+            while match not in this and match.endswith("EE") and match.count("Lb0E") < 4:
+                match = match[:-1] + "Lb0EE"  # this tree appends a template argument `false`
+            mine = this.get(match)
+            matched.add(match)
+            if mine == code:
+                same += 1
+                continue
+            differing = None if mine is None else sum(a != b for a, b in zip(code, mine)) + abs(len(code) - len(mine))
+            print(json.dumps({"source": f"{name}.cu", "kernel": kernel, "this": match, "other_instructions": len(code),
+                              "this_instructions": None if mine is None else len(mine), "differing": differing}),
+                  flush=True)
+        print(json.dumps({"source": f"{name}.cu", "identical": same, "of": len(other),
+                          "this_only": sorted(set(this) - matched)}), flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--one":
         run_one(sys.argv[2], sys.argv[3].split(","), json.loads(sys.argv[4]))
         return 0
     parts = sys.argv[2:] or list(PARTS)
-    if len(sys.argv) < 2 or any(p not in PARTS for p in parts):
+    if len(sys.argv) < 2 or any(p not in (*PARTS, "sass") for p in parts):
         print(__doc__, file=sys.stderr)
         return 2
+    if "sass" in parts:
+        sass(os.path.abspath(sys.argv[1]))
+        parts = [p for p in parts if p != "sass"]
+        if not parts:
+            return 0
     import torch
 
     if not torch.cuda.is_available():

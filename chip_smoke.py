@@ -142,9 +142,37 @@ wall time:
     adamw 26) and one profiled step; then fp32 B=2: one backward's 26
     gradients through the kernels, no further from the plain flash's than
     the einsum path's are (t5-base's saturated softmaxes at init move
-    gradients by percents with the order of fp32 sums), and 3 steps at lr
-    2e-5 within 1e-4 relative; then a 64-token sub-vocabulary batch whose
-    loss must fall by 1 nat in 20 steps.
+    gradients by percents with the order of fp32 sums), and the same with
+    every ``wq`` leaf scaled by 1/8 (a well-conditioned point) within 1e-3 of
+    the plain flash's, and 3 steps at lr 2e-5 within 1e-4 relative; then a
+    64-token sub-vocabulary batch whose loss must fall by 1 nat in 20 steps;
+20. the flash kernels' ring-block variants (global offsets; dq with the
+    lse cotangent) on one card: every (q chunk, kv chunk) block of a causal
+    ring of 4 at llama-125m's attention (B=8, chunks of 2048, 12 heads of
+    64, bf16: diagonal, past and future blocks), every block of phase
+    21's ring of 2 (B=4, chunks of 4096), then a seeded padding, a
+    non-causal ring, GQA at head dim 32 and at 128, and fp32: forward, dq
+    and dk/dv under random cotangents for out and lse against their plain
+    versions, two launches bit-identical, future blocks exactly 0 with lse
+    below -1e28; the blocks merged against the kernels without offsets at
+    S=8192, forward and gradients; each kind of block timed beside its
+    bound, its plain version and SDPA with the block's offset mask (a
+    yardstick: SDPA returns no lse and takes no dlse);
+21. ring attention across two processes sharing the card over gloo,
+    started by ``debug_launcher``: a point-to-point probe (``isend``/
+    ``irecv`` and ``batch_isend_irecv`` on host tensors, the ring's hop of a
+    CUDA tensor, staged through the host on a gloo group), then llama-125m
+    at full width and depth, bf16 over fp32 masters, ``fused_adamw(3e-4)``,
+    under ``ParallelismConfig(sequence=2)``: global batch 4 at S=8192 (4 x
+    4096 tokens a process), 3 ``compiled_step``s whose losses both
+    processes report alike and that lie within 5e-3 and within 1e-4
+    relative of one process's steps on the whole batch, after the first
+    batch's gradients, each leaf within 5e-2 of one process's (norm of the
+    gap over the leaf's norm; ``chip_ring_gate.py`` holds both gates
+    against a faulty ring); launches a process (each flash
+    kernel's ring variant 12 layers x 2 blocks a step), step times (gloo
+    stages every hop and collective through the host) and peak memory a
+    process against the one process's.
 
 Phase 10b, run after phase 11: the bias variants of the three flash
 kernels at t5-base's encoder attention (B=32, S=T=512, 12 heads of 64,
@@ -156,7 +184,7 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
 ``attn_mask`` (forward, and the whole backward with the bias's gradient).
 
 The JSON line's launch counts of the four training kernels are phase 14's
-run A; phases 15-18 print their own. The line before the last is a JSON
+run A, the ring variants' phase 21's rank 0; phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -243,6 +271,13 @@ KERNELS = {
                   "accelerate_tpu/ops/flash_attention.py:352"),  # _bwd_dkv_kernel
     "fused_adamw": ("accelerate_tpu_torch/csrc/fused_adamw.cu",
                     "accelerate_tpu/ops/fused_adamw.py:76"),  # _adamw_kernel
+    # the ring-block variants (has_offsets; dq with the lse cotangent): the same sources
+    "flash_fwd_ring": ("accelerate_tpu_torch/csrc/flash_fwd.cu",
+                       "accelerate_tpu/ops/flash_attention.py:143"),  # _fwd_kernel
+    "flash_dq_ring": ("accelerate_tpu_torch/csrc/flash_bwd.cu",
+                      "accelerate_tpu/ops/flash_attention.py:279"),  # _bwd_dq_kernel
+    "flash_dkv_ring": ("accelerate_tpu_torch/csrc/flash_bwd.cu",
+                       "accelerate_tpu/ops/flash_attention.py:352"),  # _bwd_dkv_kernel
 }
 # the sources to build: csrc/<name>.cu (flash_bwd.cu holds two kernels)
 SOURCES = sorted({source.split("/")[-1][: -len(".cu")] for source, _ in KERNELS.values()})
@@ -258,11 +293,11 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 def reset_launches() -> None:
     """Every kernel's count to 0, just before a path is driven (the flash
-    wrappers' count of bias launches too)."""
+    wrappers' counts of bias and ring-block launches too)."""
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
     for name in FLASH_KERNELS:
-        WRAPPERS[name].bias_launches = 0
+        WRAPPERS[name].bias_launches = WRAPPERS[name].ring_launches = 0
 
 
 def launch_counts() -> dict:
@@ -1053,11 +1088,13 @@ def flash_case(rng, geometry, dtype):
 
 def attended_pairs(case) -> int:
     """(query, key) pairs the kernels score, per query head: the causal
-    triangle and the mask as this run's data has them."""
+    triangle (at a ring block's global offsets) and the mask as this run's
+    data has them."""
     q, k = case["q"], case["k"]
     b, s, t = q.shape[0], q.shape[1], k.shape[1]
-    q_pos = torch.arange(s, device="cuda")[:, None]
-    k_pos = torch.arange(t, device="cuda")[None, :]
+    q_off, k_off = case.get("offsets") or (0, 0)
+    q_pos = q_off + torch.arange(s, device="cuda")[:, None]
+    k_pos = k_off + torch.arange(t, device="cuda")[None, :]
     allowed = (k_pos <= q_pos) if case["causal"] else torch.ones((s, t), dtype=torch.bool, device="cuda")
     if case["mask"] is None:
         return b * int(allowed.sum().item())
@@ -1074,19 +1111,28 @@ def flash_bound_ms(case, kind: str) -> tuple[float, str]:
     out, dO, lse read, dq, dk, dv written; 5 products (q.k, dO.v, dS.K,
     P^T.dO, dS^T.Q, as a one-pass kernel would do them). Each counts the
     mask too, and a bias once where it is read (fp32), with dbias (as large)
-    where it is written."""
+    where it is written; a ring block's dq reads its lse cotangent rows
+    too. A block with no attended pair (a ring block wholly in the future)
+    needs only what it writes: fwd out and lse; dq dq and delta, from dO,
+    out and dlse; dkv dk and dv; bwd dq, dk and dv."""
     q, k = case["q"], case["k"]
     esize = q.element_size()
     nq, nk = q.numel(), k.numel()
     rows = q.shape[0] * q.shape[2] * q.shape[1] * 4  # one fp32 [B, N, S] row set
-    mask = 0 if case["mask"] is None else case["mask"].numel() * 4 + case["limit"].numel() * 4
+    dlse = rows if case.get("dlse") else 0
+    pairs = attended_pairs(case)
+    mask = 0 if case["mask"] is None or pairs == 0 else case["mask"].numel() * 4 + case["limit"].numel() * 4
     bias = 0 if case.get("bias") is None else case["bias"].numel() * 4  # read once; dbias as big
-    tensors = {"fwd": (2 * nq + 2 * nk) * esize + rows + bias,
-               "dq": (4 * nq + 2 * nk) * esize + 2 * rows + 2 * bias,
-               "dkv": (2 * nq + 4 * nk) * esize + 2 * rows + bias,
-               "bwd": (4 * nq + 4 * nk) * esize + rows + 2 * bias}[kind]
+    if pairs == 0:
+        tensors = {"fwd": nq * esize + rows, "dq": 3 * nq * esize + rows + dlse, "dkv": 2 * nk * esize,
+                   "bwd": (nq + 2 * nk) * esize}[kind]
+    else:
+        tensors = {"fwd": (2 * nq + 2 * nk) * esize + rows + bias,
+                   "dq": (4 * nq + 2 * nk) * esize + 2 * rows + dlse + 2 * bias,
+                   "dkv": (2 * nq + 4 * nk) * esize + 2 * rows + bias,
+                   "bwd": (4 * nq + 4 * nk) * esize + rows + 2 * bias}[kind]
     products = {"fwd": 2, "dq": 3, "dkv": 4, "bwd": 5}[kind]
-    flops = 2.0 * products * q.shape[3] * q.shape[2] * attended_pairs(case)
+    flops = 2.0 * products * q.shape[3] * q.shape[2] * pairs
     t_bytes = (tensors + mask) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -2457,6 +2503,24 @@ def phase_pair(card: str) -> None:
 T5_BATCH, T5_ENC, T5_DEC = 32, 512, 128  # T5's input length; targets of 128
 T5_LEAVES = 26  # embedding, 2 bias tables, 2 final norms, 8 encoder and 13 decoder leaves
 T5_LEARN_LR = 3e-3
+# the well-conditioned point of phase 19's fp32 gradient check: wq scaled by 1/8, where the
+# two packages' fp32 einsum gradients differ by 5.8e-4 of a leaf's largest (t5-base on the CPU)
+T5_WQ_SCALE, T5_SCALED_TOL = 0.125, 1e-3
+
+
+def t5_grads(model, hook, batch) -> tuple:
+    """One fp32 backward of T5's loss with ``hook`` as the attention: the
+    loss, every leaf's gradient, the dq launches."""
+    model.attention_fn = hook
+    leaves = {k: p.detach().clone().requires_grad_() for k, p in flatten_tree(model.param_tree())}
+    params = {"encoder": {}, "layers": {}}
+    for key, leaf in leaves.items():
+        group, _, name = key.rpartition(".")
+        (params[group] if group else params)[name] = leaf
+    reset_launches()
+    loss = T5.loss_fn(model)(params, batch)
+    loss.backward()
+    return float(loss.detach()), {k: leaf.grad for k, leaf in leaves.items()}, launch_counts()["flash_dq"]
 
 
 def t5_setup(mixed_precision, tx, flash_min_seq=128, config="t5-base"):
@@ -2583,22 +2647,10 @@ def phase_t5(card: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     batch = t5_batch(np.random.default_rng(SEED + 21), 2, cfg.vocab_size)
     model = build_model("t5-base", dtype=torch.float32, seed=SEED)
-    grads = {}
-    for kind, hook in (("kernels", make_auto_attention(128)), ("plain", plain_t5_attention), ("einsum", None)):
-        model.attention_fn = hook
-        leaves = {k: p.detach().clone().requires_grad_() for k, p in flatten_tree(model.param_tree())}
-        params = {"encoder": {}, "layers": {}}
-        for key, leaf in leaves.items():
-            group, _, name = key.rpartition(".")
-            (params[group] if group else params)[name] = leaf
-        reset_launches()
-        loss = T5.loss_fn(model)(params, batch)
-        loss.backward()
-        grads[kind] = (float(loss.detach()), {k: leaf.grad for k, leaf in leaves.items()},
-                       launch_counts()["flash_dq"])
-        del leaves, params, loss
+    hooks = {"kernels": make_auto_attention(128), "plain": plain_t5_attention, "einsum": None}
+    grads = {kind: t5_grads(model, hook, batch) for kind, hook in hooks.items()}
 
-    def worst_gap(a, b):  # the largest gap of a leaf's gradients, over that leaf's largest magnitude
+    def worst_gap(a, b, grads=grads):  # the largest gap of a leaf's gradients, over that leaf's largest magnitude
         gaps = {k: float((grads[a][1][k] - g).abs().max() / g.abs().max().clamp(min=1e-30))
                 for k, g in grads[b][1].items()}
         return max(gaps.items(), key=lambda kv: kv[1])
@@ -2613,7 +2665,21 @@ def phase_t5(card: str) -> None:
     if (grads["kernels"][2] != 3 * layers or grads["plain"][2] or grads["einsum"][2]
             or not (kernel_gap[1] <= max(1e-4, plain_gap[1]))):
         raise AssertionError(f"t5 gradients through the kernels: {kernel_gap}, the plain paths' spread {plain_gap}")
-    del model, grads
+    # the same at a well-conditioned point, where that spread does not hide a fault: every wq
+    # leaf scaled by 1/8 (the softmaxes no longer saturate), the kernels against the plain flash
+    # at a fixed tolerance
+    with torch.no_grad():
+        for key, leaf in flatten_tree(model.param_tree()):
+            if key.endswith("wq"):
+                leaf.mul_(T5_WQ_SCALE)
+    scaled = {kind: t5_grads(model, hooks[kind], batch) for kind in ("kernels", "plain")}
+    scaled_gap = worst_gap("kernels", "plain", scaled)
+    print(f"[t5-parity] t5-base fp32 B=2, every wq leaf scaled by {T5_WQ_SCALE}: worst gradient gap kernels vs "
+          f"plain flash {scaled_gap[1]:.3e} ({scaled_gap[0]}) of the leaf's largest magnitude (tolerance "
+          f"{T5_SCALED_TOL:.0e}) [{card}]")
+    if not (scaled_gap[1] <= T5_SCALED_TOL):
+        raise AssertionError(f"t5 gradients through the kernels at the scaled point: {scaled_gap}")
+    del model, grads, scaled
     gc.collect()
     torch.cuda.empty_cache()
     # Adam's first steps move a weight by about lr whatever its gradient's size, and t5-base's
@@ -2660,6 +2726,408 @@ def phase_t5(card: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+# -- phase 20: the ring blocks ------------------------------------------------------
+
+RING_BATCH, RING_CHUNKS, RING_CHUNK = 8, 4, 2048  # llama-125m's attention, a causal ring of 4
+RING_EXTRA = {
+    # name: (B, chunks, chunk, NH, KV, D, causal, padded, dtype, (q chunk, kv chunk) pairs)
+    # phase 21's blocks: llama-125m at B=4, a causal ring of 2 over S=8192
+    "ring-of-2": (4, 2, 4096, 12, 12, 64, True, False, torch.bfloat16, ((0, 0), (0, 1), (1, 0), (1, 1))),
+    "padded": (8, 4, 2048, 12, 12, 64, True, True, torch.bfloat16, ((2, 2), (3, 1), (1, 3))),
+    "bidirectional": (8, 2, 2048, 12, 12, 64, False, False, torch.bfloat16, ((0, 1), (1, 0))),
+    "gqa4x2_d32": (4, 4, 1024, 4, 2, 32, True, False, torch.bfloat16, ((1, 1), (2, 0), (0, 3))),
+    "gqa16x8_d128": (2, 4, 1024, 16, 8, 128, True, True, torch.bfloat16, ((1, 1), (3, 0), (0, 2))),
+    "fp32": (2, 4, 1024, 12, 12, 64, True, False, torch.float32, ((1, 1), (2, 1), (1, 2))),
+}
+RING_KINDS = {"diagonal": (2, 2), "past": (2, 0), "future": (0, 2)}  # the timed blocks
+
+
+def ring_inputs(rng, b, chunks, chunk, nh, kv, d, dtype, padded):
+    """The whole sequence's q, k, v, dO, an lse cotangent and (padded) a
+    [B, S] key validity of seeded lengths (one row fully padded), on the
+    card; a block takes its chunks."""
+    s = chunks * chunk
+    f = lambda *shape: torch.tensor(rng.standard_normal(shape, dtype=np.float32), device="cuda").to(dtype)  # noqa: E731
+    out = dict(q=f(b, s, nh, d), k=f(b, s, kv, d), v=f(b, s, kv, d), do=f(b, s, nh, d),
+               dlse=torch.tensor(rng.standard_normal((b, nh, s), dtype=np.float32), device="cuda"),
+               valid=None, chunk=chunk, scale=1.0 / math.sqrt(d))
+    if padded:
+        lengths = rng.integers(s // 3, s, b)
+        lengths[-1] = 0
+        out["valid"] = torch.tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32), device="cuda")
+    return out
+
+
+def ring_block(inputs, i, j, causal):
+    """Block (q chunk i, kv chunk j) as phase 11's case dict, with its
+    offsets (None for a non-causal ring) and lse cotangent."""
+    n = inputs["chunk"]
+    qs, ks = slice(i * n, (i + 1) * n), slice(j * n, (j + 1) * n)
+    c = dict(q=inputs["q"][:, qs].contiguous(), k=inputs["k"][:, ks].contiguous(),
+             v=inputs["v"][:, ks].contiguous(), do=inputs["do"][:, qs].contiguous(),
+             dlse=inputs["dlse"][:, :, qs].contiguous(), causal=causal, scale=inputs["scale"],
+             offsets=(i * n, j * n) if causal else None, kv_mask=None, mask=None, limit=None)
+    if inputs["valid"] is not None:
+        c["kv_mask"] = inputs["valid"][:, ks].contiguous()
+        c["mask"], c["limit"] = fa._mask_limit(c["kv_mask"])
+    return c
+
+
+def ring_sdpa_mask(c):
+    """The block's offset-causal mask (and key mask) as SDPA's boolean
+    ``attn_mask`` [B, 1, S, T]: a yardstick only (SDPA returns no lse and
+    takes no dlse)."""
+    s, t = c["q"].shape[1], c["k"].shape[1]
+    q_off, k_off = c["offsets"] or (0, 0)
+    m = torch.ones((s, t), dtype=torch.bool, device="cuda")
+    if c["causal"]:
+        m = (k_off + torch.arange(t, device="cuda"))[None, :] <= (q_off + torch.arange(s, device="cuda"))[:, None]
+    m = m[None, None]
+    if c["kv_mask"] is not None:
+        m = m & c["kv_mask"].bool()[:, None, None, :]
+    return m
+
+
+def check_ring_block(c, dtype) -> dict:
+    """Forward, dq (with the lse cotangent) and dk/dv kernels of one block
+    against their plain versions, two launches bit-identical, a block in
+    the future exactly 0; the errors and outputs."""
+    q, k, v, do, mask, limit = (c[n] for n in ("q", "k", "v", "do", "mask", "limit"))
+    fwd = (q, k, v, mask, limit, c["causal"], c["scale"])
+    out, lse = fa.flash_forward(*fwd, offsets=c["offsets"])
+    again, lse_again = fa.flash_forward(*fwd, offsets=c["offsets"])
+    dq_args = (q, k, v, mask, limit, do, lse, out, c["causal"], c["scale"])
+    dq, delta = fa.flash_backward_dq(*dq_args, offsets=c["offsets"], dlse=c["dlse"])
+    dq2, delta2 = fa.flash_backward_dq(*dq_args, offsets=c["offsets"], dlse=c["dlse"])
+    dkv_args = (q, k, v, mask, limit, do, lse, delta, c["causal"], c["scale"])
+    dk, dv = fa.flash_backward_dkv(*dkv_args, offsets=c["offsets"])
+    dk2, dv2 = fa.flash_backward_dkv(*dkv_args, offsets=c["offsets"])
+    identical = all(torch.equal(a, b) for a, b in ((out, again), (lse, lse_again), (dq, dq2), (delta, delta2),
+                                                    (dk, dk2), (dv, dv2)))
+    del again, lse_again, dq2, delta2, dk2, dv2
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, c["causal"], c["scale"], offsets=c["offsets"])
+    want_delta = fa.flash_delta_reference(do, out, c["dlse"])
+    ref = (q, k, v, mask, do, lse, want_delta, c["causal"], c["scale"])
+    want_dq = fa.flash_backward_dq_reference(*ref, offsets=c["offsets"])
+    want_dk, want_dv = fa.flash_backward_dkv_reference(*ref, offsets=c["offsets"])
+    torch.cuda.synchronize()
+    errors = {"out": (float((out.float() - want_out.float()).abs().max()), TOLERANCE[dtype]),
+              "lse": (float((lse - want_lse).abs().max()), 1e-4),
+              "delta": (float((delta - want_delta).abs().max()),
+                        1e-4 * max(float(want_delta.abs().max()), 1.0))}
+    for key, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk), ("dv", dv, want_dv)):
+        errors[key] = grad_error(got, want, dtype)
+    q_off, k_off = c["offsets"] or (0, 0)
+    future = c["causal"] and q_off + q.shape[1] - 1 < k_off
+    exact = not future or (int(torch.count_nonzero(out)) == 0 and bool((lse < -1e28).all())
+                           and all(int(torch.count_nonzero(x)) == 0 for x in (dq, dk, dv)))
+    return dict(errors=errors, identical=identical, future=future, exact=exact)
+
+
+def ring_block_times(c, flush) -> dict:
+    """CUDA-event times of the three kernels on one block, their plain
+    versions, bounds over the attended pairs, and SDPA with the block's
+    mask (forward; the whole backward for dq and dk/dv)."""
+    q, k, v, do, mask, limit = (c[n] for n in ("q", "k", "v", "do", "mask", "limit"))
+    off, causal, scale = c["offsets"], c["causal"], c["scale"]
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale, offsets=off)
+    dq_args = (q, k, v, mask, limit, do, lse, out, causal, scale)
+    _, delta = fa.flash_backward_dq(*dq_args, offsets=off, dlse=c["dlse"])
+    dkv_args = (q, k, v, mask, limit, do, lse, delta, causal, scale)
+    ref = (q, k, v, mask, do, lse, delta, causal, scale)
+    t = dict(
+        fwd=time_ms(lambda: fa.flash_forward(q, k, v, mask, limit, causal, scale, offsets=off), flush, iters=20),
+        dq=time_ms(lambda: fa.flash_backward_dq(*dq_args, offsets=off, dlse=c["dlse"]), flush, iters=20),
+        dkv=time_ms(lambda: fa.flash_backward_dkv(*dkv_args, offsets=off), flush, iters=20),
+        fwd_plain=time_ms(lambda: fa.flash_forward_reference(q, k, v, mask, causal, scale, offsets=off), flush,
+                          iters=3),
+        dq_plain=time_ms(lambda: fa.flash_backward_dq_reference(*ref, offsets=off), flush, iters=3),
+        dkv_plain=time_ms(lambda: fa.flash_backward_dkv_reference(*ref, offsets=off), flush, iters=3),
+    )
+    qh, kh, vh = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    kw = dict(attn_mask=ring_sdpa_mask(c), enable_gqa=qh.shape[1] != kh.shape[1])
+    t["fwd_library"] = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw), flush, iters=20)
+    sdpa_out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+    do_h = do.transpose(1, 2).contiguous()
+    t["bwd_library"] = time_ms(lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), do_h, retain_graph=True),
+                               flush, iters=20)
+    case = dict(q=q, k=k, mask=mask, limit=limit, causal=causal, offsets=off, dlse=True)
+    for kind in ("fwd", "dq", "dkv"):
+        t[f"{kind}_bound"], t[f"{kind}_by"] = flash_bound_ms(case, kind)
+    return t
+
+
+def merged_ring_check(inputs, card: str) -> None:
+    """The causal ring's blocks of every q chunk merged (the ring's own
+    merge, one process playing every rank) against the kernels without
+    offsets at the whole length: forward, and the q, k, v gradients under
+    one cotangent."""
+    from accelerate_tpu_torch.parallel.ring_attention import merge_block, merge_end, merge_start
+
+    q, k, v, do = (inputs[n].detach().clone().requires_grad_(n != "do") for n in ("q", "k", "v", "do"))
+    n, chunks = inputs["chunk"], q.shape[1] // inputs["chunk"]
+    outs = []
+    for i in range(chunks):
+        qi = q[:, i * n:(i + 1) * n]
+        o, m, l = merge_start(qi)
+        for j in range(chunks):
+            ks = slice(j * n, (j + 1) * n)
+            o_blk, lse_blk = fa.flash_attention_block(qi, k[:, ks], v[:, ks], causal=True, q_offset=i * n,
+                                                      kv_offset=j * n)
+            o, m, l = merge_block(o, m, l, o_blk, lse_blk)
+        outs.append(merge_end(o, l, q.dtype))
+    merged = torch.cat(outs, dim=1)
+    got = torch.autograd.grad(merged, (q, k, v), do)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    whole = fa.flash_attention(*leaves, causal=True)
+    want = torch.autograd.grad(whole, leaves, do)
+    out_err = float((merged.detach().float() - whole.detach().float()).abs().max())
+    errors = {name: grad_error(a, b, q.dtype) for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+    print(f"[ring-block] {chunks} blocks of {n} merged vs flash_attention at S={q.shape[1]} (no offsets), "
+          f"B={q.shape[0]}, {str(q.dtype).split('.')[-1]}: out {out_err:.3e} (tol {TOLERANCE[q.dtype]:.0e}); "
+          + ", ".join(f"{key} {e:.3e} (tol {t:.1e})" for key, (e, t) in errors.items()) + f" [{card}]")
+    if not (out_err <= TOLERANCE[q.dtype]) or any(not (e <= t) for e, t in errors.values()):
+        raise AssertionError("the ring's merged blocks differ from flash attention over the whole sequence")
+
+
+def phase_ring_blocks(card: str) -> dict:
+    """The flash kernels' ring-block variants on one card: every (q chunk,
+    kv chunk) block of a causal ring of 4 at llama-125m's attention (B=8,
+    chunks of 2048, 12 heads of 64, bf16: diagonal, past and future
+    blocks), every block of phase 21's ring of 2 (B=4, chunks of 4096),
+    then a seeded padding, a non-causal ring, GQA at head dim 32 and at
+    128, and fp32; forward, dq with an lse cotangent and dk/dv
+    against their plain versions, two launches bit-identical, future blocks
+    exactly 0; the blocks merged against the kernels without offsets at
+    S=8192; each kind of block timed. Returns the JSON records (the
+    diagonal block)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 20)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    cases = [("llama-125m", (RING_BATCH, RING_CHUNKS, RING_CHUNK, 12, 12, 64, True, False, torch.bfloat16,
+                             tuple((i, j) for i in range(RING_CHUNKS) for j in range(RING_CHUNKS))))]
+    cases += list(RING_EXTRA.items())
+    for name, (b, chunks, chunk, nh, kv, d, causal, padded, dtype, pairs) in cases:
+        inputs = ring_inputs(rng, b, chunks, chunk, nh, kv, d, dtype, padded)
+        worst, kinds = {}, {"diagonal": 0, "past": 0, "future": 0}
+        for i, j in pairs:
+            got = check_ring_block(ring_block(inputs, i, j, causal), dtype)
+            kinds["future" if got["future"] else ("diagonal" if i == j else "past")] += 1
+            for key, (e, t) in got["errors"].items():
+                if key not in worst or e > worst[key][0]:
+                    worst[key] = (e, t)
+            if any(not (e <= t) for e, t in got["errors"].values()) or not got["identical"] or not got["exact"]:
+                raise AssertionError(f"ring block ({i}, {j}) of {name}: {got}")
+            torch.cuda.empty_cache()
+        print(f"[ring-block] {name} {str(dtype).split('.')[-1]} B={b} {chunks} chunks of {chunk}, {nh} heads over "
+              f"{kv} of {d}, {'causal' if causal else 'non-causal'}{', padded' if padded else ''}: {len(pairs)} "
+              f"blocks ({', '.join(f'{n} {k}' for k, n in kinds.items() if n)}); worst "
+              + ", ".join(f"{key} {e:.3e} (tol {t:.1e})" for key, (e, t) in worst.items())
+              + f"; two launches bit-identical, future blocks exactly 0 (lse < -1e28) [{card}]")
+        if name == "llama-125m":
+            merged_ring_check(inputs, card)
+            records = {}
+            for kind, (i, j) in RING_KINDS.items():
+                c = ring_block(inputs, i, j, causal)
+                t = ring_block_times(c, flush)
+                print(f"[ring-block] {kind} block ({i}, {j}) of llama-125m bf16 B={b} chunk {chunk}: fwd "
+                      f"{t['fwd']:.4f} ms (plain {t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} {t['fwd_by']}, "
+                      f"{t['fwd_bound'] / t['fwd']:.1%}; SDPA with the offset mask library_ms "
+                      f"{t['fwd_library']:.4f}); dq with dlse {t['dq']:.4f} ms (plain {t['dq_plain']:.4f}, bound "
+                      f"{t['dq_bound']:.4f} {t['dq_by']}, {t['dq_bound'] / t['dq']:.1%}); dkv {t['dkv']:.4f} ms "
+                      f"(plain {t['dkv_plain']:.4f}, bound {t['dkv_bound']:.4f} {t['dkv_by']}, "
+                      f"{t['dkv_bound'] / t['dkv']:.1%}); SDPA's whole backward with the mask library_ms "
+                      f"{t['bwd_library']:.4f} (ours {t['dq'] + t['dkv']:.4f}) [{card}]")
+                if kind == "diagonal":
+                    got = check_ring_block(c, dtype)["errors"]
+                    records = {
+                        "flash_fwd_ring": dict(max_abs_err=got["out"][0], ms=t["fwd"], plain_ms=t["fwd_plain"],
+                                               bound_ms=t["fwd_bound"], bound_by=t["fwd_by"],
+                                               library_ms=t["fwd_library"]),
+                        "flash_dq_ring": dict(max_abs_err=got["dq"][0], ms=t["dq"], plain_ms=t["dq_plain"],
+                                              bound_ms=t["dq_bound"], bound_by=t["dq_by"],
+                                              library_ms=t["bwd_library"]),
+                        "flash_dkv_ring": dict(max_abs_err=max(got["dk"][0], got["dv"][0]), ms=t["dkv"],
+                                               plain_ms=t["dkv_plain"], bound_ms=t["dkv_bound"],
+                                               bound_by=t["dkv_by"], library_ms=t["bwd_library"]),
+                    }
+                del c, t
+                torch.cuda.empty_cache()
+        del inputs
+        torch.cuda.empty_cache()
+    return records
+
+
+# -- phase 21: the ring across two processes ------------------------------------
+
+RING_PAIR_BATCH, RING_PAIR_SEQ, RING_PAIR_STEPS = 4, 8192, 3  # 4 x 4096 tokens a process
+P2P_PROBED = ("isend/irecv host", "batch_isend_irecv host", "ring hop cuda")
+# the ring against one process, beside phase 18's PAIR_LOSS_RTOL: the losses' relative gap
+# (3.6e-6 to 1.5e-5 on the H100), and each leaf's first gradient, the norm of its gap over
+# its own norm (2.5e-3 to 2.2e-2 on the H100; a ring whose past blocks were dropped from the
+# merge put every leaf 0.27-0.98 off, one whose hops sent back zero gradients 0.13-0.62 off
+# all but the final norm and the head)
+RING_LOSS_RTOL = 1e-4
+RING_GRAD_RTOL = 5e-2
+
+
+def ring_pair_batches() -> list:
+    rng = np.random.default_rng(SEED + 21)
+    return [rng.integers(0, 32000, (RING_PAIR_BATCH, RING_PAIR_SEQ)).astype(np.int32)
+            for _ in range(RING_PAIR_STEPS)]
+
+
+def probe_p2p(ring) -> dict:
+    """Point-to-point sends between the two processes: ``isend``/``irecv``
+    and ``batch_isend_irecv`` on host tensors (what gloo moves), and the
+    ring's hop of a CUDA tensor (staged through the host by explicit
+    copies on a gloo group), each with its values checked."""
+    import torch.distributed as dist
+
+    rank, peer = dist.get_rank(), 1 - dist.get_rank()
+    out = {}
+    x = torch.arange(4, dtype=torch.float32) + 10 * rank
+    got = torch.empty(4)
+    works = [dist.isend(x, peer), dist.irecv(got, peer)]
+    for work in works:
+        work.wait()
+    out[P2P_PROBED[0]] = "ok" if got.tolist() == (torch.arange(4) + 10 * peer).tolist() else f"wrong {got.tolist()}"
+    got = torch.empty(4)
+    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer), dist.P2POp(dist.irecv, got, peer)]):
+        work.wait()
+    out[P2P_PROBED[1]] = "ok" if got.tolist() == (torch.arange(4) + 10 * peer).tolist() else f"wrong {got.tolist()}"
+    y = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+    moved, hop = ring.rotate(y, [])
+    hop.wait()
+    out[P2P_PROBED[2]] = ("ok" if moved.tolist() == (torch.arange(4) + 10 * peer).tolist() else
+                          f"wrong {moved.tolist()}") + (" (staged through the host)" if ring.staged(y.device) else "")
+    return out
+
+
+def train_ring_pair(grads_path: str) -> dict:
+    """In each of two processes on cuda:0: the P2P probe, then llama-125m
+    bf16 under ParallelismConfig(sequence=2): the first batch's gradients
+    (summed over the ring; rank 0 saves them to ``grads_path``), then 3
+    compiled steps on the whole global batch (each process runs its half
+    of the sequence), launches counted, each step timed, peak memory."""
+    import torch.distributed as dist
+
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="bf16", parallelism=ParallelismConfig(sequence=2), **gloo_on_card())
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    prepared = accelerator.prepare_model(model)
+    probes = probe_p2p(model.attention_fn.ring)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    batches = [{"input_ids": torch.tensor(b, device="cuda")} for b in ring_pair_batches()]
+    first_grads(accelerator, model, optimizer, batches[0], grads_path if dist.get_rank() == 0 else None)
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    ring_counts = {name: WRAPPERS[name].ring_launches for name in FLASH_KERNELS}
+    del optimizer, step
+    return {"rank": dist.get_rank(), "probes": probes, "losses": losses, "times": times, "counts": counts,
+            "ring_counts": ring_counts, "span": prepared.sequence_span(RING_PAIR_SEQ),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def first_grads(accelerator, model, optimizer, batch, path):
+    """The gradients of ``batch``'s loss before any update (across
+    processes the global ones), saved to ``path`` on the host when given,
+    then cleared; returns them."""
+    accelerator.backward(Llama.loss_fn(model), batch)
+    grads = {k: v.detach().to("cpu") for k, v in flatten_tree(optimizer.grads)}
+    optimizer.zero_grad()
+    if path is not None:
+        torch.save(grads, path)
+    return grads
+
+
+def ring_grad_gaps(got: dict, want: dict) -> dict:
+    """Each leaf's gradient gap, ||got - want|| over ||want||."""
+    return {k: float(torch.linalg.vector_norm(got[k] - want[k]) / torch.linalg.vector_norm(want[k])) for k in want}
+
+
+def phase_ring_pair(card: str) -> dict:
+    """Ring attention across two processes sharing cuda:0 over gloo:
+    llama-125m at full width and depth, bf16 over fp32 masters,
+    ``fused_adamw(3e-4)``, ``ParallelismConfig(sequence=2)``, global batch
+    4 at S=8192 (4 x 4096 tokens a process), 3 compiled steps; both
+    processes' losses alike, within 5e-3 relative of one process's steps
+    on the whole batch and within ``RING_LOSS_RTOL``; the first batch's
+    gradients of every leaf within ``RING_GRAD_RTOL`` of one process's;
+    launches a process (each flash kernel's ring variant 12 layers x 2
+    blocks a step); step time and peak memory a process against the one
+    process's. Returns the ring launches."""
+    from accelerate_tpu_torch.launchers import debug_launcher
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ring-") as tmp:
+        path = os.path.join(tmp, "grads.pt")
+        ranks = debug_launcher(train_ring_pair, args=(path,), num_processes=2, timeout=600)
+        ring_grads = torch.load(path)
+    probes = ranks[0]["probes"]
+    print(f"[ring-pair] point-to-point on gloo, two processes on cuda:0: "
+          + ", ".join(f"{name}: {probes[name]}" for name in P2P_PROBED) + f" [{card}]")
+    if any(not out["probes"][name].startswith("ok") for out in ranks for name in P2P_PROBED):
+        raise AssertionError(f"gloo point-to-point: {[out['probes'] for out in ranks]}")
+    layers, blocks = 12, 2
+    for got in ranks:
+        print(f"[ring-pair] rank {got['rank']}: llama-125m bf16 fused_adamw B={RING_PAIR_BATCH} S={RING_PAIR_SEQ} "
+              f"under ParallelismConfig(sequence=2), positions {got['span']}: losses "
+              f"{[round(x, 6) for x in got['losses']]}; step times "
+              f"{[round(x * 1e3, 3) for x in got['times']]} ms (p50 {np.median(got['times']) * 1e3:.3f}; gloo "
+              f"stages every hop and collective through the host, so this says nothing of NCCL); launches "
+              f"{got['counts']}, of them the ring variants {got['ring_counts']}, over {RING_PAIR_STEPS} steps; "
+              f"peak memory {got['peak_gib']:.3f} GiB [{card}]")
+        for name in FLASH_KERNELS:
+            want = layers * blocks * RING_PAIR_STEPS
+            if got["counts"][name] != want or got["ring_counts"][name] != want:
+                raise AssertionError(f"rank {got['rank']} {name}: {got['counts'][name]} launches "
+                                     f"({got['ring_counts'][name]} ring), expected {want}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError("the two processes report different losses")
+
+    reset_training_state()
+    accelerator, model = train_setup("llama-125m", "bf16", fused_adamw(ADAMW_LR))
+    batches = [{"input_ids": torch.tensor(b, device="cuda")} for b in ring_pair_batches()]
+    grad_gaps = ring_grad_gaps(ring_grads, first_grads(accelerator, model, accelerator._optimizers[-1],
+                                                       batches[0], None))
+    del ring_grads
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        single.append(float(step(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single)]
+    worst = max(grad_gaps, key=grad_gaps.get)
+    print(f"[ring-pair] one process on the whole batch (flash from 1024): losses {[round(x, 6) for x in single]}; "
+          f"relative gaps {[f'{g:.3e}' for g in gaps]} (tolerances {PAIR_LOSS_RTOL} and {RING_LOSS_RTOL}); first "
+          f"gradients' relative gap, worst leaf {worst} {grad_gaps[worst]:.3e} (tolerance {RING_GRAD_RTOL}), "
+          f"median leaf {float(np.median(list(grad_gaps.values()))):.3e}; step times "
+          f"{[round(x * 1e3, 3) for x in times]} ms; peak memory {peak:.3f} GiB against "
+          f"{max(r['peak_gib'] for r in ranks):.3f} a ring process [{card}]")
+    if max(gaps) > PAIR_LOSS_RTOL or max(gaps) > RING_LOSS_RTOL:
+        raise AssertionError("the ring's losses differ from one process's")
+    if not all(g <= RING_GRAD_RTOL for g in grad_gaps.values()):
+        raise AssertionError(f"the ring's gradients differ from one process's: {grad_gaps}")
+    del accelerator, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_training_state()
+    return ranks[0]["ring_counts"]
+
 
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
@@ -2702,6 +3170,10 @@ def main() -> int:
     timed("phase 17 activation checkpointing", phase_remat, card)
     timed("phase 18 two processes on the card over gloo", phase_pair, card)
     timed("phase 19 t5", phase_t5, card)
+    records.update(timed("phase 20 flash ring blocks", phase_ring_blocks, card))
+    ring = timed("phase 21 ring attention across two processes on the card", phase_ring_pair, card)
+    for name in FLASH_KERNELS:
+        launches[f"{name}_ring"] = ring[name]
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

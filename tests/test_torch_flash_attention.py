@@ -128,7 +128,8 @@ def test_bias_and_ring_offsets_raise():
     """An additive bias runs, through ``flash_attention`` and the auto hook
     (which says so by ``supports_bias``), and equals the einsum path with
     the same bias; a bias whose batch dim is neither 1 nor B raises, as the
-    ring block entry with its global offsets does (ROADMAP item 17)."""
+    ring inside a pipeline stage does (ROADMAP item 17(c); the ring block
+    entry with its global offsets runs since item 17(a))."""
     q, k, v, _ = _case(n=2, kv=2)
     t = [torch.tensor(x) for x in (q, k, v)]
     bias = torch.tensor(np.random.default_rng(1).normal(size=(1, 2, 256, 256)).astype(np.float32))
@@ -139,8 +140,10 @@ def test_bias_and_ring_offsets_raise():
     np.testing.assert_allclose(hook(*t, bias=bias).numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="bias batch dim must be 1 or 6, got 2"):
         fa.flash_attention(*(x.repeat(3, 1, 1, 1) for x in t), bias=bias.repeat(2, 1, 1, 1))
+    from accelerate_tpu_torch.parallel.ring_attention import make_local_ring_attention
+
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        fa.flash_attention_block(*t, q_offset=0, kv_offset=256, causal=True)
+        make_local_ring_attention()
 
 
 def _bias_case(bias_batch, b=2, s=256, n=4, d=64, seed=0):

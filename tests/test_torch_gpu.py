@@ -469,6 +469,95 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, geometry):
             assert torch.count_nonzero(x) == 0
 
 
+# the ring-block variants: ((B, S, T, NH, KV, D, causal, masked), (q_offset, kv_offset) or None).
+# Offsets a multiple of the chunk (the ring's diagonal, past and future blocks) and others that
+# cut the 64-row tiles (the first queries of the block see no key, or see all of some tile)
+RING_GEOMETRIES = {
+    "diagonal_d64": ((2, 256, 256, 4, 4, 64, True, False), (256, 256)),
+    "past_gqa_masked": ((2, 256, 256, 8, 2, 64, True, True), (512, 0)),
+    "future_masked": ((2, 256, 256, 4, 4, 64, True, True), (0, 512)),
+    "shift_63_s192": ((2, 192, 192, 4, 2, 64, True, False), (100, 37)),
+    "shift_minus_63_d32": ((2, 256, 256, 4, 2, 32, True, True), (37, 100)),
+    "diagonal_d32_s192": ((2, 192, 192, 4, 2, 32, True, False), (192, 192)),
+    "past_d128_gqa_masked": ((2, 192, 192, 4, 2, 128, True, True), (384, 0)),
+    "noncausal_masked": ((2, 256, 256, 4, 2, 64, False, True), None),
+}
+
+
+def _ring_launch(q, k, v, do, mask, limit, causal, scale, offsets, dlse):
+    out, lse = fa.flash_forward(q, k, v, mask, limit, causal, scale, offsets=offsets)
+    dq, delta = fa.flash_backward_dq(q, k, v, mask, limit, do, lse, out, causal, scale, offsets=offsets, dlse=dlse)
+    dk, dv = fa.flash_backward_dkv(q, k, v, mask, limit, do, lse, delta, causal, scale, offsets=offsets)
+    return out, lse, dq, delta, dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("geometry,offsets", list(RING_GEOMETRIES.values()), ids=list(RING_GEOMETRIES))
+def test_flash_ring_kernels_match_plain_versions(cuda, dtype, geometry, offsets):
+    """The ring-block variants (global offsets; dq with an lse cotangent)
+    against their plain versions, at the tolerances of the kernels without
+    offsets; each launch counted as a ring launch; a block wholly in the
+    future gives exact zeros and lse < -1e28."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, dtype, geometry)
+    b, s, nh = q.shape[0], q.shape[1], q.shape[2]
+    dlse = torch.tensor(np.random.default_rng(7).standard_normal((b, nh, s), dtype=np.float32), device=cuda)
+    before = [w.ring_launches for w in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)]
+    out, lse, dq, delta, dk, dv = _ring_launch(q, k, v, do, mask, limit, causal, scale, offsets, dlse)
+    torch.cuda.synchronize()
+    after = [w.ring_launches for w in (fa.flash_forward, fa.flash_backward_dq, fa.flash_backward_dkv)]
+    assert after == [before[0] + (offsets is not None), before[1] + 1, before[2] + (offsets is not None)]
+    want_out, want_lse = fa.flash_forward_reference(q, k, v, mask, causal, scale, offsets=offsets)
+    assert float((out.float() - want_out.float()).abs().max()) <= TOLERANCE[dtype]
+    assert float((lse - want_lse).abs().max()) <= 1e-4
+    want_delta = fa.flash_delta_reference(do, out, dlse)
+    assert float((delta - want_delta).abs().max()) <= DELTA_TOLERANCE * float(want_delta.abs().max().clamp(min=1))
+    ref_args = (q, k, v, mask, do, lse, want_delta, causal, scale)
+    grads = {"dq": (dq, fa.flash_backward_dq_reference(*ref_args, offsets=offsets))}
+    grads.update(zip(("dk", "dv"), zip((dk, dv), fa.flash_backward_dkv_reference(*ref_args, offsets=offsets))))
+    for name, (got, want) in grads.items():
+        assert torch.isfinite(got.float()).all(), name
+        err = float((got.float() - want.float()).abs().max())
+        tol = 5e-4 if dtype == torch.float32 else 2e-2 * float(want.float().abs().max().clamp(min=1e-30))
+        assert err <= tol, f"{name}: {err} > {tol}"
+    if offsets is not None and offsets[0] + s - 1 < offsets[1]:  # wholly in the future
+        assert bool((lse < -1e28).all())
+        for x in (out, dq, dk, dv):
+            assert torch.count_nonzero(x) == 0
+
+
+@pytest.mark.parametrize("geometry,offsets", list(RING_GEOMETRIES.values()), ids=list(RING_GEOMETRIES))
+def test_flash_ring_kernels_are_bit_identical_across_launches(cuda, geometry, offsets):
+    q, k, v, do, mask, limit, causal, scale = _flash_case(cuda, torch.bfloat16, geometry)
+    dlse = torch.tensor(np.random.default_rng(8).standard_normal((q.shape[0], q.shape[2], q.shape[1]),
+                                                                  dtype=np.float32), device=cuda)
+    first = _ring_launch(q, k, v, do, mask, limit, causal, scale, offsets, dlse)
+    again = _ring_launch(q, k, v, do, mask, limit, causal, scale, offsets, dlse)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_block_grads_match_autograd_through_plain(cuda, masked):
+    """The ring block's autograd function on the card (the kernels, the lse
+    cotangent folded into delta) against autograd through the plain forward
+    with both cotangents, fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, mask, limit, _, scale = _flash_case(cuda, torch.float32, (2, 256, 256, 4, 2, 64, True, masked))
+    rng = np.random.default_rng(9)
+    dlse = torch.tensor(rng.standard_normal((2, 256, 4), dtype=np.float32), device=cuda)
+    kv_mask = None if mask is None else mask
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out, lse = fa.flash_attention_block(*leaves, kv_mask, causal=True, q_offset=256, kv_offset=128)
+    got = torch.autograd.grad((out, lse), leaves, (do, dlse))
+    plain = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want_out, want_lse = fa.flash_forward_reference(*plain, mask, True, scale, offsets=(256, 128))
+    want = torch.autograd.grad((want_out, want_lse.transpose(1, 2)), plain, (do, dlse))
+    assert float((out - want_out).abs().max()) <= TOLERANCE[torch.float32]
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 5e-4
+
+
 # the bias kernels: (B, S, T, NH, KV, D, causal, masked, bias batched). t5-base's attention at
 # B=12 (encoder, 2 batch rows a dq block, 6 chunks summed) and B=32 (decoder self-attention)
 BIAS_GEOMETRIES = {

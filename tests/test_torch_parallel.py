@@ -48,6 +48,7 @@ from accelerate_tpu.models import Bert as JaxBert
 from accelerate_tpu.models import Llama as JaxLlama
 from accelerate_tpu.models import T5 as JaxT5
 from accelerate_tpu.parallel import sharding as jax_sharding
+from accelerate_tpu.parallel.ring_attention import make_ring_attention as jax_make_ring_attention
 from accelerate_tpu.parallel.zero import zero_update_state_bytes as jax_zero_update_state_bytes
 from accelerate_tpu.state import AcceleratorState as JaxAcceleratorState
 from accelerate_tpu.state import GradientState as JaxGradientState
@@ -81,7 +82,16 @@ JAX_TRAINING = {
     "fsdp3": (dict(fsdp_plugin=JaxFSDP(stage=3, min_weight_size=16)), dict(), 0),
     "zero_eager": (dict(gradient_accumulation_steps=2), dict(), 2),
     "zero_data_fsdp": (dict(parallelism=JaxParallelismConfig(data=4, fsdp=2)), dict(), 0),
+    "seq2": (dict(parallelism=JaxParallelismConfig(sequence=2)), dict(), 0),
+    "seq2_fsdp2": (dict(parallelism=JaxParallelismConfig(sequence=2, fsdp=2)), dict(), 0),
 }
+# the sequence axis at each world size: the ring's and the forwards' size, the
+# training configurations, the loader's mesh
+SEQUENCE_CONFIGS = {
+    2: dict(size=2, train=["seq2"], loader_mesh=dict(sequence=2)),
+    4: dict(size=4, train=["seq2_fsdp2"], loader_mesh=dict(sequence=2, fsdp=2)),
+}
+RING_TOL = 1e-5  # fp32: the same exact attention, blocks merged in another order
 JAX_OF = {"fsdp3_offload": "fsdp3"}  # the same arithmetic, state kept on the host
 
 
@@ -173,8 +183,42 @@ def _jax_checkpoint(directory, params, batches):
     return out
 
 
+def _ring_cases() -> dict:
+    """The ring's inputs (``tests/test_ring_attention.py``'s cases at a
+    length whose chunks the flash path tiles), with a cotangent each."""
+    rng = np.random.default_rng(40)
+    cases = {}
+    for name, (kv, causal, padded) in {"causal": (4, True, False), "noncausal": (4, False, False),
+                                      "padded": (4, True, True), "gqa": (2, True, False)}.items():
+        f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+        mask = None
+        if padded:
+            mask = np.ones((2, 512), np.int32)
+            mask[0, :130] = 0  # left padding on row 0, past the first chunk at 4
+        cases[name] = dict(q=f(2, 512, 4, 16), k=f(2, 512, kv, 16), v=f(2, 512, kv, 16), cot=f(2, 512, 4, 16),
+                           mask=mask, causal=causal)
+    return cases
+
+
+def _forward_cases() -> dict:
+    """The sequence axis's forwards: (ids, attention mask)."""
+    rng = np.random.default_rng(41)
+    ids = lambda s: rng.integers(0, 1024, (2, s)).astype(np.int32)  # noqa: E731
+    left = np.ones((2, 64), np.int32)
+    left[0, :16] = 0
+    right = np.ones((2, 64), np.int32)
+    right[1, 48:] = 0
+    return {"llama": (ids(64), None), "llama_padded": (ids(64), left), "llama_indivisible": (ids(63), None),
+            "bert_padded": (ids(64), right)}
+
+
 @pytest.fixture(scope="module")
-def launches(request, tmp_path_factory, init_params, batches):
+def bert_params():
+    return jax.tree.map(np.asarray, JaxBert("bert-tiny").init(jax.random.key(0)))
+
+
+@pytest.fixture(scope="module")
+def launches(request, tmp_path_factory, init_params, batches, bert_params):
     """Every rank's results of the suite at 2 and at 4 processes, and the
     JAX checkpoint the 2-process suite loaded."""
     ckpt = _shared_dir(tmp_path_factory, request, "ckpt")
@@ -182,10 +226,14 @@ def launches(request, tmp_path_factory, init_params, batches):
     def compute():
         jax_saved = _jax_checkpoint(ckpt / "jax", init_params, batches)
         out = {"jax_checkpoint": jax_saved}
+        remat_ids = np.random.default_rng(42).integers(0, 1024, (2, 256)).astype(np.int32)
         for world, names in WORLD_CONFIGS.items():
             dirs = (str(ckpt / "jax"), str(ckpt / "port")) if world == 2 else (None, None)
-            out[world] = debug_launcher(workers.suite, (names, init_params, batches, *dirs),
-                                        num_processes=world, timeout=300)
+            config = SEQUENCE_CONFIGS[world]
+            sequence = dict(size=config["size"], ring=_ring_cases(), bert_params=bert_params,
+                            forwards=_forward_cases(), loader_mesh=config["loader_mesh"], remat_ids=remat_ids)
+            out[world] = debug_launcher(workers.suite, (names + config["train"], init_params, batches, *dirs,
+                                                        sequence), num_processes=world, timeout=420)
         out["port_checkpoint"] = str(ckpt / "port")
         return out
 
@@ -457,7 +505,7 @@ def test_jax_sharded_checkpoint_loads_into_port_processes(launches):
 # -- (vii) what waits for model parallelism -------------------------------------
 
 
-@pytest.mark.parametrize("axis", ["tensor", "pipeline", "expert", "sequence"])
+@pytest.mark.parametrize("axis", ["tensor", "pipeline", "expert"])
 def test_model_parallel_axes_raise_naming_item_17(axis):
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
         ParallelismConfig(**{axis: 2})
@@ -518,3 +566,174 @@ def test_workers_import_nothing_of_jax():
     names = [alias.name for node in ast.walk(tree) if isinstance(node, ast.Import) for alias in node.names]
     names += [node.module for node in ast.walk(tree) if isinstance(node, ast.ImportFrom) and node.module]
     assert not [n for n in names if n.split(".")[0] in ("jax", "optax", "accelerate_tpu")]
+
+
+# -- (viii) the sequence axis: ring attention --------------------------------------
+
+
+def _jax_ring():
+    """JAX's ``make_ring_attention`` at ``sequence=4`` on its 8 devices:
+    each case's output and the q, k, v gradients of ``sum(out * cot)``."""
+    _reset()
+    state = JaxPartialState(parallelism=JaxParallelismConfig(sequence=4))
+    out = {}
+    for name, c in _ring_cases().items():
+        ring = jax_make_ring_attention(state.mesh, causal=c["causal"])
+        mask = None if c["mask"] is None else jnp.asarray(c["mask"])
+        qkv = [jnp.asarray(c[n]) for n in ("q", "k", "v")]
+        cot = jnp.asarray(c["cot"])
+        got = jax.jit(ring)(*qkv, mask)
+        grads = jax.jit(jax.grad(lambda q, k, v: (ring(q, k, v, mask) * cot).sum(), argnums=(0, 1, 2)))(*qkv)
+        out[name] = [np.asarray(x) for x in (got, *grads)]
+    _reset()
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ring(request, tmp_path_factory):
+    return _once(request, tmp_path_factory, "jax_ring", _jax_ring)
+
+
+@pytest.mark.parametrize("case", ["causal", "noncausal", "padded", "gqa"])
+@pytest.mark.parametrize("world", [2, 4])
+def test_ring_matches_the_jax_ring(launches, jax_ring, world, case):
+    """The port's ring over 2 and 4 gloo processes (each its chunk, K/V
+    rotating) against JAX's ring over its sequence axis of 4: the output
+    and the q, k, v gradients through the ring (the hops' backward, the
+    blocks' lse cotangent), atol 1e-5."""
+    chunks = [launches[world][r]["ring"][case] for r in range(world)]
+    got = [np.concatenate([c[i] for c in chunks], axis=1) for i in range(4)]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, jax_ring[case]):
+        np.testing.assert_allclose(g, w, rtol=0, atol=RING_TOL, err_msg=name)
+
+
+def _jax_forwards(init_params, bert_params):
+    model, bert = JaxLlama(MODEL), JaxBert("bert-tiny")
+    out = {}
+    for name, (ids, mask) in _forward_cases().items():
+        jmask = None if mask is None else jnp.asarray(mask)
+        m, p = (bert, bert_params) if name.startswith("bert") else (model, init_params)
+        out[name] = np.asarray(m.apply(jax.tree.map(jnp.asarray, p), jnp.asarray(ids), attention_mask=jmask))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_forwards(request, tmp_path_factory, init_params, bert_params):
+    return _once(request, tmp_path_factory, "jax_forwards", lambda: _jax_forwards(init_params, bert_params))
+
+
+@pytest.mark.parametrize("case", list(_forward_cases()))
+@pytest.mark.parametrize("world", [2, 4])
+def test_sequence_forwards_match_the_jax_models(launches, jax_forwards, world, case):
+    """Prepared models under ``ParallelismConfig(sequence=world)`` called
+    on the global rows, against the JAX models' plain forward, 2e-4 (the
+    JAX package's tests): llama's chunks of the logits concatenated (real
+    positions under padding), the whole logits on every process at a
+    length the ring does not divide (the einsum fallback), bert's logits
+    from the process holding position 0 and zeros elsewhere."""
+    want = jax_forwards[case]
+    ranks = [launches[world][r]["forwards"][case] for r in range(world)]
+    ids, mask = _forward_cases()[case]
+    if case == "llama_indivisible":
+        assert all(r["span"] == (0, 63) for r in ranks)
+        for r in ranks:
+            np.testing.assert_allclose(r["out"], want, atol=2e-4)
+        return
+    if case.startswith("bert"):
+        np.testing.assert_allclose(ranks[0]["out"], want, atol=2e-4)
+        assert all(not r["out"].any() for r in ranks[1:])
+        return
+    assert [r["span"] for r in ranks] == [(i * 64 // world, (i + 1) * 64 // world) for i in range(world)]
+    got = np.concatenate([r["out"] for r in ranks], axis=1)
+    real = np.ones(ids.shape, bool) if mask is None else mask.astype(bool)
+    np.testing.assert_allclose(got[real], want[real], atol=2e-4)
+
+
+@pytest.mark.parametrize("world,name", [(w, n) for w, c in SEQUENCE_CONFIGS.items() for n in c["train"]])
+def test_sequence_training_matches_the_jax_mesh(launches, jax_runs, world, name):
+    """llama-tiny trained under ``sequence=2`` (and ``fsdp=2`` at 4
+    processes): each process runs its half of every row of its batch shard,
+    the losses and gradients summed over the sequence group; losses at rtol
+    1e-5 and params at the tolerances above against the JAX package's mesh,
+    every process ending bit-equal, the replicated update (ZeRO is
+    ineligible under a sequence axis, as in the JAX package)."""
+    ranks = [launches[world][r][f"train/{name}"] for r in range(world)]
+    want = jax_runs[name]
+    for rank in ranks[1:]:
+        assert rank["losses"] == ranks[0]["losses"]
+        for key in ranks[0]["params"]:
+            np.testing.assert_array_equal(rank["params"][key], ranks[0]["params"][key], err_msg=key)
+    got = ranks[0]
+    assert got["steps"] == want["steps"]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    _assert_params_close(want["params"], got["params"], want["steps"])
+    mesh = got["mesh"]
+    assert mesh["sequence"] == 2 and mesh["data"] * mesh["fsdp"] * mesh["sequence"] == world
+    assert got["distributed_type"] == ("HYBRID" if mesh["fsdp"] > 1 else "TENSOR_PARALLEL")
+
+
+def test_remat_under_the_ring_is_bit_equal(launches):
+    """One step under ``remat_policy`` "full" (a recomputed layer re-runs
+    its hops) and "save_flash" (the stash replays each block) equals the
+    step without remat, bit for bit, on both processes; the processes
+    agree."""
+    for r in range(2):
+        runs = launches[2][r]["remat"]
+        for policy in ("full", "save_flash"):
+            assert runs[policy]["loss"] == runs["None"]["loss"], policy
+            for key, value in runs["None"]["params"].items():
+                np.testing.assert_array_equal(runs[policy]["params"][key], value, err_msg=f"{policy} {key}")
+    assert launches[2][0]["remat"]["None"]["loss"] == launches[2][1]["remat"]["None"]["loss"]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_sequence_loader_shards_by_the_batch_axes(launches, world):
+    """Under a sequence axis the processes of one sequence group take the
+    same rows: the JAX package's ``BatchSamplerShard`` over the batch axes
+    only (one shard at sequence=2, fsdp's two at sequence=2, fsdp=2)."""
+    outs = [launches[world][r]["sequence_loader"] for r in range(world)]
+    shards = outs[0]["shards"][0]
+    for out in outs:
+        index = out["coords"]["fsdp"]
+        assert out["shards"] == (shards, index)
+        assert out["rows"] == _jax_shard_rows(21, 2, shards, index)
+
+
+def test_sequence_axis_raises_for_models_that_run_no_chunk(launches):
+    """T5 runs no chunk of the sequence: under a sequence axis
+    ``prepare_model`` raises, naming item 17; MoE layers route over the
+    whole sequence, so a chunked llama-MoE forward raises naming 17(b)."""
+    assert "ROADMAP item 17" in launches[2][0]["forwards"]["t5"]
+    assert "ROADMAP item 17(b)" in launches[2][0]["forwards"]["moe"]
+
+
+def test_groups_over_several_axes_of_a_larger_mesh(monkeypatch):
+    """On a mesh of three live axes (8 processes: data, fsdp and sequence
+    of 2), the group over ``(data, sequence)`` is made on first use: one
+    group for each fsdp coordinate, every process making every group in
+    the same order, this process keeping its own; cached after."""
+    import torch.distributed as dist
+
+    made = []
+    monkeypatch.setattr(dist, "new_group", lambda ranks: made.append(tuple(ranks)) or f"group{len(made)}")
+    _reset()
+    state = object.__new__(PartialState)
+    state.__dict__ = PartialState._shared_state
+    state._world, state._rank, state._ready = 8, 6, True
+    state.mesh_shape = ParallelismConfig(data=2, fsdp=2, sequence=2).axis_sizes(8)
+    assert state.group(("data", "sequence")) == "group2"  # rank 6: data 1, fsdp 1, sequence 0
+    assert made == [(0, 1, 4, 5), (2, 3, 6, 7)]
+    assert state.group(("sequence", "data")) == "group2" and len(made) == 2
+    assert (state.batch_shards, state.batch_shard_index) == (4, 3)
+    _reset()
+
+
+def test_sequence_axis_is_accepted_with_the_jax_naming():
+    """``ParallelismConfig(sequence=2)`` no longer raises (its mesh needs
+    two processes), with the JAX package's naming of the distributed type."""
+    assert ParallelismConfig(sequence=2).distributed_type == "TENSOR_PARALLEL"
+    assert ParallelismConfig(sequence=2, fsdp=2).distributed_type == "HYBRID"
+    _reset()
+    with pytest.raises(ValueError, match="not divisible"):
+        Accelerator(device="cpu", parallelism=ParallelismConfig(sequence=2))
+    _reset()

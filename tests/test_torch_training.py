@@ -285,15 +285,16 @@ def test_set_seed_makes_the_generators_repeat():
 
 
 def test_later_slices_raise_not_implemented():
-    """fp8, tensor parallelism and the ring's flash block wait for their
-    items (``remat_policy`` raised here until activation checkpointing came;
-    a ``ParallelismConfig`` until training across processes came)."""
-    from accelerate_tpu_torch.ops.flash_attention import flash_attention_block
+    """fp8, tensor parallelism and the ring inside a pipeline stage wait
+    for their items (``remat_policy`` raised here until activation
+    checkpointing came; a ``ParallelismConfig`` until training across
+    processes came; the ring's flash block until sequence parallelism came)."""
+    from accelerate_tpu_torch.parallel.ring_attention import make_local_ring_attention
 
     _reset()
     assert CompilationConfig(remat_policy="save_flash").checkpoint_policy() is not None
     with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        flash_attention_block(None, None, None)
+        make_local_ring_attention()
     with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
         Accelerator(mixed_precision="fp8", device="cpu")
     _reset()

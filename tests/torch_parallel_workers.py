@@ -11,7 +11,7 @@ import os
 import numpy as np
 import torch
 
-from accelerate_tpu_torch import Accelerator, CompilationConfig, Llama, fused_adamw, load_jax_params
+from accelerate_tpu_torch import T5, Accelerator, Bert, CompilationConfig, Llama, fused_adamw, load_jax_params
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin, ParallelismConfig
 from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves, tree_unflatten
@@ -30,6 +30,9 @@ TRAINING = {
                                                                       cpu_offload=True)), dict(), 0),
     "zero_eager": (dict(gradient_accumulation_steps=2), dict(), 2),
     "zero_data_fsdp": (dict(parallelism=ParallelismConfig(data=2, fsdp=2)), dict(), 0),
+    # a sequence axis: ring attention, the replicated update (ZeRO is ineligible)
+    "seq2": (dict(parallelism=ParallelismConfig(sequence=2)), dict(), 0),
+    "seq2_fsdp2": (dict(parallelism=ParallelismConfig(sequence=2, fsdp=2)), dict(), 0),
 }
 
 
@@ -44,8 +47,10 @@ def _numpy_tree(tree) -> dict:
 
 
 def _share(batch: np.ndarray, state) -> dict:
-    rows = batch.shape[0] // state.num_processes
-    mine = batch[state.process_index * rows:(state.process_index + 1) * rows]
+    """This process's rows of a global batch: its batch shard (a sequence
+    group's processes take the same rows)."""
+    rows = batch.shape[0] // state.batch_shards
+    mine = batch[state.batch_shard_index * rows:(state.batch_shard_index + 1) * rows]
     return {"input_ids": torch.tensor(mine)}
 
 
@@ -247,11 +252,96 @@ def checkpoints(params: dict, batches: list, jax_dir: str, out_dir: str) -> dict
     return {"saved": saved, "loaded": loaded}
 
 
-def suite(world_names: list, params: dict, batches: list, jax_dir=None, out_dir=None) -> dict:
+def ring(sequence: int, inputs: dict) -> dict:
+    """Ring attention over a sequence axis of every process: each process
+    takes its chunk of the global q, k, v (and key mask), returns its chunk
+    of the output and the gradients of ``sum(out * cotangent)`` with respect
+    to its chunks."""
+    from accelerate_tpu_torch.parallel.ring_attention import make_ring_attention
+
+    _reset()
+    state = PartialState(device="cpu", parallelism=ParallelismConfig(sequence=sequence))
+    out = {}
+    for name, case in inputs.items():
+        attn = make_ring_attention(state.mesh, causal=case["causal"])
+        start, stop = attn.span(case["q"].shape[1])
+        leaves = [torch.tensor(case[n][:, start:stop]).requires_grad_() for n in ("q", "k", "v")]
+        mask = None if case["mask"] is None else torch.tensor(case["mask"][:, start:stop])
+        got = attn(*leaves, mask)
+        (got * torch.tensor(case["cot"][:, start:stop])).sum().backward()
+        out[name] = [got.detach().numpy(), *(leaf.grad.numpy() for leaf in leaves)]
+    _reset()
+    return out
+
+
+def sequence_forwards(sequence: int, params: dict, bert_params: dict, cases: dict) -> dict:
+    """Forwards of prepared models under ``ParallelismConfig(sequence=...)``
+    on the global rows: llama's chunk of the logits (the whole logits at a
+    length the ring does not divide), bert's classification logits (zeros
+    but on the process holding position 0)."""
+    _reset()
+    acc = Accelerator(device="cpu", parallelism=ParallelismConfig(sequence=sequence))
+    llama = acc.prepare_model(load_jax_params(Llama(MODEL, device="cpu"), params))
+    bert = acc.prepare_model(load_jax_params(Bert("bert-tiny", device="cpu"), bert_params))
+    out = {}
+    try:
+        acc.prepare_model(T5("t5-tiny", device="cpu"))
+    except NotImplementedError as err:
+        out["t5"] = str(err)
+    moe = acc.prepare_model(Llama("llama-moe-tiny", device="cpu"))
+    try:
+        moe(torch.zeros((2, 64), dtype=torch.int64))
+    except NotImplementedError as err:
+        out["moe"] = str(err)
+    for name, (ids, mask) in cases.items():
+        prepared = bert if name.startswith("bert") else llama
+        got = prepared(torch.tensor(ids), None if mask is None else torch.tensor(mask))
+        out[name] = {"span": prepared.sequence_span(ids.shape[1]), "out": got.numpy()}
+    _reset()
+    return out
+
+
+def remat_under_the_ring(params: dict, ids: np.ndarray) -> dict:
+    """One compiled step of llama-tiny under sequence=2 with chunks the
+    flash path tiles (its plain version here), under each remat policy:
+    the loss and the updated params (a recomputed layer re-runs its hops;
+    under "save_flash" the stash replays each block's out and lse)."""
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    for policy in (None, "full", "save_flash"):
+        _reset()
+        acc = Accelerator(device="cpu", parallelism=ParallelismConfig(sequence=2),
+                          compilation_config=CompilationConfig(remat_policy=policy))
+        model = load_jax_params(Llama(MODEL, device="cpu"), params)
+        prepared = acc.prepare_model(model)
+        acc.prepare_optimizer(fused_adamw(LR))
+        loss = acc.compiled_step(Llama.loss_fn(model))({"input_ids": torch.tensor(ids)})
+        out[str(policy)] = {"loss": float(loss), "params": _numpy_tree(prepared.full_params())}
+    _reset()
+    return out
+
+
+def sequence_loader(parallelism: dict, n_rows: int = 21, batch_size: int = 2) -> dict:
+    """A shuffled loader's rows under a sequence axis: each process takes
+    its batch shard's, the same on every process of a sequence group."""
+    _reset()
+    acc = Accelerator(device="cpu", parallelism=ParallelismConfig(**parallelism))
+    loader = acc.prepare_data_loader(_Rows(n_rows), batch_size=batch_size, shuffle=True, seed=7, prefetch=0)
+    loader.set_epoch(1)
+    out = {"rows": [batch["x"][:, 0].tolist() for batch in loader], "coords": acc.state.mesh_coords,
+           "shards": (acc.state.batch_shards, acc.state.batch_shard_index)}
+    _reset()
+    return out
+
+
+def suite(world_names: list, params: dict, batches: list, jax_dir=None, out_dir=None, sequence=None) -> dict:
     """Everything one launch checks, in one process per rank (a launch
     costs more than its work): the training configurations, the two sides
     of the update gate, the collectives, the loaders and, given
-    directories, the checkpoints."""
+    directories, the checkpoints; given ``sequence`` (its size, the ring's
+    inputs, bert's params, the forwards' rows and the loader's mesh), the
+    ring and the sequence axis's forwards and loader, and at a size of 2
+    the remat policies under the ring."""
     out = {f"train/{name}": train(name, params, batches) for name in world_names}
     out["gate/sharded"] = update_gate(None, params)
     out["gate/replicated"] = update_gate(0, params)
@@ -259,6 +349,12 @@ def suite(world_names: list, params: dict, batches: list, jax_dir=None, out_dir=
     out["loaders"] = loaders()
     if jax_dir is not None:
         out["checkpoints"] = checkpoints(params, batches, jax_dir, out_dir)
+    if sequence is not None:
+        out["ring"] = ring(sequence["size"], sequence["ring"])
+        out["forwards"] = sequence_forwards(sequence["size"], params, sequence["bert_params"], sequence["forwards"])
+        out["sequence_loader"] = sequence_loader(sequence["loader_mesh"])
+        if sequence["size"] == 2:
+            out["remat"] = remat_under_the_ring(params, sequence["remat_ids"])
     return out
 
 
