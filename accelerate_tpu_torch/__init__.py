@@ -37,7 +37,7 @@ from .data_loader import prepare_data_loader, skip_first_batches
 from .fault_tolerance import CheckpointManager, ResumePoint, latest_valid_checkpoint, verify_checkpoint
 from .launchers import debug_launcher
 from .logging import get_logger
-from .models import T5, Bert, Llama, MoEBlock, generate, get_config
+from .models import GPT2, T5, Bert, Llama, MoEBlock, generate, get_config
 from .ops.flash_attention import flash_attention, make_auto_attention
 from .ops.fused_adamw import adamw, fused_adamw
 from .ops.paged_attention import paged_decode_attention, paged_verify_attention
@@ -72,6 +72,7 @@ __all__ = [
     "CompilationConfig",
     "DistributedType",
     "FullyShardedDataParallelPlugin",
+    "GPT2",
     "GradientAccumulationPlugin",
     "GradientState",
     "InitProcessGroupKwargs",

@@ -1,9 +1,9 @@
 """Big-model placement for serving: device maps, packed layers, int8/int4.
 
 Counterpart of the part of ``accelerate_tpu/big_modeling.py`` that
-quantized-resident serving reaches. ``dispatch_model`` places a llama's
-components by an explicit device map: the non-layer weights (embedding,
-final norm, head) as tensors, each layer packed into one contiguous buffer
+quantized-resident serving reaches. ``dispatch_model`` places a llama's or
+a gpt2's components by an explicit device map: the non-layer weights
+(embeddings, final norm, head) as tensors, each layer packed into one contiguous buffer
 (:class:`LayerPacker`) or, with a :class:`QuantizationConfig`, into an int8
 buffer of per-output-channel quantized matrices plus an fp32 sidecar of
 scales and vectors (:class:`QuantizedLayerPacker`, quantized on the host
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .models.bert import Bert
+from .models.gpt2 import GPT2
 from .models.llama import Llama
 from .ops.runtime import resolve_device
 from .utils.quantization import QuantizationConfig, QuantizedWeight, dequantize_weight, quantize_weight
@@ -106,7 +107,7 @@ class LayerPacker:
 class QuantizedLayerPacker:
     """Layer packer with weight-only int8/int4 quantization: matrix leaves
     are quantized per output channel into one contiguous int8 buffer;
-    vectors (norms) and the per-channel scales ride in an fp32 sidecar.
+    vectors (norms, biases) and the per-channel scales ride in an fp32 sidecar.
     ``skip`` keeps leaves whose name holds one of its substrings in full
     precision."""
 
@@ -187,14 +188,14 @@ class QuantizedLayerPacker:
         return _unflatten(out)
 
 
-def component_names(model: Llama) -> list[str]:
+def component_names(model: Llama | GPT2) -> list[str]:
     """The placement components: every non-layer weight by name, and
     ``layers.<i>`` for each layer (the JAX package's component keys)."""
     names = [key for key in model.param_tree() if key != "layers"]
     return sorted(names) + [f"layers.{i}" for i in range(model.config.num_layers)]
 
 
-def make_layered_device_map(model: Llama, layer_target: str) -> dict[str, str]:
+def make_layered_device_map(model: Llama | GPT2, layer_target: str) -> dict[str, str]:
     """Device map sending every ``layers.*`` component to ``layer_target``
     (``"device"`` or ``"cpu"``) and every other component to the device."""
     return {
@@ -203,7 +204,7 @@ def make_layered_device_map(model: Llama, layer_target: str) -> dict[str, str]:
     }
 
 
-def check_device_map(model: Llama, device_map: dict[str, str]) -> None:
+def check_device_map(model: Llama | GPT2, device_map: dict[str, str]) -> None:
     """Every component covered, every target known."""
     missing = sorted(set(component_names(model)) - set(device_map))
     if missing:
@@ -249,7 +250,7 @@ class StreamedModel:
     ``ServingEngine.from_streamed`` serves it (``resident_tree``,
     ``layer_buffers``, ``packer``); its streamed execution is not ported."""
 
-    def __init__(self, model: Llama, resident: dict, layer_buffers: list, layer_on_device: list,
+    def __init__(self, model: Llama | GPT2, resident: dict, layer_buffers: list, layer_on_device: list,
                  packer, dtype, device):
         self.model = model
         self.resident = resident
@@ -277,7 +278,7 @@ class StreamedModel:
 
 
 def dispatch_model(
-    model: Llama,
+    model: Llama | GPT2,
     params: Optional[dict] = None,
     device_map: dict[str, str] | str = "auto",
     dtype: torch.dtype = torch.bfloat16,
@@ -291,8 +292,8 @@ def dispatch_model(
     ``device`` (None = CUDA) is where ``"device"`` components go."""
     if isinstance(model, Bert):
         raise NotImplementedError(f"dispatching bert (its streaming protocol) is {NOT_PORTED}")
-    if not isinstance(model, Llama):
-        raise TypeError(f"{type(model).__name__} cannot be dispatched: the port places llama models")
+    if not isinstance(model, (Llama, GPT2)):
+        raise TypeError(f"{type(model).__name__} cannot be dispatched: the port places llama and gpt2 models")
     if isinstance(device_map, str):
         raise NotImplementedError(f"device_map={device_map!r} (infer_auto_device_map) is {NOT_PORTED}")
     check_device_map(model, device_map)

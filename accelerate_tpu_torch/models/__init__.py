@@ -1,5 +1,5 @@
-"""The model zoo in PyTorch (llama, llama-MoE, t5 and bert), with the JAX
-package's parameter layout."""
+"""The model zoo in PyTorch (llama, llama-MoE, gpt2, t5 and bert), with the
+JAX package's parameter layout."""
 
 from .attention import dot_product_attention, rotary_embedding
 from .bert import Bert, layer_norm
@@ -8,6 +8,7 @@ from .config import (
     get_config,
     list_models,
     param_count,
+    register_config,
     train_flops_per_step,
     train_flops_per_token,
 )
@@ -20,23 +21,25 @@ from .generation import (
     resolve_decode_protocol,
     resolve_window_protocol,
 )
+from .gpt2 import GPT2
 from .llama import Llama, decoder_layer, rms_norm
 from .moe import MoEBlock, routed_mlp
 from .t5 import T5
 
-_ARCHS = {"llama": Llama, "bert": Bert, "t5": T5}
+_ARCHS = {"llama": Llama, "gpt2": GPT2, "bert": Bert, "t5": T5}
 
 
 def build_model(name: str, **kwargs):
-    """Registry name -> model instance (``"llama-125m"``, ``"t5-base"``,
-    ``"bert-base"``); ``kwargs`` (``device``, ``dtype``, ``seed``) pass to
-    the constructor. The registry holds no gpt2 config yet (ROADMAP item 13)."""
+    """Registry name -> model instance (``"llama-125m"``, ``"gpt2-124m"``,
+    ``"t5-base"``, ``"bert-base"``); ``kwargs`` (``device``, ``dtype``,
+    ``seed``) pass to the constructor."""
     config = get_config(name)
     return _ARCHS[config.arch](config, **kwargs)
 
 
 __all__ = [
     "Bert",
+    "GPT2",
     "Llama",
     "MoEBlock",
     "T5",
@@ -53,6 +56,7 @@ __all__ = [
     "list_models",
     "make_sampler",
     "param_count",
+    "register_config",
     "resolve_decode_protocol",
     "resolve_window_protocol",
     "rms_norm",

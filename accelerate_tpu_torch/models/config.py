@@ -1,9 +1,9 @@
-"""Model configurations: the llama, t5 and bert parts of the JAX package's registry.
+"""Model configurations: the JAX package's registry (llama, gpt2, t5, bert).
 
 A copy, not an import: the port never imports ``accelerate_tpu``, even its
 pure-Python modules. Field names, defaults and the parameter count follow
-``accelerate_tpu/models/config.py`` so configs and checkpoints line up. The
-gpt2 family comes with ROADMAP item 13.
+``accelerate_tpu/models/config.py`` so configs and checkpoints line up.
+``config_from_hf_json`` comes with ROADMAP item 2.
 """
 
 from __future__ import annotations
@@ -14,10 +14,10 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """One config for the decoder (llama), encoder (bert) and
+    """One config for the decoder (llama, gpt2), encoder (bert) and
     encoder-decoder (t5) stacks."""
 
-    arch: str = "llama"  # "llama" | "bert" | "t5"
+    arch: str = "llama"  # "llama" | "gpt2" | "bert" | "t5"
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -86,6 +86,27 @@ _REGISTRY: dict[str, TransformerConfig] = {
         num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=256,
         num_experts=4, moe_top_k=2, moe_capacity_factor=2.0,
     ),
+    # gpt2 family (decoder, learned positions, LayerNorm, tied embeddings)
+    "gpt2-tiny": TransformerConfig(
+        arch="gpt2", vocab_size=1024, hidden_size=128, intermediate_size=512,
+        num_layers=2, num_heads=4, max_seq_len=256, tie_embeddings=True,
+    ),
+    "gpt2-124m": TransformerConfig(
+        arch="gpt2", vocab_size=50257, hidden_size=768, intermediate_size=3072,
+        num_layers=12, num_heads=12, max_seq_len=1024, tie_embeddings=True,
+    ),
+    "gpt2-355m": TransformerConfig(
+        arch="gpt2", vocab_size=50257, hidden_size=1024, intermediate_size=4096,
+        num_layers=24, num_heads=16, max_seq_len=1024, tie_embeddings=True,
+    ),
+    "gpt2-774m": TransformerConfig(
+        arch="gpt2", vocab_size=50257, hidden_size=1280, intermediate_size=5120,
+        num_layers=36, num_heads=20, max_seq_len=1024, tie_embeddings=True,
+    ),
+    "gpt2-1.5b": TransformerConfig(
+        arch="gpt2", vocab_size=50257, hidden_size=1600, intermediate_size=6400,
+        num_layers=48, num_heads=25, max_seq_len=1024, tie_embeddings=True,
+    ),
     # t5 family (encoder-decoder): num_layers counts the layers of each stack;
     # v1.0 geometry (ReLU feed-forward, tied embeddings with d_model^-0.5
     # logit scaling)
@@ -136,12 +157,16 @@ def get_config(name: str) -> TransformerConfig:
     return _REGISTRY[name]
 
 
+def register_config(name: str, config: TransformerConfig) -> None:
+    _REGISTRY[name] = config
+
+
 def list_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
 def param_count(config: TransformerConfig) -> int:
-    """Exact parameter count of a llama, t5 or bert config, without materializing it."""
+    """Exact parameter count of a registry config, without materializing it."""
     h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
     d, nh, nkv = config.dim_per_head, config.num_heads, config.kv_heads
     if config.arch == "llama":
@@ -160,6 +185,16 @@ def param_count(config: TransformerConfig) -> int:
         if not config.tie_embeddings:
             total += h * v  # lm head
         return total
+    if config.arch == "gpt2":
+        embed = v * h + config.max_seq_len * h  # token + learned positions (tied head)
+        per_layer = (
+            h * 3 * h + 3 * h     # fused qkv with bias
+            + h * h + h           # o with bias
+            + h * i + i           # mlp up
+            + i * h + h           # mlp down
+            + 4 * h               # two layernorms (scale+bias)
+        )
+        return embed + config.num_layers * per_layer + 2 * h  # + final layernorm
     if config.arch == "t5":
         inner = nh * d
         attn = 4 * h * inner  # q, k, v (h -> inner) and o (inner -> h)
@@ -184,10 +219,7 @@ def param_count(config: TransformerConfig) -> int:
         pooler = h * h + h
         classifier = h * config.num_labels + config.num_labels
         return embed + config.num_layers * per_layer + pooler + classifier
-    raise ValueError(
-        f"the port has the llama, t5 and bert families, got arch {config.arch!r} "
-        "(gpt2: ROADMAP item 13)"
-    )
+    raise ValueError(f"unknown arch {config.arch!r}")
 
 
 def train_flops_per_token(config: TransformerConfig, seq_len: Optional[int] = None) -> float:

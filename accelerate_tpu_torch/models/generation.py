@@ -114,7 +114,11 @@ def forward_window_with_cache(model: Llama, input_ids: torch.Tensor, cache: dict
 def resolve_decode_protocol(model):
     """``(init_cache, forward_with_cache)`` for a causal model: the pair the
     serving engine and ``generate()`` drive every model through, so a model
-    family added later implements the protocol once for both."""
+    family added later implements the protocol once for both. A model that
+    implements the protocol itself (GPT2) supplies its own methods; the
+    llama family's lives in this module."""
+    if hasattr(model, "forward_with_cache"):
+        return model.init_cache, model.forward_with_cache
     return (
         lambda batch, max_len, dtype=torch.bfloat16, device=None: init_cache(
             model.config, batch, max_len, dtype=dtype, device=device
@@ -126,8 +130,10 @@ def resolve_decode_protocol(model):
 def resolve_window_protocol(model):
     """The window-forward half of the decode protocol, ``forward_window(ids,
     cache) -> (all-position logits [B, S, V], cache)``: the speculative
-    verify drives a model only through it (the llama family's lives in
-    this module)."""
+    verify drives a model only through it. A model that implements it
+    (GPT2) supplies its method; the llama family's lives in this module."""
+    if hasattr(model, "forward_window_with_cache"):
+        return model.forward_window_with_cache
     return lambda ids, c: forward_window_with_cache(model, ids, c)
 
 
@@ -148,7 +154,7 @@ def make_sampler(temperature: float):
 
 @torch.inference_mode()
 def generate(
-    model: Llama,
+    model,
     input_ids,  # [B, S] prompt
     max_new_tokens: int = 32,
     temperature: float = 0.0,
@@ -156,7 +162,8 @@ def generate(
     eos_token_id: Optional[int] = None,
     device=None,
 ) -> np.ndarray:
-    """Greedy (temperature 0) or sampled generation. Returns ``[B, S + new]``
+    """Greedy (temperature 0) or sampled generation with any model of the
+    decode protocol (llama, gpt2). Returns ``[B, S + new]``
     int32 ids. Once a row emits ``eos_token_id`` every later position is EOS.
     ``rng`` is the generator of a sampled run (seed 0 on the model's device
     when None)."""

@@ -146,6 +146,65 @@ def layer_shapes(cfg: TransformerConfig) -> dict:
     return shapes
 
 
+@torch.no_grad()
+def install_params(module: nn.Module, tree: dict, shapes: dict) -> nn.Module:
+    """Bind every leaf of ``tree`` (the JAX layout) as ``module``'s weight at
+    its key path, ``layers.*`` under ``module.layers``: a tensor becomes the
+    parameter, a stacked packed ``QuantizedWeight`` stays packed. Nothing
+    is copied. ``shapes`` holds every dotted key path and its (logical)
+    shape; a key path missing or extra raises ``KeyError``, a shape off
+    ``ValueError``. Returns ``module``."""
+    leaves = dict(flatten_tree(tree))
+    if set(leaves) != set(shapes):
+        raise KeyError(
+            f"param tree mismatch: missing {sorted(set(shapes) - set(leaves))}, "
+            f"unexpected {sorted(set(leaves) - set(shapes))}"
+        )
+    for path, leaf in leaves.items():
+        if tuple(leaf.shape) != shapes[path]:
+            raise ValueError(f"{path}: leaf has shape {tuple(leaf.shape)}, expected {shapes[path]}")
+        layers = path.startswith("layers.")
+        owner, name = (module.layers, path[len("layers."):]) if layers else (module, path)
+        owner._parameters.pop(name, None)
+        owner.__dict__.pop(name, None)
+        if isinstance(leaf, torch.Tensor):
+            owner.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
+        else:
+            object.__setattr__(owner, name, leaf)  # a packed QuantizedWeight
+    return module
+
+
+def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor, attention_mask, attention_fn):
+    """Next-token cross-entropy of a causal LM's ``logits`` over ``input_ids``:
+    log-softmax in fp32, the mask weighting the targets' positions, as the
+    JAX package's ``loss_fn``s.
+
+    Under a sequence axis (a ring ``attention_fn``; ``sequence_chunk``) the
+    logits are this process's chunk: it takes the terms of the chunk's
+    positions, normalized by the whole batch's count, so the terms summed
+    over the sequence group are the loss. A chunk's last target is the next
+    chunk's first token, which the global rows hold, and the sequence's
+    last position has none. Returns ``(loss, counts)``: ``counts`` is False
+    on a process whose whole-sequence terms count elsewhere."""
+    s = input_ids.shape[1]
+    start, stop, _, counts = sequence_chunk(attention_fn, s)
+    if stop - start == s:
+        targets = input_ids[:, 1:].long()
+        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        if attention_mask is not None:
+            w = attention_mask[:, 1:].float()
+            return (nll * w).sum() / torch.clamp(w.sum(), min=1.0), counts
+        return nll.mean(), counts
+    targets = input_ids[:, start + 1:stop + 1].long()
+    logp = torch.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    if attention_mask is None:
+        return nll.sum() / (input_ids.shape[0] * (s - 1)), True
+    w = attention_mask[:, start + 1:stop + 1].float()
+    return (nll * w).sum() / torch.clamp(attention_mask[:, 1:].float().sum(), min=1.0), True
+
+
 class _Layers(nn.Module):
     """The stacked layer weights: one ``[L, ...]`` parameter per key (or,
     once :meth:`Llama.install` put one there, a packed ``QuantizedWeight``)."""
@@ -261,31 +320,13 @@ class Llama(nn.Module):
                 tree[name] = getattr(self, name)
         return tree
 
-    @torch.no_grad()
     def install(self, tree: dict) -> "Llama":
         """Replace every weight by the leaf at its key path in ``tree`` (the
         JAX layout): a tensor, or for a layer matrix a stacked packed
         ``QuantizedWeight`` that stays packed. Nothing is copied; the model's
         device and dtype follow the leaves. Raises ``KeyError`` when the key
         paths differ and ``ValueError`` when a (logical) shape does."""
-        leaves = dict(flatten_tree(tree))
-        shapes = self._shapes()
-        if set(leaves) != set(shapes):
-            raise KeyError(
-                f"param tree mismatch: missing {sorted(set(shapes) - set(leaves))}, "
-                f"unexpected {sorted(set(leaves) - set(shapes))}"
-            )
-        for path, leaf in leaves.items():
-            if tuple(leaf.shape) != shapes[path]:
-                raise ValueError(f"{path}: leaf has shape {tuple(leaf.shape)}, expected {shapes[path]}")
-            owner, name = (self.layers, path[len("layers."):]) if path.startswith("layers.") else (self, path)
-            owner._parameters.pop(name, None)
-            owner.__dict__.pop(name, None)
-            if isinstance(leaf, torch.Tensor):
-                owner.register_parameter(name, nn.Parameter(leaf, requires_grad=False))
-            else:
-                object.__setattr__(owner, name, leaf)  # a packed QuantizedWeight
-        return self
+        return install_params(self, tree, self._shapes())
 
     def partition_rules(self) -> list[tuple[str, tuple]]:
         """The JAX package's layout rules (Megatron-style tensor parallelism:
@@ -416,24 +457,7 @@ class Llama(nn.Module):
             attention_mask = batch.get("attention_mask")
             logits, aux = model.apply(params, input_ids, attention_mask,
                                       dropout_generator=dropout_generator, return_aux=True)
-            s = input_ids.shape[1]
-            start, stop, _, counts = sequence_chunk(model.attention_fn, s)
-            if stop - start == s:
-                targets = input_ids[:, 1:].long()
-                logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-                nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-                if attention_mask is not None:
-                    w = attention_mask[:, 1:].float()
-                    loss = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
-                else:
-                    loss = nll.mean()
-                return loss + aux if counts else (loss + aux) * 0.0
-            targets = input_ids[:, start + 1:stop + 1].long()
-            logp = torch.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
-            nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-            if attention_mask is None:
-                return nll.sum() / (input_ids.shape[0] * (s - 1))
-            w = attention_mask[:, start + 1:stop + 1].float()
-            return (nll * w).sum() / torch.clamp(attention_mask[:, 1:].float().sum(), min=1.0)
+            loss, counts = next_token_loss(logits, input_ids, attention_mask, model.attention_fn)
+            return loss + aux if counts else (loss + aux) * 0.0
 
         return fn

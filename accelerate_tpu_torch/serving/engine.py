@@ -28,20 +28,43 @@ Counterpart of the paged core of ``accelerate_tpu/serving/engine.py``:
   forward over ``[num_slots, k + 1]`` verifies them through the paged verify
   kernel, one launch per layer; the longest agreeing prefix is committed,
   so at temperature 0 the tokens equal plain decode's. Linear and tree
-  (COW-forked branches) modes.
+  (COW-forked branches) modes;
+- **the dense slab** (``paged=False``): one ``[L, num_slots, max_len, KV,
+  D]`` cache the caller names instead of the pool. Prefill writes a slot's
+  bucket into the slab; decode attends each slot's slab positions below its
+  length plus its new key by the models' plain attention (the JAX engine's
+  dense path runs no kernel either). No prefix sharing, chunking or
+  speculation;
+- **degradation**: a per-slot finite verdict on the logits, computed on the
+  device and fetched with the tokens (a non-finite lane samples from zeros,
+  so the categorical draw at temperature > 0 never sees it), quarantines a
+  poisoned slot (its
+  request requeues at the head of the queue, or fails after
+  ``max_request_requeues``), scrubs its freed pages (the draft pool's
+  copies too) or its slab row, and a probe decode of the empty slot
+  releases it (``max_probe_failures``). ``step_timeout_s`` arms a
+  wall-clock :class:`StepWatchdog` around each decode and reports an
+  oversized step that completed;
+- **drain and handoff**: ``drain`` stops admission and hands the queue back
+  for re-homing; ``submit(prefill_only=True)`` parks a prefilled request's
+  pages, ``extract_pages`` copies them to the host and ``adopt_kv`` seats
+  them on another engine, which decodes on from the parked position.
 
 The pools are updated in place (prefill scatter, decode write-back, the
-copy-on-write page copy), which is what buffer donation buys the JAX engine.
+copy-on-write page copy, the scrub), which is what buffer donation buys the
+JAX engine.
 
-Not in this port yet: the dense ``paged=False`` slab, quarantine and scrub,
-chaos fault plans (and the speculation chaos knob), the step watchdog,
-request tracing (and the draft/verify spans), the telemetry hub and its
-speculative records, disaggregated park/adopt/extract and program analysis.
+Not in this port yet: request tracing and its spans (``tracer``, ROADMAP
+item 14) and the router's handoff ledger (item 14), the telemetry hub and its records (``telemetry=``,
+``kernel_summary``; item 19), chaos fault plans and the speculation chaos
+knob (``fault_plan``, ``spec_disable``; item 18) and program analysis
+(``analyze``; item 21).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -50,13 +73,14 @@ import numpy as np
 import torch
 
 from ..big_modeling import QuantizedLayerPacker, StreamedModel
+from ..models.attention import dot_product_attention
 from ..models.generation import make_sampler, resolve_decode_protocol, resolve_window_protocol
 from ..ops.quant_matmul import quant_dot
 from ..ops.paged_attention import paged_verify_attention
 from ..ops.runtime import resolve_device, same_device
 from ..telemetry.serving import ServingStats
 from ..utils.quantization import QuantizedWeight
-from .kv_cache import bucket_for, prefill_buckets
+from .kv_cache import SlotKVCache, bucket_for, prefill_buckets
 from .paging import PagedKVCache, decode_into_pool, paged_buckets, pages_for, prefill_into_pool
 from .scheduler import ContinuousBatchingScheduler, QueueFull, Request
 from .speculative import SpeculativeConfig, SpeculativeState
@@ -69,7 +93,7 @@ class ServingResult:
     request_id: int
     prompt: np.ndarray  # [S]
     generated: np.ndarray  # [<= max_new_tokens], ends with EOS when hit
-    finish_reason: str  # "eos" | "length" | "expired" | "cancelled" | "failed"
+    finish_reason: str  # "eos" | "length" | "expired" | "cancelled" | "failed" | "prefilled"
     ttft_s: Optional[float]
     latency_s: Optional[float]
 
@@ -161,6 +185,64 @@ def _attend_window(q, k_new, v_new, cache):
     )
 
 
+def _attend_slab(q, k_new, v_new, cache):
+    """The dense slab's ``attend`` hook: each slot's query over its slab
+    positions below its length (zeroed past it, so nothing non-finite there
+    reaches the products) plus its new key, by the models' plain attention
+    under a ``[slots, 1, 1, T + 1]`` mask."""
+    slab_k, slab_v, lengths = cache["k"], cache["v"], cache["length"]  # [S, T, KV, D], [S]
+    valid = torch.arange(slab_k.shape[1], device=q.device)[None, :] < lengths[:, None]
+    zero = torch.zeros((), dtype=slab_k.dtype, device=q.device)
+    lane = valid[:, :, None, None]
+    keys = torch.cat([torch.where(lane, slab_k, zero), k_new.to(slab_k.dtype)], dim=1).to(q.dtype)
+    values = torch.cat([torch.where(lane, slab_v, zero), v_new.to(slab_v.dtype)], dim=1).to(q.dtype)
+    mask = torch.cat([valid, torch.ones_like(valid[:, :1])], dim=1)[:, None, None, :]
+    return dot_product_attention(q, keys, values, mask=mask)
+
+
+class StepWatchdog:
+    """Wall-clock monitor of the blocking decode step.
+
+    A wedged step blocks the host thread that would report it, so one daemon
+    thread watches a deadline the engine arms around every decode: one trip
+    per armed step, reported through ``on_hang(elapsed_s)``. The thread only
+    records; it never touches the card. ``close()`` stops it."""
+
+    def __init__(self, timeout_s: float, on_hang, poll_s: Optional[float] = None):
+        self.timeout_s = float(timeout_s)
+        self.on_hang = on_hang
+        self.poll_s = poll_s if poll_s is not None else max(self.timeout_s / 4.0, 0.01)
+        self.fired = False
+        self._deadline: Optional[float] = None
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def arm(self) -> None:
+        # `fired` goes False -> True once per armed window, and is reset
+        # here before the deadline is published
+        self.fired = False
+        self._deadline = time.monotonic() + self.timeout_s
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._run, name="serving-step-watchdog", daemon=True)
+            self._thread.start()
+
+    def disarm(self) -> None:
+        self._deadline = None
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            deadline = self._deadline
+            if deadline is not None and not self.fired and time.monotonic() > deadline:
+                self.fired = True
+                try:
+                    self.on_hang(time.monotonic() - deadline + self.timeout_s)
+                except Exception:  # noqa: BLE001 - the monitor keeps monitoring
+                    pass
+
+    def close(self) -> None:
+        self._stop.set()
+
+
 class ServingEngine:
     """Slot-multiplexed decode of a model with the decode protocol.
 
@@ -179,6 +261,10 @@ class ServingEngine:
         temperature: float = 0.0,
         rng: Optional[torch.Generator] = None,
         max_queue: Optional[int] = None,
+        step_timeout_s: Optional[float] = None,
+        max_probe_failures: int = 16,
+        max_request_requeues: int = 2,
+        paged: bool = True,
         page_size: int = 16,
         num_pages: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
@@ -190,36 +276,73 @@ class ServingEngine:
         self.device = resolve_device(device)
         if not same_device(self.device, model.device):
             raise ValueError(f"model is on {model.device}, the engine was asked for {self.device}")
+        if getattr(model, "learned_positions", False) and max_len > model.config.max_seq_len:
+            # a position past the table has no embedding (a CUDA lookup past
+            # it ends the process): the slots stop at max_seq_len
+            raise ValueError(
+                f"max_len {max_len} exceeds the model's max_seq_len {model.config.max_seq_len} "
+                "(learned positions)"
+            )
+        if speculative is not None and not paged:
+            raise ValueError(
+                "speculative decoding needs the paged engine (paged=True): "
+                "the draft pool shares the page tables"
+            )
         self.model = model
         self.eos_token_id = eos_token_id
         self.temperature = float(temperature)
         self._sample = make_sampler(temperature)
         self._init_cache, self._fwc = resolve_decode_protocol(model)
-        # the pool holds K/V in the model's dtype: the kernel reads both in one type
-        self.cache = PagedKVCache(
-            self._init_cache, num_slots, max_len, page_size=page_size, num_pages=num_pages,
-            dtype=model.dtype, prefix_entries=prefix_cache_entries, device=self.device,
-        )
+        self.paged = paged
         base_buckets = tuple(buckets) if buckets is not None else prefill_buckets(max_len - 1)
-        if prefill_chunk is not None:
-            if prefill_chunk < page_size or prefill_chunk % page_size:
-                raise ValueError(
-                    f"prefill_chunk {prefill_chunk} must be a multiple of page_size {page_size}"
-                )
-            base_buckets = base_buckets + (prefill_chunk,)
-        # prefill spans scatter whole pages: buckets round to page multiples
-        self.buckets = paged_buckets(base_buckets, page_size, self.cache.view_len)
-        self.prefill_chunk = prefill_chunk
-        self.prefix_sharing = prefix_sharing
+        if paged:
+            # the pool holds K/V in the model's dtype: the kernel reads both in one type
+            self.cache = PagedKVCache(
+                self._init_cache, num_slots, max_len, page_size=page_size, num_pages=num_pages,
+                dtype=model.dtype, prefix_entries=prefix_cache_entries, device=self.device,
+            )
+            if prefill_chunk is not None:
+                if prefill_chunk < page_size or prefill_chunk % page_size:
+                    raise ValueError(
+                        f"prefill_chunk {prefill_chunk} must be a multiple of page_size {page_size}"
+                    )
+                base_buckets = base_buckets + (prefill_chunk,)
+            # prefill spans scatter whole pages: buckets round to page multiples
+            self.buckets = paged_buckets(base_buckets, page_size, self.cache.view_len)
+            self.prefill_chunk = prefill_chunk
+            self.prefix_sharing = prefix_sharing
+        else:
+            self.cache = SlotKVCache(self._init_cache, num_slots, max_len, dtype=model.dtype, device=self.device)
+            self.buckets = base_buckets
+            if max(self.buckets) > max_len:
+                raise ValueError(f"largest bucket {max(self.buckets)} exceeds max_len {max_len}")
+            self.prefill_chunk = None
+            self.prefix_sharing = False
         self.scheduler = ContinuousBatchingScheduler(num_slots, max_queue=max_queue)
         self._pending = np.zeros((num_slots,), np.int32)  # next input token per slot
         if rng is None and self.temperature > 0.0:
             rng = torch.Generator(device=self.device).manual_seed(0)
         self._rng = rng
-        self.stats = ServingStats(num_slots, num_pages=self.cache.num_pages, page_size=page_size)
+        self.stats = self._new_stats()
+        # wait-quote baseline (reset_service_estimate): quotes price from the
+        # stats' deltas past this snapshot
+        self._quote_base = (0, 0.0, 0, 0)
         self._warming = False  # warmup(): synthetic prompts skip the prefix cache
         # target-model forwards by kind, for checks that count kernel launches
         self.forward_counts = {"prefill": 0, "decode": 0, "verify": 0}
+        # degradation: the watchdog, and the quarantine's probe and requeue caps.
+        # A request re-quarantined max_request_requeues times is failing on its
+        # own input, not a bad slot's: it fails instead of requeueing for ever
+        self.step_timeout_s = step_timeout_s
+        self._watchdog = StepWatchdog(step_timeout_s, self._on_watchdog_trip) if step_timeout_s is not None else None
+        self._decode_warm = False  # a decode has run: the kernels are built
+        self.max_probe_failures = max_probe_failures
+        self.max_request_requeues = max_request_requeues
+        self._probe_failures: dict[int, int] = {}
+        self._draining = False  # drain(): admit nothing, finish the active slots
+        # prefill-only requests whose finished KV awaits a handoff: id -> layout
+        # (pages still referenced in the pool, lane already free)
+        self._parked: dict[int, dict] = {}
         # speculative decoding (speculative.py): the draft's pools and tracking
         # live in SpeculativeState, the verify and the window bookkeeping here.
         # Temperature 0 only: acceptance is exact greedy match, which is what
@@ -241,6 +364,11 @@ class ServingEngine:
                 raise ValueError(f"draft model is on {draft.device}, the engine on {self.device}")
             self.spec = SpeculativeState(speculative, self.cache)
             self._fwd_window = resolve_window_protocol(model)
+
+    def _new_stats(self) -> ServingStats:
+        if self.paged:
+            return ServingStats(self.cache.num_slots, num_pages=self.cache.num_pages, page_size=self.cache.page_size)
+        return ServingStats(self.cache.num_slots)
 
     @classmethod
     def from_streamed(cls, streamed: StreamedModel, **kwargs) -> "ServingEngine":
@@ -269,9 +397,25 @@ class ServingEngine:
         # a copy: the host mirrors change right after the step
         return torch.tensor(array, device=self.device)
 
-    def _decode(self) -> np.ndarray:
-        """One decode step over every slot (``paging.decode_into_pool``);
-        returns the sampled tokens (0 on inactive lanes)."""
+    def _sample_with_verdict(self, logits: torch.Tensor, active: torch.Tensor):
+        """Sampled tokens (0 on inactive lanes) and each lane's finite
+        verdict on its logits, fetched to the host in one copy: the fetch is
+        the per-step fence, and the verdict costs no synchronisation of its
+        own. Returns host ``(tokens [S], finite [S])``."""
+        ok = torch.isfinite(logits).all(dim=-1)
+        # a non-finite lane samples from zeros: the categorical draw raises on NaN
+        nxt = torch.where(active, self._sample(torch.where(ok[:, None], logits, 0), self._rng), 0)
+        ok = ok.to(torch.int32)
+        host = torch.stack([nxt.to(torch.int32), ok], dim=1).cpu().numpy()
+        return host[:, 0], host[:, 1].astype(bool)
+
+    def _decode(self):
+        """One decode step over every slot: the paged decode
+        (``paging.decode_into_pool``), or the dense slab's. Returns host
+        ``(tokens [S], finite [S])``; a quarantined slot's lane is the probe
+        (inactive, length 0: its verdict is all that is read)."""
+        if not self.paged:
+            return self._decode_dense()
         active = self._host_to_device(self.cache.active)
         logits = decode_into_pool(
             self._fwc, self.cache.k, self.cache.v, self._host_to_device(self._pending),
@@ -279,8 +423,58 @@ class ServingEngine:
             active, self.cache.page_size,
         )
         self.forward_counts["decode"] += 1
-        nxt = torch.where(active, self._sample(logits, self._rng), 0)
-        return nxt.cpu().numpy()  # the host fetch is the per-step fence
+        return self._sample_with_verdict(logits, active)
+
+    def _decode_dense(self):
+        """The dense slab's decode: one forward over ``[num_slots, 1]``
+        through the slab's ``attend`` hook, then each active slot's new K/V
+        written at its length (the host knows which slots and where)."""
+        active = self._host_to_device(self.cache.active)
+        cache = {"k": self.cache.k, "v": self.cache.v,
+                 "length": self._host_to_device(self.cache.lengths), "attend": _attend_slab}
+        logits, delta = self._fwc(self._host_to_device(self._pending)[:, None], cache)
+        self.forward_counts["decode"] += 1
+        slots = np.flatnonzero(self.cache.active)
+        if slots.size:
+            rows = torch.tensor(slots, dtype=torch.long, device=self.device)
+            cols = torch.tensor(self.cache.lengths[slots], dtype=torch.long, device=self.device)
+            self.cache.k[:, rows, cols] = delta["k"][:, rows, 0].to(self.cache.k.dtype)
+            self.cache.v[:, rows, cols] = delta["v"][:, rows, 0].to(self.cache.v.dtype)
+        return self._sample_with_verdict(logits, active)
+
+    def _prefill_dense(self, slot: int, request: Request) -> None:
+        """Prefill ``prompt[:-1]`` into the slot's slab row at admission,
+        padded to its bucket: the dense cache forward writes the slab in
+        place through a view."""
+        prefill_len = request.prompt.size - 1
+        if prefill_len > 0:
+            bucket = bucket_for(prefill_len, self.buckets)
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :prefill_len] = request.prompt[:-1]
+            view = {"k": self.cache.k[:, slot : slot + 1, :bucket],
+                    "v": self.cache.v[:, slot : slot + 1, :bucket], "length": 0}
+            self._fwc(self._host_to_device(ids), view)  # logits dropped by design
+            self.forward_counts["prefill"] += 1
+            self.stats.record_prefill(bucket)
+        request.prefilled = prefill_len
+        self._pending[slot] = request.prompt[-1]
+
+    def _scrub(self, freed: list[int], slot: int) -> None:
+        """Zero what a quarantined slot leaves behind before it is reused:
+        the pool pages that became free (the draft pool's copies too), or
+        the slot's slab row. Masked reads give a position weight 0, but 0 x
+        NaN is NaN wherever a read is not zeroed first."""
+        if not self.paged:
+            self.cache.k[:, slot] = 0
+            self.cache.v[:, slot] = 0
+            return
+        pages = sorted({int(p) for p in freed if p})  # the null page stays as it is
+        if pages:
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+            self.cache.k[:, idx] = 0
+            self.cache.v[:, idx] = 0
+            if self.spec is not None:
+                self.spec.scrub_pages(pages)
 
     def _prefill(self, span: int, ids: np.ndarray, row: np.ndarray, start: int) -> None:
         """Prefill ``span`` tokens at the page-aligned ``start``
@@ -307,7 +501,8 @@ class ServingEngine:
         window: positions ``length .. length+emit-1`` land in the slot's
         pages (grown by the host beforehand), every other row goes to the
         null page as zeros. Returns host ``(toks [S, w], accepted [S], emit
-        [S])``."""
+        [S], finite [S])``, ``finite`` the target's verdict on each slot's
+        window logits (the quarantine trigger and probe)."""
         ps = self.cache.page_size
         pps = self.cache.pages_per_slot
         w = window.shape[1]
@@ -338,8 +533,9 @@ class ServingEngine:
         flat = (layers, wpage.numel()) + tuple(pool_k.shape[3:])
         pool_k[:, wpage, woff] = torch.where(lane, delta["k"].to(pool_k.dtype), zero).reshape(flat)
         pool_v[:, wpage, woff] = torch.where(lane, delta["v"].to(pool_v.dtype), zero).reshape(flat)
-        host = torch.cat([toks, accepted[:, None], emit[:, None]], dim=1).cpu().numpy()
-        return host[:, :w], host[:, w], host[:, w + 1]
+        ok = torch.isfinite(logits).all(dim=-1).all(dim=-1).to(torch.int32)
+        host = torch.cat([toks, accepted[:, None], emit[:, None], ok[:, None]], dim=1).cpu().numpy()
+        return host[:, :w], host[:, w], host[:, w + 1], host[:, w + 2].astype(bool)
 
     def _copy_page(self, src: int, dst: int) -> None:
         """The device half of copy-on-write: one page, every layer (the
@@ -368,10 +564,15 @@ class ServingEngine:
         finally:
             self.scheduler.max_queue = cap
             self._warming = False
-        self.stats = ServingStats(
-            self.cache.num_slots, num_pages=self.cache.num_pages, page_size=self.cache.page_size
-        )
+        self.stats = self._new_stats()
+        self._quote_base = (0, 0.0, 0, 0)
         self.forward_counts = dict.fromkeys(self.forward_counts, 0)
+
+    @property
+    def queue_available(self) -> bool:
+        """Whether ``submit`` would pass admission control right now."""
+        max_queue = self.scheduler.max_queue
+        return not self._draining and (max_queue is None or self.scheduler.waiting < max_queue)
 
     def submit(
         self,
@@ -380,15 +581,25 @@ class ServingEngine:
         request_id: Optional[int] = None,
         submitted_at: Optional[float] = None,
         deadline_s: Optional[float] = None,
+        prefill_only: bool = False,
     ) -> int:
         """Enqueue one request; returns its id. Raises ``ValueError`` for a
         request the engine can never serve and :class:`QueueFull` when
-        admission control sheds."""
+        admission control sheds or the engine is draining.
+
+        ``prefill_only`` is the disaggregated intake: the engine prefills the
+        prompt (chunked as usual), then parks the finished KV (lane freed,
+        pages still referenced) and returns a ``"prefilled"`` result instead
+        of decoding; ``kv_page_layout``/``extract_pages`` then hand it to
+        another engine's ``adopt_kv``, and ``release_parked`` drops it here.
+        Paged engines only."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must hold at least one token")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if prefill_only and not self.paged:
+            raise ValueError("prefill_only serving needs a paged engine (paged=True)")
         prefill_len = prompt.size - 1
         if prefill_len > max(self.buckets):
             raise ValueError(
@@ -400,19 +611,26 @@ class ServingEngine:
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
                 f"exceeds the slot capacity max_len={self.cache.max_len}"
             )
-        # feasibility: the pages the request will ever pin, and the peak of
-        # its bucket-padded prefill schedule, must fit the pool
-        ps = self.cache.page_size
-        need = max(pages_for(prefill_len + max_new_tokens, ps), 1)
-        done = 0
-        while done < prefill_len:
-            span = self._next_span(prefill_len - done, done)
-            need = max(need, (done + span) // ps)
-            done += min(span, prefill_len - done)
-        if need > self.cache.num_pages - 1:
-            raise ValueError(
-                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) needs "
-                f"{need} pages but the pool holds {self.cache.num_pages - 1} × {ps} tokens"
+        if self.paged:
+            # feasibility: the pages the request will ever pin, and the peak
+            # of its bucket-padded prefill schedule, must fit the pool
+            ps = self.cache.page_size
+            need = max(pages_for(prefill_len + max_new_tokens, ps), 1)
+            done = 0
+            while done < prefill_len:
+                span = self._next_span(prefill_len - done, done)
+                need = max(need, (done + span) // ps)
+                done += min(span, prefill_len - done)
+            if need > self.cache.num_pages - 1:
+                raise ValueError(
+                    f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) needs "
+                    f"{need} pages but the pool holds {self.cache.num_pages - 1} × {ps} tokens"
+                )
+        if self._draining:
+            self.stats.record_reject()
+            raise QueueFull(
+                "engine is draining — not admitting new requests",
+                queue_depth=self.scheduler.waiting, retry_after_s=self.retry_after_hint(),
             )
         try:
             request = self.scheduler.submit(
@@ -425,30 +643,103 @@ class ServingEngine:
             raise QueueFull(
                 f"{e} — retry in ~{hint:.3f}s", queue_depth=e.queue_depth, retry_after_s=hint
             ) from None
+        request.prefill_only = prefill_only
         self.stats.record_submit()
         return request.id
 
     def cancel(self, request_id: int) -> bool:
         """Client cancellation: the request retires as ``cancelled`` at the
-        top of the next ``step()``. Returns whether it was in flight."""
+        top of the next ``step()`` (or, landing mid-step, at its end).
+        Returns whether it was in flight. A parked request is no longer in
+        flight here: ``release_parked`` drops it."""
         return self.scheduler.cancel(request_id)
+
+    # -- drain and the service estimate ----------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def drain(self) -> tuple[list[dict], list[ServingResult]]:
+        """Stop admitting and hand the waiting queue back for re-homing. After
+        this ``submit`` sheds and ``step()`` runs the active slots to their
+        end. Returns ``(payloads, retired)``: the queued requests'
+        re-submittable payloads (``Request.payload``), and the results of
+        queued requests already cancelled or past their deadline, which end
+        here rather than elsewhere."""
+        self._draining = True
+        retired = []
+        for request in self.scheduler.sweep_queue(time.perf_counter()):
+            self._record_degraded(request)
+            retired.append(self._result_for(request))
+        drained = self.scheduler.drain_queue()
+        for _ in drained:
+            self.stats.record_rehomed()
+        return [request.payload for request in drained], retired
+
+    def resume_admission(self) -> None:
+        """Undo :meth:`drain`: the engine admits again."""
+        self._draining = False
+
+    def snapshot_requests(self, include_active: bool = True) -> list[dict]:
+        """The payloads of every request in flight (queued and, by default,
+        active), without removing any: what a router re-homes when this
+        engine is lost. Cancelled requests are left out."""
+        payloads = [r.payload for r in self.scheduler.queue if not r.cancelled]
+        if include_active:
+            payloads += [
+                self.scheduler.slots[slot].payload for slot in self.scheduler.active_slots
+                if not self.scheduler.slots[slot].cancelled
+            ]
+        return payloads
+
+    def reset_service_estimate(self) -> None:
+        """Forget the service-rate history the wait quotes are priced from
+        (the statistics' counters stay): after a role change the old rates
+        say nothing, and the quotes return to the no-history prior until
+        new ones are measured."""
+        s = self.stats
+        self._quote_base = (s.steps, s.decode_seconds, s.tokens_generated, s.requests_completed)
+
+    def _service_rates(self) -> tuple[float, float]:
+        """(mean step seconds, mean tokens per completed request) since the
+        last ``reset_service_estimate``; conservative constants before any
+        history."""
+        s = self.stats
+        base_steps, base_seconds, base_tokens, base_completed = self._quote_base
+        steps = s.steps - base_steps
+        mean_step = (s.decode_seconds - base_seconds) / steps if steps else 0.01
+        completed = s.requests_completed - base_completed
+        mean_tokens = (s.tokens_generated - base_tokens) / completed if completed else 16.0
+        return mean_step, mean_tokens
 
     def retry_after_hint(self) -> float:
         """Seconds until a queue position frees: the backlog drains in waves
         of ``num_slots`` requests, each (mean tokens per request) x (mean
-        step time) long. Before any history, a conservative constant."""
-        s = self.stats
-        mean_step = s.decode_seconds / s.steps if s.steps else 0.01
-        mean_tokens = s.tokens_generated / s.requests_completed if s.requests_completed else 16.0
+        step time) long."""
+        mean_step, mean_tokens = self._service_rates()
         waves = math.ceil((self.scheduler.waiting + 1) / self.cache.num_slots)
         return max(waves * mean_tokens * mean_step, mean_step)
 
+    def drain_eta_hint(self) -> float:
+        """Seconds until every active slot finishes: the wait quote of a
+        draining engine, which admits nothing before then."""
+        mean_step, _ = self._service_rates()
+        remaining = 0
+        for slot in self.scheduler.active_slots:
+            request = self.scheduler.slots[slot]
+            remaining = max(remaining, request.max_new_tokens - len(request.generated))
+        return max(remaining * mean_step, mean_step)
+
     def _free_slot(self, request: Request) -> Optional[int]:
-        """The ``admit_ready`` callback: a free lane AND pages for the first
-        prefill span, after a prefix-cache lookup; None leaves it queued."""
+        """The ``admit_ready`` callback: a free slot (dense), or a free lane
+        AND pages for the first prefill span after a prefix-cache lookup
+        (paged); None leaves it queued."""
+        prefill_len = request.prompt.size - 1
+        if not self.paged:
+            return self.cache.admit(prefill_len)
         if self.cache.lanes.free_count == 0:
             return None
-        prefill_len = request.prompt.size - 1
         ps = self.cache.page_size
         sharing = self.prefix_sharing and not self._warming
         hit_len, shared = 0, []
@@ -507,7 +798,8 @@ class ServingEngine:
 
     def _advance_prefills(self) -> list[ServingResult]:
         """One prefill span per still-prefilling slot; returns requests
-        failed by page pressure."""
+        failed by page pressure and the ``"prefilled"`` results of parked
+        prefill-only requests."""
         failed: list[ServingResult] = []
         for slot in list(self.scheduler.active_slots):
             request = self.scheduler.slots[slot]
@@ -516,7 +808,9 @@ class ServingEngine:
             prefill_len = request.prompt.size - 1
             remaining = prefill_len - request.prefilled
             if remaining <= 0:
-                self._finish_prefill(slot, request)
+                parked = self._finish_prefill(slot, request)
+                if parked is not None:
+                    failed.append(parked)
                 continue
             span = self._next_span(remaining, request.prefilled)
             target = (request.prefilled + span) // self.cache.page_size
@@ -550,12 +844,17 @@ class ServingEngine:
             if chunked_span:
                 self.stats.record_prefill_chunk()
             if request.prefilled >= prefill_len:
-                self._finish_prefill(slot, request)
+                parked = self._finish_prefill(slot, request)
+                if parked is not None:
+                    failed.append(parked)
         return failed
 
-    def _finish_prefill(self, slot: int, request: Request) -> None:
+    def _finish_prefill(self, slot: int, request: Request) -> Optional[ServingResult]:
         """Every prompt token is in the pool: file the aligned prefix for
-        future sharers and make the slot decode-visible."""
+        future sharers and make the slot decode-visible, or, for a
+        ``prefill_only`` request, park the finished KV for a handoff (the
+        lane frees now, the pages stay referenced until ``release_parked``
+        or ``resume_parked``) and return its ``"prefilled"`` result."""
         prefill_len = request.prompt.size - 1
         if self.prefix_sharing and not self._warming:
             blocks = prefill_len // self.cache.page_size
@@ -564,9 +863,24 @@ class ServingEngine:
                     request.prompt[: blocks * self.cache.page_size],
                     self.cache.tables[slot, :blocks],
                 )
+        if request.prefill_only:
+            pages = self.cache.park(slot)
+            self._parked[request.id] = {
+                "pages": pages,
+                "page_size": self.cache.page_size,
+                "length": prefill_len,
+                "last_token": int(request.prompt[-1]),
+                "page_shape": self._page_shape(),
+                "dtype": str(self.cache.dtype),
+            }
+            self._pending[slot] = 0
+            done = self.scheduler.retire(slot, "prefilled")
+            self.stats.record_parked()
+            return self._result_for(done)
         self.cache.lengths[slot] = prefill_len
         self.cache.active[slot] = True
         self._pending[slot] = request.prompt[-1]
+        return None
 
     def _preempt_slot(self, slot: int) -> None:
         """Recompute-style eviction: back to the queue head, pages freed."""
@@ -701,20 +1015,22 @@ class ServingEngine:
         """One speculative step over every lane, in place of the plain
         decode: draft up to ``k`` candidates per eligible slot, verify every
         slot's window in one target forward, commit the longest agreeing
-        prefix. Returns ``(tokens [S, w], emit [S], drafted [S])``;
-        ``drafted`` marks the slots to trim and advance after the step."""
+        prefix. Returns ``(tokens [S, w], emit [S], finite [S], drafted
+        [S])``: ``finite`` is the target's verdict (a non-finite draft never
+        reaches it), ``drafted`` marks the slots to trim and advance after
+        the step."""
         spec = self.spec
         limits, drafting = self._spec_limits(active_idx)
         window = np.zeros((self.cache.num_slots, spec.config.k + 1), np.int32)
         window[:, 0] = self._pending
         if spec.config.mode == "tree" and drafting.any():
-            tokens, emit, drafted, proposed = self._spec_tree_step(window, limits, drafting)
+            tokens, emit, finite, drafted, proposed = self._spec_tree_step(window, limits, drafting)
         else:
-            tokens, emit, drafted, proposed = self._spec_linear_step(window, limits, drafting)
+            tokens, emit, finite, drafted, proposed = self._spec_linear_step(window, limits, drafting)
         if not self._warming and drafted.any():
             accepted = [max(int(emit[s]) - 1, 0) for s in np.flatnonzero(drafted)]
             self.stats.record_spec_step(proposed=proposed, accepted_lengths=accepted)
-        return tokens, emit, drafted
+        return tokens, emit, finite, drafted
 
     def _spec_linear_step(self, window, limits, drafting):
         """Linear mode: one greedy draft chain per drafting slot (launch
@@ -743,8 +1059,8 @@ class ServingEngine:
             good = step_active & ok
             window[good, i + 1] = nxt[good]
             chain = np.where(good, nxt, chain).astype(np.int32)
-        tokens, _, emit = self._verify(window, self.cache.active, limits, self.cache.tables)
-        return tokens, emit, drafted, proposed
+        tokens, _, emit, finite = self._verify(window, self.cache.active, limits, self.cache.tables)
+        return tokens, emit, finite, drafted, proposed
 
     def _spec_tree_step(self, window, limits, drafting):
         """Tree mode: fork up to ``num_branches`` branches per drafting slot
@@ -789,7 +1105,7 @@ class ServingEngine:
             committed = [int(p) for p in self.cache.tables[slot, :idx0] if p]
             src = int(self.cache.tables[slot, idx0])
             for _ in range(1, B):
-                fresh = self.cache._alloc(target - idx0)
+                fresh = self.cache.alloc(target - idx0)
                 if fresh is None:
                     break  # pressure: fewer branches this step
                 self.cache.pages.fork(committed)
@@ -836,13 +1152,16 @@ class ServingEngine:
                 wins[b][good, i + 1] = nxt[good]
                 chains[b] = np.where(good, nxt, chains[b]).astype(np.int32)
         toks_b, acc_b, emit_b = [], [], []
+        finite = None
         for b in range(max(bmax, 1)):
             wb = wins[b] if b < len(wins) else window
             tb = tabs[b] if b < len(tabs) else self.cache.tables
             # lanes whose slot has no branch b are masked off: their writes
             # would land through the original row over branch 0's window K/V
             act = self.cache.active & ~(drafted & (nb <= b)) if b else self.cache.active
-            toks, accepted, emit = self._verify(wb, act, limits, tb)
+            toks, accepted, emit, ok = self._verify(wb, act, limits, tb)
+            if finite is None:
+                finite = ok  # launch 0 carries the probe
             toks_b.append(toks)
             acc_b.append(accepted)
             emit_b.append(emit)
@@ -869,7 +1188,7 @@ class ServingEngine:
                 self.cache.tables[slot, idx0:target] = rows[win][idx0:target]
                 tokens[slot] = toks_b[win][slot]
                 emit[slot] = emit_b[win][slot]
-        return tokens, emit, drafted, proposed
+        return tokens, emit, finite, drafted, proposed
 
     # -- the step -------------------------------------------------------------
 
@@ -910,43 +1229,102 @@ class ServingEngine:
         else:
             self.stats.record_expired()
 
+    def _on_watchdog_trip(self, elapsed_s: float) -> None:
+        """A step outlasted ``step_timeout_s`` (from the watchdog's thread, or
+        synchronously for a step that completed): it only records."""
+        self.stats.record_watchdog_trip()
+
+    def _quarantine(self, slot: int, request: Request, finished: list) -> None:
+        """The slot produced non-finite logits: quarantine and scrub it. The
+        request requeues at the head of the queue, unless it has been
+        requeued ``max_request_requeues`` times: then the request is what
+        drives the model non-finite, and it fails instead of livelocking
+        the engine."""
+        if request.requeues >= self.max_request_requeues:
+            done = self.scheduler.retire(slot, "failed")
+            self.stats.record_failed()
+            finished.append(self._result_for(done))
+        else:
+            self.scheduler.requeue_front(slot)
+            self.stats.record_requeue()
+        freed = self.cache.quarantine(slot)  # the slab's quarantine frees no pages
+        self._scrub(freed or [], slot)
+        if self.spec is not None:
+            self.spec.draft_len[slot] = 0
+        self._pending[slot] = 0
+        self._probe_failures[slot] = 0
+        self.stats.record_quarantine()
+
     @torch.no_grad()
     def step(self) -> list[ServingResult]:
         """One engine iteration: retire cancelled/expired requests, admit,
-        advance prefills, run one decode step over every slot, deliver and
-        retire. Returns the requests that finished this step."""
+        advance prefills, run one decode step over every slot (the probe of
+        a quarantined slot rides it), quarantine slots whose logits went
+        non-finite, deliver and retire. Returns the requests that finished
+        this step."""
         t0 = time.perf_counter()
         finished = self._retire_degraded(t0)
         for slot, request in self.scheduler.admit_ready(self._free_slot):
-            # admission only claims capacity; prefill runs below
-            if self.spec is not None:
-                # draft health is per request, and a prefix hit's shared pages
-                # carry the first holder's mirrored draft content, so drafting
-                # resumes from the hit rather than from position 0
+            if not self.paged:
+                self._prefill_dense(slot, request)
+            elif self.spec is not None:
+                # admission only claims capacity; prefill runs below. Draft
+                # health is per request, and a prefix hit's shared pages
+                # carry the first holder's mirrored draft content, so
+                # drafting resumes from the hit rather than from position 0
                 self.spec.draft_ok[slot] = True
                 self.spec.draft_len[slot] = request.prefilled
-        finished.extend(self._advance_prefills())
-        finished.extend(self._prepare_decode_writes())
+        if self.paged:
+            finished.extend(self._advance_prefills())
+            finished.extend(self._prepare_decode_writes())
         active_idx = self.scheduler.active_slots
-        if not any(self.cache.active[s] for s in active_idx):
-            # no request is decode-visible yet: no device step
+        quarantined = sorted(self.cache.quarantined)
+        if not quarantined and not any(self.cache.active[s] for s in active_idx):
+            # no request is decode-visible yet and no probe is due: no device step
             return finished
+        if not active_idx and quarantined and self.scheduler.waiting and all(
+            self._probe_failures.get(s, 0) >= self.max_probe_failures for s in quarantined
+        ):
+            raise RuntimeError(
+                f"all {len(quarantined)} slots quarantined and the finite-logits probe failed "
+                f"{self.max_probe_failures}x on each: the model produces non-finite logits "
+                "unconditionally"
+            )
 
+        # the watchdog watches steady-state decode: the first decode builds
+        # the kernels and may take seconds
+        if self._watchdog is not None and self._decode_warm:
+            self._watchdog.arm()
         drafted = None
         if self.spec is not None and self.spec.enabled:
             # the speculative step replaces the plain decode: every active
             # lane rides the verify (a lane with no draft verifies just its
             # pending token: emit 1, the plain-decode token)
-            tokens, emit, drafted = self._spec_device_step(active_idx)
+            tokens, emit, finite, drafted = self._spec_device_step(active_idx)
         else:
-            tokens = self._decode()[:, None]
+            nxt, finite = self._decode()
+            tokens = nxt[:, None]
             emit = np.ones((self.cache.num_slots,), np.int32)
+        if self._watchdog is not None:
+            self._watchdog.disarm()
         now = time.perf_counter()
+        if (
+            self.step_timeout_s is not None
+            and self._decode_warm
+            and now - t0 > self.step_timeout_s
+            and not (self._watchdog is not None and self._watchdog.fired)
+        ):
+            # an oversized step that completed before the thread's poll saw it
+            self._on_watchdog_trip(now - t0)
+        self._decode_warm = True
         delivered = 0
         for slot in active_idx:
             request = self.scheduler.slots[slot]
             if request is None or not self.cache.active[slot]:
                 continue  # still prefilling: its lane ran inactive
+            if not finite[slot]:
+                self._quarantine(slot, request, finished)
+                continue
             if request.cancelled:
                 # a cancel that landed during the step wins over retirement
                 self.cache.retire(slot)
@@ -983,19 +1361,27 @@ class ServingEngine:
                 finished.append(self._result_for(done))
             else:
                 self._pending[slot] = token
+        for slot in quarantined:
+            # the probe is this step's decode of the (empty) quarantined slot
+            if finite[slot]:
+                self.cache.release_quarantined(slot)
+                self._probe_failures.pop(slot, None)
+                self.stats.record_quarantine_release()
+            else:
+                self._probe_failures[slot] = self._probe_failures.get(slot, 0) + 1
         if drafted is not None:
             # speculative rollback: a slot that drafted grew its table for the
             # whole window; release what the accepted prefix did not reach
             # and advance the draft pool's high-water mark
             for slot in np.flatnonzero(drafted):
                 if self.scheduler.slots[slot] is None or not self.cache.active[slot]:
-                    continue  # retired mid-window: its pages are already released
+                    continue  # retired or quarantined mid-window: its pages are released
                 self.cache.trim_to_length(slot)
                 if self.spec.draft_ok[slot]:
                     self.spec.draft_len[slot] = int(self.cache.lengths[slot])
         self.stats.record_step(
             now - t0, active=len(active_idx), waiting=self.scheduler.waiting,
-            tokens=delivered, pages_in_use=self.cache.pages_in_use,
+            tokens=delivered, pages_in_use=self.cache.pages_in_use if self.paged else None,
         )
         return finished
 
@@ -1020,6 +1406,191 @@ class ServingEngine:
             generation_row(p, results[rid], max_new_tokens, self.eos_token_id)
             for p, rid in zip(prompts, ids)
         ]
+
+    # -- the KV handoff between engines ---------------------------------------
+
+    def _page_shape(self) -> tuple:
+        """One page's block shape ``[L, page_size, KV, D]``: the unit a
+        handoff moves."""
+        return tuple(int(d) for i, d in enumerate(self.cache.k.shape) if i != 1)
+
+    @property
+    def parked_count(self) -> int:
+        """Prefill-only requests whose finished KV awaits a handoff here."""
+        return len(self._parked)
+
+    def kv_page_layout(self, request_id: int) -> Optional[dict]:
+        """The page-granular layout of one request's KV: which pages, in
+        position order, holding how many positions, in what page shape and
+        dtype. A parked request (``parked: True``, with the ``last_token``
+        its destination decodes first) is the one a handoff moves. None on
+        a dense engine or when the request holds no pages here."""
+        if not self.paged:
+            return None
+        parked = self._parked.get(request_id)
+        if parked is not None:
+            return {"slot": None, "parked": True, **parked}
+        for slot, request in enumerate(self.scheduler.slots):
+            if request is None or request.id != request_id:
+                continue
+            pages = self.cache.pages_of(slot)
+            if not pages:
+                return None
+            return {
+                "slot": slot, "pages": pages, "page_size": self.cache.page_size,
+                "length": int(self.cache.lengths[slot]), "prefilled": request.prefilled,
+                "page_shape": self._page_shape(), "dtype": str(self.cache.dtype),
+            }
+        return None
+
+    def extract_pages(self, pages: Sequence[int]) -> tuple[torch.Tensor, torch.Tensor]:
+        """Host copies of ``pages``' K and V blocks, ``[n, L, page_size, KV,
+        D]`` each in the pool's dtype (CPU tensors: numpy has no bf16): the
+        source half of a handoff, one gather and one copy per pool."""
+        idx = torch.tensor([int(p) for p in pages], dtype=torch.long, device=self.device)
+        return (self.cache.k[:, idx].movedim(1, 0).cpu(), self.cache.v[:, idx].movedim(1, 0).cpu())
+
+    def adopt_kv(
+        self,
+        prompt,
+        max_new_tokens: int,
+        layout: dict,
+        k_blocks,
+        v_blocks,
+        request_id: Optional[int] = None,
+        submitted_at: Optional[float] = None,
+        deadline_s: Optional[float] = None,
+    ) -> int:
+        """Adopt a request whose prefill ran on another engine: claim a lane
+        and pages, write the transferred blocks into them, and decode on
+        from the position the source parked. ``layout["length"]`` must equal
+        ``len(prompt) - 1`` (every prompt position is in the blocks and the
+        first decode input is the prompt's last token, so no token is
+        computed twice or skipped). A layout this pool cannot hold (page
+        size, page shape or dtype) raises ``ValueError``; no free lane or
+        pages right now raises :class:`QueueFull`. Returns the request id."""
+        if not self.paged:
+            raise ValueError("adopt_kv needs a paged engine (paged=True)")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        length = int(layout["length"])
+        k_blocks, v_blocks = torch.as_tensor(k_blocks), torch.as_tensor(v_blocks)
+        n = k_blocks.shape[0]
+        if length != prompt.size - 1:
+            raise ValueError(
+                f"adoption is not token-exact: layout holds {length} positions "
+                f"but the prompt prefills {prompt.size - 1}"
+            )
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if n < 1 or n != v_blocks.shape[0]:
+            raise ValueError(f"got {n} k-blocks / {v_blocks.shape[0]} v-blocks")
+        if int(layout["page_size"]) != self.cache.page_size:
+            raise ValueError(
+                f"page_size mismatch: source {layout['page_size']}, this pool {self.cache.page_size}"
+            )
+        if tuple(layout["page_shape"]) != self._page_shape() or tuple(k_blocks.shape[1:]) != self._page_shape():
+            raise ValueError(
+                f"page_shape mismatch: source {tuple(layout['page_shape'])}, this pool {self._page_shape()}"
+            )
+        if str(layout.get("dtype", self.cache.dtype)) != str(self.cache.dtype):
+            raise ValueError(f"dtype mismatch: source {layout['dtype']}, this pool {self.cache.dtype}")
+        need = max(n, pages_for(length + max_new_tokens, self.cache.page_size))
+        if n > self.cache.pages_per_slot or need > self.cache.num_pages - 1:
+            raise ValueError(
+                f"adopted request needs {need} pages but the pool holds "
+                f"{self.cache.num_pages - 1} ({self.cache.pages_per_slot} per slot)"
+            )
+        if length + max_new_tokens > self.cache.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds the slot capacity max_len={self.cache.max_len}"
+            )
+        if self._draining:
+            raise QueueFull("engine is draining — not adopting new requests",
+                            queue_depth=self.scheduler.waiting, retry_after_s=self.retry_after_hint())
+        fresh = self.cache.alloc(n)
+        if fresh is None:
+            raise QueueFull(f"page pool cannot hold {n} adopted pages right now",
+                            queue_depth=self.scheduler.waiting, retry_after_s=self.retry_after_hint())
+        slot = self.cache.seat(fresh, length)
+        if slot is None:
+            for page in fresh:
+                self.cache.pages.decref(page)
+            raise QueueFull("no free lane for the adopted request",
+                            queue_depth=self.scheduler.waiting, retry_after_s=self.retry_after_hint())
+        idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+        self.cache.k[:, idx] = k_blocks.to(self.device, self.cache.k.dtype).movedim(0, 1)
+        self.cache.v[:, idx] = v_blocks.to(self.device, self.cache.v.dtype).movedim(0, 1)
+        request = Request(
+            id=request_id if request_id is not None else self.scheduler.next_id(),
+            prompt=prompt, max_new_tokens=max_new_tokens, deadline_s=deadline_s,
+        )
+        if submitted_at is not None:
+            request.submitted_at = submitted_at
+        request.prefilled = length
+        self.scheduler.adopt(request, slot)
+        self._pending[slot] = prompt[-1]
+        if self.spec is not None:
+            # the handoff moved the target's K/V only: draft_len = 0 marks the
+            # whole history for the draft pool's catch-up before it drafts
+            self.spec.draft_ok[slot] = True
+            self.spec.draft_len[slot] = 0
+        self.stats.record_adopted()
+        return request.id
+
+    def can_adopt(self, n_pages: int) -> bool:
+        """Whether an adoption of ``n_pages`` could land now: a free lane and
+        enough pages (prefix entries count, ``alloc`` evicts them)."""
+        if self._draining or not self.paged or self.cache.lanes.free_count == 0:
+            return False
+        return self.cache.pages.free_count + len(self.cache.prefix) >= n_pages
+
+    def release_parked(self, request_id: int) -> bool:
+        """Drop a parked request's page references (its destination adopted
+        the content, or it was cancelled). Pages filed in the prefix cache
+        keep the registry's reference. Returns whether it was parked here."""
+        parked = self._parked.pop(request_id, None)
+        if parked is None:
+            return False
+        for page in parked["pages"]:
+            self.cache.pages.decref(page)
+        return True
+
+    def resume_parked(
+        self,
+        request_id: int,
+        prompt,
+        max_new_tokens: int,
+        submitted_at: Optional[float] = None,
+        deadline_s: Optional[float] = None,
+    ) -> bool:
+        """Re-seat a parked request on this engine with no copy (the
+        handoff's source is its destination): a lane whose table points at
+        the parked pages again. False when no lane is free (it stays
+        parked) or the id is not parked here."""
+        parked = self._parked.get(request_id)
+        if parked is None:
+            return False
+        slot = self.cache.seat(parked["pages"], parked["length"])
+        if slot is None:
+            return False
+        self._parked.pop(request_id)
+        request = Request(
+            id=request_id, prompt=np.asarray(prompt, np.int32).reshape(-1),
+            max_new_tokens=max_new_tokens, deadline_s=deadline_s,
+        )
+        if submitted_at is not None:
+            request.submitted_at = submitted_at
+        request.prefilled = parked["length"]
+        self.scheduler.adopt(request, slot)
+        self._pending[slot] = request.prompt[-1]
+        if self.spec is not None:
+            # the parked pages are this engine's own, their draft halves
+            # mirrored when the prefill ran here
+            self.spec.draft_ok[slot] = True
+            self.spec.draft_len[slot] = parked["length"]
+        self.stats.record_adopted()
+        return True
 
     def metrics(self) -> dict:
         """Engine metrics, flat scalars."""

@@ -22,7 +22,10 @@ holds every request's K/V; a fixed-shape int32 page table per slot
 
 Sharing is page-aligned, so a slot's write position normally lands in a
 private page; ``prepare_write`` is the backstop that copies a shared page
-before a write reaches it.
+before a write reaches it. ``quarantine`` pulls a poisoned lane out of
+circulation and returns the pages it freed for the engine to scrub;
+``park`` and ``seat`` move a request's pages between lanes and engines (the
+KV handoff) without dropping their references.
 """
 
 from __future__ import annotations
@@ -193,6 +196,16 @@ class PrefixCache:
         while self.allocator.free_count < needed and self._entries:
             self._evict_one()
 
+    def invalidate_pages(self, pages: Sequence[int]) -> int:
+        """Drop every entry referencing ``pages`` (their content is suspect:
+        the quarantine path). Returns the number of entries dropped."""
+        doomed = {int(p) for p in pages}
+        victims = [d for d, (page, _) in self._entries.items() if page in doomed]
+        for digest in victims:
+            page, _ = self._entries.pop(digest)
+            self.allocator.decref(page)
+        return len(victims)
+
 
 class PagedKVCache:
     """Pools + page tables + host mirrors behind the engine.
@@ -239,10 +252,14 @@ class PagedKVCache:
     def pages_in_use(self) -> int:
         return self.pages.used_count
 
+    @property
+    def quarantined(self) -> frozenset:
+        return self.lanes.quarantined
+
     def pages_of(self, slot: int) -> list[int]:
         return [int(p) for p in self.tables[slot, : int(self.held[slot])]]
 
-    def _alloc(self, n: int) -> Optional[list[int]]:
+    def alloc(self, n: int) -> Optional[list[int]]:
         """Allocate ``n`` pages, evicting LRU prefix entries under pressure."""
         if self.pages.free_count < n:
             self.prefix.evict_for_pressure(n)
@@ -258,7 +275,7 @@ class PagedKVCache:
         # a hit page whose only reference was the registry's and hand it back
         # out as a fresh page of the same row
         self.pages.fork(shared_pages)
-        fresh = self._alloc(new_pages)
+        fresh = self.alloc(new_pages)
         if fresh is None:
             for page in shared_pages:
                 self.pages.decref(page)
@@ -276,7 +293,7 @@ class PagedKVCache:
         """Append ``n`` fresh pages to a slot's table; False = page pressure."""
         if n <= 0:
             return True
-        fresh = self._alloc(n)
+        fresh = self.alloc(n)
         if fresh is None:
             return False
         held = int(self.held[slot])
@@ -297,7 +314,7 @@ class PagedKVCache:
         page = int(self.tables[slot, idx])
         if not self.pages.is_shared(page):
             return ("ok", 0, 0)
-        replacement = self._alloc(1)
+        replacement = self.alloc(1)
         if replacement is None:
             return ("pressure", 0, 0)
         dst = replacement[0]
@@ -326,15 +343,66 @@ class PagedKVCache:
         self.held[slot] = keep
         return freed
 
+    def _release_pages(self, slot: int) -> list[int]:
+        """Drop the slot's page references; returns the pages that became free."""
+        freed = [p for p in self.pages_of(slot) if self.pages.decref(p)]
+        self.tables[slot, :] = 0
+        self.held[slot] = 0
+        self.lengths[slot] = 0
+        self.active[slot] = False
+        return freed
+
+    def park(self, slot: int) -> list[int]:
+        """Detach a slot's pages without dropping their references: the lane
+        frees (the next prefill can admit at once) while every page keeps
+        this slot's reference, so the allocator cannot recycle it. The
+        source half of a KV handoff: the caller drops each parked page once
+        the destination adopted it (or the handoff fell back). Returns the
+        parked pages in position order."""
+        pages = self.pages_of(slot)
+        self.lanes.retire(slot)
+        self.tables[slot, :] = 0
+        self.held[slot] = 0
+        self.lengths[slot] = 0
+        self.active[slot] = False
+        return pages
+
+    def seat(self, pages: Sequence[int], length: int) -> Optional[int]:
+        """Claim a lane for pages the caller already owns (freshly allocated
+        by an adoption, or a parked row resumed in place) and make it
+        decode-visible at ``length``. None when no lane is free: the caller
+        keeps its page references."""
+        slot = self.lanes.admit()
+        if slot is None:
+            return None
+        self.tables[slot, : len(pages)] = list(pages)
+        self.tables[slot, len(pages):] = 0
+        self.held[slot] = len(pages)
+        self.lengths[slot] = length
+        self.active[slot] = True
+        return slot
+
     def retire(self, slot: int) -> None:
         """Free the lane and drop the slot's page references. Stale K/V in a
         freed page is unreachable: reads stop at a slot's length and a new
         holder's prefill overwrites whole pages first."""
         self.lanes.retire(slot)
-        for page in self.pages_of(slot):
-            self.pages.decref(page)
-        self.tables[slot, :] = 0
-        self.held[slot] = 0
+        self._release_pages(slot)
+
+    def quarantine(self, slot: int) -> list[int]:
+        """Poisoned lane: pull it from circulation and release its pages.
+        Prefix entries on the slot's pages are dropped first (their content
+        is suspect). Returns the pages that became free, which the caller
+        must scrub on the device before the pool recycles them: pages
+        still shared by live slots stay as they are."""
+        pages = self.pages_of(slot)
+        self.lanes.quarantine(slot)
+        self.prefix.invalidate_pages(pages)
+        return self._release_pages(slot)
+
+    def release_quarantined(self, slot: int) -> None:
+        """Probe passed: the lane may serve requests again."""
+        self.lanes.release(slot)
         self.lengths[slot] = 0
         self.active[slot] = False
 

@@ -4,8 +4,11 @@ Counterpart of ``accelerate_tpu/serving/scheduler.py``, a copy of its pure
 host policy. ``submit`` (admission control on queue depth) -> FIFO queue ->
 ``admit_ready`` pairs queued requests with free capacity -> the engine
 reports tokens -> ``retire`` frees the slot for the very next admission.
-``preempt_slot`` is the page-pressure hook: the request goes back to the
-head of the queue and restarts from its prompt.
+``preempt_slot`` is the page-pressure hook and ``requeue_front`` the
+quarantine hook: the request goes back to the head of the queue and
+restarts from its prompt. ``adopt`` seats a request whose prefill ran on
+another engine (a KV handoff) and ``drain_queue`` hands the waiting queue
+back for re-homing.
 """
 
 from __future__ import annotations
@@ -47,9 +50,14 @@ class Request:
     admitted_at: Optional[float] = None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
-    finish_reason: Optional[str] = None  # "eos" | "length" | "expired" | "cancelled" | "failed"
+    # "eos" | "length" | "expired" | "cancelled" | "failed" | "prefilled"
+    finish_reason: Optional[str] = None
     generated: list[int] = field(default_factory=list)
     cancelled: bool = False
+    # a prefill-only request parks its finished KV for a handoff instead of
+    # decoding: it leaves the engine as "prefilled"
+    prefill_only: bool = False
+    requeues: int = 0  # times a quarantined slot sent this request back to the queue
     preemptions: int = 0  # times page pressure evicted this request
     # tokens of prompt[:-1] already in cache pages (starts at the prefix hit)
     prefilled: int = 0
@@ -77,6 +85,20 @@ class Request:
             return None
         return self.finished_at - self.submitted_at
 
+    @property
+    def payload(self) -> dict:
+        """The re-submittable view of this request, what a router re-homes
+        onto another engine: the prompt and parameters, no generated tokens
+        (a re-homed request restarts from its prompt)."""
+        return {
+            "prompt": self.prompt,
+            "max_new_tokens": self.max_new_tokens,
+            "request_id": self.id,
+            "deadline_s": self.deadline_s,
+            "submitted_at": self.submitted_at,
+            "requeues": self.requeues,
+        }
+
 
 class ContinuousBatchingScheduler:
     """FIFO queue in front of ``num_slots`` decode slots."""
@@ -87,6 +109,10 @@ class ContinuousBatchingScheduler:
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[Request]] = [None] * num_slots
         self._ids = itertools.count()
+
+    def next_id(self) -> int:
+        """A fresh request id, for a request that enters without :meth:`submit`."""
+        return next(self._ids)
 
     def submit(
         self,
@@ -126,10 +152,24 @@ class ContinuousBatchingScheduler:
                 return True
         return False
 
+    def requeue_front(self, slot: int) -> Request:
+        """Pull the request out of a quarantined slot and put it back at the
+        HEAD of the queue (it already waited its turn). Its tokens are
+        dropped: the slot's cache is suspect, so it restarts from its prompt."""
+        request = self._pull_to_front(slot)
+        request.requeues += 1
+        return request
+
     def preempt_slot(self, slot: int) -> Request:
         """Page pressure evicted this request: back to the HEAD of the queue
         to restart from its prompt (at temperature 0 the re-prefill
-        regenerates the same tokens)."""
+        regenerates the same tokens). Counted apart from ``requeues``: a
+        preemption never burns the quarantine budget."""
+        request = self._pull_to_front(slot)
+        request.preemptions += 1
+        return request
+
+    def _pull_to_front(self, slot: int) -> Request:
         request = self.slots[slot]
         if request is None:
             raise ValueError(f"slot {slot} holds no request")
@@ -139,7 +179,6 @@ class ContinuousBatchingScheduler:
         request.first_token_at = None
         request.prefilled = 0
         request.prefix_hit = 0
-        request.preemptions += 1
         self.queue.appendleft(request)
         return request
 
@@ -155,6 +194,26 @@ class ContinuousBatchingScheduler:
             request.admitted_at = time.perf_counter()
             self.slots[slot] = request
             yield slot, request
+
+    def adopt(self, request: Request, slot: int) -> Request:
+        """Seat a request whose prefill ran elsewhere directly into ``slot``
+        (a KV handoff's destination): it never waits in this queue, and the
+        caller has already claimed the lane and pages."""
+        if self.slots[slot] is not None:
+            raise ValueError(f"slot {slot} already holds request {self.slots[slot].id}")
+        request.slot = slot
+        request.admitted_at = time.perf_counter()
+        self.slots[slot] = request
+        return request
+
+    def drain_queue(self) -> list[Request]:
+        """Remove and return every waiting request, for re-homing elsewhere.
+        The caller sweeps cancelled and expired requests first
+        (:meth:`sweep_queue`): re-homing one would resurrect a request its
+        client gave up on."""
+        drained = list(self.queue)
+        self.queue.clear()
+        return drained
 
     def sweep_queue(self, now: float) -> list[Request]:
         """Remove cancelled / past-deadline requests from the waiting queue,

@@ -2,8 +2,11 @@
 
 Counterpart of the ``ServingStats`` surface in
 ``accelerate_tpu/telemetry/serving.py`` that the paged engine feeds: time to
-first token, per-step time, throughput, slot occupancy, the page economy
-and the speculative-decoding counters.
+first token, per-step time, throughput, slot occupancy, the page economy,
+the degradation counters (requeues, quarantine, watchdog trips, re-homed
+requests), the parked/adopted handoff counters and the speculative-decoding
+counters. The trace, SLO and fleet rollup parts, and the handoff transfer
+ledger the router records, wait for ROADMAP item 14.
 The engine's per-step host fetch of the sampled tokens is the timing fence,
 so step durations are wall times with no extra synchronisation.
 """
@@ -47,6 +50,15 @@ class ServingStats:
         self.requests_cancelled = 0
         self.requests_failed = 0
         self.max_active = 0
+        # degradation counters: every graceful-failure path is countable
+        self.requests_requeued = 0
+        self.requests_rehomed = 0  # drained out of this engine for another replica
+        self.slot_quarantines = 0
+        self.slot_quarantine_releases = 0
+        self.watchdog_trips = 0
+        # the handoff: parked/adopted count on the engine that did the work
+        self.requests_parked = 0
+        self.requests_adopted = 0
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_tokens_reused = 0
@@ -76,6 +88,27 @@ class ServingStats:
 
     def record_cancelled(self) -> None:
         self.requests_cancelled += 1
+
+    def record_requeue(self) -> None:
+        self.requests_requeued += 1
+
+    def record_rehomed(self) -> None:
+        self.requests_rehomed += 1
+
+    def record_quarantine(self) -> None:
+        self.slot_quarantines += 1
+
+    def record_quarantine_release(self) -> None:
+        self.slot_quarantine_releases += 1
+
+    def record_watchdog_trip(self) -> None:
+        self.watchdog_trips += 1
+
+    def record_parked(self) -> None:
+        self.requests_parked += 1
+
+    def record_adopted(self) -> None:
+        self.requests_adopted += 1
 
     def record_failed(self) -> None:
         self.requests_failed += 1
@@ -171,7 +204,14 @@ class ServingStats:
             "requests_rejected": self.requests_rejected,
             "requests_expired": self.requests_expired,
             "requests_cancelled": self.requests_cancelled,
+            "requests_requeued": self.requests_requeued,
             "requests_failed": self.requests_failed,
+            "requests_rehomed": self.requests_rehomed,
+            "slot_quarantines": self.slot_quarantines,
+            "slot_quarantine_releases": self.slot_quarantine_releases,
+            "watchdog_trips": self.watchdog_trips,
+            "requests_parked": self.requests_parked,
+            "requests_adopted": self.requests_adopted,
             "throughput_tokens_per_sec": self.throughput_tokens_per_sec,
             "slot_occupancy": self.mean_occupancy,
             "max_active_slots": self.max_active,

@@ -74,7 +74,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="chip-ring-gate-") as tmp:
             path = os.path.join(tmp, "grads.pt")
             ranks = debug_launcher(ring_with, args=(path, fault), num_processes=2, timeout=600)
-            gaps = cs.ring_grad_gaps(torch.load(path), want)
+            gaps = cs.leaf_gaps(torch.load(path), want)
         loss_gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single)]
         passed[fault] = max(loss_gaps) <= cs.RING_LOSS_RTOL and max(gaps.values()) <= cs.RING_GRAD_RTOL
         print(f"[ring-gate] {fault}: losses {ranks[0]['losses']}, relative gaps "

@@ -183,6 +183,33 @@ launches bit-identical (dbias included), each kernel timed beside its
 bound and plain version, and SDPA with the bias and mask penalty as a float
 ``attn_mask`` (forward, and the whole backward with the bias's gradient).
 
+22. gpt2-1.5b at full width and depth (48 layers, H=1600, 25 heads of 64
+    with no grouped K/V, vocab 50257, random weights from seed 0) behind
+    ``ServingEngine`` in bf16, phase 3's traffic with 64-token prefill
+    chunks (decode launches = layers x decode forwards; step p50/p99,
+    tokens/s, TTFT, peak memory); in fp32 its tokens against
+    ``generate()`` up to near-ties; the decode and verify kernels at its
+    heads (8 slots of up to 1000 positions) against their plain versions;
+23. gpt2-1.5b speculative with gpt2-124m drafts (k=4, linear): fp32
+    tokens against the plain engine's, bf16 traffic through the verify
+    kernel with accepted drafts reported; int8-resident gpt2-1.5b through
+    ``dispatch_model`` and ``from_streamed`` (4 projections x layers x
+    forwards launches of the dequant-matmul, biases and positions in
+    bf16) in bf16, then fp32 int8 tokens against ``generate()`` over the
+    dequantized weights; the dequant-matmul at gpt2-1.5b's four
+    projection shapes (K = 1600 and 6400), M = 8 and 64, int8 and int4,
+    bf16 and fp32;
+24. gpt2-124m training at full width and depth: bf16 over fp32 masters,
+    flash from 128, ``fused_adamw(3e-4)``, B=16 S=1024 (step p50, tokens/s,
+    MFU by ``train_flops_per_step``, peak memory, launches: 12 a step for
+    each flash kernel, 16 for adamw); fp32 B=2, 3 steps through the
+    kernels within 1e-4 relative of the plain versions';
+25. the engine's new surface on gpt2-124m in fp32: quarantine (NaN in a
+    live slot's pages, the freed pages read back exactly 0, the request
+    requeued and finished with ``generate()``'s tokens), the watchdog at a
+    tiny ``step_timeout_s``, the dense ``paged=False`` slab against the
+    paged engine, and a KV handoff between two engines on the card.
+
 The JSON line's launch counts of the four training kernels are phase 14's
 run A, the ring variants' phase 21's rank 0; phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
@@ -210,6 +237,7 @@ import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from accelerate_tpu_torch import (
+    GPT2,
     T5,
     Accelerator,
     AcceleratorState,
@@ -1533,7 +1561,8 @@ def train_setup(name, mixed_precision, tx, flash_min_seq=1024):
         mixed_precision=mixed_precision,
         compilation_config=CompilationConfig(flash_attention_min_seq=flash_min_seq),
     )
-    model = Llama(name, dtype=torch.float32, seed=SEED)
+    config = get_config(name) if isinstance(name, str) else name
+    model = (GPT2 if config.arch == "gpt2" else Llama)(config, dtype=torch.float32, seed=SEED)
     accelerator.prepare_model(model)
     accelerator.prepare_optimizer(tx)
     return accelerator, model
@@ -3042,7 +3071,7 @@ def first_grads(accelerator, model, optimizer, batch, path):
     """The gradients of ``batch``'s loss before any update (across
     processes the global ones), saved to ``path`` on the host when given,
     then cleared; returns them."""
-    accelerator.backward(Llama.loss_fn(model), batch)
+    accelerator.backward(type(model).loss_fn(model), batch)
     grads = {k: v.detach().to("cpu") for k, v in flatten_tree(optimizer.grads)}
     optimizer.zero_grad()
     if path is not None:
@@ -3050,7 +3079,7 @@ def first_grads(accelerator, model, optimizer, batch, path):
     return grads
 
 
-def ring_grad_gaps(got: dict, want: dict) -> dict:
+def leaf_gaps(got: dict, want: dict) -> dict:
     """Each leaf's gradient gap, ||got - want|| over ||want||."""
     return {k: float(torch.linalg.vector_norm(got[k] - want[k]) / torch.linalg.vector_norm(want[k])) for k in want}
 
@@ -3097,7 +3126,7 @@ def phase_ring_pair(card: str) -> dict:
     reset_training_state()
     accelerator, model = train_setup("llama-125m", "bf16", fused_adamw(ADAMW_LR))
     batches = [{"input_ids": torch.tensor(b, device="cuda")} for b in ring_pair_batches()]
-    grad_gaps = ring_grad_gaps(ring_grads, first_grads(accelerator, model, accelerator._optimizers[-1],
+    grad_gaps = leaf_gaps(ring_grads, first_grads(accelerator, model, accelerator._optimizers[-1],
                                                        batches[0], None))
     del ring_grads
     step = accelerator.compiled_step(Llama.loss_fn(model))
@@ -3127,6 +3156,456 @@ def phase_ring_pair(card: str) -> dict:
     torch.cuda.empty_cache()
     reset_training_state()
     return ranks[0]["ring_counts"]
+
+
+# -- phases 22-25: gpt2 serving and training, the engine's new surface --------
+
+GPT2_SHAPES = ((1600, 4800), (1600, 1600), (1600, 6400), (6400, 1600))  # gpt2-1.5b [K, N]
+GPT2_PROJECTIONS = 4  # wqkv wo w_up w_down: the quantized matrices of a gpt2 layer
+GPT2_LEAVES = 16  # 2 embeddings, 12 layer and 2 final-norm leaves
+
+
+def gpt2_kernel_checks(card: str) -> None:
+    """The paged decode and verify kernels at gpt2-1.5b's attention (25
+    heads of 64, no grouped K/V, 8 slots of up to 1024 positions, NaN past
+    every length) against their plain versions, bf16 and fp32, two launches
+    bit-identical, timed beside their bound and plain version."""
+    rng = np.random.default_rng(SEED + 22)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    lengths = [1000, 700, 517, 64, 33, 17, 1, 0]
+    for window in (None, SPEC_K + 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            case = make_case(rng, 8, 25, 25, 64, 16, 64, lengths, dtype, window=window)
+            fn, ref = ((paged_decode_attention, pa.paged_decode_attention_reference) if window is None
+                       else (paged_verify_attention, pa.paged_verify_attention_reference))
+            got = fn(**case)
+            identical = torch.equal(got, fn(**case))
+            err = float((got.float() - ref(**case).float()).abs().max().item())
+            ms = time_ms(lambda: fn(**case), flush, iters=20)
+            plain = time_ms(lambda: ref(**case), flush, iters=20)
+            bound, bound_by = bound_ms(case, dtype)
+            kind = "decode" if window is None else f"verify W={window}"
+            print(f"[gpt2-paged] gpt2-1.5b {kind} {str(dtype).split('.')[-1]} "
+                  f"({split_line(8, 25, window or 1, 16, 64)}): max_abs_err {err:.3e} (tolerance "
+                  f"{TOLERANCE[dtype]:.0e}), two launches bit-identical: {identical}; kernel "
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}), achieved "
+                  f"{bound / ms:.1%} of bound [{card}]")
+            if not (err <= TOLERANCE[dtype]) or not identical:
+                raise AssertionError(f"paged {kind} disagrees at gpt2-1.5b's heads in {dtype}")
+
+
+def serve_traffic(engine, prompts, new: int):
+    """Submit ``prompts`` and step the engine dry with the launch counts
+    reset just before, timing each step on the host (a step ends in its
+    tokens' fetch) and noting whether it ran a prefill forward; prints the
+    two kinds' step times. Returns (results, ids, counts, wall seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids = [engine.submit(p, max_new_tokens=new) for p in prompts]
+    results, steps = {}, {True: [], False: []}
+    while engine.busy:
+        prefills = engine.forward_counts["prefill"]
+        start = time.perf_counter()
+        for result in engine.step():
+            results[result.request_id] = result
+        steps[engine.forward_counts["prefill"] > prefills].append(time.perf_counter() - start)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    for prefilled, what in ((False, "decode only"), (True, "with a prefill forward")):
+        ms = np.asarray(steps[prefilled]) * 1e3
+        if ms.size:
+            print(f"[steps] {what}: {ms.size} steps, p50 {np.percentile(ms, 50):.3f} ms, p99 "
+                  f"{np.percentile(ms, 99):.3f} ms, max {ms.max():.3f} ms, {ms.sum():.1f} ms in all")
+    for rid in ids:
+        if results[rid].finish_reason != "length" or results[rid].generated.size != new:
+            raise AssertionError(f"request {rid} ended {results[rid].finish_reason!r}")
+    return results, ids, counts, wall
+
+
+def serve_line(tag: str, engine, card: str) -> str:
+    m = engine.metrics()
+    return (f"[{tag}] decode step p50 {m['per_token_p50_ms']:.3f} ms p99 {m['per_token_p99_ms']:.3f} ms; "
+            f"{m['throughput_tokens_per_sec']:.1f} generated tokens/s; TTFT p50 {m['ttft_p50_ms']:.1f} ms "
+            f"p99 {m['ttft_p99_ms']:.1f} ms; peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB [{card}]")
+
+
+def phase_gpt2_serving(card: str) -> tuple:
+    """gpt2-1.5b at full width and depth behind the engine: bf16 traffic
+    through the decode kernel (launches = layers x decode forwards), then
+    fp32 tokens against ``generate()`` up to near-ties, then kernels 5 and 6
+    at its heads. Returns the fp32 model, prompts, rows and gaps."""
+    model = GPT2("gpt2-1.5b", dtype=torch.bfloat16, seed=SEED)
+    layers = model.config.num_layers
+    engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    engine.warmup()
+    prompts = serving_prompts(np.random.default_rng(SEED + 22), model.config.vocab_size)
+    _, _, counts, wall = serve_traffic(engine, prompts, 64)
+    decodes = engine.forward_counts["decode"]
+    m = engine.metrics()
+    print(f"[gpt2-serve] gpt2-1.5b bf16 (48 layers, 25 heads of 64, vocab 50257), 16 requests x 64 "
+          f"new tokens: {m['steps']} decode steps, {counts['paged_decode']} decode launches ({layers} "
+          f"layers x {decodes} forwards), prefix hits {m['prefix_hits']}, prefill chunks "
+          f"{m['prefill_chunks']}, wall {wall:.3f} s")
+    print(serve_line("gpt2-serve", engine, card))
+    if counts["paged_decode"] != layers * decodes or decodes == 0:
+        raise AssertionError(f"{counts['paged_decode']} decode launches, expected {layers} x {decodes}")
+    if counts["paged_verify"] or counts["quant_matmul"]:
+        raise AssertionError(f"plain gpt2 serving launched other kernels: {counts}")
+    profile_decode(engine, card, "gpt2-1.5b bf16")
+    del engine, model
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = GPT2("gpt2-1.5b", dtype=torch.float32, seed=SEED)
+    prompts = parity_prompts(model.config.vocab_size)
+    engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    rows = engine.generate_many(prompts, max_new_tokens=16)
+    want, gaps = reference_rows(model, prompts, 16)
+    ties = compare_rows("gpt2-parity", prompts, rows, want, gaps, "generate()")
+    print(f"[gpt2-parity] gpt2-1.5b fp32, prompts {[p.size for p in prompts]} x 16 tokens: engine == "
+          f"generate() with {ties} ties [{card}]")
+    del engine
+    gpt2_kernel_checks(card)
+    return model, prompts, rows, gaps
+
+
+def gpt2_quant_checks(card: str) -> None:
+    """Kernel 7 at gpt2-1.5b's four projection shapes (K = 1600 is 12.5
+    tiles of 128; int4 packs 800 rows), M = 8 and 64, int8 and int4, bf16
+    and fp32, against its plain version, two launches bit-identical."""
+    rng = np.random.default_rng(SEED + 23)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    for k, n in GPT2_SHAPES:
+        w = rng.standard_normal((k, n), dtype=np.float32)
+        for bits in (8, 4):
+            q, scale = quantize_weight(w, bits=bits)
+            q, scale = torch.tensor(q, device="cuda"), torch.tensor(scale, device="cuda")
+            for dtype in (torch.bfloat16, torch.float32):
+                weight = QuantizedWeight(q, scale, bits, dtype)
+                dense = dequantize_weight(q, scale, bits, dtype)
+                for m in (8, 64):
+                    x = torch.tensor(rng.standard_normal((m, k), dtype=np.float32) / (4 * np.sqrt(k)),
+                                     device="cuda").to(dtype)
+                    got = quant_matmul(x, weight)
+                    identical = torch.equal(got, quant_matmul(x, weight))
+                    err = float((got.float() - quant_matmul_reference(x, weight).float()).abs().max().item())
+                    ms = time_ms(lambda: quant_matmul(x, weight), flush, iters=20)
+                    plain = time_ms(lambda: quant_matmul_reference(x, weight), flush, iters=20)
+                    library = time_ms(lambda: x @ dense, flush, iters=20)
+                    bound, bound_by = quant_bound_ms(m, k, n, bits, dtype)
+                    print(f"[gpt2-quant] [{k},{n}] int{bits} {str(dtype).split('.')[-1]} M={m}: max_abs_err "
+                          f"{err:.3e} (tolerance {TOLERANCE[dtype]:.0e}), two launches bit-identical: "
+                          f"{identical}; kernel {ms:.4f} ms, plain {plain:.4f} ms, library_ms {library:.4f}, "
+                          f"bound {bound:.4f} ms ({bound_by}), achieved {bound / ms:.1%} of bound [{card}]")
+                    if not (err <= TOLERANCE[dtype]) or not identical:
+                        raise AssertionError(f"quant kernel disagrees at [{k},{n}] int{bits} {dtype} M={m}")
+                del dense
+
+
+def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
+    """gpt2-1.5b verifying gpt2-124m's drafts (k=4, linear): bf16 traffic
+    through the verify kernel, then fp32 tokens against the plain engine's;
+    int8-resident gpt2-1.5b from ``dispatch_model`` through
+    ``from_streamed``: bf16 traffic through the dequant-matmul kernel, then
+    fp32 tokens against ``generate()`` over the dequantized weights; kernel
+    7 at gpt2-1.5b's shapes."""
+    layers = model.config.num_layers
+    draft = GPT2("gpt2-124m", dtype=torch.float32, seed=SEED + 6)
+    engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64,
+                           speculative=SpeculativeConfig(draft_model=draft, k=SPEC_K))
+    reset_launches()
+    rows = engine.generate_many(prompts, max_new_tokens=16)
+    ties = compare_rows("gpt2-spec-parity", prompts, rows, want, gaps, "plain engine")
+    verifies = engine.forward_counts["verify"]
+    print(f"[gpt2-spec-parity] gpt2-1.5b fp32 with gpt2-124m drafts (k={SPEC_K}): spec == plain engine "
+          f"with {ties} ties; {verifies} verify forwards, {paged_verify_attention.launches} verify "
+          f"launches; proposed {engine.stats.spec_proposed_tokens}, accepted "
+          f"{engine.stats.spec_accepted_tokens} [{card}]")
+    if paged_verify_attention.launches != layers * verifies or verifies == 0:
+        raise AssertionError(f"{paged_verify_attention.launches} verify launches")
+    del engine, draft, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bf16 = GPT2("gpt2-1.5b", dtype=torch.bfloat16, seed=SEED)
+    draft = GPT2("gpt2-124m", dtype=torch.bfloat16, seed=SEED + 6)
+    engine = ServingEngine(bf16, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64,
+                           speculative=SpeculativeConfig(draft_model=draft, k=SPEC_K))
+    engine.warmup()
+    traffic = serving_prompts(np.random.default_rng(SEED + 22), bf16.config.vocab_size)
+    _, _, counts, wall = serve_traffic(engine, traffic, 64)
+    verifies = engine.forward_counts["verify"]
+    m = engine.metrics()
+    print(f"[gpt2-spec] gpt2-1.5b bf16 verifying gpt2-124m drafts (k={SPEC_K}, linear), 16 requests x "
+          f"64 new tokens: {m['steps']} steps, {counts['paged_verify']} verify launches ({layers} x "
+          f"{verifies}), draft decode launches {counts['paged_decode']}; proposed "
+          f"{m['spec_proposed_tokens']}, accepted {m['spec_accepted_tokens']} (random weights); wall "
+          f"{wall:.3f} s")
+    print(serve_line("gpt2-spec", engine, card))
+    if counts["paged_verify"] != layers * verifies or verifies == 0 or counts["paged_decode"] == 0:
+        raise AssertionError(f"speculative gpt2 serving launched {counts}")
+    del engine, bf16, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    source = GPT2("gpt2-1.5b", dtype=torch.float32, seed=SEED)
+    t0 = time.perf_counter()
+    streamed = dispatch_model(source, device_map=make_layered_device_map(source, "device"),
+                              dtype=torch.bfloat16, quantization=QuantizationConfig(load_in_8bit=True))
+    print(f"[gpt2-quant-serve] quantized gpt2-1.5b to int8 on the host in {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine.from_streamed(streamed, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    served = streamed.model
+    if served.dot_fn is not quant_dot or not isinstance(served.layers.wqkv, QuantizedWeight):
+        raise AssertionError("from_streamed did not keep gpt2's matrices packed behind quant_dot")
+    if served.layers.bqkv.dtype != torch.bfloat16 or served.embed_positions.dtype != torch.bfloat16:
+        raise AssertionError("gpt2's biases and positions should stay unquantized")
+    engine.warmup()
+    _, _, counts, wall = serve_traffic(engine, traffic, 64)
+    forwards = engine.forward_counts["prefill"] + engine.forward_counts["decode"]
+    resident, bf16_bytes = layer_bytes(served)
+    m = engine.metrics()
+    print(f"[gpt2-quant-serve] gpt2-1.5b int8 in bf16, 16 requests x 64 new tokens: {m['steps']} decode "
+          f"steps, {forwards} forwards, {counts['quant_matmul']} kernel launches ({GPT2_PROJECTIONS} x "
+          f"{layers} x {forwards} = {GPT2_PROJECTIONS * layers * forwards}), decode launches "
+          f"{counts['paged_decode']}; resident layer bytes {resident} = {resident / bf16_bytes:.3f} x "
+          f"bf16's; wall {wall:.3f} s")
+    print(serve_line("gpt2-quant-serve", engine, card))
+    if counts["quant_matmul"] != GPT2_PROJECTIONS * layers * forwards or forwards == 0:
+        raise AssertionError(f"{counts['quant_matmul']} quant launches")
+    if counts["paged_decode"] != layers * engine.forward_counts["decode"]:
+        raise AssertionError(f"int8 gpt2 serving launched {counts}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fp32 = as_fp32(streamed)
+    reference = GPT2("gpt2-1.5b", dtype=torch.float32, seed=SEED).install(params_from_streamed(fp32))
+    rows_want, rows_gaps = reference_rows(reference, prompts, 16)
+    del reference
+    engine = ServingEngine.from_streamed(fp32, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    rows = engine.generate_many(prompts, max_new_tokens=16)
+    ties = compare_rows("gpt2-quant-int8", prompts, rows, rows_want, rows_gaps, "dequantized generate()")
+    print(f"[gpt2-quant-int8] gpt2-1.5b fp32 int8, prompts {[p.size for p in prompts]} x 16 tokens: "
+          f"engine == generate() over the dequantized weights with {ties} ties [{card}]")
+    del engine, fp32, streamed, source
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt2_quant_checks(card)
+
+
+def phase_gpt2_training(card: str) -> None:
+    """gpt2-124m at full width and depth in bf16 over fp32 masters, flash
+    from 128, ``fused_adamw(3e-4)``, B=16 S=1024: step p50 over 10 steps
+    after 3 warm-up, tokens/s, MFU, peak memory, launches (12 a step for
+    each flash kernel, 16 for adamw); then fp32 B=2 S=1024 through the
+    kernels against the plain attention and plain adamw: the first
+    gradients leaf by leaf, then 3 steps' losses and each leaf's update
+    (``gpt2_parity_run``; ``chip_gpt2_gate.py`` holds these gates against
+    faults)."""
+    batch_size, seq = 16, 1024
+    accelerator, model = train_setup("gpt2-124m", "bf16", fused_adamw(ADAMW_LR), flash_min_seq=128)
+    layers = model.config.num_layers
+    step = accelerator.compiled_step(GPT2.loss_fn(model))
+    batch = random_batch(np.random.default_rng(SEED + 24), batch_size, seq, model.config.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = timed_steps(step, batch, 3, 10)
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    p50 = float(np.median(times))
+    flops = train_flops_per_step(model.config, batch_size, seq)
+    print(f"[gpt2-train] gpt2-124m bf16 fused_adamw B={batch_size} S={seq}: step p50 {p50 * 1e3:.3f} ms "
+          f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) over 10 steps after 3 warm-up, "
+          f"{batch_size * seq / p50:.1f} tokens/s, MFU {flops / p50 / PEAK_FLOPS[torch.bfloat16]:.4f} "
+          f"({flops:.3e} flops a step), peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; launches {counts} over 13 steps [{card}]")
+    want = {"flash_fwd": layers * 13, "flash_dq": layers * 13, "flash_dkv": layers * 13,
+            "fused_adamw": GPT2_LEAVES * 13}
+    for key, n in want.items():
+        if counts[key] != n:
+            raise AssertionError(f"{key}: {counts[key]} launches, expected {n}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite gpt2 training loss: {losses}")
+    del accelerator, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = gpt2_parity_batch()
+    want = gpt2_parity_run("plain", batch)
+    got = gpt2_parity_run("kernels", batch)
+    rel, grad_gaps, update_gaps = gpt2_parity_gaps(got, want)
+    print(f"[gpt2-train-parity] gpt2-124m fp32 B=2 S=1024, 3 steps: kernels {got['losses']} vs plain "
+          f"{want['losses']}: {gpt2_gap_line(rel, grad_gaps, update_gaps)} [{card}]")
+    if not gpt2_parity_passes(rel, grad_gaps, update_gaps):
+        raise AssertionError("fp32 gpt2 kernel steps differ from the plain steps")
+
+
+# fp32 gpt2-124m, kernels against the plain versions on an H100: the losses
+# agreed exactly, the first gradients within 1.7e-6 of each leaf's norm and
+# the 3-step updates within 3.7e-3 (bqkv, whose k bias has a null gradient
+# that adam scales up to the learning rate) and 7.5e-5 elsewhere
+GPT2_LOSS_RTOL = 1e-4
+GPT2_GRAD_RTOL = 1e-4
+GPT2_UPDATE_RTOL = 2e-2
+
+
+def gpt2_parity_batch() -> dict:
+    return random_batch(np.random.default_rng(SEED + 25), 2, 1024, 50257)
+
+
+def gpt2_parity_run(kind: str, batch) -> dict:
+    """gpt2-124m fp32 at full depth through the kernels (flash from 128,
+    ``fused_adamw``) or the plain versions (plain attention, ``adamw``):
+    the first gradients of ``batch`` before any update, then 3 compiled
+    steps on it. Returns the losses, the gradients, each leaf's update over
+    the 3 steps (host copies) and the steps' launches; fails if the kernel
+    run launched no flash kernel or the plain run launched any kernel."""
+    if kind == "kernels":
+        accelerator, model = train_setup("gpt2-124m", "no", fused_adamw(ADAMW_LR), flash_min_seq=128)
+    else:
+        accelerator, model = train_setup("gpt2-124m", "no", adamw(ADAMW_LR), flash_min_seq=0)
+        model.attention_fn = plain_attention
+    grads = first_grads(accelerator, model, accelerator._optimizers[-1], batch, None)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step = accelerator.compiled_step(GPT2.loss_fn(model))
+    reset_launches()
+    losses = [float(step(batch)) for _ in range(3)]
+    counts = launch_counts()
+    updates = {k: (p.detach() - before[k]).cpu() for k, p in model.named_parameters()}
+    del accelerator, model, step, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (kind == "kernels") != bool(counts["flash_fwd"]) or (kind == "plain" and any(counts.values())):
+        raise AssertionError(f"{kind} fp32 gpt2 run launched {counts}")
+    return {"losses": losses, "grads": grads, "updates": updates, "counts": counts}
+
+
+def gpt2_parity_gaps(got: dict, want: dict) -> tuple[float, dict, dict]:
+    """The losses' largest relative gap, and each leaf's gap (the norm of
+    the difference over the leaf's norm) in the first gradients and in the
+    update over the 3 steps."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    return rel, leaf_gaps(got["grads"], want["grads"]), leaf_gaps(got["updates"], want["updates"])
+
+
+def gpt2_parity_passes(rel: float, grad_gaps: dict, update_gaps: dict) -> bool:
+    return (rel <= GPT2_LOSS_RTOL and max(grad_gaps.values()) <= GPT2_GRAD_RTOL
+            and max(update_gaps.values()) <= GPT2_UPDATE_RTOL)
+
+
+def gpt2_gap_line(rel: float, grad_gaps: dict, update_gaps: dict) -> str:
+    def worst(gaps):
+        key = max(gaps, key=gaps.get)
+        return (f"worst leaf {key} {gaps[key]:.3e}, median {float(np.median(list(gaps.values()))):.3e}, "
+                f"least {min(gaps.values()):.3e}")
+
+    return (f"losses' max relative gap {rel:.3e} (tolerance {GPT2_LOSS_RTOL}); first gradients' gaps "
+            f"{worst(grad_gaps)} (tolerance {GPT2_GRAD_RTOL}); 3-step updates' gaps {worst(update_gaps)} "
+            f"(tolerance {GPT2_UPDATE_RTOL})")
+
+
+def phase_engine_surface(card: str) -> None:
+    """The engine's degradation, dense and handoff paths on gpt2-124m in
+    fp32 on the card: quarantine (NaN in a live slot's pages: quarantined,
+    freed pages read back exactly 0, requeued, finished with ``generate()``'s
+    tokens; then at temperature 0.8, where the categorical draw would raise
+    on the NaN lane), the watchdog (a tiny ``step_timeout_s`` counts trips), the
+    dense slab (tokens equal to the paged engine's) and a KV handoff
+    (``prefill_only`` -> ``extract_pages`` -> ``adopt_kv`` on a second
+    engine: tokens equal to ``generate()``)."""
+    model = GPT2("gpt2-124m", dtype=torch.float32, seed=SEED + 6)
+    vocab = model.config.vocab_size
+    prompts = parity_prompts(vocab)
+    want, gaps = reference_rows(model, prompts, 16)
+    kwargs = dict(num_slots=4, max_len=512, page_size=16)
+
+    engine = ServingEngine(model, **kwargs)
+    reset_launches()
+    rid = engine.submit(prompts[2], max_new_tokens=16)
+    while not engine.cache.active.any():
+        engine.step()
+    engine.step()
+    pages = engine.cache.pages_of(int(np.flatnonzero(engine.cache.active)[0]))
+    engine.cache.k[:, pages] = float("nan")
+    engine.step()
+    scrubbed = all(float(engine.cache.k[:, p].abs().max()) == 0.0 and
+                   float(engine.cache.v[:, p].abs().max()) == 0.0 for p in pages)
+    result = engine.run()[rid]
+    row = np.concatenate([prompts[2], result.generated])
+    ties = compare_rows("surface-quarantine", prompts[2:3], [row], want[2:3], gaps[2:3], "generate()")
+    s = engine.stats
+    print(f"[surface] quarantine: {s.slot_quarantines} quarantined, {s.requests_requeued} requeued, "
+          f"{s.slot_quarantine_releases} released by the probe; {len(pages)} freed pages read back 0: "
+          f"{scrubbed}; the request finished '{result.finish_reason}' == generate() with {ties} ties; "
+          f"launches {launch_counts()} [{card}]")
+    if (s.slot_quarantines, s.requests_requeued, s.slot_quarantine_releases) != (1, 1, 1) or not scrubbed:
+        raise AssertionError("quarantine did not quarantine, scrub, requeue and release once")
+    if not bool(torch.isfinite(engine.cache.k[:, 0]).all()):
+        raise AssertionError("the null page went non-finite")
+
+    sampled = ServingEngine(model, temperature=0.8, rng=torch.Generator("cuda").manual_seed(SEED), **kwargs)
+    ids = [sampled.submit(p, max_new_tokens=8) for p in prompts]
+    while not sampled.cache.active.any():
+        sampled.step()
+    sampled.step()
+    sampled.cache.k[:, sampled.cache.pages_of(int(np.flatnonzero(sampled.cache.active)[0]))] = float("nan")
+    results = sampled.run()
+    s = sampled.stats
+    reasons = [results[i].finish_reason for i in ids]
+    print(f"[surface] quarantine at temperature 0.8: {s.slot_quarantines} quarantined, {s.requests_requeued} "
+          f"requeued, {s.slot_quarantine_releases} released; finish reasons {reasons} [{card}]")
+    if (s.slot_quarantines, s.requests_requeued, s.slot_quarantine_releases) != (1, 1, 1) or \
+            reasons != ["length"] * len(ids):
+        raise AssertionError("a sampled engine did not quarantine, requeue and release once")
+
+    watched = ServingEngine(model, step_timeout_s=1e-6, **kwargs)
+    watched.generate_many(prompts[:2], max_new_tokens=4)
+    watched._watchdog.close()
+    print(f"[surface] watchdog at step_timeout_s=1e-6: {watched.stats.watchdog_trips} trips over "
+          f"{watched.stats.steps} steps [{card}]")
+    if watched.stats.watchdog_trips < 1:
+        raise AssertionError("the watchdog counted no trip")
+
+    paged_rows = engine.generate_many(prompts, max_new_tokens=16)
+    dense = ServingEngine(model, paged=False, **kwargs)
+    reset_launches()
+    dense_rows = dense.generate_many(prompts, max_new_tokens=16)
+    counts = launch_counts()
+    ties = compare_rows("surface-dense", prompts, dense_rows, paged_rows, gaps, "paged engine")
+    print(f"[surface] paged=False slab [{tuple(dense.cache.k.shape)}]: tokens == the paged engine's with "
+          f"{ties} ties; kernel launches {counts} (the dense path runs the plain attention) [{card}]")
+    if any(counts.values()):
+        raise AssertionError(f"the dense slab launched {counts}")
+
+    src = ServingEngine(model, prefix_sharing=False, **kwargs)
+    dst = ServingEngine(model, **kwargs)
+    rows = []
+    reset_launches()
+    for prompt in prompts:
+        rid = src.submit(prompt, max_new_tokens=16, prefill_only=True)
+        parked = src.run()[rid]
+        layout = src.kv_page_layout(rid)
+        kb, vb = src.extract_pages(layout["pages"])
+        new_id = dst.adopt_kv(prompt, 16, layout, kb, vb, request_id=rid)
+        src.release_parked(rid)
+        if parked.finish_reason != "prefilled":
+            raise AssertionError(f"prefill_only request ended {parked.finish_reason!r}")
+        rows.append(np.concatenate([prompt, dst.run()[new_id].generated]))
+    ties = compare_rows("surface-handoff", prompts, rows, want, gaps, "generate()")
+    print(f"[surface] handoff: {src.stats.requests_parked} parked, {dst.stats.requests_adopted} adopted, "
+          f"source pages in use {src.cache.pages_in_use}; tokens == generate() with {ties} ties; "
+          f"launches {launch_counts()} [{card}]")
+    if src.cache.pages_in_use or src.parked_count:
+        raise AssertionError("the source kept pages after the handoff")
+    del engine, sampled, watched, dense, src, dst, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def timed(label: str, fn, *args):
@@ -3174,6 +3653,14 @@ def main() -> int:
     ring = timed("phase 21 ring attention across two processes on the card", phase_ring_pair, card)
     for name in FLASH_KERNELS:
         launches[f"{name}_ring"] = ring[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt2, prompts, rows, gaps = timed("phase 22 gpt2-1.5b serving", phase_gpt2_serving, card)
+    timed("phase 23 gpt2-1.5b speculative and int8-resident", phase_gpt2_spec_quant, card, gpt2,
+          prompts, rows, gaps)
+    del gpt2, prompts, rows, gaps
+    timed("phase 24 gpt2-124m training", phase_gpt2_training, card)
+    timed("phase 25 the engine's quarantine, watchdog, dense slab and handoff", phase_engine_surface, card)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

@@ -1032,3 +1032,83 @@ def test_two_processes_share_the_card_over_gloo(cuda):
             assert out["launches"] == want
     assert all(ranks[r]["offload"]["state_pinned_on_host"] for r in range(2))
     _reset_training_state()
+
+
+# -- gpt2 at its shapes: the paged kernels at 25 heads, the dequant-matmul at K=1600 --
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 5], ids=["decode", "verify5"])
+def test_paged_kernels_at_gpt2_1_5b_heads(cuda, dtype, window):
+    """gpt2-1.5b's attention: 25 heads of 64 and no grouped K/V, 8 slots of
+    up to 1000 positions in pages of 16."""
+    case = _case(cuda, dtype, 25, 25, 64, 16, 64, [1000, 700, 517, 64, 33, 17, 1, 0], seed=22, window=window)
+    fn, ref = ((paged_decode_attention, paged_decode_attention_reference) if window is None
+               else (paged_verify_attention, paged_verify_attention_reference))
+    got = fn(**case)
+    assert torch.equal(got, fn(**case))
+    assert float((got.float() - ref(**case).float()).abs().max()) <= TOLERANCE[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("kn", [(1600, 4800), (1600, 1600), (1600, 6400), (6400, 1600)],
+                         ids=["wqkv", "wo", "w_up", "w_down"])
+def test_quant_kernel_at_gpt2_1_5b_shapes(cuda, dtype, bits, m, kn):
+    """K = 1600 is 12.5 tiles of 128 rows (int4: 800 packed rows): the
+    ragged last K tile against the plain version, two launches equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    k, n = kn
+    rng = np.random.default_rng(k + n + m + bits)
+    q, scale = quantize_weight(rng.standard_normal((k, n), dtype=np.float32), bits=bits)
+    w = QuantizedWeight(torch.tensor(q, device=cuda), torch.tensor(scale, device=cuda), bits, dtype)
+    x = torch.tensor(rng.standard_normal((m, k), dtype=np.float32) / (4 * np.sqrt(k)), device=cuda).to(dtype)
+    got = quant_matmul(x, w)
+    assert torch.equal(got, quant_matmul(x, w))
+    assert float((got.float() - quant_matmul_reference(x, w).float()).abs().max()) <= TOLERANCE[dtype]
+
+
+def test_gpt2_engine_on_the_card_quarantine_dense_and_handoff(cuda):
+    """gpt2-tiny in fp32 on the card: the paged engine gives generate()'s
+    tokens through the decode kernel; NaN in a live slot's pages
+    quarantines it, its freed pages read back 0 and the requeued request
+    still ends with generate()'s tokens; the dense slab and a KV handoff
+    give the same tokens."""
+    from accelerate_tpu_torch import GPT2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = GPT2("gpt2-tiny", device=cuda, seed=0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 1024, (n,)).astype(np.int32) for n in (3, 17, 40, 1)]
+    want = [generate(model, p[None], max_new_tokens=6)[0] for p in prompts]
+    kwargs = dict(num_slots=4, max_len=96, page_size=16)
+    engine = ServingEngine(model, prefill_chunk=16, **kwargs)
+    paged_decode_attention.launches = 0
+    for row, w in zip(engine.generate_many(prompts, max_new_tokens=6), want):
+        np.testing.assert_array_equal(row, w)
+    assert paged_decode_attention.launches == model.config.num_layers * engine.forward_counts["decode"] > 0
+
+    rid = engine.submit(prompts[2], max_new_tokens=6)
+    while not engine.cache.active.any():  # chunked prefill: a few steps
+        engine.step()
+    pages = engine.cache.pages_of(int(np.flatnonzero(engine.cache.active)[0]))
+    engine.cache.k[:, pages] = float("nan")
+    engine.step()
+    assert engine.stats.slot_quarantines == 1
+    assert all(float(engine.cache.k[:, p].abs().max()) == 0.0 for p in pages)
+    np.testing.assert_array_equal(engine.run()[rid].generated, want[2][prompts[2].size:])
+    assert bool(torch.isfinite(engine.cache.k[:, 0]).all())
+
+    dense = ServingEngine(model, paged=False, **kwargs)
+    for row, w in zip(dense.generate_many(prompts, max_new_tokens=6), want):
+        np.testing.assert_array_equal(row, w)
+    src, dst = ServingEngine(model, prefix_sharing=False, **kwargs), ServingEngine(model, **kwargs)
+    rid = src.submit(prompts[2], max_new_tokens=6, prefill_only=True)
+    src.run()
+    layout = src.kv_page_layout(rid)
+    kb, vb = src.extract_pages(layout["pages"])
+    new_id = dst.adopt_kv(prompts[2], 6, layout, kb, vb)
+    assert src.release_parked(rid) and src.cache.pages_in_use == 0
+    np.testing.assert_array_equal(dst.run()[new_id].generated, want[2][prompts[2].size:])

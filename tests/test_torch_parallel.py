@@ -44,6 +44,7 @@ from accelerate_tpu.data_loader import BatchSampler as JaxBatchSampler
 from accelerate_tpu.data_loader import BatchSamplerShard as JaxBatchSamplerShard
 from accelerate_tpu.data_loader import IterableDatasetShard as JaxIterableDatasetShard
 from accelerate_tpu.data_loader import SeedableRandomSampler as JaxSeedableRandomSampler
+from accelerate_tpu.models import GPT2 as JaxGPT2
 from accelerate_tpu.models import Bert as JaxBert
 from accelerate_tpu.models import Llama as JaxLlama
 from accelerate_tpu.models import T5 as JaxT5
@@ -209,7 +210,7 @@ def _forward_cases() -> dict:
     right = np.ones((2, 64), np.int32)
     right[1, 48:] = 0
     return {"llama": (ids(64), None), "llama_padded": (ids(64), left), "llama_indivisible": (ids(63), None),
-            "bert_padded": (ids(64), right)}
+            "bert_padded": (ids(64), right), "gpt2": (ids(64), None), "gpt2_padded": (ids(64), left)}
 
 
 @pytest.fixture(scope="module")
@@ -218,7 +219,12 @@ def bert_params():
 
 
 @pytest.fixture(scope="module")
-def launches(request, tmp_path_factory, init_params, batches, bert_params):
+def gpt2_params():
+    return jax.tree.map(np.asarray, JaxGPT2("gpt2-tiny").init(jax.random.key(0)))
+
+
+@pytest.fixture(scope="module")
+def launches(request, tmp_path_factory, init_params, batches, bert_params, gpt2_params):
     """Every rank's results of the suite at 2 and at 4 processes, and the
     JAX checkpoint the 2-process suite loaded."""
     ckpt = _shared_dir(tmp_path_factory, request, "ckpt")
@@ -231,7 +237,8 @@ def launches(request, tmp_path_factory, init_params, batches, bert_params):
             dirs = (str(ckpt / "jax"), str(ckpt / "port")) if world == 2 else (None, None)
             config = SEQUENCE_CONFIGS[world]
             sequence = dict(size=config["size"], ring=_ring_cases(), bert_params=bert_params,
-                            forwards=_forward_cases(), loader_mesh=config["loader_mesh"], remat_ids=remat_ids)
+                            gpt2_params=gpt2_params, forwards=_forward_cases(),
+                            loader_mesh=config["loader_mesh"], remat_ids=remat_ids)
             out[world] = debug_launcher(workers.suite, (names + config["train"], init_params, batches, *dirs,
                                                         sequence), num_processes=world, timeout=420)
         out["port_checkpoint"] = str(ckpt / "port")
@@ -607,19 +614,20 @@ def test_ring_matches_the_jax_ring(launches, jax_ring, world, case):
         np.testing.assert_allclose(g, w, rtol=0, atol=RING_TOL, err_msg=name)
 
 
-def _jax_forwards(init_params, bert_params):
-    model, bert = JaxLlama(MODEL), JaxBert("bert-tiny")
+def _jax_forwards(init_params, bert_params, gpt2_params):
+    models = {"bert": (JaxBert("bert-tiny"), bert_params), "gpt2": (JaxGPT2("gpt2-tiny"), gpt2_params)}
     out = {}
     for name, (ids, mask) in _forward_cases().items():
         jmask = None if mask is None else jnp.asarray(mask)
-        m, p = (bert, bert_params) if name.startswith("bert") else (model, init_params)
+        m, p = models.get(name.split("_")[0], (JaxLlama(MODEL), init_params))
         out[name] = np.asarray(m.apply(jax.tree.map(jnp.asarray, p), jnp.asarray(ids), attention_mask=jmask))
     return out
 
 
 @pytest.fixture(scope="module")
-def jax_forwards(request, tmp_path_factory, init_params, bert_params):
-    return _once(request, tmp_path_factory, "jax_forwards", lambda: _jax_forwards(init_params, bert_params))
+def jax_forwards(request, tmp_path_factory, init_params, bert_params, gpt2_params):
+    return _once(request, tmp_path_factory, "jax_forwards",
+                 lambda: _jax_forwards(init_params, bert_params, gpt2_params))
 
 
 @pytest.mark.parametrize("case", list(_forward_cases()))
@@ -627,8 +635,10 @@ def jax_forwards(request, tmp_path_factory, init_params, bert_params):
 def test_sequence_forwards_match_the_jax_models(launches, jax_forwards, world, case):
     """Prepared models under ``ParallelismConfig(sequence=world)`` called
     on the global rows, against the JAX models' plain forward, 2e-4 (the
-    JAX package's tests): llama's chunks of the logits concatenated (real
-    positions under padding), the whole logits on every process at a
+    JAX package's tests): llama's and gpt2's chunks of the logits
+    concatenated (real positions under padding; gpt2's learned positions at
+    each chunk's offset, as ``tests/test_ring_attention.py`` holds JAX's
+    sequence-parallel gpt2), the whole logits on every process at a
     length the ring does not divide (the einsum fallback), bert's logits
     from the process holding position 0 and zeros elsewhere."""
     want = jax_forwards[case]

@@ -11,7 +11,7 @@ import os
 import numpy as np
 import torch
 
-from accelerate_tpu_torch import T5, Accelerator, Bert, CompilationConfig, Llama, fused_adamw, load_jax_params
+from accelerate_tpu_torch import GPT2, T5, Accelerator, Bert, CompilationConfig, Llama, fused_adamw, load_jax_params
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin, ParallelismConfig
 from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves, tree_unflatten
@@ -274,15 +274,16 @@ def ring(sequence: int, inputs: dict) -> dict:
     return out
 
 
-def sequence_forwards(sequence: int, params: dict, bert_params: dict, cases: dict) -> dict:
+def sequence_forwards(sequence: int, params: dict, bert_params: dict, cases: dict, gpt2_params: dict) -> dict:
     """Forwards of prepared models under ``ParallelismConfig(sequence=...)``
-    on the global rows: llama's chunk of the logits (the whole logits at a
-    length the ring does not divide), bert's classification logits (zeros
-    but on the process holding position 0)."""
+    on the global rows: llama's and gpt2's chunks of the logits (the whole
+    logits at a length the ring does not divide), bert's classification
+    logits (zeros but on the process holding position 0)."""
     _reset()
     acc = Accelerator(device="cpu", parallelism=ParallelismConfig(sequence=sequence))
     llama = acc.prepare_model(load_jax_params(Llama(MODEL, device="cpu"), params))
     bert = acc.prepare_model(load_jax_params(Bert("bert-tiny", device="cpu"), bert_params))
+    gpt2 = acc.prepare_model(load_jax_params(GPT2("gpt2-tiny", device="cpu"), gpt2_params))
     out = {}
     try:
         acc.prepare_model(T5("t5-tiny", device="cpu"))
@@ -294,7 +295,7 @@ def sequence_forwards(sequence: int, params: dict, bert_params: dict, cases: dic
     except NotImplementedError as err:
         out["moe"] = str(err)
     for name, (ids, mask) in cases.items():
-        prepared = bert if name.startswith("bert") else llama
+        prepared = {"bert": bert, "gpt2": gpt2}.get(name.split("_")[0], llama)
         got = prepared(torch.tensor(ids), None if mask is None else torch.tensor(mask))
         out[name] = {"span": prepared.sequence_span(ids.shape[1]), "out": got.numpy()}
     _reset()
@@ -339,7 +340,7 @@ def suite(world_names: list, params: dict, batches: list, jax_dir=None, out_dir=
     costs more than its work): the training configurations, the two sides
     of the update gate, the collectives, the loaders and, given
     directories, the checkpoints; given ``sequence`` (its size, the ring's
-    inputs, bert's params, the forwards' rows and the loader's mesh), the
+    inputs, bert's and gpt2's params, the forwards' rows and the loader's mesh), the
     ring and the sequence axis's forwards and loader, and at a size of 2
     the remat policies under the ring."""
     out = {f"train/{name}": train(name, params, batches) for name in world_names}
@@ -351,7 +352,8 @@ def suite(world_names: list, params: dict, batches: list, jax_dir=None, out_dir=
         out["checkpoints"] = checkpoints(params, batches, jax_dir, out_dir)
     if sequence is not None:
         out["ring"] = ring(sequence["size"], sequence["ring"])
-        out["forwards"] = sequence_forwards(sequence["size"], params, sequence["bert_params"], sequence["forwards"])
+        out["forwards"] = sequence_forwards(sequence["size"], params, sequence["bert_params"], sequence["forwards"],
+                                            sequence["gpt2_params"])
         out["sequence_loader"] = sequence_loader(sequence["loader_mesh"])
         if sequence["size"] == 2:
             out["remat"] = remat_under_the_ring(params, sequence["remat_ids"])
