@@ -19,7 +19,12 @@ dropout from explicit generators, and activation checkpointing under
 ``CompilationConfig(remat_policy=...)``. ``examples/nlp_example.py`` is the
 reference's canonical loop (BERT on the bundled MRPC-like data).
 Serving runs a paged continuous-batching engine, with speculative decoding
-and quantized-resident (int8/int4) weights.
+and quantized-resident (int8/int4) weights. Big-model inference places a
+model by an ``"auto"`` device map over the card, host memory and disk
+(``init_empty_weights``, ``load_checkpoint_and_dispatch`` of a native or
+HuggingFace-layout checkpoint, ``load_and_quantize_model``, ``cpu_offload``,
+``disk_offload``, ``cpu_offload_with_hook``) and streams what does not fit
+through the card for a forward, ``generate`` or the serving engine.
 
 Its kernels are hand-written CUDA for ``sm_90a``: flash attention forward
 (``csrc/flash_fwd.cu``) and backward (``csrc/flash_bwd.cu``), fused adamw
@@ -32,7 +37,16 @@ PyTorch version.
 
 from . import ops
 from .accelerator import Accelerator, PreparedModel
-from .big_modeling import dispatch_model, make_layered_device_map
+from .big_modeling import (
+    cpu_offload,
+    cpu_offload_with_hook,
+    disk_offload,
+    dispatch_model,
+    init_empty_weights,
+    load_and_quantize_model,
+    load_checkpoint_and_dispatch,
+    make_layered_device_map,
+)
 from .data_loader import prepare_data_loader, skip_first_batches
 from .fault_tolerance import CheckpointManager, ResumePoint, latest_valid_checkpoint, verify_checkpoint
 from .launchers import debug_launcher
@@ -91,7 +105,10 @@ __all__ = [
     "SpeculativeConfig",
     "T5",
     "adamw",
+    "cpu_offload",
+    "cpu_offload_with_hook",
     "debug_launcher",
+    "disk_offload",
     "dispatch_model",
     "find_executable_batch_size",
     "flash_attention",
@@ -99,7 +116,10 @@ __all__ = [
     "generate",
     "get_config",
     "get_logger",
+    "init_empty_weights",
     "latest_valid_checkpoint",
+    "load_and_quantize_model",
+    "load_checkpoint_and_dispatch",
     "load_jax_params",
     "make_auto_attention",
     "make_layered_device_map",

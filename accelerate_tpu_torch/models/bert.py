@@ -9,8 +9,10 @@ under ``layers.*`` with ``[in, out]`` matrices, ``pooler.*`` and
 (``causal_attention = False``): ``Accelerator.prepare_model`` wires the
 non-causal flash dispatch, which runs the kernels from
 ``flash_attention_min_seq`` tokens under the padding mask. The MLP's gelu is
-the tanh approximation (``jax.nn.gelu``'s default). The pipeline hook (ROADMAP
-item 17) and the streaming protocol (item 2) are not in the port yet.
+the tanh approximation (``jax.nn.gelu``'s default). The streaming protocol
+(``stream_prefix``, ``stream_layer``, ``stream_suffix``) serves the
+big-model executor; the pipeline hook (ROADMAP item 17) is not in the port
+yet.
 """
 
 from __future__ import annotations
@@ -115,6 +117,8 @@ class Bert(nn.Module):
         """Draw every weight from ``seed`` (fp32 draws, cast to the model's
         dtype) in the JAX package's order: the three embeddings, q, k, v, o,
         up, down, pooler, classifier; norms at 1, biases at 0."""
+        if self.device.type == "meta":  # shapes only (init_empty_weights): nothing to draw
+            return self
         cfg = self.config
         h, i, v, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_layers
         dev = self.device
@@ -241,6 +245,35 @@ class Bert(nn.Module):
         up = F.gelu(dot(h, lp["w_up"]) + lp["b_up"], approximate="tanh")
         mlp_out = dropout(dot(up, lp["w_down"]) + lp["b_down"], cfg.dropout_rate, generators[1])
         return layer_norm(h + mlp_out, lp["mlp_norm_scale"], lp["mlp_norm_bias"], cfg.norm_eps)
+
+    # -- streaming protocol (big_modeling.StreamedModel) ----------------------
+    # Weights come from ``resident`` and ``lp`` only. No attention hook runs:
+    # a ring hook left on the model (a sequence axis) would attend over a
+    # chunk and drop the padding mask the carry holds.
+
+    def stream_prefix(self, resident: dict, input_ids: torch.Tensor, attention_mask=None, token_type_ids=None):
+        """Embeddings (layer-normed) and the padding mask: ``(h, mask)``."""
+        cfg = self.config
+        s = input_ids.shape[1]
+        if s > cfg.max_seq_len:
+            raise ValueError(f"sequence length {s} exceeds max_seq_len {cfg.max_seq_len}")
+        emb = resident["embeddings"]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        positions = torch.arange(s, device=input_ids.device)[None, :]
+        h = emb["word"][input_ids.long()] + emb["position"][positions] + emb["token_type"][token_type_ids.long()]
+        h = layer_norm(h, emb["norm_scale"], emb["norm_bias"], cfg.norm_eps)
+        mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
+        return (h, mask)
+
+    def stream_layer(self, carry, lp: dict):
+        h, mask = carry
+        return (self._block(h, lp, mask), mask)
+
+    def stream_suffix(self, resident: dict, carry) -> torch.Tensor:
+        """Classification logits ``[B, num_labels]`` in the weights' dtype."""
+        pooled = torch.tanh(carry[0][:, 0] @ resident["pooler"]["w"] + resident["pooler"]["b"])
+        return pooled @ resident["classifier"]["w"] + resident["classifier"]["b"]
 
     def forward(
         self,

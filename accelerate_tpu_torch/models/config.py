@@ -2,12 +2,14 @@
 
 A copy, not an import: the port never imports ``accelerate_tpu``, even its
 pure-Python modules. Field names, defaults and the parameter count follow
-``accelerate_tpu/models/config.py`` so configs and checkpoints line up.
-``config_from_hf_json`` comes with ROADMAP item 2.
+``accelerate_tpu/models/config.py`` so configs and checkpoints line up;
+``config_from_hf_json`` maps a HuggingFace ``config.json`` to a config.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -149,6 +151,86 @@ _REGISTRY: dict[str, TransformerConfig] = {
         num_layers=24, num_heads=16, max_seq_len=512, norm_eps=1e-12,
     ),
 }
+
+
+def config_from_hf_json(source) -> TransformerConfig:
+    """Map a HuggingFace ``config.json`` (a dict, a file path, or a
+    directory holding one) to a :class:`TransformerConfig`, no weights
+    needed: the four families (llama and mistral, gpt2, bert, t5), as the
+    JAX package maps them."""
+    if isinstance(source, str):
+        path = os.path.join(source, "config.json") if os.path.isdir(source) else source
+        with open(path) as f:
+            cfg = json.load(f)
+    else:
+        cfg = dict(source)
+    mt = cfg.get("model_type", "")
+    arch = {"llama": "llama", "mistral": "llama", "gpt2": "gpt2", "bert": "bert", "t5": "t5"}.get(mt)
+    if arch is None:
+        raise ValueError(
+            f"Unsupported model_type {mt!r} in config.json — supported: llama, mistral, gpt2, bert, t5"
+        )
+    if arch == "llama":
+        return TransformerConfig(
+            arch="llama",
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get("num_key_value_heads"),
+            head_dim=cfg.get("head_dim"),
+            max_seq_len=cfg.get("max_position_embeddings", 2048),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            tie_embeddings=cfg.get("tie_word_embeddings", False),
+        )
+    if arch == "gpt2":
+        h = cfg["n_embd"]
+        return TransformerConfig(
+            arch="gpt2",
+            vocab_size=cfg["vocab_size"],
+            hidden_size=h,
+            intermediate_size=cfg.get("n_inner") or 4 * h,
+            num_layers=cfg["n_layer"],
+            num_heads=cfg["n_head"],
+            max_seq_len=cfg.get("n_positions", 1024),
+            norm_eps=cfg.get("layer_norm_epsilon", 1e-5),
+            tie_embeddings=True,
+        )
+    if arch == "bert":
+        return TransformerConfig(
+            arch="bert",
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            max_seq_len=cfg.get("max_position_embeddings", 512),
+            type_vocab_size=cfg.get("type_vocab_size", 2),
+            norm_eps=cfg.get("layer_norm_eps", 1e-12),
+        )
+    # t5: symmetric stacks only (num_layers counts the layers of one stack)
+    dec = cfg.get("num_decoder_layers", cfg["num_layers"])
+    if dec != cfg["num_layers"]:
+        raise ValueError(
+            f"asymmetric t5 stacks (encoder {cfg['num_layers']}, decoder {dec}) are not supported"
+        )
+    return TransformerConfig(
+        arch="t5",
+        vocab_size=cfg["vocab_size"],
+        hidden_size=cfg["d_model"],
+        intermediate_size=cfg["d_ff"],
+        num_layers=cfg["num_layers"],
+        num_heads=cfg["num_heads"],
+        head_dim=cfg.get("d_kv", 64),
+        max_seq_len=cfg.get("n_positions", 512),
+        norm_eps=cfg.get("layer_norm_epsilon", 1e-6),
+        tie_embeddings=cfg.get("tie_word_embeddings", True),
+        rel_buckets=cfg.get("relative_attention_num_buckets", 32),
+        rel_max_distance=cfg.get("relative_attention_max_distance", 128),
+        decoder_start_token_id=cfg.get("decoder_start_token_id", 0),
+    )
 
 
 def get_config(name: str) -> TransformerConfig:

@@ -16,9 +16,10 @@ the table would end the process), and the serving engine caps its slots at
 ``max_seq_len`` (``learned_positions``). The model implements the decode
 protocol itself (``init_cache``, ``forward_with_cache``,
 ``forward_window_with_cache``), built from ``decode_prefix``,
-``stream_layer_cached`` and ``decode_suffix`` as the JAX package's is.
-The pipeline hook (ROADMAP item 17(c)) and the streamed forward (item 2)
-raise.
+``stream_layer_cached`` and ``decode_suffix`` as the JAX package's is, and
+the streaming protocol of the big-model executor (``stream_prefix``,
+``stream_layer``, ``stream_suffix``, ``init_layer_cache``). The pipeline
+hook (ROADMAP item 17(c)) raises.
 """
 
 from __future__ import annotations
@@ -48,8 +49,6 @@ LAYER_KEYS = (
     "attn_norm_scale", "attn_norm_bias", "wqkv", "bqkv", "wo", "bo",
     "mlp_norm_scale", "mlp_norm_bias", "w_up", "b_up", "w_down", "b_down",
 )
-STREAMED = "the streamed forward (stream_prefix/stream_layer/stream_suffix, init_layer_cache) " \
-           "is not in the port yet (ROADMAP item 2)"
 
 
 def gpt2_layer_shapes(cfg: TransformerConfig) -> dict:
@@ -115,6 +114,8 @@ class GPT2(nn.Module):
         """Draw every weight from ``seed`` (fp32 draws, cast to the model's
         dtype) in the JAX package's order: tokens (std 0.02), positions
         (std 0.01), qkv, o, up, down; norms at 1, biases at 0."""
+        if self.device.type == "meta":  # shapes only (init_empty_weights): nothing to draw
+            return self
         cfg = self.config
         h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
         dev = self.device
@@ -426,19 +427,42 @@ class GPT2(nn.Module):
             )
         return self._run_cached(input_ids, cache, last=False, clamp=True)
 
+    # -- streaming protocol (big_modeling.StreamedModel) ----------------------
+    # Weights come from ``resident`` and ``lp`` only, and no attention hook
+    # runs (see ``Llama.stream_prefix``).
+
+    def init_layer_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        """One layer's dense cache ``{"k", "v"}`` ``[batch, max_len, N, D]``
+        for the streamed decode. Raises past ``max_seq_len``."""
+        cfg = self.config
+        if max_len > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt + max_new_tokens = {max_len} exceeds max_seq_len {cfg.max_seq_len} "
+                "(learned positions)"
+            )
+        device = resolve_device(device)
+        shape = (batch, max_len, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def stream_prefix(self, resident: dict, input_ids: torch.Tensor, attention_mask=None):
+        """Token and position embeddings and the padding mask: ``(h, mask)``."""
+        s = input_ids.shape[1]
+        self._check_positions(s)
+        positions = torch.arange(s, device=input_ids.device)[None, :]
+        h = resident["embed_tokens"][input_ids.long()] + resident["embed_positions"][positions]
+        mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
+        return (h, mask)
+
+    def stream_layer(self, carry, lp: dict):
+        h, mask = carry
+        return (self._block(h, lp, mask), mask)
+
+    def stream_suffix(self, resident: dict, carry) -> torch.Tensor:
+        """fp32 logits ``[B, S, V]``."""
+        return self.decode_suffix(resident, carry, last=False)
+
     # -- not in the port yet ----------------------------------------------------
 
     def pipeline_layer(self, lp, h, rng, mask, kv_mask):
         raise NotImplementedError("the pipeline layer schedule is not in the port yet (ROADMAP item 17(c))")
-
-    def init_layer_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        raise NotImplementedError(STREAMED)
-
-    def stream_prefix(self, resident, input_ids, attention_mask=None):
-        raise NotImplementedError(STREAMED)
-
-    def stream_layer(self, carry, lp):
-        raise NotImplementedError(STREAMED)
-
-    def stream_suffix(self, resident, carry):
-        raise NotImplementedError(STREAMED)

@@ -272,6 +272,8 @@ class Llama(nn.Module):
         """Draw every weight from ``seed`` (fp32 draws, cast to the model's
         dtype), in the JAX package's order: embed, attention, MLP (router and
         experts for an MoE config), lm_head."""
+        if self.device.type == "meta":  # shapes only (init_empty_weights): nothing to draw
+            return self
         cfg = self.config
         h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
         d, nh, nkv, L = cfg.dim_per_head, cfg.num_heads, cfg.kv_heads, cfg.num_layers
@@ -435,6 +437,65 @@ class Llama(nn.Module):
     ) -> torch.Tensor:
         """Logits ``[B, S, V]`` in the model's dtype."""
         return self.apply(self.param_tree(), input_ids, attention_mask, positions)
+
+    # -- streaming protocol (big_modeling.StreamedModel's forward) --------------
+    # Weights come from ``resident`` (the non-layer leaves) and ``lp`` (one
+    # layer's), never from the module, so a model built on ``meta`` streams.
+    # No attention hook: a flash or ring ``attention_fn`` left on the model
+    # stays out of the streamed layers, as in the JAX package.
+
+    def stream_prefix(self, resident: dict, input_ids: torch.Tensor, attention_mask=None):
+        """Embeddings, rotary tables and padding mask: the carry of the layers."""
+        cfg = self.config
+        h = resident["embed_tokens"][input_ids.long()]
+        positions = torch.arange(input_ids.shape[1], device=h.device)[None, :]
+        cos, sin = rotary_embedding(positions, cfg.dim_per_head, cfg.rope_theta, dtype=h.dtype)
+        mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
+        return (h, cos, sin, mask)
+
+    def stream_layer(self, carry, lp: dict):
+        h, cos, sin, mask = carry
+        h, _ = decoder_layer(self.config, h, lp, cos, sin, mask, causal=True, dot_fn=self.dot_fn)
+        return (h, cos, sin, mask)
+
+    def stream_suffix(self, resident: dict, carry) -> torch.Tensor:
+        """fp32 logits ``[B, S, V]``."""
+        h = rms_norm(carry[0], resident["final_norm"], self.config.norm_eps)
+        head = resident["embed_tokens"].T if self.config.tie_embeddings else resident["lm_head"]
+        return (h @ head.to(h.dtype)).float()
+
+    # -- streamed decode protocol (big_modeling.StreamedModel.generate) --------
+
+    def init_layer_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        """One layer's dense cache ``{"k", "v"}`` ``[batch, max_len, KV, D]``."""
+        cfg = self.config
+        shape = (batch, max_len, cfg.kv_heads, cfg.dim_per_head)
+        device = resolve_device(device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def decode_prefix(self, resident: dict, input_ids: torch.Tensor, length: int, max_len: int):
+        """The decode carry of ``input_ids`` at cache offset ``length``: the
+        rotary tables at their positions and the causal-over-cache mask."""
+        cfg = self.config
+        h = resident["embed_tokens"][input_ids.long()]
+        q_pos = length + torch.arange(input_ids.shape[1], device=h.device)
+        cos, sin = rotary_embedding(q_pos[None, :], cfg.dim_per_head, cfg.rope_theta, dtype=h.dtype)
+        mask = (torch.arange(max_len, device=h.device)[None, :] <= q_pos[:, None])[None, None]
+        return (h, cos, sin, mask)
+
+    def stream_layer_cached(self, carry, lp: dict, cache: dict, length: int):
+        """One layer against its cache (written in place at ``length``)."""
+        h, cos, sin, mask = carry
+        h, nc = decoder_layer(self.config, h, lp, cos, sin, mask,
+                              cache={"k": cache["k"], "v": cache["v"], "length": length}, dot_fn=self.dot_fn)
+        return (h, cos, sin, mask), {"k": nc["k"], "v": nc["v"]}
+
+    def decode_suffix(self, resident: dict, carry) -> torch.Tensor:
+        """fp32 logits of the last position ``[B, V]``."""
+        h = rms_norm(carry[0], resident["final_norm"], self.config.norm_eps)
+        head = resident["embed_tokens"].T if self.config.tie_embeddings else resident["lm_head"]
+        return (h[:, -1] @ head.to(h.dtype)).float()
 
     @staticmethod
     def loss_fn(model: "Llama", dropout_generator: Optional[torch.Generator] = None):

@@ -19,9 +19,11 @@ bias, all from one hook through its per-call ``causal``. Without the hook
 the exact einsum path runs. The two stacks run as Python loops where the
 JAX package scans; ``remat_layers`` checkpoints each layer of both.
 
-Not in the port yet, raising ``NotImplementedError``: the pipeline hooks
-(ROADMAP item 17) and the streaming and streamed-decode protocol that comes
-with ``Seq2SeqStreamedModel`` (item 2).
+The streaming and streamed-decode protocol (``stream_prefix`` ...
+``decode_suffix``) serves ``big_modeling.Seq2SeqStreamedModel``: the
+encoder runs once, resident, and the decoder stack streams; neither takes
+the attention hook. Not in the port yet, raising ``NotImplementedError``:
+the pipeline hooks (ROADMAP item 17).
 """
 
 from __future__ import annotations
@@ -172,6 +174,8 @@ class T5(nn.Module):
         dtype) in the JAX package's order: the embedding, the two bias
         tables, the encoder's q, k, v, o, wi, wo_ff, the decoder's self and
         cross q, k, v, o and its wi, wo_ff; norms at 1."""
+        if self.device.type == "meta":  # shapes only (init_empty_weights): nothing to draw
+            return self
         cfg = self.config
         h, i, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
         inner = cfg.num_heads * cfg.dim_per_head
@@ -223,16 +227,17 @@ class T5(nn.Module):
 
     # -- layer bodies -------------------------------------------------------
 
-    def _attn(self, q, k, v, bias, mask, kv_mask, causal: bool):
+    def _attn(self, q, k, v, bias, mask, kv_mask, causal: bool, use_hook: bool = True):
         """Through the hook when it carries the bias (the flash kernels),
         else the exact einsum. ``mask`` is the 4-D mask of the einsum;
-        ``kv_mask`` the raw [B, S] validity the hook takes."""
+        ``kv_mask`` the raw [B, S] validity the hook takes. ``use_hook=False``
+        forces the einsum (the streamed stacks, which hold 4-D masks only)."""
         fn = self.attention_fn
-        if fn is not None and getattr(fn, "supports_bias", False):
+        if use_hook and fn is not None and getattr(fn, "supports_bias", False):
             return fn(q, k, v, kv_mask, bias=bias, scale=1.0, causal=causal)
         return t5_attention(q, k, v, bias, mask)
 
-    def _enc_layer(self, h, lp, bias, mask, generators=(None, None), kv_mask=None):
+    def _enc_layer(self, h, lp, bias, mask, generators=(None, None), kv_mask=None, use_hook: bool = True):
         cfg = self.config
         dot = resolve_dot(self.dot_fn)
         b, s = h.shape[:2]
@@ -241,16 +246,20 @@ class T5(nn.Module):
         q = dot(x, lp["wq"]).reshape(b, s, nh, d)
         k = dot(x, lp["wk"]).reshape(b, s, nh, d)
         v = dot(x, lp["wv"]).reshape(b, s, nh, d)
-        attn = self._attn(q, k, v, bias, mask, kv_mask, causal=False)
+        attn = self._attn(q, k, v, bias, mask, kv_mask, causal=False, use_hook=use_hook)
         h = h + dropout(dot(attn.reshape(b, s, nh * d), lp["wo"]), cfg.dropout_rate, generators[0])
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
         mlp_out = dot(torch.relu(dot(x, lp["wi"])), lp["wo_ff"])
         return h + dropout(mlp_out, cfg.dropout_rate, generators[1])
 
     def _dec_layer(self, h, lp, self_bias, self_mask, enc_out, enc_mask,
-                   generators=(None, None, None), kv_masks=(None, None)):
+                   generators=(None, None, None), kv_masks=(None, None), cache=None, length=None,
+                   use_hook: bool = True):
         """One decoder layer: self-attention (with the causal relative bias),
-        cross-attention over ``enc_out``, feed-forward."""
+        cross-attention over ``enc_out``, feed-forward. ``cache`` ``{"k",
+        "v"}`` ``[B, T, N, D]`` (the streamed decode) takes this step's K/V
+        in place at ``length`` and the self-attention runs over it by the
+        einsum; the layer then returns ``(h, cache)``."""
         cfg = self.config
         dot = resolve_dot(self.dot_fn)
         b, s = h.shape[:2]
@@ -259,7 +268,12 @@ class T5(nn.Module):
         q = dot(x, lp["self_wq"]).reshape(b, s, nh, d)
         k = dot(x, lp["self_wk"]).reshape(b, s, nh, d)
         v = dot(x, lp["self_wv"]).reshape(b, s, nh, d)
-        attn = self._attn(q, k, v, self_bias, self_mask, kv_masks[0], causal=True)
+        if cache is not None:
+            cache["k"][:, length : length + s] = k.to(cache["k"].dtype)
+            cache["v"][:, length : length + s] = v.to(cache["v"].dtype)
+            attn = t5_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), self_bias, self_mask)
+        else:
+            attn = self._attn(q, k, v, self_bias, self_mask, kv_masks[0], causal=True, use_hook=use_hook)
         h = h + dropout(dot(attn.reshape(b, s, nh * d), lp["self_wo"]), cfg.dropout_rate, generators[0])
 
         x = rms_norm(h, lp["cross_norm"], cfg.norm_eps)
@@ -267,12 +281,13 @@ class T5(nn.Module):
         q = dot(x, lp["cross_wq"]).reshape(b, s, nh, d)
         ek = dot(enc_out, lp["cross_wk"]).reshape(b, t, nh, d)
         ev = dot(enc_out, lp["cross_wv"]).reshape(b, t, nh, d)
-        cross = self._attn(q, ek, ev, None, enc_mask, kv_masks[1], causal=False)
+        cross = self._attn(q, ek, ev, None, enc_mask, kv_masks[1], causal=False, use_hook=use_hook)
         h = h + dropout(dot(cross.reshape(b, s, nh * d), lp["cross_wo"]), cfg.dropout_rate, generators[1])
 
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
         mlp_out = dot(torch.relu(dot(x, lp["wi"])), lp["wo_ff"])
-        return h + dropout(mlp_out, cfg.dropout_rate, generators[2])
+        h = h + dropout(mlp_out, cfg.dropout_rate, generators[2])
+        return h if cache is None else (h, cache)
 
     def _run_stack(self, layer, h, stack: dict, keys, seeds, per_layer: int, extra=()):
         """``layer(h, lp, *extra, *seeds)`` over the stacked layers (each
@@ -292,12 +307,14 @@ class T5(nn.Module):
         input_ids: torch.Tensor,  # [B, S] integer ids
         attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real
         dropout_generator: Optional[torch.Generator] = None,
+        use_hooks: bool = True,
     ) -> torch.Tensor:
         """Encoder hidden states ``[B, S, H]`` (final norm applied).
         ``dropout_generator`` turns on residual dropout: two seeds a layer
         are drawn from it before the loop, and each layer builds its
         branches' generators from them (a recomputed layer draws the same
-        masks)."""
+        masks). ``use_hooks=False`` attends by the einsum whatever hook the
+        model holds (the streamed executor's encoder pass)."""
         cfg = self.config
         s = input_ids.shape[1]
         h = params["shared_embed"][input_ids.long()]
@@ -311,7 +328,7 @@ class T5(nn.Module):
 
         def layer(h, lp, seed_attn, seed_mlp):
             generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
-            return self._enc_layer(h, lp, bias, mask, generators, kv_mask=attention_mask)
+            return self._enc_layer(h, lp, bias, mask, generators, kv_mask=attention_mask, use_hook=use_hooks)
 
         h = self._run_stack(layer, h, params["encoder"], ENCODER_KEYS, seeds, 2)
         return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
@@ -374,21 +391,70 @@ class T5(nn.Module):
         return self.apply(self.param_tree(), input_ids, decoder_input_ids, attention_mask,
                           decoder_attention_mask)
 
+    # -- streaming protocol (big_modeling.Seq2SeqStreamedModel) ---------------
+    # carry = (decoder h, self_bias, self_mask, enc_out, enc_mask). Weights
+    # come from ``resident`` (the encoder stack is resident) and ``lp``.
+
+    def _dec_bias(self, resident: dict, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        return relative_bias(resident["dec_rel_bias"], q_pos, k_pos, bidirectional=False,
+                             num_buckets=cfg.rel_buckets, max_distance=cfg.rel_max_distance)
+
+    def stream_prefix(self, resident: dict, input_ids, decoder_input_ids, attention_mask=None,
+                      decoder_attention_mask=None):
+        """The encoder pass (no hooks) and the decoder's embeddings, bias and masks."""
+        enc_out = self.encode(resident, input_ids, attention_mask, use_hooks=False)
+        h = resident["shared_embed"][decoder_input_ids.long()]
+        positions = torch.arange(decoder_input_ids.shape[1], device=h.device)
+        self_bias = self._dec_bias(resident, positions, positions)
+        self_mask = (positions[None, :] <= positions[:, None])[None, None]
+        if decoder_attention_mask is not None:
+            self_mask = self_mask & decoder_attention_mask[:, None, None, :].bool()
+        enc_mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
+        return (h, self_bias, self_mask, enc_out, enc_mask)
+
+    def stream_layer(self, carry, lp: dict):
+        h, self_bias, self_mask, enc_out, enc_mask = carry
+        h = self._dec_layer(h, lp, self_bias, self_mask, enc_out, enc_mask, use_hook=False)
+        return (h, self_bias, self_mask, enc_out, enc_mask)
+
+    def stream_suffix(self, resident: dict, carry) -> torch.Tensor:
+        """fp32 logits ``[B, S_dec, V]``."""
+        return self._lm_logits(resident, rms_norm(carry[0], resident["dec_final_norm"], self.config.norm_eps))
+
+    def init_layer_cache(self, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> dict:
+        """One decoder layer's self-attention cache ``[batch, max_len, N, D]``."""
+        cfg = self.config
+        shape = (batch, max_len, cfg.num_heads, cfg.dim_per_head)
+        device = resolve_device(device)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def decode_prefix(self, resident: dict, current, length: int, max_len: int, enc_out=None, enc_mask=None):
+        """The decode carry of ``current`` decoder tokens at ``length``;
+        ``enc_out``/``enc_mask`` come from the one encoder pass."""
+        h = resident["shared_embed"][current.long()]
+        q_pos = length + torch.arange(current.shape[1], device=h.device)
+        k_pos = torch.arange(max_len, device=h.device)
+        self_mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
+        return (h, self._dec_bias(resident, q_pos, k_pos), self_mask, enc_out, enc_mask)
+
+    def stream_layer_cached(self, carry, lp: dict, cache: dict, length: int):
+        h, self_bias, self_mask, enc_out, enc_mask = carry
+        h, nc = self._dec_layer(h, lp, self_bias, self_mask, enc_out, enc_mask,
+                                cache={"k": cache["k"], "v": cache["v"]}, length=length)
+        return (h, self_bias, self_mask, enc_out, enc_mask), nc
+
+    def decode_suffix(self, resident: dict, carry) -> torch.Tensor:
+        """fp32 logits of the last decoder position ``[B, V]``."""
+        return self.stream_suffix(resident, carry)[:, -1]
+
     # -- not in the port yet -------------------------------------------------
 
     def enc_pipeline_layer(self, *args, **kwargs):
         raise NotImplementedError("T5's pipeline stages are not in the port yet (ROADMAP item 17)")
 
     pipeline_layer = enc_pipeline_layer
-
-    def _streaming(self, *args, **kwargs):
-        raise NotImplementedError(
-            "T5's streaming and streamed-decode protocol comes with Seq2SeqStreamedModel "
-            "(ROADMAP item 2)"
-        )
-
-    stream_prefix = stream_layer = stream_suffix = _streaming
-    init_layer_cache = decode_prefix = stream_layer_cached = decode_suffix = _streaming
 
     # -- loss --------------------------------------------------------------
 

@@ -121,19 +121,22 @@ def generation_row(prompt, result: ServingResult, max_new_tokens: int, eos_token
 
 def params_from_streamed(streamed: StreamedModel, quantized_resident: bool = False) -> dict:
     """Reassemble a :class:`~..big_modeling.StreamedModel` as a device-resident
-    param tree in the JAX layout: host-placed components move to the device
-    and every layer leaf is a ``[L, ...]`` view of one stacked buffer.
+    param tree in the JAX layout: host- and disk-placed components move to
+    the device and every layer leaf is a ``[L, ...]`` view of one stacked
+    buffer. A streamer that a hook chain evicted is restored first.
 
-    The layers' packed buffers are copied one by one into that stacked
-    buffer on the device, and each device-placed layer of the streamer is
-    rebound to its row as it is copied: the card holds every layer once,
-    whether or not the caller keeps the streamer.
+    The layers' packed buffers (int8 packs still quantized; a disk layer
+    read from its memmap) are copied one by one into that stacked buffer on
+    the device, and each device-placed layer of the streamer is rebound to
+    its row as it is copied: the card holds every layer once, whether or
+    not the caller keeps the streamer.
 
     Without ``quantized_resident`` a quantized streamer's layers dequantize
     on the device to the streamer's dtype (W8A16/W4A16, a full-precision
     copy of every matrix). With it, matrix leaves stay packed as stacked
     :class:`~..utils.quantization.QuantizedWeight` views (int8 ``q`` and fp32
     ``scale``) for the fused dequant-matmul; vectors dequantize as before."""
+    streamed._before_execute()
     params = streamed.resident_tree()
     packer = streamed.packer
     quantized = isinstance(packer, QuantizedLayerPacker)

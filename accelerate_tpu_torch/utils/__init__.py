@@ -26,6 +26,7 @@ from .dataclasses import (
     TensorInformation,
 )
 from .environment import get_multihost_env, parse_flag_from_env, parse_int_from_env, str_to_bool
+from .hf_import import export_hf_llama, import_hf_llama, load_checkpoint_in_model, load_hf_state_dict
 from .memory import find_executable_batch_size, release_memory, should_reduce_batch_size
 from .params import flatten_tree, load_jax_params, tree_leaves, tree_map
 from .quantization import (
@@ -60,9 +61,13 @@ __all__ = [
     "QuantizedWeight",
     "TensorInformation",
     "dequantize_weight",
+    "export_hf_llama",
     "find_executable_batch_size",
     "flatten_tree",
     "get_multihost_env",
+    "import_hf_llama",
+    "load_checkpoint_in_model",
+    "load_hf_state_dict",
     "load_jax_params",
     "parse_flag_from_env",
     "parse_int_from_env",

@@ -208,7 +208,32 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     live slot's pages, the freed pages read back exactly 0, the request
     requeued and finished with ``generate()``'s tokens), the watchdog at a
     tiny ``step_timeout_s``, the dense ``paged=False`` slab against the
-    paged engine, and a KV handoff between two engines on the card.
+    paged engine, and a KV handoff between two engines on the card;
+26. big-model inference: phase 3's llama-1b weights (full width, 22
+    layers) written as an HF-layout checkpoint (fp32, with its
+    ``config.json``, read back by ``config_from_hf_json``) in a temporary
+    directory; ``init_empty_weights`` allocating 0 bytes on the card;
+    (a) ``load_checkpoint_and_dispatch`` with ``device_map="auto"`` under a
+    ``max_memory`` that keeps 8 layers on the card, 7 in pinned host
+    memory, 7 on disk; (b) the streamed 2 x 512 bf16 forward bit-equal to
+    an all-device dispatch at the default window, at groups of one layer
+    (a window under one layer) and one group of all 22, its wall time,
+    bytes streamed and host-to-device GB/s beside a plain pinned copy of
+    the same bytes (disk layers read page-cache warm), its peak memory
+    within two groups plus the all-device forward's activations, its
+    busy shares under ``torch.profiler``; (c) 16 streamed fp32 tokens
+    against ``generate()`` over the resident model up to near-ties, and
+    the bf16 streamed decode's ms a token beside its bytes over the pinned
+    copy's rate; (d) ``ServingEngine.from_streamed`` of the disk-backed
+    model with phase 3's traffic, tokens equal to phase 3's, decode
+    launches = layers x decode forwards, then an int8
+    ``load_and_quantize_model`` under its own auto map through
+    ``from_streamed`` (dequant-matmul launches = 7 x layers x forwards);
+    (e) bert-base under ``cpu_offload`` bit-equal to its all-device
+    dispatch, t5-base's ``Seq2SeqStreamedModel.generate`` in fp32 equal to
+    the all-device dispatch's, and two llama-125m under
+    ``cpu_offload_with_hook`` taking turns, the card's allocated memory
+    back at its baseline after each ``offload()``.
 
 The JSON line's launch counts of the four training kernels are phase 14's
 run A, the ring variants' phase 21's rank 0; phases 15-18 print their own. The line before the last is a JSON
@@ -264,19 +289,29 @@ from accelerate_tpu_torch import (
     quant_dot,
     quant_matmul,
 )
-from accelerate_tpu_torch.big_modeling import StreamedModel
-from accelerate_tpu_torch.checkpointing import has_safetensors
+from accelerate_tpu_torch.big_modeling import (
+    StreamedModel,
+    cpu_offload,
+    cpu_offload_with_hook,
+    init_empty_weights,
+    load_and_quantize_model,
+    load_checkpoint_and_dispatch,
+)
+from accelerate_tpu_torch.checkpointing import _save_flat, has_safetensors
 from accelerate_tpu_torch.data_loader import BatchSampler, SeedableRandomSampler
 from accelerate_tpu_torch.examples import nlp_example
 from accelerate_tpu_torch.fault_tolerance import build_manifest, verify_checkpoint, write_manifest
 from accelerate_tpu_torch.models import build_model, train_flops_per_step
+from accelerate_tpu_torch.models.config import config_from_hf_json
 from accelerate_tpu_torch.ops import flash_attention as fa
 from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_reference, bias_corrections
 from accelerate_tpu_torch.ops.quant_matmul import quant_matmul_reference
 from accelerate_tpu_torch.ops.runtime import build_kernel, build_log
 from accelerate_tpu_torch.serving.engine import params_from_streamed
-from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves
+from accelerate_tpu_torch.utils.hf_import import export_hf_llama
+from accelerate_tpu_torch.utils.modeling import named_component_sizes
+from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves, tree_map
 from accelerate_tpu_torch.utils.quantization import dequantize_weight, quantize_weight
 
 SEED = 0
@@ -560,8 +595,9 @@ def serving_prompts(rng, vocab) -> list[np.ndarray]:
     return [shared[0]] + prompts + [shared[1]]
 
 
-def phase_serving(card: str) -> int:
-    """llama-1b bf16 behind the engine; returns the kernel launches."""
+def phase_serving(card: str) -> tuple:
+    """llama-1b bf16 behind the engine; returns the kernel launches and
+    each request's generated tokens (phase 26 serves the same weights)."""
     model = Llama("llama-1b", dtype=torch.bfloat16, seed=SEED)
     layers = model.config.num_layers
     engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
@@ -606,7 +642,7 @@ def phase_serving(card: str) -> int:
     profile_serving(engine, card, "plain bf16")
     del engine, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, [results[rid].generated for rid in ids]
 
 
 def report_profile(prof, wall_us: float, steps: int, what: str, card: str) -> None:
@@ -3169,7 +3205,8 @@ def gpt2_kernel_checks(card: str) -> None:
     """The paged decode and verify kernels at gpt2-1.5b's attention (25
     heads of 64, no grouped K/V, 8 slots of up to 1024 positions, NaN past
     every length) against their plain versions, bf16 and fp32, two launches
-    bit-identical, timed beside their bound and plain version."""
+    bit-identical, timed beside their bound, plain version and SDPA over a
+    pre-gathered view (phase 2's yardstick)."""
     rng = np.random.default_rng(SEED + 22)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     lengths = [1000, 700, 517, 64, 33, 17, 1, 0]
@@ -3183,18 +3220,19 @@ def gpt2_kernel_checks(card: str) -> None:
             err = float((got.float() - ref(**case).float()).abs().max().item())
             ms = time_ms(lambda: fn(**case), flush, iters=20)
             plain = time_ms(lambda: ref(**case), flush, iters=20)
+            library = time_ms(sdpa_call(case), flush, iters=20)
             bound, bound_by = bound_ms(case, dtype)
             kind = "decode" if window is None else f"verify W={window}"
             print(f"[gpt2-paged] gpt2-1.5b {kind} {str(dtype).split('.')[-1]} "
                   f"({split_line(8, 25, window or 1, 16, 64)}): max_abs_err {err:.3e} (tolerance "
                   f"{TOLERANCE[dtype]:.0e}), two launches bit-identical: {identical}; kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}), achieved "
-                  f"{bound / ms:.1%} of bound [{card}]")
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, library_ms {library:.4f}, bound {bound:.4f} ms "
+                  f"({bound_by}), achieved {bound / ms:.1%} of bound [{card}]")
             if not (err <= TOLERANCE[dtype]) or not identical:
                 raise AssertionError(f"paged {kind} disagrees at gpt2-1.5b's heads in {dtype}")
 
 
-def serve_traffic(engine, prompts, new: int):
+def serve_traffic(engine, prompts, new: int, card: str):
     """Submit ``prompts`` and step the engine dry with the launch counts
     reset just before, timing each step on the host (a step ends in its
     tokens' fetch) and noting whether it ran a prefill forward; prints the
@@ -3218,7 +3256,7 @@ def serve_traffic(engine, prompts, new: int):
         ms = np.asarray(steps[prefilled]) * 1e3
         if ms.size:
             print(f"[steps] {what}: {ms.size} steps, p50 {np.percentile(ms, 50):.3f} ms, p99 "
-                  f"{np.percentile(ms, 99):.3f} ms, max {ms.max():.3f} ms, {ms.sum():.1f} ms in all")
+                  f"{np.percentile(ms, 99):.3f} ms, max {ms.max():.3f} ms, {ms.sum():.1f} ms in all [{card}]")
     for rid in ids:
         if results[rid].finish_reason != "length" or results[rid].generated.size != new:
             raise AssertionError(f"request {rid} ended {results[rid].finish_reason!r}")
@@ -3243,7 +3281,7 @@ def phase_gpt2_serving(card: str) -> tuple:
     engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
     engine.warmup()
     prompts = serving_prompts(np.random.default_rng(SEED + 22), model.config.vocab_size)
-    _, _, counts, wall = serve_traffic(engine, prompts, 64)
+    _, _, counts, wall = serve_traffic(engine, prompts, 64, card)
     decodes = engine.forward_counts["decode"]
     m = engine.metrics()
     print(f"[gpt2-serve] gpt2-1.5b bf16 (48 layers, 25 heads of 64, vocab 50257), 16 requests x 64 "
@@ -3337,7 +3375,7 @@ def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
                            speculative=SpeculativeConfig(draft_model=draft, k=SPEC_K))
     engine.warmup()
     traffic = serving_prompts(np.random.default_rng(SEED + 22), bf16.config.vocab_size)
-    _, _, counts, wall = serve_traffic(engine, traffic, 64)
+    _, _, counts, wall = serve_traffic(engine, traffic, 64, card)
     verifies = engine.forward_counts["verify"]
     m = engine.metrics()
     print(f"[gpt2-spec] gpt2-1.5b bf16 verifying gpt2-124m drafts (k={SPEC_K}, linear), 16 requests x "
@@ -3364,7 +3402,7 @@ def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
     if served.layers.bqkv.dtype != torch.bfloat16 or served.embed_positions.dtype != torch.bfloat16:
         raise AssertionError("gpt2's biases and positions should stay unquantized")
     engine.warmup()
-    _, _, counts, wall = serve_traffic(engine, traffic, 64)
+    _, _, counts, wall = serve_traffic(engine, traffic, 64, card)
     forwards = engine.forward_counts["prefill"] + engine.forward_counts["decode"]
     resident, bf16_bytes = layer_bytes(served)
     m = engine.metrics()
@@ -3608,6 +3646,352 @@ def phase_engine_surface(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 26: big-model inference ----------------------------------------------
+
+# llama-1b layers the auto map keeps on the card and in host memory; the rest go to disk
+BIG_ON_DEVICE, BIG_ON_CPU = 8, 7
+LLAMA_1B_HF_CONFIG = {
+    "model_type": "llama", "vocab_size": 32000, "hidden_size": 2048, "intermediate_size": 5504,
+    "num_hidden_layers": 22, "num_attention_heads": 16,
+    "max_position_embeddings": 2048, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+    "tie_word_embeddings": False,
+}
+
+
+def big_budget(model, dtype_bytes: float, layer_dtype_bytes=None) -> dict:
+    """A ``max_memory`` under which the auto map holds the resident
+    components and ``BIG_ON_DEVICE`` layers on the card (beside room for
+    the two streamed groups), ``BIG_ON_CPU`` in host memory, the rest on disk."""
+    sizes = named_component_sizes(model, dtype_bytes, layer_dtype_bytes)
+    layer = sizes["layers.0"]
+    resident = sum(v for k, v in sizes.items() if not k.startswith("layers."))
+    return {"device": resident + (BIG_ON_DEVICE + 2) * layer, "cpu": BIG_ON_CPU * layer}
+
+
+def map_counts(streamed) -> dict:
+    layers = [v for k, v in streamed.hf_device_map.items() if k.startswith("layers.")]
+    return {target: layers.count(target) for target in ("device", "cpu", "disk")}
+
+
+def pinned_copy_gbps(nbytes: int) -> float:
+    """GB/s of one plain copy of ``nbytes`` from pinned host memory to the
+    card (CUDA events, the best of 3): the yardstick of the streaming."""
+    host = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    best = math.inf
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dev.copy_(host, non_blocking=True)
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    del host, dev
+    return nbytes / best / 1e9
+
+
+def wall(fn, *args):
+    """(result, host seconds) of ``fn`` with the card synchronized around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def big_export(directory: str, card: str) -> dict:
+    """Phase 3's llama-1b weights (bf16, seed 0) as fp32 numpy in the JAX
+    layout, written as an HF-layout checkpoint with its ``config.json``."""
+    source = Llama("llama-1b", dtype=torch.bfloat16, seed=SEED)
+    host = tree_map(lambda t: t.float().cpu().numpy(), source.param_tree())
+    del source
+    torch.cuda.empty_cache()
+    cfg = get_config("llama-1b")
+    t0 = time.perf_counter()
+    flat = export_hf_llama(host, cfg)
+    _save_flat(flat, os.path.join(directory, "model.safetensors"))
+    del flat
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(LLAMA_1B_HF_CONFIG, f)
+    size = sum(os.path.getsize(os.path.join(directory, n)) for n in os.listdir(directory))
+    print(f"[big] exported llama-1b (22 layers, fp32) to an HF-layout checkpoint: {size} bytes "
+          f"({'safetensors' if has_safetensors() else 'npz'}) in {time.perf_counter() - t0:.1f} s [{card}]")
+    if config_from_hf_json(directory) != cfg:
+        raise AssertionError("config_from_hf_json does not read back llama-1b's config")
+    return host
+
+
+def big_forward(streamed, host: dict, ids, card: str) -> float:
+    """(b): the streamed bf16 forward against an all-device dispatch of
+    the same params, bit for bit, at the default window and at groups of
+    one layer and of all layers; peak memory against its bound; wall time,
+    bytes streamed, GB/s beside a pinned copy's, busy shares. Returns the
+    pinned copy's GB/s."""
+    cfg = streamed.model.config
+    device_map = make_layered_device_map(streamed.model, "device")
+    reference = dispatch_model(Llama(cfg, device="meta"), host, device_map, dtype=torch.bfloat16)
+    reference(ids)  # cuBLAS warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want, device_s = wall(reference, ids)
+    activations = torch.cuda.max_memory_allocated() - base
+    del reference
+    torch.cuda.empty_cache()
+
+    got = streamed(ids)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got, seconds = wall(streamed, ids)
+    peak = torch.cuda.max_memory_allocated() - base
+    window = 2 * streamed.group_size * streamed._layer_bytes()
+    nbytes = streamed.streamed_bytes
+    yardstick = pinned_copy_gbps(nbytes)
+    same = torch.equal(got, want)
+    variants = {}
+    for label, window_bytes in (("groups of 1 (a window under one layer)", 1), ("one group of all 22", 1 << 40)):
+        variant = StreamedModel(streamed.model, streamed.resident, streamed.layer_buffers,
+                                streamed.layer_on_device, streamed.packer, torch.bfloat16, streamed.device,
+                                stream_window_bytes=window_bytes)
+        out, variant_s = wall(variant, ids)
+        variants[label] = (variant.group_size, torch.equal(out, got), variant_s)
+        del variant, out
+    print(f"[big] streamed forward 2 x 512 bf16, group size {streamed.group_size}: {seconds * 1e3:.1f} ms "
+          f"(all-device {device_s * 1e3:.1f} ms); streamed {nbytes} bytes = {nbytes / seconds / 1e9:.2f} GB/s "
+          f"against a plain pinned copy's {yardstick:.2f} GB/s (disk layers read page-cache warm); logits == "
+          f"all-device bit for bit: {same} [{card}]")
+    for label, (size, equal, variant_s) in variants.items():
+        print(f"[big]   {label}: group size {size}, {variant_s * 1e3:.1f} ms, logits == default window's: "
+              f"{equal} [{card}]")
+    print(f"[big] peak device memory over the placed model {peak} bytes; bound: two groups {window} + the "
+          f"all-device forward's activations {activations} = {window + activations} [{card}]")
+    if not same or not all(equal for _, equal, _ in variants.values()):
+        raise AssertionError("streamed logits differ from the all-device dispatch's")
+    if variants["groups of 1 (a window under one layer)"][0] != 1 or variants["one group of all 22"][0] != 22:
+        raise AssertionError(f"window sizes gave groups {[v[0] for v in variants.values()]}")
+    if peak > window + activations:
+        raise AssertionError(f"streamed peak {peak} > bound {window + activations}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("streamed logits are not finite")
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, profiled_s = wall(streamed, ids)
+    copies = compute = 0.0
+    for event in prof.key_averages():
+        if event.device_type == torch.autograd.DeviceType.CUDA and event.self_device_time_total > 0:
+            if event.key.startswith("Memcpy"):
+                copies += event.self_device_time_total
+            else:
+                compute += event.self_device_time_total
+    print(f"[profile] streamed forward: wall {profiled_s * 1e3:.1f} ms under the profiler, kernels busy "
+          f"{compute / 1e3:.1f} ms ({compute / (profiled_s * 1e6):.1%} of wall), copies {copies / 1e3:.1f} ms "
+          f"({copies / (profiled_s * 1e6):.1%}) [{card}]")
+    return yardstick
+
+
+def big_generate(streamed, host: dict, directory: str, yardstick: float, card: str) -> None:
+    """(c): 16 streamed tokens in fp32 against generate() over the resident
+    model (equal except at near-ties), then the bf16 streamed decode's ms a
+    token beside its streamed bytes a token over the pinned yardstick."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("llama-1b")
+    meta = Llama(cfg, device="meta")
+    s32 = dispatch_model(meta, host, "auto", max_memory=big_budget(meta, 4), dtype=torch.float32,
+                         offload_dir=os.path.join(directory, "offload-fp32"))
+    rng = np.random.default_rng(SEED + 26)
+    prompts = [rng.integers(1, cfg.vocab_size, size=32).astype(np.int32) for _ in range(2)]
+    new = 16
+    rows, seconds = wall(s32.generate, np.stack(prompts), new)
+    placement = ", ".join(f"{n} layers on {t}" for t, n in map_counts(s32).items())
+    del s32
+    torch.cuda.empty_cache()
+    resident = Llama(cfg, device="meta").install(tree_map(lambda a: torch.from_numpy(a).cuda(), host))
+    want, gaps = reference_rows(resident, prompts, new)
+    ties = compare_rows("big-generate", prompts, list(rows), want, gaps, "generate()")
+    del resident
+    torch.cuda.empty_cache()
+    print(f"[big] streamed generate fp32 ({placement}), 2 x 32 prompt + {new} tokens in "
+          f"{seconds:.2f} s: tokens == generate() over the resident model with {ties} ties [{card}]")
+
+    ids = np.stack(prompts)
+    _, one = wall(streamed.generate, ids, 1)
+    _, many = wall(streamed.generate, ids, new + 1)
+    per_token = streamed.streamed_bytes / (new + 1)
+    ms = (many - one) / new * 1e3
+    print(f"[big] streamed decode bf16, batch 2: {ms:.2f} ms a token; {per_token:.0f} bytes streamed a token, "
+          f"{per_token / yardstick / 1e6:.2f} ms at the pinned copy's {yardstick:.2f} GB/s [{card}]")
+
+
+def big_serving(streamed, host: dict, directory: str, phase3_rows: list, card: str) -> None:
+    """(d): the disk-backed auto-placed model behind the engine with phase
+    3's traffic: tokens equal phase 3's, decode launches = layers x decode
+    forwards; then an int8 load through from_streamed, counting the
+    dequant-matmul's launches."""
+    cfg = streamed.model.config
+    layers = cfg.num_layers
+    engine = ServingEngine.from_streamed(streamed, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    engine.warmup()
+    prompts = serving_prompts(np.random.default_rng(SEED), cfg.vocab_size)
+    results, ids, counts, seconds = serve_traffic(engine, prompts, 64, card)
+    decodes = engine.forward_counts["decode"]
+    same = all(np.array_equal(results[rid].generated, want) for rid, want in zip(ids, phase3_rows))
+    print(f"[big-serve] from_streamed of the auto-placed model (disk-backed), phase 3's 16 requests x 64 "
+          f"tokens: tokens == phase 3's: {same}; decode launches {counts['paged_decode']} = {layers} layers x "
+          f"{decodes} decode forwards; wall {seconds:.3f} s [{card}]")
+    print(serve_line("big-serve", engine, card))
+    if not same:
+        raise AssertionError("the streamed model's engine gave other tokens than phase 3's")
+    if counts["paged_decode"] != layers * decodes or decodes == 0 or counts["quant_matmul"]:
+        raise AssertionError(f"from_streamed serving launched {counts} over {decodes} decode forwards")
+    del engine, results
+    torch.cuda.empty_cache()
+
+    meta = Llama(cfg, device="meta")
+    t0 = time.perf_counter()
+    q8 = load_and_quantize_model(meta, QuantizationConfig(load_in_8bit=True), params=host, device_map="auto",
+                                 max_memory=big_budget(meta, 2, 1), dtype=torch.bfloat16,
+                                 offload_dir=os.path.join(directory, "offload-int8"))
+    quantize_s = time.perf_counter() - t0
+    engine = ServingEngine.from_streamed(q8, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+    _, _, counts, seconds = serve_traffic(engine, prompts[:4], 16, card)
+    forwards = engine.forward_counts["prefill"] + engine.forward_counts["decode"]
+    print(f"[big-serve] load_and_quantize_model int8 (quantized on the host in {quantize_s:.1f} s; "
+          f"{map_counts(q8)}) through from_streamed, 4 requests x 16 tokens: dequant-matmul launches "
+          f"{counts['quant_matmul']} = {PROJECTIONS} x {layers} x {forwards} forwards, decode launches "
+          f"{counts['paged_decode']}; wall {seconds:.3f} s [{card}]")
+    if counts["quant_matmul"] != PROJECTIONS * layers * forwards or counts["paged_decode"] != (
+            layers * engine.forward_counts["decode"]):
+        raise AssertionError(f"int8 from_streamed launched {counts} over {forwards} forwards")
+    del engine, q8
+    torch.cuda.empty_cache()
+
+
+def big_other_models(card: str) -> None:
+    """(e): bert-base under cpu_offload bit-equal to its all-device
+    dispatch, t5-base's streamed generate in fp32 equal to the all-device
+    dispatch's, and two models under cpu_offload_with_hook taking turns."""
+    rng = np.random.default_rng(SEED + 27)
+    bert = Bert("bert-base", dtype=torch.bfloat16, seed=SEED)
+    params = tree_map(lambda t: t.cpu(), bert.param_tree())
+    ids = torch.tensor(rng.integers(1, 30522, (8, 128)), device="cuda")
+    mask = torch.ones((8, 128), dtype=torch.int32, device="cuda")
+    mask[4:, 100:] = 0
+    module = bert(ids, mask)
+    del bert
+    meta = Bert(get_config("bert-base"), device="meta")
+    offloaded = cpu_offload(meta, params, dtype=torch.bfloat16)
+    resident = dispatch_model(meta, params, make_layered_device_map(meta, "device"), dtype=torch.bfloat16)
+    got, want = offloaded(ids, mask), resident(ids, mask)
+    gap = float((got.float() - module.float()).abs().max())
+    print(f"[big-other] bert-base bf16 cpu_offload (12 layers streamed), B=8 S=128 padded: logits == the "
+          f"all-device dispatch's bit for bit: {torch.equal(got, want)} (vs the module's forward {gap:.3e}) "
+          f"[{card}]")
+    if not torch.equal(got, want):
+        raise AssertionError("bert-base's cpu_offload forward differs from the all-device dispatch's")
+    del offloaded, resident, params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t5 = T5("t5-base", dtype=torch.float32, seed=SEED)
+    params = tree_map(lambda t: t.cpu(), t5.param_tree())
+    del t5
+    cfg = get_config("t5-base")
+    enc = rng.integers(1, cfg.vocab_size, (2, 64)).astype(np.int32)
+    enc_mask = np.ones((2, 64), np.int32)
+    enc_mask[1, 50:] = 0
+    meta = T5(cfg, device="meta")
+    streamed = cpu_offload(meta, params, dtype=torch.float32)
+    resident = dispatch_model(meta, params, make_layered_device_map(meta, "device"), dtype=torch.float32)
+    got = streamed.generate(enc, max_new_tokens=16, attention_mask=enc_mask)
+    want = resident.generate(enc, max_new_tokens=16, attention_mask=enc_mask)
+    print(f"[big-other] t5-base fp32 Seq2SeqStreamedModel.generate (12 decoder layers streamed), 2 x 64 "
+          f"encoder tokens + 16: tokens == the all-device dispatch's: {np.array_equal(got, want)} [{card}]")
+    if not np.array_equal(got, want) or got.shape != (2, 17):
+        raise AssertionError("t5-base's streamed generate differs from the all-device dispatch's")
+    del streamed, resident, params
+
+    del ids, mask, module
+    cfg = get_config("llama-125m")
+    trees = []
+    for seed in (1, 2):
+        model = Llama(cfg, dtype=torch.bfloat16, seed=seed)
+        trees.append(tree_map(lambda t: t.cpu(), model.param_tree()))
+        del model
+    ids = torch.tensor(rng.integers(1, cfg.vocab_size, (2, 64)), device="cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    lm_a, hook_a = cpu_offload_with_hook(Llama(cfg, device="meta"), trees[0], dtype=torch.bfloat16)
+    lm_b, hook_b = cpu_offload_with_hook(Llama(cfg, device="meta"), trees[1], dtype=torch.bfloat16,
+                                         prev_module_hook=hook_a)
+    steps = [("start", torch.cuda.memory_allocated() - base)]
+    out_a = lm_a(ids).cpu()
+    steps.append(("a ran", torch.cuda.memory_allocated() - base))
+    out_b = lm_b(ids).cpu()
+    steps.append(("b ran (a evicted)", torch.cuda.memory_allocated() - base))
+    hook_b.offload()
+    steps.append(("b offloaded", torch.cuda.memory_allocated() - base))
+    again = lm_a(ids).cpu()
+    steps.append(("a ran again", torch.cuda.memory_allocated() - base))
+    hook_a.offload()
+    steps.append(("a offloaded", torch.cuda.memory_allocated() - base))
+    model_bytes = sum(t.numel() * 2 for t in tree_leaves(trees[0]))
+    print(f"[big-other] two llama-125m under cpu_offload_with_hook ({model_bytes} bytes each in bf16), device "
+          f"memory over the baseline: " + ", ".join(f"{k} {v}" for k, v in steps) + f"; a's logits again equal: "
+          f"{torch.equal(again, out_a)} [{card}]")
+    zero = [v for k, v in steps if k in ("start", "b offloaded", "a offloaded")]
+    if any(zero) or not torch.equal(again, out_a) or torch.equal(out_a, out_b):
+        raise AssertionError(f"the hook chain left memory on the card or changed outputs: {steps}")
+    if not all(model_bytes <= v < 1.1 * model_bytes for k, v in steps if k in ("a ran", "b ran (a evicted)")):
+        raise AssertionError(f"a running model did not hold its weights alone: {steps}")
+    del lm_a, lm_b, hook_a, hook_b
+
+
+def phase_big_model(card: str, phase3_rows: list) -> None:
+    """Phase 26 (see the module docstring)."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-big-") as directory:
+        t0 = time.perf_counter()
+        host = big_export(directory, card)
+        export_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        meta = Llama(config_from_hf_json(directory), device="meta")
+        shapes = init_empty_weights(meta)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated() - before
+        if allocated or shapes["layers"]["wq"].shape != (22, 2048, 2048):
+            raise AssertionError(f"init_empty_weights allocated {allocated} bytes")
+        t0 = time.perf_counter()
+        streamed = load_checkpoint_and_dispatch(meta, directory, max_memory=big_budget(meta, 2),
+                                                offload_dir=os.path.join(directory, "offload"),
+                                                dtype=torch.bfloat16)
+        load_s = time.perf_counter() - t0
+        counts = map_counts(streamed)
+        print(f"[big] init_empty_weights allocated {allocated} bytes on the card; load_checkpoint_and_dispatch "
+              f"with device_map='auto' in {load_s:.1f} s (export {export_s:.1f} s): {counts['device']} layers "
+              f"on the card, {counts['cpu']} in pinned host memory, {counts['disk']} on disk, the resident "
+              f"components on the card [{card}]")
+        if not all(counts.values()):
+            raise AssertionError(f"the auto map does not span device, cpu and disk: {counts}")
+        ids = torch.tensor(np.random.default_rng(SEED + 25).integers(1, 32000, (2, 512)), device="cuda")
+        parts = {}
+        t0 = time.perf_counter()
+        yardstick = big_forward(streamed, host, ids, card)
+        parts["(b) forward"] = time.perf_counter() - t0
+        big_generate(streamed, host, directory, yardstick, card)
+        parts["(c) generate"] = time.perf_counter() - t0 - sum(parts.values())
+        big_serving(streamed, host, directory, phase3_rows, card)
+        parts["(d) serving"] = time.perf_counter() - t0 - sum(parts.values())
+        del streamed, host
+        big_other_models(card)
+        parts["(e) bert, t5, hooks"] = time.perf_counter() - t0 - sum(parts.values())
+    print("[big] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f" [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3621,7 +4005,8 @@ def main() -> int:
         return 1
     card = timed("phase 1 environment and build", phase_environment)
     records = {"paged_decode": timed("phase 2 decode kernel", phase_kernel, card)}
-    launches = {"paged_decode": timed("phase 3 serving", phase_serving, card)}
+    launches = {}
+    launches["paged_decode"], serving_rows = timed("phase 3 serving", phase_serving, card)
     model, prompts, rows, gaps = timed("phase 4 parity", phase_parity, card)
     timed("phase 4b llama-tiny serving (head dim 32)", phase_tiny_serving, card)
     records["paged_verify"] = timed("phase 5 verify kernel", phase_verify_kernel, card)
@@ -3661,6 +4046,7 @@ def main() -> int:
     del gpt2, prompts, rows, gaps
     timed("phase 24 gpt2-124m training", phase_gpt2_training, card)
     timed("phase 25 the engine's quarantine, watchdog, dense slab and handoff", phase_engine_surface, card)
+    timed("phase 26 big-model inference", phase_big_model, card, serving_rows)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

@@ -36,6 +36,16 @@ from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves, tree_ma
 MODEL = "bert-tiny"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """(jax model, jax params, numpy tree) of bert-tiny."""
@@ -124,11 +134,18 @@ def test_sequence_past_the_position_table_raises(pair):
 
 
 def test_streaming_bert_waits_for_the_big_model_slice():
-    """BERT's streaming protocol stays out of the port (ROADMAP item 2)."""
-    from accelerate_tpu_torch import dispatch_model
+    """BERT dispatches through its streaming protocol (the big-model slice):
+    every layer streamed from host memory gives the model's own logits, bit
+    for bit (``tests/test_torch_big_modeling.py`` holds it to the JAX
+    package's)."""
+    from accelerate_tpu_torch import cpu_offload
 
-    with pytest.raises(NotImplementedError, match="item 2"):
-        dispatch_model(Bert(MODEL, device="cpu"), device_map={}, device="cpu")
+    model = Bert(MODEL, device="cpu", seed=1)
+    ids = torch.tensor(np.random.default_rng(1).integers(0, 1024, (2, 10)))
+    mask = torch.tensor([[1] * 10, [1] * 7 + [0] * 3])
+    streamed = cpu_offload(model, dtype=torch.float32, device="cpu")
+    assert not any(streamed.layer_on_device)
+    assert torch.equal(streamed(ids, mask), model(ids, mask))
 
 
 def test_param_tree_keys_and_shapes_match_jax(pair):

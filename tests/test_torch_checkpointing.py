@@ -67,6 +67,16 @@ LR = 1e-3
 ROWS, TOKENS, BATCH, ACCUM = 40, 65, 4, 2  # 10 micro-batches, 5 steps an epoch
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _reset():
     for cls in (JaxAcceleratorState, JaxGradientState, JaxPartialState, AcceleratorState, GradientState,
                 PartialState):

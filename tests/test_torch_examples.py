@@ -33,6 +33,16 @@ from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialS
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _reset():
     JaxAcceleratorState._reset_state()
     JaxGradientState._reset_state()

@@ -27,6 +27,16 @@ from accelerate_tpu_torch.ops import flash_attention as fa
 FWD_TOL, GRAD_TOL = 2e-5, 5e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _case(b=2, s=256, t=None, n=4, kv=4, d=64, seed=0):
     rng = np.random.default_rng(seed)
     t = s if t is None else t

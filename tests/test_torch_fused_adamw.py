@@ -42,6 +42,16 @@ from accelerate_tpu_torch.optimizer import apply_updates
 SHAPES = {"a": (16, 64), "b": (7,), "c": (4, 8, 32), "d": (3, 5)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _ulps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Distance in units of the last place between two fp32 arrays."""
     ia, ib = a.astype(np.float32).view(np.int32), b.astype(np.float32).view(np.int32)

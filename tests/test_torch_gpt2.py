@@ -38,6 +38,16 @@ from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves, tree_ma
 MODEL = "gpt2-tiny"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """(jax model, jax params, numpy tree) of gpt2-tiny."""
@@ -209,10 +219,22 @@ def test_remat_is_bit_equal_to_none(pair, deterministic, no_remat_step, policy):
 
 
 def test_pipeline_and_streamed_forward_wait_for_their_items():
+    """The pipeline hook waits for ROADMAP item 17(c); the streamed forward
+    (the big-model slice) runs: prefix, every layer, suffix equal the
+    model's forward bit for bit, and a per-layer cache past the learned
+    positions raises."""
     model = GPT2(MODEL, device="cpu")
     with pytest.raises(NotImplementedError, match="17"):
         model.pipeline_layer(None, None, None, None, None)
-    for call in (lambda: model.init_layer_cache(1, 8), lambda: model.stream_prefix({}, None),
-                 lambda: model.stream_layer(None, None), lambda: model.stream_suffix({}, None)):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            call()
+    ids = torch.tensor(np.random.default_rng(2).integers(0, 1024, (2, 9)))
+    tree = model.param_tree()
+    resident = {k: v for k, v in tree.items() if k != "layers"}
+    carry = model.stream_prefix(resident, ids)
+    for i in range(model.config.num_layers):
+        carry = model.stream_layer(carry, {k: v[i] for k, v in tree["layers"].items()})
+    assert torch.equal(model.stream_suffix(resident, carry), model(ids))
+    cfg = model.config
+    assert model.init_layer_cache(1, 8, torch.float32, device="cpu")["k"].shape == (
+        1, 8, cfg.num_heads, cfg.hidden_size // cfg.num_heads)
+    with pytest.raises(ValueError, match="max_seq_len"):
+        model.init_layer_cache(1, model.config.max_seq_len + 1, device="cpu")

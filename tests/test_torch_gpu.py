@@ -377,6 +377,35 @@ def test_quantized_resident_engine_on_the_card(cuda):
         np.testing.assert_array_equal(row, generate(reference, p[None], max_new_tokens=6)[0])
 
 
+@pytest.mark.parametrize("name", ["llama-tiny", "gpt2-tiny", "bert-tiny", "t5-tiny"])
+def test_streamed_model_on_the_card_equals_the_all_device_dispatch(cuda, name, tmp_path):
+    """The copy stream, its events and the pinned bounce buffer: five layers
+    over device, pinned host memory and disk, at groups of one layer and of
+    all five, give the all-device dispatch's logits bit for bit and (for
+    the decoders) its greedy tokens; the layers' bytes were streamed."""
+    from accelerate_tpu_torch.models import _ARCHS
+
+    cfg = get_config(name).replace(num_layers=5)
+    model = _ARCHS[cfg.arch](cfg, device=cuda, seed=1)
+    names = list(make_layered_device_map(model, "device"))
+    mixed = {n: ("cpu", "disk", "device")[int(n.split(".")[1]) % 3] if n.startswith("layers.") else "device"
+             for n in names}
+    ids = torch.randint(1, 1000, (2, 12), device=cuda)
+    args = (ids, torch.randint(1, 1000, (2, 5), device=cuda)) if cfg.arch == "t5" else (ids,)
+    device = dispatch_model(model, None, make_layered_device_map(model, "device"), dtype=torch.float32)
+    want = device(*args)
+    for window in (1, 1 << 30):
+        streamed = dispatch_model(model, None, mixed, offload_dir=str(tmp_path), dtype=torch.float32,
+                                  stream_window_bytes=window)
+        assert torch.equal(streamed(*args), want)
+        assert streamed.layer_on_device.count(False) == 4  # layers 0 and 3 pinned, 1 and 4 on disk
+        assert streamed.streamed_bytes == 4 * streamed.packer.layer_nbytes
+        if cfg.arch != "bert":
+            prompt = (ids if cfg.arch == "t5" else ids[:, :4]).cpu().numpy()
+            np.testing.assert_array_equal(streamed.generate(prompt, max_new_tokens=5),
+                                          device.generate(prompt, max_new_tokens=5))
+
+
 # flash attention geometries: (B, S, T, NH, KV, D, causal, masked)
 FLASH_GEOMETRIES = {
     "causal_d64": (2, 256, 256, 4, 4, 64, True, False),

@@ -30,6 +30,16 @@ from accelerate_tpu_torch.models import (
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 @pytest.fixture(scope="module")
 def pair():
     """(jax model, jax params, port model) with the same weights."""

@@ -28,6 +28,16 @@ from accelerate_tpu_torch.utils.dataclasses import ParallelismConfig
 from accelerate_tpu_torch.utils.params import flatten_tree, tree_leaves, tree_map
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _reset():
     AcceleratorState._reset_state()
     GradientState._reset_state()

@@ -42,6 +42,16 @@ from accelerate_tpu_torch.ops.paged_attention import (
 RTOL, ATOL = 2e-5, 2e-6
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _case(seed, nh, kv, d, ps, pps, lengths, nan_unwalked=False):
     """Numpy inputs for len(lengths) slots, each slot on its own pages. The
     tail of each partial last page holds stale finite values (1e6), as the

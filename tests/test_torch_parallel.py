@@ -4,9 +4,10 @@ against the JAX package on its 8-device virtual mesh (``tests/conftest.py``).
 The port's processes are started by its own ``debug_launcher``; each runs
 ``torch_parallel_workers.suite`` (torch and the port only, no JAX) once per
 world size, and every rank's results come back as numpy. The launches and
-the JAX reference runs happen once per test session (a file under the
-session's shared temporary directory carries them between xdist workers),
-so the tests here only compare.
+the JAX reference runs happen once per test session, side by side (the two
+launches in threads, the JAX runs meanwhile; a file under the session's
+shared temporary directory carries them between xdist workers), so the
+tests here only compare.
 
 Tolerances, and why:
 - losses: rtol 1e-5 in fp32 (the same sums in other orders: per process,
@@ -27,6 +28,7 @@ import ast
 import os
 import pickle
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import optax
@@ -164,9 +166,9 @@ def _jax_train(kind, params, batches):
 
 
 @pytest.fixture(scope="module")
-def jax_runs(request, tmp_path_factory, init_params, batches):
-    return _once(request, tmp_path_factory, "jax_runs",
-                 lambda: {kind: _jax_train(kind, init_params, batches) for kind in JAX_TRAINING})
+def jax_runs(launches):
+    """The JAX package's training runs (computed beside the launches)."""
+    return launches["jax_runs"]
 
 
 def _jax_checkpoint(directory, params, batches):
@@ -229,18 +231,27 @@ def launches(request, tmp_path_factory, init_params, batches, bert_params, gpt2_
     JAX checkpoint the 2-process suite loaded."""
     ckpt = _shared_dir(tmp_path_factory, request, "ckpt")
 
+    def launch(world):
+        names = WORLD_CONFIGS[world]
+        dirs = (str(ckpt / "jax"), str(ckpt / "port")) if world == 2 else (None, None)
+        config = SEQUENCE_CONFIGS[world]
+        sequence = dict(size=config["size"], ring=_ring_cases(), bert_params=bert_params,
+                        gpt2_params=gpt2_params, forwards=_forward_cases(),
+                        loader_mesh=config["loader_mesh"],
+                        remat_ids=np.random.default_rng(42).integers(0, 1024, (2, 256)).astype(np.int32))
+        return debug_launcher(workers.suite, (names + config["train"], init_params, batches, *dirs, sequence),
+                              num_processes=world, timeout=420)
+
     def compute():
-        jax_saved = _jax_checkpoint(ckpt / "jax", init_params, batches)
-        out = {"jax_checkpoint": jax_saved}
-        remat_ids = np.random.default_rng(42).integers(0, 1024, (2, 256)).astype(np.int32)
-        for world, names in WORLD_CONFIGS.items():
-            dirs = (str(ckpt / "jax"), str(ckpt / "port")) if world == 2 else (None, None)
-            config = SEQUENCE_CONFIGS[world]
-            sequence = dict(size=config["size"], ring=_ring_cases(), bert_params=bert_params,
-                            gpt2_params=gpt2_params, forwards=_forward_cases(),
-                            loader_mesh=config["loader_mesh"], remat_ids=remat_ids)
-            out[world] = debug_launcher(workers.suite, (names + config["train"], init_params, batches, *dirs,
-                                                        sequence), num_processes=world, timeout=420)
+        out = {"jax_checkpoint": _jax_checkpoint(ckpt / "jax", init_params, batches)}
+        # the two launches run side by side (one thread a process), and the
+        # JAX references here meanwhile: the slowest of the three sets the wait
+        with ThreadPoolExecutor(len(WORLD_CONFIGS)) as pool:
+            futures = {world: pool.submit(launch, world) for world in WORLD_CONFIGS}
+            out["jax_runs"] = {kind: _jax_train(kind, init_params, batches) for kind in JAX_TRAINING}
+            out["jax_ring"] = _jax_ring()
+            out["jax_forwards"] = _jax_forwards(init_params, bert_params, gpt2_params)
+            out.update({world: future.result() for world, future in futures.items()})
         out["port_checkpoint"] = str(ckpt / "port")
         return out
 
@@ -597,8 +608,8 @@ def _jax_ring():
 
 
 @pytest.fixture(scope="module")
-def jax_ring(request, tmp_path_factory):
-    return _once(request, tmp_path_factory, "jax_ring", _jax_ring)
+def jax_ring(launches):
+    return launches["jax_ring"]
 
 
 @pytest.mark.parametrize("case", ["causal", "noncausal", "padded", "gqa"])
@@ -625,9 +636,8 @@ def _jax_forwards(init_params, bert_params, gpt2_params):
 
 
 @pytest.fixture(scope="module")
-def jax_forwards(request, tmp_path_factory, init_params, bert_params, gpt2_params):
-    return _once(request, tmp_path_factory, "jax_forwards",
-                 lambda: _jax_forwards(init_params, bert_params, gpt2_params))
+def jax_forwards(launches):
+    return launches["jax_forwards"]
 
 
 @pytest.mark.parametrize("case", list(_forward_cases()))

@@ -13,6 +13,8 @@ Tolerances against the JAX kernel: rtol 1e-5, atol 1e-5 in fp32 (fp32 sums
 in another order); rtol 1e-2, atol 1e-2 in bf16 (both round the output to
 bf16 once, so they may differ by one unit in the last place)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -45,6 +47,16 @@ from accelerate_tpu_torch.utils.quantization import (
 )
 
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -303,17 +315,34 @@ def test_from_streamed_refuses_a_foreign_projection_hook():
 
 
 @pytest.mark.parametrize("what", ["auto_map", "disk", "generate", "evict", "restore", "forward"])
-def test_unported_big_model_paths_raise(what):
-    """What the port lacks raises NotImplementedError naming the ROADMAP
-    item; nothing runs in its place."""
+def test_unported_big_model_paths_raise(what, tmp_path):
+    """The big-model paths around a quantized streamer (once unported, now
+    the big-model slice) run: an auto map, disk placement, the streamed
+    forward, ``generate``, evict and restore each give the all-device
+    quantized model's outputs exactly."""
     model = Llama("llama-tiny", device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "auto_map":
-            dispatch_model(model, device="cpu")
-        elif what == "disk":
-            dispatch_model(model, device_map=make_layered_device_map(model, "disk"), device="cpu")
-        else:
-            streamed = dispatch_model(model, device_map=make_layered_device_map(model, "cpu"),
-                                      device="cpu", quantization=QuantizationConfig(load_in_8bit=True))
-            {"generate": streamed.generate, "evict": streamed.evict,
-             "restore": streamed.restore, "forward": streamed}[what]()
+    int8 = QuantizationConfig(load_in_8bit=True)
+    ids = np.random.default_rng(4).integers(1, 1024, (1, 6)).astype(np.int32)
+    device = dispatch_model(model, device_map=make_layered_device_map(model, "device"), device="cpu",
+                            dtype=torch.float32, quantization=int8)
+    if what == "auto_map":
+        streamed = dispatch_model(model, device="cpu", dtype=torch.float32, quantization=int8)
+        assert set(streamed.hf_device_map.values()) == {"device"}
+    elif what == "disk":
+        streamed = dispatch_model(model, device_map=make_layered_device_map(model, "disk"), device="cpu",
+                                  dtype=torch.float32, quantization=int8, offload_dir=str(tmp_path))
+        assert sorted(os.listdir(tmp_path))[:2] == ["index.json", "layers.0.packed.0.dat"]
+    else:
+        streamed = dispatch_model(model, device_map=make_layered_device_map(model, "cpu"), device="cpu",
+                                  dtype=torch.float32, quantization=int8)
+    if what == "generate":
+        np.testing.assert_array_equal(streamed.generate(ids, max_new_tokens=4),
+                                      device.generate(ids, max_new_tokens=4))
+        return
+    if what == "evict":
+        device.evict()
+        assert not any(device.layer_on_device)
+    elif what == "restore":
+        device.evict().restore()
+        assert all(device.layer_on_device)
+    assert torch.equal(streamed(ids), device(ids))

@@ -29,6 +29,16 @@ POLICIES = [None, "none", "full", "nothing_saveable", "save_flash", "dots", "dot
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def deterministic():
     previous = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)

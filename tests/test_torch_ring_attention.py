@@ -42,6 +42,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 def _inputs(s=256, t=256, n=4, kv=4, d=64, masked=False, seed=0):
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731

@@ -22,6 +22,16 @@ from accelerate_tpu_torch.serving import kv_cache, paging, scheduler
 IMPLEMENTATIONS = {"jax": (jax_kv_cache, jax_paging, jax_scheduler), "port": (kv_cache, paging, scheduler)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jax_model = JaxLlama("llama-tiny")

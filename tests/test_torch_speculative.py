@@ -38,6 +38,16 @@ from accelerate_tpu_torch.serving import SpeculativeConfig
 RTOL = ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 @pytest.fixture(scope="module")
 def models():
     """(jax model, jax params, port model) for llama-tiny (4 q heads on 2

@@ -54,6 +54,16 @@ LR = 1e-3
 MODEL = "llama-tiny"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """One intra-op thread: the suite runs several workers on the host's
+    cores, and torch's spinning threads slow each other down many times."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
 @pytest.fixture(scope="module")
 def init_params():
     return jax.tree.map(np.asarray, JaxLlama(MODEL).init(jax.random.key(0)))
