@@ -57,9 +57,9 @@ from .ops.fused_adamw import adamw, fused_adamw
 from .ops.paged_attention import paged_decode_attention, paged_verify_attention
 from .ops.quant_matmul import quant_dot, quant_matmul
 from .optimizer import AcceleratedOptimizer
-from .resilience import RetryPolicy
+from .resilience import FaultPlan, RetryPolicy
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
-from .serving import ServingEngine, SpeculativeConfig
+from .serving import ServingEngine, ServingRouter, SpeculativeConfig
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     CompilationConfig,
@@ -100,8 +100,10 @@ __all__ = [
     "QuantizationConfig",
     "QuantizedWeight",
     "ResumePoint",
+    "FaultPlan",
     "RetryPolicy",
     "ServingEngine",
+    "ServingRouter",
     "SpeculativeConfig",
     "T5",
     "adamw",

@@ -1,5 +1,7 @@
-"""Training across processes: the layout engine and the sharded update."""
+"""Training across processes: the layout engine and the sharded update, and
+the KV handoff's transfer leg of the redistribution primitive."""
 
+from .redistribute import RedistributeStageFailure
 from .sharding import (
     PartitionRules,
     fold_update_spec,
@@ -22,6 +24,7 @@ from .zero import (
 
 __all__ = [
     "PartitionRules",
+    "RedistributeStageFailure",
     "ShardedLayout",
     "build_zero_step",
     "fold_update_spec",

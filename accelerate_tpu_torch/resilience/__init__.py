@@ -1,7 +1,27 @@
-"""Resilience of the port: the retry policy that checkpoint I/O and the data
-loader ride. Guards, chaos, the failure detector, membership and elastic
-training come with ROADMAP item 18."""
+"""Resilience of the port: the retry policy that checkpoint I/O, the data
+loader and the serving fleet ride, the fleet's and the handoff's transient
+classifiers, the deterministic chaos plan and the wall-clock silence
+detector. Guards, membership, elastic training and the hub come with
+ROADMAP item 18."""
 
-from .retry import DEFAULT_IO_RETRY, RetryPolicy
+from .chaos import FaultPlan
+from .detector import SilenceDetector
+from .retry import (
+    DEFAULT_IO_RETRY,
+    FLEET_RETRY,
+    HANDOFF_RETRY,
+    RetryPolicy,
+    is_fleet_transient,
+    is_handoff_transient,
+)
 
-__all__ = ["DEFAULT_IO_RETRY", "RetryPolicy"]
+__all__ = [
+    "DEFAULT_IO_RETRY",
+    "FLEET_RETRY",
+    "FaultPlan",
+    "HANDOFF_RETRY",
+    "RetryPolicy",
+    "SilenceDetector",
+    "is_fleet_transient",
+    "is_handoff_transient",
+]

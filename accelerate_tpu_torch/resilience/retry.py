@@ -1,10 +1,11 @@
 """Retry policy: jittered exponential backoff over a transient-error
 classifier.
 
-Counterpart of ``accelerate_tpu/resilience/retry.py`` (``RetryPolicy``,
-``DEFAULT_IO_RETRY``), which the data loader's batch fetch and the
-checkpoint commit protocol ride. The fleet and handoff policies come with
-the serving fleet and disaggregation (ROADMAP items 14 and 18).
+Counterpart of ``accelerate_tpu/resilience/retry.py``: ``RetryPolicy`` and
+``DEFAULT_IO_RETRY``, which the data loader's batch fetch and the
+checkpoint commit protocol ride, and the serving fleet's classifiers and
+policies (``is_fleet_transient``/``FLEET_RETRY`` for placement,
+``is_handoff_transient``/``HANDOFF_RETRY`` for the live-KV handoff).
 
 Every backoff is reported through :data:`retry_hook` (``_notify``), the
 seam the telemetry hub will point at its sink (ROADMAP item 19).
@@ -95,3 +96,51 @@ class RetryPolicy:
 # the default for file I/O: the checkpoint commit protocol and the data
 # loader's batch fetch
 DEFAULT_IO_RETRY = RetryPolicy()
+
+
+def is_fleet_transient(exception: Exception) -> bool:
+    """The serving fleet's weather: a lost replica
+    (:class:`~..serving.fleet.ReplicaLost`) and a full queue
+    (:class:`~..serving.scheduler.QueueFull`) are ridden out by a re-home or
+    a backoff (the request is fine, its placement failed). Anything else
+    goes to the I/O classifier, so a malformed request (``ValueError``)
+    fails fast instead of bouncing around the fleet."""
+    from ..serving.fleet import ReplicaLost
+    from ..serving.scheduler import QueueFull
+
+    if isinstance(exception, (ReplicaLost, QueueFull)):
+        return True
+    return _default_classify(exception)
+
+
+# placement retries: a fleet re-offer happens once per router step, so the
+# backoff only paces callers that retry outside the step loop
+FLEET_RETRY = RetryPolicy(
+    max_attempts=6, base_delay=0.05, max_delay=2.0, classify=is_fleet_transient
+)
+
+
+def is_handoff_transient(exception: Exception) -> bool:
+    """The live-KV handoff's weather: a transfer that timed out or lost its
+    source (:class:`~..serving.fleet.HandoffLost`), a destination with no
+    free lane or pages (``QueueFull``) and a replica dying under the attempt
+    (``ReplicaLost``) are transient: the parked pages stay referenced at the
+    source, so a later attempt reads the same bits. A ``ValueError`` (the
+    pools' page geometry differs) ends the handoff, never the request: the
+    router re-prefills on the decode pool.
+
+    The router spends no retry budget on ``QueueFull``: it defers the
+    handoff to the next fleet step, since only stepping frees a pool."""
+    from ..serving.fleet import HandoffLost, ReplicaLost
+    from ..serving.scheduler import QueueFull
+
+    if isinstance(exception, (HandoffLost, ReplicaLost, QueueFull)):
+        return True
+    return _default_classify(exception)
+
+
+# handoff retries run inside a router step while the source's pages stay
+# parked: short jittered backoffs, then the fallback to re-prefill
+HANDOFF_RETRY = RetryPolicy(
+    max_attempts=3, base_delay=0.01, max_delay=0.2, classify=is_handoff_transient
+)

@@ -48,16 +48,23 @@ Counterpart of the paged core of ``accelerate_tpu/serving/engine.py``:
 - **drain and handoff**: ``drain`` stops admission and hands the queue back
   for re-homing; ``submit(prefill_only=True)`` parks a prefilled request's
   pages, ``extract_pages`` copies them to the host and ``adopt_kv`` seats
-  them on another engine, which decodes on from the parked position.
+  them on another engine, which decodes on from the parked position. The
+  router (``router.py``) drives these across a fleet;
+- **request tracing** (``tracer=``, ``telemetry/tracing.py``): the queued,
+  admitted, prefill, parked, decode, draft, verify, first-token and retired
+  spans of every request, stamped with ``name`` (the replica's name in a
+  fleet). Every stamp is a host-clock read at a point the engine already
+  synchronizes (submission, admission, park, retirement, the per-step token
+  fetch); decode marks and draft/verify spans are sampled every
+  ``tracer.sample_every`` steps.
 
 The pools are updated in place (prefill scatter, decode write-back, the
 copy-on-write page copy, the scrub), which is what buffer donation buys the
 JAX engine.
 
-Not in this port yet: request tracing and its spans (``tracer``, ROADMAP
-item 14) and the router's handoff ledger (item 14), the telemetry hub and its records (``telemetry=``,
-``kernel_summary``; item 19), chaos fault plans and the speculation chaos
-knob (``fault_plan``, ``spec_disable``; item 18) and program analysis
+Not in this port yet: the telemetry hub and its records (``telemetry=``,
+``kernel_summary``; ROADMAP item 19), chaos fault plans and the speculation
+chaos knob (``fault_plan``, ``spec_disable``; item 18) and program analysis
 (``analyze``; item 21).
 """
 
@@ -274,6 +281,8 @@ class ServingEngine:
         prefix_sharing: bool = True,
         prefix_cache_entries: int = 256,
         speculative: Optional[SpeculativeConfig] = None,
+        name: Optional[str] = None,
+        tracer=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -292,6 +301,8 @@ class ServingEngine:
                 "the draft pool shares the page tables"
             )
         self.model = model
+        # ``name`` tags this engine's trace spans: a router names each replica
+        self.name = name
         self.eos_token_id = eos_token_id
         self.temperature = float(temperature)
         self._sample = make_sampler(temperature)
@@ -342,6 +353,12 @@ class ServingEngine:
         self.max_probe_failures = max_probe_failures
         self.max_request_requeues = max_request_requeues
         self._probe_failures: dict[int, int] = {}
+        # request tracing: a fleet's engines and router share one tracer, so
+        # a handed-off request keeps one trace. Decode steps run so far (not
+        # reset by warmup) pace its sampled marks
+        self.tracer = tracer
+        self._steps = 0
+        self._prefill_open: set[int] = set()  # request ids with an open prefill span
         self._draining = False  # drain(): admit nothing, finish the active slots
         # prefill-only requests whose finished KV awaits a handoff: id -> layout
         # (pages still referenced in the pool, lane already free)
@@ -454,6 +471,13 @@ class ServingEngine:
             bucket = bucket_for(prefill_len, self.buckets)
             ids = np.zeros((1, bucket), np.int32)
             ids[0, :prefill_len] = request.prompt[:-1]
+            if self.tracer is not None:
+                # closed at this step's token fetch, the first host stamp
+                # after the prefill's device work
+                self.tracer.span_start(
+                    request.id, "prefill", replica=self.name, tokens=prefill_len, bucket=bucket
+                )
+                self._prefill_open.add(request.id)
             view = {"k": self.cache.k[:, slot : slot + 1, :bucket],
                     "v": self.cache.v[:, slot : slot + 1, :bucket], "length": 0}
             self._fwc(self._host_to_device(ids), view)  # logits dropped by design
@@ -461,6 +485,8 @@ class ServingEngine:
             self.stats.record_prefill(bucket)
         request.prefilled = prefill_len
         self._pending[slot] = request.prompt[-1]
+        if self.tracer is not None:
+            self.tracer.span_start(request.id, "decode", replica=self.name, slot=slot)
 
     def _scrub(self, freed: list[int], slot: int) -> None:
         """Zero what a quarantined slot leaves behind before it is reused:
@@ -647,6 +673,20 @@ class ServingEngine:
                 f"{e} — retry in ~{hint:.3f}s", queue_depth=e.queue_depth, retry_after_s=hint
             ) from None
         request.prefill_only = prefill_only
+        if self.tracer is not None and not self._warming:
+            # begin() is idempotent per id: a failover re-submit (or a
+            # handoff's fallback re-prefill) joins the request's trace with a
+            # fresh queued span that starts now; only the first queued span
+            # starts at submitted_at
+            rejoining = self.tracer.has(request.id)
+            self.tracer.begin(
+                request.id, stamp=request.submitted_at,
+                prompt_len=int(prompt.size), max_new_tokens=max_new_tokens,
+            )
+            self.tracer.span_start(
+                request.id, "queued", stamp=None if rejoining else request.submitted_at,
+                replica=self.name,
+            )
         self.stats.record_submit()
         return request.id
 
@@ -834,6 +874,13 @@ class ServingEngine:
             chunked_span = not self._warming and (
                 take < remaining or request.prefilled > request.prefix_hit
             )
+            if self.tracer is not None:
+                # one span per chunk, closed at the next token fetch
+                self.tracer.span_start(
+                    request.id, "prefill", replica=self.name,
+                    tokens=take, span=span, position=request.prefilled,
+                )
+                self._prefill_open.add(request.id)
             self._prefill(span, ids, self.cache.tables[slot], request.prefilled)
             if self.spec is not None and self.spec.enabled:
                 # mirror the span into the draft pool (same ids, row and
@@ -867,6 +914,12 @@ class ServingEngine:
                     self.cache.tables[slot, :blocks],
                 )
         if request.prefill_only:
+            if self.tracer is not None:
+                # the park ends this request's prefill here: the chunk span
+                # closes now, and `parked` stays open until the handoff acks,
+                # falls back or resumes
+                self._prefill_open.discard(request.id)
+                self.tracer.span_end(request.id, "prefill", stats=self.stats)
             pages = self.cache.park(slot)
             self._parked[request.id] = {
                 "pages": pages,
@@ -877,19 +930,28 @@ class ServingEngine:
                 "dtype": str(self.cache.dtype),
             }
             self._pending[slot] = 0
+            if self.tracer is not None:
+                self.tracer.span_start(request.id, "parked", replica=self.name, pages=len(pages))
             done = self.scheduler.retire(slot, "prefilled")
             self.stats.record_parked()
             return self._result_for(done)
         self.cache.lengths[slot] = prefill_len
         self.cache.active[slot] = True
         self._pending[slot] = request.prompt[-1]
+        if self.tracer is not None:
+            self.tracer.span_start(request.id, "decode", replica=self.name, slot=slot)
         return None
 
     def _preempt_slot(self, slot: int) -> None:
         """Recompute-style eviction: back to the queue head, pages freed."""
-        self.scheduler.preempt_slot(slot)
+        preempted = self.scheduler.preempt_slot(slot)
         self.cache.retire(slot)
         self._pending[slot] = 0
+        if self.tracer is not None:
+            # the residence ended: its spans close and the request waits again
+            self._prefill_open.discard(preempted.id)
+            self.tracer.interrupt(preempted.id, outcome="preempted")
+            self.tracer.span_start(preempted.id, "queued", replica=self.name, after="preempted")
         self.stats.record_preempted()
 
     def _reclaim_pages(self, slot: int, request: Request, retry) -> str:
@@ -1026,16 +1088,48 @@ class ServingEngine:
         limits, drafting = self._spec_limits(active_idx)
         window = np.zeros((self.cache.num_slots, spec.config.k + 1), np.int32)
         window[:, 0] = self._pending
+        # sampled draft/verify spans: one window every tracer.sample_every steps
+        spanned = []
+        if (
+            self.tracer is not None
+            and not self._warming
+            and (self._steps + 1) % self.tracer.sample_every == 0
+        ):
+            for slot in np.flatnonzero(drafting):
+                request = self.scheduler.slots[int(slot)]
+                if request is not None:
+                    spanned.append(int(slot))
+                    self.tracer.span_start(
+                        request.id, "draft", replica=self.name, k=spec.config.k, mode=spec.config.mode
+                    )
         if spec.config.mode == "tree" and drafting.any():
-            tokens, emit, finite, drafted, proposed = self._spec_tree_step(window, limits, drafting)
+            tokens, emit, finite, drafted, proposed = self._spec_tree_step(window, limits, drafting, spanned)
         else:
-            tokens, emit, finite, drafted, proposed = self._spec_linear_step(window, limits, drafting)
+            tokens, emit, finite, drafted, proposed = self._spec_linear_step(window, limits, drafting, spanned)
         if not self._warming and drafted.any():
             accepted = [max(int(emit[s]) - 1, 0) for s in np.flatnonzero(drafted)]
             self.stats.record_spec_step(proposed=proposed, accepted_lengths=accepted)
         return tokens, emit, finite, drafted
 
-    def _spec_linear_step(self, window, limits, drafting):
+    def _spans_to_verify(self, spanned, args) -> None:
+        """The sampled draft spans end and their verify spans start, with
+        ``args(slot)`` as the verify span's attributes."""
+        for slot in spanned:
+            request = self.scheduler.slots[slot]
+            if request is not None:
+                self.tracer.span_end(request.id, "draft", stats=self.stats)
+                self.tracer.span_start(request.id, "verify", replica=self.name, **args(slot))
+
+    def _end_verify_spans(self, spanned, accepted, emit) -> None:
+        for slot in spanned:
+            request = self.scheduler.slots[slot]
+            if request is not None:
+                self.tracer.span_end(
+                    request.id, "verify", stats=self.stats,
+                    accepted=int(accepted[slot]), emitted=int(emit[slot]),
+                )
+
+    def _spec_linear_step(self, window, limits, drafting, spanned=()):
         """Linear mode: one greedy draft chain per drafting slot (launch
         ``i`` consumes launch ``i-1``'s token at position ``length + i``),
         then one verify. Each launch is masked to the slots whose cap it
@@ -1062,10 +1156,12 @@ class ServingEngine:
             good = step_active & ok
             window[good, i + 1] = nxt[good]
             chain = np.where(good, nxt, chain).astype(np.int32)
-        tokens, _, emit, finite = self._verify(window, self.cache.active, limits, self.cache.tables)
+        self._spans_to_verify(spanned, lambda slot: {"window": len(window[slot])})
+        tokens, accepted, emit, finite = self._verify(window, self.cache.active, limits, self.cache.tables)
+        self._end_verify_spans(spanned, accepted, emit)
         return tokens, emit, finite, drafted, proposed
 
-    def _spec_tree_step(self, window, limits, drafting):
+    def _spec_tree_step(self, window, limits, drafting, spanned=()):
         """Tree mode: fork up to ``num_branches`` branches per drafting slot
         off the draft's top-B first tokens, verify each branch, commit the
         one the target agrees with longest.
@@ -1154,6 +1250,7 @@ class ServingEngine:
                 good = act & ok
                 wins[b][good, i + 1] = nxt[good]
                 chains[b] = np.where(good, nxt, chains[b]).astype(np.int32)
+        self._spans_to_verify(spanned, lambda slot: {"branches": int(nb[slot])})
         toks_b, acc_b, emit_b = [], [], []
         finite = None
         for b in range(max(bmax, 1)):
@@ -1170,6 +1267,7 @@ class ServingEngine:
             emit_b.append(emit)
         tokens = toks_b[0].copy()
         emit = emit_b[0].copy()
+        accepted = acc_b[0].copy()
         # commit: each tree slot's winner swaps in; every branch reference
         # drops (forked committed refs, loser pages and, for a winner b >= 1,
         # the replaced originals)
@@ -1191,11 +1289,24 @@ class ServingEngine:
                 self.cache.tables[slot, idx0:target] = rows[win][idx0:target]
                 tokens[slot] = toks_b[win][slot]
                 emit[slot] = emit_b[win][slot]
+                accepted[slot] = acc_b[win][slot]
+        self._end_verify_spans(spanned, accepted, emit)
         return tokens, emit, finite, drafted, proposed
 
     # -- the step -------------------------------------------------------------
 
     def _result_for(self, request: Request) -> ServingResult:
+        if self.tracer is not None and request.finish_reason is not None:
+            if request.finish_reason == "prefilled":
+                # not terminal: the router hands the parked KV on and the
+                # trace continues on the replica that decodes
+                self.tracer.event(request.id, "prefilled", stamp=request.finished_at, replica=self.name)
+            else:
+                self._prefill_open.discard(request.id)
+                self.tracer.retire(
+                    request.id, request.finish_reason, stamp=request.finished_at,
+                    stats=self.stats, replica=self.name,
+                )
         return ServingResult(
             request_id=request.id,
             prompt=request.prompt,
@@ -1249,6 +1360,10 @@ class ServingEngine:
             finished.append(self._result_for(done))
         else:
             self.scheduler.requeue_front(slot)
+            if self.tracer is not None:
+                self._prefill_open.discard(request.id)
+                self.tracer.interrupt(request.id, outcome="quarantined")
+                self.tracer.span_start(request.id, "queued", replica=self.name, after="quarantine")
             self.stats.record_requeue()
         freed = self.cache.quarantine(slot)  # the slab's quarantine frees no pages
         self._scrub(freed or [], slot)
@@ -1268,6 +1383,12 @@ class ServingEngine:
         t0 = time.perf_counter()
         finished = self._retire_degraded(t0)
         for slot, request in self.scheduler.admit_ready(self._free_slot):
+            if self.tracer is not None:
+                self.tracer.span_end(request.id, "queued", stamp=request.admitted_at, stats=self.stats)
+                self.tracer.event(
+                    request.id, "admitted", stamp=request.admitted_at,
+                    replica=self.name, slot=slot, prefix_hit=request.prefix_hit,
+                )
             if not self.paged:
                 self._prefill_dense(slot, request)
             elif self.spec is not None:
@@ -1310,6 +1431,7 @@ class ServingEngine:
             emit = np.ones((self.cache.num_slots,), np.int32)
         if self._watchdog is not None:
             self._watchdog.disarm()
+        self._steps += 1
         now = time.perf_counter()
         if (
             self.step_timeout_s is not None
@@ -1320,6 +1442,17 @@ class ServingEngine:
             # an oversized step that completed before the thread's poll saw it
             self._on_watchdog_trip(now - t0)
         self._decode_warm = True
+        if self.tracer is not None:
+            # `now` follows the token fetch: every prefill dispatched so far
+            # ran before it, and the sampled decode marks take its stamp
+            for rid in self._prefill_open:
+                self.tracer.span_end(rid, "prefill", stamp=now, stats=self.stats)
+            self._prefill_open.clear()
+            if self._steps % self.tracer.sample_every == 0:
+                for slot in active_idx:
+                    marked = self.scheduler.slots[slot]
+                    if marked is not None and self.cache.active[slot]:
+                        self.tracer.mark_decode(marked.id, self._steps, now)
         delivered = 0
         for slot in active_idx:
             request = self.scheduler.slots[slot]
@@ -1346,6 +1479,8 @@ class ServingEngine:
                 self.cache.lengths[slot] += 1
                 if request.first_token_at is None:
                     request.first_token_at = now
+                    if self.tracer is not None:
+                        self.tracer.event(request.id, "first_token", stamp=now, replica=self.name)
                     self.stats.record_first_token(request.ttft_s)
                 hit_eos = self.eos_token_id is not None and token == self.eos_token_id
                 if hit_eos or len(request.generated) >= request.max_new_tokens:
@@ -1538,6 +1673,11 @@ class ServingEngine:
             # whole history for the draft pool's catch-up before it drafts
             self.spec.draft_ok[slot] = True
             self.spec.draft_len[slot] = 0
+        if self.tracer is not None:
+            # a handed-off request joins its trace here: the decode span names
+            # the pool that streams
+            self.tracer.begin(request.id, prompt_len=int(prompt.size), max_new_tokens=max_new_tokens)
+            self.tracer.span_start(request.id, "decode", replica=self.name, slot=slot, adopted=True)
         self.stats.record_adopted()
         return request.id
 
@@ -1555,6 +1695,8 @@ class ServingEngine:
         parked = self._parked.pop(request_id, None)
         if parked is None:
             return False
+        if self.tracer is not None:
+            self.tracer.span_end(request_id, "parked", stats=self.stats, outcome="released")
         for page in parked["pages"]:
             self.cache.pages.decref(page)
         return True
@@ -1592,6 +1734,9 @@ class ServingEngine:
             # mirrored when the prefill ran here
             self.spec.draft_ok[slot] = True
             self.spec.draft_len[slot] = parked["length"]
+        if self.tracer is not None:
+            self.tracer.span_end(request_id, "parked", stats=self.stats, outcome="resumed")
+            self.tracer.span_start(request.id, "decode", replica=self.name, slot=slot, resumed=True)
         self.stats.record_adopted()
         return True
 

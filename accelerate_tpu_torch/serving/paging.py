@@ -253,6 +253,14 @@ class PagedKVCache:
         return self.pages.used_count
 
     @property
+    def page_occupancy(self) -> float:
+        return self.pages.occupancy
+
+    @property
+    def occupancy(self) -> float:
+        return self.lanes.occupancy
+
+    @property
     def quarantined(self) -> frozenset:
         return self.lanes.quarantined
 

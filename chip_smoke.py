@@ -233,7 +233,38 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     dispatch, t5-base's ``Seq2SeqStreamedModel.generate`` in fp32 equal to
     the all-device dispatch's, and two llama-125m under
     ``cpu_offload_with_hook`` taking turns, the card's allocated memory
-    back at its baseline after each ``offload()``.
+    back at its baseline after each ``offload()``;
+27. the serving fleet: llama-1b at full width and depth in bf16 with phase
+    3's weights and 16 prompts x 64 tokens, engines of 8 slots of 1024,
+    pages of 16, 64-token prefill chunks, each fleet warmed up first. (a)
+    ``ServingRouter`` over two mixed replicas of the one model, replica 1
+    killed at fleet step 16: results collected through ``step()``, each
+    request terminated exactly once, one death, failovers, tokens equal to
+    phase 3's (identical, or equal up to printed near-ties), paged-decode
+    launches = layers x every replica's decode forwards, the memory the
+    replicas add no more than their KV pools (no second copy of the
+    weights), decode p50/p99, TTFT and peak memory beside phase 3's; (b)
+    disaggregated roles (prefill, decode, decode) with a ``RequestTracer``
+    and an ``SLOMonitor``: every request handed off and adopted, tokens
+    equal to phase 3's, one complete trace a request across both pools
+    with its ``handoff_attempt`` spans, handoff p50/p99, pages and bytes
+    moved, the relay's GB/s beside a plain pinned copy's, the traces as
+    Perfetto JSON in ``FLEET_OUT`` (gitignored); then 4 requests whose first
+    handoff is lost (retried, adopted) and 4 whose every attempt is lost
+    (the retry budget spent, each re-prefilled on the decode pool), tokens
+    still equal; (c) phase 3's prompts on a seeded burst trace (mean rate
+    (a)'s requests a second, a 4x burst) through ``run_offered_load``
+    against 2 prefill + 2 decode replicas, fixed and with a
+    ``RoleRebalancer``: every request ran to its length, sheds == retries,
+    and the rebalancer flipped at least one replica with no thrash; (d)
+    ``serve_bench.main`` in process three times with llama-1b (1 prefill +
+    2 decode replicas, a lost handoff, traced; 2 int8 replicas under a
+    replica kill at offered load with mixed prompts; 2 speculative replicas
+    on a burst trace): every request of every point runs to its length, the
+    drill lines hold every request terminated exactly once, and each
+    kernel's launches after the warm-up equal layers x the target's
+    forwards (7 projections a layer for the int8 matmul; the draft's decode
+    launches a multiple of its layers).
 
 The JSON line's launch counts of the four training kernels are phase 14's
 run A, the ring variants' phase 21's rank 0; phases 15-18 print their own. The line before the last is a JSON
@@ -274,8 +305,10 @@ from accelerate_tpu_torch import (
     ParallelismConfig,
     PartialState,
     QuantizationConfig,
+    FaultPlan,
     QuantizedWeight,
     ServingEngine,
+    ServingRouter,
     SpeculativeConfig,
     adamw,
     dispatch_model,
@@ -298,6 +331,7 @@ from accelerate_tpu_torch.big_modeling import (
     load_checkpoint_and_dispatch,
 )
 from accelerate_tpu_torch.checkpointing import _save_flat, has_safetensors
+from accelerate_tpu_torch.commands import serve_bench
 from accelerate_tpu_torch.data_loader import BatchSampler, SeedableRandomSampler
 from accelerate_tpu_torch.examples import nlp_example
 from accelerate_tpu_torch.fault_tolerance import build_manifest, verify_checkpoint, write_manifest
@@ -308,7 +342,10 @@ from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_reference, bias_corrections
 from accelerate_tpu_torch.ops.quant_matmul import quant_matmul_reference
 from accelerate_tpu_torch.ops.runtime import build_kernel, build_log
+from accelerate_tpu_torch.resilience import HANDOFF_RETRY
+from accelerate_tpu_torch.serving import AutoscalePolicy, RoleRebalancer, make_burst_trace, run_offered_load
 from accelerate_tpu_torch.serving.engine import params_from_streamed
+from accelerate_tpu_torch.telemetry import RequestTracer, SLOMonitor, default_objectives, to_perfetto
 from accelerate_tpu_torch.utils.hf_import import export_hf_llama
 from accelerate_tpu_torch.utils.modeling import named_component_sizes
 from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves, tree_map
@@ -352,6 +389,10 @@ WRAPPERS = {"paged_decode": paged_decode_attention, "paged_verify": paged_verify
             "fused_adamw": adamw_leaf}  # each counts the launches of its kernel
 PROJECTIONS = 7  # wq wk wv wo w_gate w_up w_down: the quantized matrices of a layer
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+# phase 3's engine metrics, peak memory and wall: phase 27's fleet prints beside them
+PHASE3: dict = {}
 
 
 def reset_launches() -> None:
@@ -614,6 +655,7 @@ def phase_serving(card: str) -> tuple:
     counts = launch_counts()
     launches = counts["paged_decode"]
     m = engine.metrics()
+    PHASE3.update(m, peak_gib=torch.cuda.max_memory_allocated() / 2**30, wall_s=wall)
     steps = m["steps"]
     print(
         f"[serve] llama-1b bf16, 16 requests x 64 new tokens: {steps} decode steps, "
@@ -3992,6 +4034,372 @@ def phase_big_model(card: str, phase3_rows: list) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 27: the serving fleet ----------------------------------------------------
+
+FLEET_ENGINE = dict(num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
+FLEET_OUT = "chiprun_out"  # gitignored: phase 27's trace and serve-bench output
+
+
+def row_gaps(model, rows, prompts) -> list:
+    """Top-two logit gap at each generated position of ``rows`` (prompt +
+    generated), from one bf16 forward over each row: where phase 3's token
+    was a near-tie, another batching may break it the other way."""
+    gaps = []
+    with torch.no_grad():
+        for prompt, row in zip(prompts, rows):
+            logits = model(torch.tensor(row[None, :-1], device="cuda"))[0, prompt.size - 1 :]
+            top2 = torch.topk(logits.float(), 2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu().numpy())
+    return gaps
+
+
+def drive_fleet(router, prompts, new: int, seconds: float = 300.0):
+    """Submit ``prompts`` and collect results through ``step()`` (a dict
+    would hide a duplicate), launch counts reset just before. Returns (ids,
+    results, wall seconds, launch counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ids = [router.submit(p, max_new_tokens=new) for p in prompts]
+    results = []
+    while router.busy:
+        if time.perf_counter() - t0 > seconds:
+            raise AssertionError(f"the fleet did not drain in {seconds} s")
+        results.extend(router.step())
+    torch.cuda.synchronize()
+    return ids, results, time.perf_counter() - t0, launch_counts()
+
+
+def fleet_gates(tag, router, prompts, ids, results, want, gaps, new, counts) -> int:
+    """Every request terminated exactly once, as "length", with phase 3's
+    tokens up to near-ties; paged-decode launches = layers x the decode
+    forwards of every replica (a killed one's before its death included).
+    Returns the near-ties of the rows not identical to phase 3's."""
+    terminated = sorted(r.request_id for r in results)
+    if terminated != sorted(ids):
+        raise AssertionError(f"[{tag}] terminated {len(terminated)} results for {len(ids)} requests")
+    by_id = {r.request_id: r for r in results}
+    reasons = {by_id[i].finish_reason for i in ids}
+    if reasons != {"length"}:
+        raise AssertionError(f"[{tag}] finish reasons {reasons}")
+    rows = [np.concatenate([p, by_id[i].generated]) for p, i in zip(prompts, ids)]
+    want = [w[: p.size + new] for p, w in zip(prompts, want)]
+    # random weights in bf16 leave many exact top-two ties: a row equal to
+    # phase 3's token for token is reported as such, the others are
+    # compared up to their first near-tie
+    other = [i for i, (row, ref) in enumerate(zip(rows, want)) if not np.array_equal(row, ref)]
+    ties = compare_rows(tag, [prompts[i] for i in other], [rows[i] for i in other], [want[i] for i in other],
+                        [gaps[i][:new] for i in other], "phase 3")
+    print(f"[{tag}] {len(rows) - len(other)} of {len(rows)} requests' tokens identical to phase 3's; "
+          f"the other {len(other)} equal up to {ties} near-ties")
+    layers = router.replicas[0].engine.model.config.num_layers
+    decodes = sum(r.engine.forward_counts["decode"] for r in router.replicas)
+    if counts["paged_decode"] != layers * decodes or decodes == 0:
+        raise AssertionError(f"[{tag}] {counts['paged_decode']} decode launches for {layers} x {decodes}")
+    if counts["paged_verify"] or counts["quant_matmul"]:
+        raise AssertionError(f"[{tag}] the fleet launched other kernels: {counts}")
+    return ties
+
+
+def fleet_replicated(model, prompts, want, gaps, card: str) -> dict:
+    """(a): two mixed replicas over one model, replica 1 killed at fleet
+    step 16."""
+    layers = model.config.num_layers
+    torch.cuda.synchronize()
+    weights = torch.cuda.memory_allocated()
+    plan = FaultPlan(replica_kill_step=16, replica_kill_index=1)
+    router = ServingRouter(engine_factory=lambda: ServingEngine(model, **FLEET_ENGINE), num_replicas=2,
+                           fault_plan=plan)
+    router.warmup()
+    torch.cuda.synchronize()
+    pools = sum(r.engine.cache.k.nbytes + r.engine.cache.v.nbytes for r in router.replicas)
+    held = torch.cuda.memory_allocated() - weights
+    ids, results, wall, counts = drive_fleet(router, prompts, 64)
+    peak = torch.cuda.max_memory_allocated()
+    ties = fleet_gates("fleet-kill", router, prompts, ids, results, want, gaps, 64, counts)
+    m = router.metrics()
+    decodes = [r.engine.forward_counts["decode"] for r in router.replicas]
+    print(f"[fleet] (a) 2 mixed replicas of llama-1b bf16, replica 1 killed at fleet step 16: "
+          f"{len(results)} of {len(ids)} requests terminated exactly once, replica_deaths "
+          f"{router.replica_deaths}, failovers {router.failovers}, placements {router.placements}; tokens == "
+          f"phase 3's with {ties} ties; decode launches {counts['paged_decode']} = {layers} layers x "
+          f"{sum(decodes)} decode forwards {decodes}; wall {wall:.3f} s [{card}]")
+    print(f"[fleet] (a) decode step p50 {m['per_token_p50_ms']:.3f} ms p99 {m['per_token_p99_ms']:.3f} ms, "
+          f"TTFT p50 {m['ttft_p50_ms']:.1f} ms p99 {m['ttft_p99_ms']:.1f} ms, {m['throughput_tokens_per_sec']:.1f} "
+          f"tokens/s; phase 3's one engine: step p50 {PHASE3.get('per_token_p50_ms', math.nan):.3f} ms p99 "
+          f"{PHASE3.get('per_token_p99_ms', math.nan):.3f} ms, TTFT p50 {PHASE3.get('ttft_p50_ms', math.nan):.1f} "
+          f"ms p99 {PHASE3.get('ttft_p99_ms', math.nan):.1f} ms [{card}]")
+    print(f"[fleet] (a) memory: weights {weights / 2**30:.3f} GiB, the two replicas add "
+          f"{held / 2**30:.3f} GiB (their KV pools {pools / 2**30:.3f} GiB), peak {peak / 2**30:.3f} GiB "
+          f"against phase 3's one engine {PHASE3.get('peak_gib', math.nan):.3f} GiB [{card}]")
+    if router.replica_deaths != 1 or router.failovers < 1 or [e["fault"] for e in plan.events] != ["replica_kill"]:
+        raise AssertionError(f"the kill drill fired {plan.events}: deaths {router.replica_deaths}, "
+                             f"failovers {router.failovers}")
+    if held - pools >= weights / 2:
+        raise AssertionError(f"the replicas added {held} bytes beyond their pools {pools}: a copy of the weights")
+    out = {"rps": len(ids) / wall, "decode_p50_ms": m["per_token_p50_ms"]}
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def trace_gates(tracer, ids) -> dict:
+    """Every request one complete trace, spanning both pools, with its
+    handoff attempts. Returns the records by request."""
+    by_id = {}
+    for record in tracer.completed:
+        if record["request_id"] in by_id:
+            raise AssertionError(f"request {record['request_id']} owns two traces")
+        by_id[record["request_id"]] = record
+    if sorted(by_id) != sorted(ids) or tracer.open_count:
+        raise AssertionError(f"{len(by_id)} traces for {len(ids)} requests, {tracer.open_count} open")
+    for record in by_id.values():
+        spans = record["spans"]
+        retired = [s for s in spans if s["kind"] == "retired"]
+        if len(retired) != 1 or any(s["t1"] is None for s in spans):
+            raise AssertionError(f"trace {record['trace_id']} is not complete")
+        replicas = {s.get("replica") for s in spans if s.get("replica")}
+        if "replica0" not in replicas or not replicas & {"replica1", "replica2"}:
+            raise AssertionError(f"trace {record['trace_id']} stayed in {replicas}")
+        if not any(s["kind"] == "handoff_attempt" for s in spans):
+            raise AssertionError(f"trace {record['trace_id']} has no handoff_attempt span")
+    return by_id
+
+
+def fleet_disaggregated(model, prompts, want, gaps, card: str, replicated: dict) -> None:
+    """(b): a prefill replica and two decode replicas, every request traced
+    with the SLO monitor; then a lost handoff retried, and losses past the
+    retry budget falling back to re-prefill."""
+    slo = SLOMonitor(default_objectives(ttft_s=60.0, window_s=3600.0))
+    tracer = RequestTracer(slo=slo)
+    roles = ["prefill", "decode", "decode"]
+    router = ServingRouter(engine_factory=lambda: ServingEngine(model, **FLEET_ENGINE), num_replicas=3,
+                           roles=roles, tracer=tracer)
+    router.warmup()
+    ids, results, wall, counts = drive_fleet(router, prompts, 64)
+    ties = fleet_gates("fleet-disagg", router, prompts, ids, results, want, gaps, 64, counts)
+    by_id = trace_gates(tracer, ids)
+    m = router.metrics()
+    relay_s = sum(router.replicas[0].engine.stats.handoff_seconds)
+    moved = m["handoff_bytes_moved"]
+    pinned = pinned_copy_gbps(max(moved // max(m["handoffs_adopted"], 1), 1 << 20))
+    slo_line = ", ".join(f"{r['objective']} burn {r['burn_rate']}" for r in slo.evaluate(
+        stamp=max(r["t1"] for r in by_id.values())))
+    print(f"[fleet] (b) disaggregated llama-1b bf16 (prefill, decode, decode), traced: {m['handoffs_adopted']} of "
+          f"{len(ids)} requests handed off and adopted ({m['handoffs_retried']} retried, "
+          f"{m['handoff_fallbacks']} fell back); tokens == phase 3's with {ties} ties; decode launches "
+          f"{counts['paged_decode']}; {len(by_id)} complete traces, 0 open, each across both pools; "
+          f"wall {wall:.3f} s [{card}]")
+    print(f"[fleet] (b) handoff p50 {m['handoff_p50_ms']:.3f} ms p99 {m['handoff_p99_ms']:.3f} ms; "
+          f"{m['handoff_pages_moved']} pages, {moved} bytes moved; relay (device->host->device, adoption "
+          f"included) {moved / relay_s / 1e9:.3f} GB/s against a plain pinned host-to-device copy's "
+          f"{pinned:.2f} GB/s of one handoff's bytes [{card}]")
+    print(f"[fleet] (b) decode step p50 {m['per_token_p50_ms']:.3f} ms traced against (a)'s "
+          f"{replicated['decode_p50_ms']:.3f} ms untraced; TTFT p50 {m['ttft_p50_ms']:.1f} ms p99 "
+          f"{m['ttft_p99_ms']:.1f} ms; SLO: {slo_line} [{card}]")
+    if m["handoffs_adopted"] != len(ids):
+        raise AssertionError(f"{m['handoffs_adopted']} of {len(ids)} requests adopted, "
+                             f"{m['handoff_fallbacks']} fell back")
+    os.makedirs(FLEET_OUT, exist_ok=True)
+    with open(os.path.join(FLEET_OUT, "phase27_trace.json"), "w") as f:
+        json.dump(to_perfetto(list(by_id.values())), f)
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    new = 16
+    for tag, losses in (("retry", (0,)), ("fallback", tuple(range(HANDOFF_RETRY.max_attempts * 4)))):
+        plan = FaultPlan(handoff_loss_at=losses)
+        router = ServingRouter(engine_factory=lambda: ServingEngine(model, **FLEET_ENGINE), num_replicas=3,
+                               roles=roles, fault_plan=plan)
+        router.warmup()
+        sub = prompts[:4]
+        ids, results, wall, counts = drive_fleet(router, sub, new)
+        ties = fleet_gates(f"fleet-loss-{tag}", router, sub, ids, results, want, gaps, new, counts)
+        m = router.metrics()
+        print(f"[fleet] (b) handoff loss at attempts {losses[:4]}{'...' if len(losses) > 4 else ''}: "
+              f"{len(results)} of {len(ids)} terminated exactly once, {m['handoffs_adopted']} adopted, "
+              f"{m['handoffs_retried']} retried, {m['handoff_fallbacks']} fell back to re-prefill; tokens == "
+              f"phase 3's with {ties} ties; wall {wall:.3f} s [{card}]")
+        expected = (len(ids), 1, 0) if tag == "retry" else (0, 2 * len(ids), len(ids))
+        if (m["handoffs_adopted"], m["handoffs_retried"], m["handoff_fallbacks"]) != expected:
+            raise AssertionError(f"handoff-loss {tag}: adopted/retried/fell back "
+                                 f"{m['handoffs_adopted'], m['handoffs_retried'], m['handoff_fallbacks']}")
+        if router.replicas[0].engine.parked_count:
+            raise AssertionError(f"handoff-loss {tag}: the source kept parked pages")
+        del router
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def fleet_offered_load(model, prompts, card: str, rps: float) -> None:
+    """(c): phase 3's prompts on a Poisson trace at (a)'s saturation rate
+    with a 4x burst, against 2 prefill + 2 decode replicas, fixed and with
+    the rebalancer. The rebalancer's deadband is set low enough for these
+    16 requests to starve the decode pool (4 of its 16 slots busy) while
+    the prefill pool idles (at most 1 of its 16), so at least one prefill
+    replica drains and flips to decode."""
+    arrivals = make_burst_trace(len(prompts), rps, burst_multiplier=4.0, seed=SEED)
+    roles = ["prefill", "prefill", "decode", "decode"]
+    policy = AutoscalePolicy(cadence_steps=2, scale_up_pressure=0.25, scale_down_pressure=0.1,
+                             min_dwell_steps=8, cooldown_steps=20)
+    for tag, autoscale in (("fixed", None), ("rebalanced", RoleRebalancer(policy=policy))):
+        router = ServingRouter(engine_factory=lambda: ServingEngine(model, **FLEET_ENGINE), num_replicas=4,
+                               roles=roles, autoscale=autoscale)
+        router.warmup()
+        t0 = time.perf_counter()
+        point = run_offered_load(router, prompts, 64, arrival_times=arrivals, seed=SEED)
+        wall = time.perf_counter() - t0
+        flips = point.get("autoscale_flip_count", 0)
+        thrash = point.get("autoscale_thrash_count", 0)
+        print(f"[fleet] (c) burst trace ({len(prompts)} requests, base {rps:.2f} req/s, 4x burst, "
+              f"{arrivals[-1]:.2f} s of arrivals), 2 prefill + 2 decode, {tag}: {point['requests_completed']} of "
+              f"{point['offered_requests']} terminated, finish reasons {point['loadgen_finish_reasons']}, sheds "
+              f"{point['loadgen_sheds']} retries {point['loadgen_retries']}, flips {flips} (thrash {thrash}, "
+              f"aborted {point.get('autoscale_aborted_flips', 0)}), roles {[r.role for r in router.replicas]}, "
+              f"TTFT p50 {point['loadgen_ttft_p50_ms']:.1f} ms p99 {point['loadgen_ttft_p99_ms']:.1f} ms; wall "
+              f"{wall:.3f} s [{card}]")
+        if (point["requests_completed"] != point["offered_requests"]
+                or point["loadgen_finish_reasons"] != {"length": len(prompts)}
+                or point["loadgen_sheds"] != point["loadgen_retries"]):
+            raise AssertionError(f"offered load ({tag}): {point['requests_completed']} of "
+                                 f"{point['offered_requests']} terminated as {point['loadgen_finish_reasons']}, "
+                                 f"sheds {point['loadgen_sheds']} retries {point['loadgen_retries']}")
+        if autoscale is not None and (flips < 1 or thrash or point["autoscale_aborted_flips"]):
+            raise AssertionError(f"the rebalancer flipped {flips} times, thrash {thrash}, aborted "
+                                 f"{point['autoscale_aborted_flips']}")
+        del router
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# serve_bench's runs in (d): the disaggregated drill the fleet is built for,
+# then an int8 fleet (kernel 7) and a speculative one (kernel 6) over the
+# flags no other phase drives
+BENCH_ARGS = ["--model", "llama-1b", "--json", "--requests", "6", "--max-new-tokens", "16",
+              "--prompt-len-min", "16", "--prompt-len-max", "256", "--num-slots", "8", "--max-len", "1024",
+              "--page-size", "16", "--prefill-chunk", "64"]
+BENCH_RUNS = {
+    "disagg": ["--prefill-replicas", "1", "--decode-replicas", "2", "--chaos", "handoff-loss", "--trace"],
+    "int8": ["--replicas", "2", "--int8", "--chaos", "replica-kill", "--offered-load", "4", "--mixed"],
+    "spec": ["--replicas", "2", "--speculative", "--trace-load", "burst", "--trace-load-rps", "8"],
+}
+
+
+def bench_run(run: str, card: str) -> dict:
+    """One serve_bench run in process; every point's requests must run to
+    their length, and each kernel's launches must equal what the target's
+    (and the draft's) forwards make."""
+    import contextlib
+    import io
+
+    directory = os.path.join(FLEET_OUT, f"phase27_serve_bench_{run}")
+    argv = [*BENCH_ARGS, *BENCH_RUNS[run], "--trace-dir", directory]
+    buffer = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buffer):
+        rc = serve_bench.main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"serve_bench ({run}) returned {rc}: {buffer.getvalue()[-2000:]}")
+    payload = json.loads(buffer.getvalue().strip().splitlines()[-1])
+    n = payload["requests"]
+    points = payload["sweep"] + [payload[k] for k in ("chaos_drill",) if k in payload]
+    if "load_trace" in payload:
+        points.append(payload["load_trace"]["point"])
+    for point in points:
+        if point["requests_completed"] != n or point["loadgen_finish_reasons"] != {"length": n}:
+            raise AssertionError(f"serve_bench ({run}): {point['requests_completed']} of {n} requests "
+                                 f"terminated as {point['loadgen_finish_reasons']}")
+    layers = get_config("llama-1b").num_layers
+    fwd, got = payload["forwards"], payload["kernel_launches"]
+    want = {"paged_decode": layers * fwd["decode"], "paged_verify": layers * fwd["verify"],
+            "quant_matmul": PROJECTIONS * layers * (fwd["prefill"] + fwd["decode"]) if payload["int8"] else 0}
+    draft = 0
+    if payload["speculative"] is not None:
+        # the half-depth draft decodes through the decode kernel too
+        draft_layers = max(1, layers // 2)
+        draft = got["paged_decode"] - want["paged_decode"]
+        if draft <= 0 or draft % draft_layers or fwd["verify"] == 0:
+            raise AssertionError(f"serve_bench ({run}): {got} launches for {fwd} forwards")
+        want["paged_decode"] = got["paged_decode"]
+    if got != want or fwd["decode"] + fwd["verify"] == 0:
+        raise AssertionError(f"serve_bench ({run}): launches {got} for {fwd} forwards, expected {want}")
+    print(f"[fleet] (d) serve_bench {' '.join(BENCH_RUNS[run])}: {len(points)} points of {n} requests each ran "
+          f"to length; launches {got} = {layers} layers x target forwards {fwd}"
+          + (f" (quant_matmul {PROJECTIONS} projections a layer)" if payload["int8"] else "")
+          + (f" + {draft} draft decode launches" if draft else "")
+          + f"; saturation {payload['sweep'][-1]['throughput_tokens_per_sec']:.1f} tokens/s; wall {wall:.1f} s "
+          f"[{card}]")
+    return payload
+
+
+def fleet_serve_bench(card: str) -> None:
+    """(d): serve-bench in process on the card with llama-1b: 1 prefill + 2
+    decode replicas, a lost handoff, traced; then 2 int8 replicas under a
+    replica kill at offered load with mixed prompts; then 2 speculative
+    replicas on a burst trace."""
+    payload = bench_run("disagg", card)
+    drill = payload["chaos_drill"]
+    sat = payload["sweep"][-1]
+    print(f"[fleet] (d) disagg: saturation {sat['requests_completed']}/{sat['offered_requests']} completed, "
+          f"{sat['throughput_tokens_per_sec']:.1f} tokens/s, handoff p50 {sat.get('handoff_p50_ms', math.nan):.3f} "
+          f"ms; drill: {drill['accounted']}/{drill['offered_requests']} terminated exactly once, "
+          f"{drill['handoffs_retried']} retried, {drill['handoff_fallbacks']} fell back, {drill['handoffs_adopted']} "
+          f"adopted; traces {payload['trace']['traces_completed']} completed {payload['trace']['traces_open']} "
+          f"open; slowest: {drill.get('slowest_trace')} [{card}]")
+    if drill["accounted"] != drill["offered_requests"] or drill["handoffs_retried"] < 1 or payload["trace"][
+            "traces_open"]:
+        raise AssertionError(f"serve_bench's drill: {drill['accounted']} of {drill['offered_requests']} "
+                             f"accounted, {drill['handoffs_retried']} retries, {payload['trace']['traces_open']} "
+                             f"open traces")
+    payload = bench_run("int8", card)
+    drill = payload["chaos_drill"]
+    print(f"[fleet] (d) int8: offered {payload['sweep'][0]['offered_rps']} req/s then saturation, "
+          f"{payload['sweep'][-1]['throughput_tokens_per_sec']:.1f} tokens/s; kill drill: {drill['accounted']}/"
+          f"{drill['offered_requests']} terminated exactly once, replica_deaths {drill['replica_deaths']}, "
+          f"failovers {drill['failovers']} [{card}]")
+    if drill["replica_deaths"] != 1 or drill["accounted"] != drill["offered_requests"]:
+        raise AssertionError(f"serve_bench's int8 kill drill: {drill}")
+    payload = bench_run("spec", card)
+    sat = payload["sweep"][-1]
+    print(f"[fleet] (d) speculative: saturation {sat['throughput_tokens_per_sec']:.1f} tokens/s, "
+          f"{sat.get('spec_accepted_tokens', 0)}/{sat.get('spec_proposed_tokens', 0)} draft tokens accepted; "
+          f"burst trace TTFT p99 {payload['load_trace']['point']['loadgen_ttft_p99_ms']:.1f} ms [{card}]")
+
+
+def phase_fleet(card: str, phase3_rows: list) -> None:
+    """The serving fleet over llama-1b at full width and depth in bf16 with
+    phase 3's weights and traffic: (a) replicated with a replica kill, (b)
+    disaggregated and traced with handoff losses, (c) offered load with and
+    without the rebalancer, (d) serve_bench."""
+    t0 = time.perf_counter()
+    model = Llama("llama-1b", dtype=torch.bfloat16, seed=SEED)
+    prompts = serving_prompts(np.random.default_rng(SEED), model.config.vocab_size)
+    want = [np.concatenate([p, g]) for p, g in zip(prompts, phase3_rows)]
+    gaps = row_gaps(model, want, prompts)
+    parts = {}
+    start = time.perf_counter()
+    replicated = fleet_replicated(model, prompts, want, gaps, card)
+    parts["(a)"] = time.perf_counter() - start
+    start = time.perf_counter()
+    fleet_disaggregated(model, prompts, want, gaps, card, replicated)
+    parts["(b)"] = time.perf_counter() - start
+    start = time.perf_counter()
+    fleet_offered_load(model, prompts, card, replicated["rps"])
+    parts["(c)"] = time.perf_counter() - start
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    fleet_serve_bench(card)
+    parts["(d)"] = time.perf_counter() - start
+    print("[fleet] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4047,6 +4455,7 @@ def main() -> int:
     timed("phase 24 gpt2-124m training", phase_gpt2_training, card)
     timed("phase 25 the engine's quarantine, watchdog, dense slab and handoff", phase_engine_surface, card)
     timed("phase 26 big-model inference", phase_big_model, card, serving_rows)
+    timed("phase 27 the serving fleet", phase_fleet, card, serving_rows)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

@@ -26,14 +26,12 @@ Tolerances, and why:
 
 import ast
 import os
-import pickle
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import optax
 import pytest
-from filelock import FileLock
 
 import jax
 import jax.numpy as jnp
@@ -67,6 +65,7 @@ from accelerate_tpu_torch.utils.params import flatten_tree, tree_paths
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_parallel_workers as workers  # noqa: E402 - the launches' processes import it by this name
+from torch_shared import once  # noqa: E402
 
 MODEL = workers.MODEL
 LR = workers.LR
@@ -105,21 +104,6 @@ def _reset():
     AcceleratorState._reset_state()
     GradientState._reset_state()
     PartialState._reset_state()
-
-
-def _once(request, tmp_path_factory, name, compute):
-    """``compute()`` once per session: under xdist the first worker to ask
-    computes and pickles it under the session's shared temporary directory,
-    the others read it."""
-    if getattr(request.config, "workerinput", None) is None:
-        return compute()
-    path = tmp_path_factory.getbasetemp().parent / f"torch_parallel_{name}.pkl"
-    with FileLock(str(path) + ".lock"):
-        if path.is_file():
-            return pickle.loads(path.read_bytes())
-        data = compute()
-        path.write_bytes(pickle.dumps(data))
-        return data
 
 
 def _shared_dir(tmp_path_factory, request, name):
@@ -255,7 +239,7 @@ def launches(request, tmp_path_factory, init_params, batches, bert_params, gpt2_
         out["port_checkpoint"] = str(ckpt / "port")
         return out
 
-    return _once(request, tmp_path_factory, "launches", compute)
+    return once(request, tmp_path_factory, "torch_parallel_launches", compute)
 
 
 # -- (i) the layout engine ------------------------------------------------------

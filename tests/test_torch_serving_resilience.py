@@ -468,9 +468,8 @@ def test_adopted_slot_catches_the_draft_up_and_speculates(pair):
 def test_snapshot_keys_cover_the_jax_degradation_and_handoff_counters():
     """Every request, slot and watchdog counter key of the JAX
     ``ServingStats.snapshot`` is in the port's and records the same way,
-    the handoff's parked/adopted counts included. The router's transfer
-    ledger (``handoff*``) is absent until the router is ported, and so is
-    every ``record_handoff*``."""
+    the handoff's parked/adopted counts included, and so is the router's
+    transfer ledger (``handoff*``, recorded through ``record_handoff*``)."""
     from accelerate_tpu.telemetry.serving import ServingStats as JaxServingStats
     from accelerate_tpu_torch.telemetry.serving import ServingStats
 
@@ -483,5 +482,14 @@ def test_snapshot_keys_cover_the_jax_degradation_and_handoff_counters():
     assert len(keys) >= 14
     for key in keys:
         assert got.snapshot()[key] == want.snapshot()[key], key
-    assert not [k for k in got.snapshot() if k.startswith("handoff")]
-    assert not [n for n in dir(got) if n.startswith("record_handoff")]
+    for stats in (want, got):
+        stats.record_handoff_attempt()
+        stats.record_handoff_retry()
+        stats.record_handoff_fallback()
+        stats.record_handoff(2, 4096, 0.001)
+    ledger = [k for k in want.snapshot() if k.startswith("handoff")]
+    assert len(ledger) >= 6
+    for key in ledger:
+        assert got.snapshot()[key] == pytest.approx(want.snapshot()[key], abs=5e-4), key
+    assert sorted(n for n in dir(got) if n.startswith("record_handoff")) == sorted(
+        n for n in dir(want) if n.startswith("record_handoff"))
