@@ -64,6 +64,7 @@ from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     CompilationConfig,
     DistributedType,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
@@ -85,6 +86,7 @@ __all__ = [
     "CheckpointManager",
     "CompilationConfig",
     "DistributedType",
+    "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "GPT2",
     "GradientAccumulationPlugin",

@@ -44,7 +44,13 @@ sharded update, the JAX package's default on such a mesh, with params
 stored in the folded 1/N layout; ``ParallelismConfig(zero_stage=0)`` keeps
 the replicated update, whose gradients are all-reduced to the mean; FSDP
 stages 1/2 keep the params whole and shard the update, and ``cpu_offload``
-keeps the optimizer state in host memory. The resilience, telemetry and
+keeps the optimizer state in host memory. The ``tensor`` and ``expert``
+axes split the params by the models' rules and the forward runs on this
+process's slices (``parallel/tensor_parallel.py``); the update runs where
+they are stored, the ZeRO fold being ineligible there as in the JAX
+package (``fsdp`` and ``tensor`` together: the rules' fsdp split of each
+leaf's largest free dim, stage 3). ``mixed_precision="fp8"`` runs the
+projections through e4m3 products (``ops/fp8.py``). The resilience, telemetry and
 analysis branches wait for later slices (ROADMAP items 18, 19, 21): their
 methods raise ``NotImplementedError`` naming the item.
 """
@@ -64,9 +70,10 @@ from .ops import operations as ops
 from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value, scaled_optimizer_update
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, job_world_size
-from .utils.constants import MESH_AXIS_SEQUENCE
+from .utils.constants import MESH_AXIS_DATA, MESH_AXIS_FSDP, MESH_AXIS_SEQUENCE, MESH_AXIS_TENSOR
 from .utils.dataclasses import (
     CompilationConfig,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
@@ -113,11 +120,12 @@ class PreparedModel:
         self.policy = policy
 
     def __call__(self, *args, **kwargs):
-        """The module's ``apply`` over the compute-dtype cast of the whole
-        params, without gradients. Under a sequence axis every process of a
+        """The module's ``apply`` over the compute-dtype cast of the params
+        (whole, or this process's slices under a tensor or expert axis),
+        without gradients. Under a sequence axis every process of a
         sequence group passes the same global rows and gets its chunk's
         outputs (:meth:`sequence_span`)."""
-        params = self.full_params()
+        params = self.compute_params()
         with torch.no_grad():
             if self.policy is not None:
                 params = cast_floating(params, self.policy.compute_dtype)
@@ -134,6 +142,13 @@ class PreparedModel:
     def full_params(self) -> dict:
         """The whole params (gathered from the shards: a collective when
         they are split, which every process calls)."""
+        if self.layout is None or not self.layout.shards_params:
+            return self.params
+        return self.layout.gather_whole(self.params)
+
+    def compute_params(self) -> dict:
+        """The params the forward takes: gathered over the batch axes, this
+        process's slices over the tensor and expert axes (a collective)."""
         if self.layout is None or not self.layout.shards_params:
             return self.params
         return self.layout.gather_params(self.params)
@@ -163,17 +178,21 @@ class Accelerator:
         plain version. The loader options (``device_placement``,
         ``split_batches``, ``even_batches``, ``dispatch_batches``) are the
         defaults of ``prepare_data_loader``. An ``InitProcessGroupKwargs``
-        among ``kwargs_handlers`` says how the processes meet."""
+        among ``kwargs_handlers`` says how the processes meet, an
+        ``FP8RecipeKwargs`` the fp8 recipe."""
         if fsdp_plugin is not None and parallelism is None:
             parallelism = ParallelismConfig(fsdp=fsdp_plugin.fsdp_size or job_world_size())
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
             self.project_configuration.set_directories(project_dir)
         self.loss_scale_kwargs: Optional[LossScaleKwargs] = None
+        self.fp8_recipe: Optional[FP8RecipeKwargs] = None
         init_kwargs = None
         for handler in kwargs_handlers or []:
             if isinstance(handler, LossScaleKwargs):
                 self.loss_scale_kwargs = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe = handler
             elif isinstance(handler, InitProcessGroupKwargs):
                 init_kwargs = handler
         self.state = AcceleratorState(mixed_precision=mixed_precision, parallelism=parallelism, device=device,
@@ -325,10 +344,14 @@ class Accelerator:
     # -- prepare ---------------------------------------------------------------
 
     def _partition_rules(self, module: Any):
-        """The model's partition rules; FSDP stages 1 and 2 keep params whole."""
+        """The rules a model adds for its tensor group (``tensor_rules``:
+        gpt2's fused qkv by heads, llama's kv heads fewer than the group),
+        then its partition rules; FSDP stages 1 and 2 keep params whole."""
         from .parallel.sharding import PartitionRules
 
         rules = list(module.partition_rules()) if hasattr(module, "partition_rules") else []
+        if hasattr(module, "tensor_rules"):
+            rules = list(module.tensor_rules(self.state.mesh_shape[MESH_AXIS_TENSOR])) + rules
         stage3 = self.fsdp_plugin is None or self.fsdp_plugin.stage >= 3
         return PartitionRules(rules, fsdp_plugin=self.fsdp_plugin, apply_fsdp_to_params=stage3)
 
@@ -346,6 +369,14 @@ class Accelerator:
         in the JAX package: each process then runs its chunk of the
         sequence, and the losses and gradients are summed over the group
         (``parallel/zero.py``).
+        Under a tensor or expert axis a model with the
+        ``tensor_parallel``/``expert_parallel`` hooks gets its groups
+        (``parallel/tensor_parallel.py``) and runs on this process's slices
+        of the params: Megatron-style projections, vocab-parallel embedding
+        and loss, the expert exchange; a model without them runs replicated
+        over those axes. ``mixed_precision="fp8"`` installs ``ops.fp8``'s
+        product (with the ``FP8RecipeKwargs`` margin) as the model's
+        ``dot_fn``; a model without that hook raises.
         A model with the ``remat_layers`` hook checkpoints each layer under
         the config's ``remat_policy``; the step wraps the whole loss
         function of any other model instead.
@@ -386,8 +417,18 @@ class Accelerator:
                 )
             else:
                 model.attention_fn = None
-        if hasattr(model, "dot_fn"):
+        if self.state.mixed_precision == "fp8":
+            self._install_fp8(model)
+        elif hasattr(model, "dot_fn"):
             model.dot_fn = None
+        if hasattr(model, "tensor_parallel") or hasattr(model, "expert_parallel"):
+            from .parallel.tensor_parallel import model_parallel_groups
+
+            tensor, expert = model_parallel_groups(self.state) if self.num_processes > 1 else (None, None)
+            if hasattr(model, "tensor_parallel"):
+                model.tensor_parallel = tensor
+            if hasattr(model, "expert_parallel"):
+                model.expert_parallel = expert
         if hasattr(model, "remat_layers"):
             # per layer, not the outer loss-fn wrap, which for the dot
             # policies would keep every layer's products alive at once;
@@ -400,6 +441,36 @@ class Accelerator:
         prepared = PreparedModel(model, tree, layout, self.state.precision_policy)
         self._models.append(prepared)
         return prepared
+
+    def _install_fp8(self, model: Any) -> None:
+        """fp8: e4m3 per-tensor-scaled projection products (``ops/fp8.py``)
+        through the model's ``dot_fn``. Over the batch axes the scales and
+        the weights' cast cotangents are the whole global batch's, as in
+        the JAX package (``ops.fp8.Fp8Rows``). A sequence axis raises: its
+        processes may run the same rows (a length the ring does not
+        divide), which the product cannot tell from split ones."""
+        if not hasattr(model, "dot_fn"):
+            raise NotImplementedError(
+                f"mixed_precision='fp8' needs a model with fp8-capable projections (a `dot_fn` hook, "
+                f"like the model zoo's Llama/Bert); {type(model).__name__} has none. Use 'bf16' or add the hook."
+            )
+        from .ops.fp8 import Fp8Rows, fp8_dot, make_fp8_dot
+
+        sizes = self.state.mesh_shape
+        if sizes[MESH_AXIS_SEQUENCE] > 1:
+            raise NotImplementedError(
+                "mixed_precision='fp8' under a sequence axis (the e4m3 scales of chunks that may "
+                "repeat the same rows) is not in the port yet (ROADMAP item 16)"
+            )
+        margin = self.fp8_recipe.margin if self.fp8_recipe is not None else 0
+        axes = tuple(a for a in (MESH_AXIS_DATA, MESH_AXIS_FSDP) if sizes[a] > 1)
+        if not axes:
+            model.dot_fn = make_fp8_dot(margin) if self.fp8_recipe is not None else fp8_dot
+            return
+        coords = self.state.mesh_coords
+        both = self.state.group(axes + (MESH_AXIS_TENSOR,)) if sizes[MESH_AXIS_TENSOR] > 1 else None
+        rows = Fp8Rows(self.state.group(axes), both, all(coords[a] == 0 for a in axes))
+        model.dot_fn = make_fp8_dot(margin, rows)
 
     @torch.no_grad()
     def _distribute(self, model: Any, tree: dict):

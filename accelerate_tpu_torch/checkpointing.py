@@ -26,7 +26,9 @@ every process takes part, the main process writes), and ``sharded=True``
 writes the JAX package's sharded format: each process writes only the
 chunks it holds (``model_<i>.shard<p>.safetensors`` with a
 ``.index.json`` naming each chunk ``"path@start0,start1,..."`` by its global
-offset), so neither side gathers. Either format loads into any number of
+offset), so neither side gathers. A leaf split over the tensor axis is
+written as this process's slice; gpt2's fused ``wqkv``, whose process holds
+the q, k and v columns of its heads, as three chunks, one a block. Either format loads into any number of
 processes, and into the JAX package on any mesh, since the chunks carry
 their offsets. The chaos harness's ``probe_io`` before a load comes with
 the resilience slice (ROADMAP item 18).
@@ -191,13 +193,14 @@ def _save_chunks(entries: list, save_directory: str, weights_name: str, safe_ser
     for path, leaf, spec in entries:
         value = to_numpy(leaf)
         if layout is None:
-            shape, start, writes = value.shape, (0,) * value.ndim, state.is_main_process
+            shape, pieces, writes = value.shape, [((0,) * value.ndim, value)], state.is_main_process
         else:
-            shape = layout.full_shape(value.shape, spec)
-            start, writes = layout.chunk_start(shape, spec), layout.writes_chunk(spec)
+            shape, writes = layout.full_shape(value.shape, spec), layout.writes_chunk(spec)
+            pieces = layout.chunks(value, spec) if writes else []
         tensors[path] = {"shape": list(shape), "dtype": str(value.dtype)}
         if writes:
-            chunks[_chunk_key(path, start)] = np.array(value, order="C")  # keeps a scalar 0-d
+            for start, piece in pieces:  # a fused weight split as blocks: a chunk a block
+                chunks[_chunk_key(path, start)] = np.array(piece, order="C")  # keeps a scalar 0-d
     base, ext = os.path.splitext(weights_name)
     shard_name = f"{base}.shard{proc:05d}{ext}"
     _save_flat(chunks, os.path.join(save_directory, shard_name), safe_serialization)

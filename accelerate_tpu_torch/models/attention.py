@@ -65,10 +65,17 @@ def seeded_generator(seed: Optional[int], device) -> Optional[torch.Generator]:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def draw_seeds(generator: torch.Generator, n: int) -> list[int]:
+def draw_seeds(generator: torch.Generator, n: int, replicas=None) -> list[int]:
     """``n`` seeds from ``generator``, on its device (a CUDA generator's
-    draw waits for the card once)."""
-    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+    draw waits for the card once). ``replicas`` (the ``replicas`` of a
+    ``parallel.tensor_parallel`` group): the processes that hold the same
+    activations under a tensor or expert axis take their first process's
+    seeds, so a replicated activation gets one mask on every one of them,
+    the mask one process would draw at its global shape."""
+    seeds = torch.randint(0, 2**62, (n,), generator=generator, device=generator.device)
+    if replicas is not None:
+        replicas.broadcast(seeds)
+    return seeds.tolist()
 
 
 def sequence_chunk(attention_fn, length: int):

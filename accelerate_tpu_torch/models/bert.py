@@ -24,6 +24,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.tensor_parallel import (
+    column_products,
+    copy_to,
+    gather_last,
+    replicas_of,
+    row_product,
+    split_or_none,
+    vocab_embedding,
+)
 from ..utils.constants import MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
 from .attention import (
     dense_init,
@@ -102,6 +111,8 @@ class Bert(nn.Module):
         # hooks set by Accelerator.prepare_model (see models/llama.py)
         self.dot_fn = None
         self.attention_fn = None
+        # the tensor group (parallel/tensor_parallel.py), set by Accelerator.prepare_model
+        self.tensor_parallel = None
         self.remat_layers = False
         device = resolve_device(device)
         for group, shapes in bert_shapes(cfg).items():
@@ -146,8 +157,10 @@ class Bert(nn.Module):
                 for group, shapes in bert_shapes(self.config).items()}
 
     def partition_rules(self) -> list[tuple[str, tuple]]:
-        """The JAX package's layout rules (every named axis has size 1 in the
-        port, which runs the data and fsdp axes)."""
+        """The JAX package's layout rules (Megatron-style under the tensor
+        axis: q, k, v and the MLP's up projection by columns, the output
+        projections by rows, the word embedding by the vocab, the pooler by
+        columns)."""
         t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
         return [
             (r"embeddings/word", (t, None)),
@@ -200,12 +213,12 @@ class Bert(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         input_ids, token_type_ids = input_ids[:, start:stop], token_type_ids[:, start:stop]
-        h = emb["word"][input_ids.long()] + emb["position"][position_ids.long()] + emb["token_type"][
-            token_type_ids.long()]
+        word = vocab_embedding(emb["word"], input_ids, self.tensor_parallel, cfg.vocab_size)
+        h = word + emb["position"][position_ids.long()] + emb["token_type"][token_type_ids.long()]
         h = layer_norm(h, emb["norm_scale"], emb["norm_bias"], cfg.norm_eps)
         seeds = [None] * (1 + 2 * cfg.num_layers)
         if dropout_generator is not None and cfg.dropout_rate > 0.0:
-            seeds = draw_seeds(dropout_generator, 1 + 2 * cfg.num_layers)
+            seeds = draw_seeds(dropout_generator, 1 + 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
             h = dropout(h, cfg.dropout_rate, seeded_generator(seeds[0], h.device))
         mask = None
         if attention_mask is not None:
@@ -220,30 +233,45 @@ class Bert(nn.Module):
         for i in range(cfg.num_layers):
             args = (h, {name: w[i] for name, w in per_key.items()}, seeds[1 + 2 * i], seeds[2 + 2 * i])
             h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
-        pooled = torch.tanh(h[:, 0] @ params["pooler"]["w"] + params["pooler"]["b"])
+        pooled = self._pool(h[:, 0], params["pooler"])
         logits = pooled @ params["classifier"]["w"] + params["classifier"]["b"]
         return logits if start == 0 and counts else logits * 0.0
 
+    def _pool(self, first: torch.Tensor, pooler: dict) -> torch.Tensor:
+        """``tanh(first @ w + b)``; under the tensor axis ``w`` holds this
+        process's columns and the (whole) bias its slice, gathered after."""
+        tp = split_or_none(self.tensor_parallel, pooler["w"].shape[-1], self.config.hidden_size)
+        if tp is None:
+            return torch.tanh(first @ pooler["w"] + pooler["b"])
+        width = pooler["w"].shape[-1]
+        bias = copy_to(pooler["b"], tp)[tp.rank * width:(tp.rank + 1) * width]
+        return gather_last(torch.tanh(column_products(first, torch.matmul, tp)(pooler["w"]) + bias), tp)
+
     def _block(self, h, lp: dict, mask, generators=(None, None), kv_mask=None, attention_fn=None) -> torch.Tensor:
         """One encoder layer (post-norm): attention, dropout, residual,
-        layernorm; gelu MLP, dropout, residual, layernorm."""
+        layernorm; gelu MLP, dropout, residual, layernorm. Where ``lp`` holds
+        this process's slices over the tensor axis the products are column-
+        and row-parallel and attention runs on its heads."""
         cfg = self.config
         dot = resolve_dot(self.dot_fn)
         b, s, _ = h.shape
-        nh = cfg.num_heads
-        d = cfg.hidden_size // nh
-        q = (dot(h, lp["wq"]) + lp["bq"]).reshape(b, s, nh, d)
-        k = (dot(h, lp["wk"]) + lp["bk"]).reshape(b, s, nh, d)
-        v = (dot(h, lp["wv"]) + lp["bv"]).reshape(b, s, nh, d)
+        d = cfg.hidden_size // cfg.num_heads
+        tp = split_or_none(self.tensor_parallel, lp["wq"].shape[-1], cfg.hidden_size)
+        nh = lp["wq"].shape[-1] // d
+        proj = column_products(h, dot, tp)
+        q = (proj(lp["wq"]) + lp["bq"]).reshape(b, s, nh, d)
+        k = (proj(lp["wk"]) + lp["bk"]).reshape(b, s, nh, d)
+        v = (proj(lp["wv"]) + lp["bv"]).reshape(b, s, nh, d)
         if attention_fn is not None:
             attn = attention_fn(q, k, v, kv_mask)
         else:
             attn = dot_product_attention(q, k, v, mask=mask)
-        attn_out = dot(attn.reshape(b, s, nh * d), lp["wo"]) + lp["bo"]
+        attn_out = row_product(attn.reshape(b, s, nh * d), lp["wo"], dot, tp) + lp["bo"]
         attn_out = dropout(attn_out, cfg.dropout_rate, generators[0])
         h = layer_norm(h + attn_out, lp["attn_norm_scale"], lp["attn_norm_bias"], cfg.norm_eps)
-        up = F.gelu(dot(h, lp["w_up"]) + lp["b_up"], approximate="tanh")
-        mlp_out = dropout(dot(up, lp["w_down"]) + lp["b_down"], cfg.dropout_rate, generators[1])
+        tp = split_or_none(self.tensor_parallel, lp["w_up"].shape[-1], cfg.intermediate_size)
+        up = F.gelu(column_products(h, dot, tp)(lp["w_up"]) + lp["b_up"], approximate="tanh")
+        mlp_out = dropout(row_product(up, lp["w_down"], dot, tp) + lp["b_down"], cfg.dropout_rate, generators[1])
         return layer_norm(h + mlp_out, lp["mlp_norm_scale"], lp["mlp_norm_bias"], cfg.norm_eps)
 
     # -- streaming protocol (big_modeling.StreamedModel) ----------------------

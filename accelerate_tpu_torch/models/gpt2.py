@@ -31,6 +31,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.tensor_parallel import (
+    column_products,
+    gather_last,
+    replicas_of,
+    row_product,
+    split_or_none,
+    vocab_embedding,
+)
 from ..utils.constants import MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
 from .attention import (
     dense_init,
@@ -87,6 +95,8 @@ class GPT2(nn.Module):
         # hooks set by Accelerator.prepare_model and quantized serving (see models/llama.py)
         self.dot_fn = None
         self.attention_fn = None
+        # the tensor group (parallel/tensor_parallel.py), set by Accelerator.prepare_model
+        self.tensor_parallel = None
         self.remat_layers = False
         device = resolve_device(device)
         h = cfg.hidden_size
@@ -166,8 +176,7 @@ class GPT2(nn.Module):
     def partition_rules(self) -> list[tuple[str, tuple]]:
         """The JAX package's layout rules (Megatron-style: the fused qkv and
         the MLP's up projection by columns, the output projections by rows;
-        every named axis has size 1 in the port, which runs the data and
-        fsdp axes)."""
+        :meth:`tensor_rules` go before them)."""
         t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
         return [
             (r"embed_tokens", (t, None)),
@@ -181,6 +190,17 @@ class GPT2(nn.Module):
             (r"layers/(attn_norm|mlp_norm|bo|b_down)", (p, None)),
             (r"final_norm", (None,)),
         ]
+
+    def tensor_rules(self, tensor: int) -> list[tuple[str, tuple]]:
+        """Rules that go before :meth:`partition_rules` under a tensor group
+        of ``tensor``: the JAX rule splits the fused ``wqkv``'s and
+        ``bqkv``'s ``3H`` columns into contiguous chunks (GSPMD may), where
+        a process running its own heads needs their q, k and v columns:
+        three blocks of the dim (``parallel/sharding.py``'s ``(3, axis)``)."""
+        if tensor <= 1:
+            return []
+        t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
+        return [(r"layers/wqkv", (p, None, (3, t))), (r"layers/bqkv", (p, (3, t)))]
 
     def head(self) -> torch.Tensor:
         return self.embed_tokens.T
@@ -196,15 +216,19 @@ class GPT2(nn.Module):
         cache at its int ``length`` in place and attention runs over the
         cache under ``mask``. Without a cache ``attention_fn(q, k, v,
         kv_mask)`` attends when set (the training hook), else the causal
-        einsum path under ``mask``."""
+        einsum path under ``mask``. Where ``lp`` holds this process's slices
+        over the tensor axis (its heads' q, k and v columns, its share of the
+        MLP's hidden dim) the products are column- and row-parallel."""
         cfg = self.config
         dot = resolve_dot(self.dot_fn)
         b, s, hidden = h.shape
         nh = cfg.num_heads
         d = hidden // nh
+        tp = split_or_none(self.tensor_parallel, lp["wqkv"].shape[-1], 3 * hidden)
         x = layer_norm(h, lp["attn_norm_scale"], lp["attn_norm_bias"], cfg.norm_eps)
-        qkv = dot(x, lp["wqkv"]) + lp["bqkv"]
-        q, k, v = (t.reshape(b, s, nh, d) for t in qkv.split(hidden, dim=-1))
+        qkv = column_products(x, dot, tp)(lp["wqkv"]) + lp["bqkv"]
+        width = qkv.shape[-1] // 3
+        q, k, v = (t.reshape(b, s, width // d, d) for t in qkv.split(width, dim=-1))
         new_cache = None
         if cache is not None and "attend" in cache:
             # the fused projection's split leaves strided views; the paged
@@ -227,11 +251,12 @@ class GPT2(nn.Module):
             attn = attention_fn(q, k, v, kv_mask)
         else:
             attn = dot_product_attention(q, k, v, mask=mask, causal=True)
-        attn_out = dot(attn.reshape(b, s, hidden), lp["wo"]) + lp["bo"]
+        attn_out = row_product(attn.reshape(b, s, width), lp["wo"], dot, tp) + lp["bo"]
         h = h + dropout(attn_out, cfg.dropout_rate, generators[0])
         x = layer_norm(h, lp["mlp_norm_scale"], lp["mlp_norm_bias"], cfg.norm_eps)
-        up = F.gelu(dot(x, lp["w_up"]) + lp["b_up"], approximate="tanh")
-        h = h + dropout(dot(up, lp["w_down"]) + lp["b_down"], cfg.dropout_rate, generators[1])
+        tp = split_or_none(self.tensor_parallel, lp["w_up"].shape[-1], cfg.intermediate_size)
+        up = F.gelu(column_products(x, dot, tp)(lp["w_up"]) + lp["b_up"], approximate="tanh")
+        h = h + dropout(row_product(up, lp["w_down"], dot, tp) + lp["b_down"], cfg.dropout_rate, generators[1])
         return h if cache is None else (h, new_cache)
 
     def _check_positions(self, stop: int) -> None:
@@ -249,6 +274,7 @@ class GPT2(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real
         positions: Optional[torch.Tensor] = None,
         dropout_generator: Optional[torch.Generator] = None,
+        gather_logits: bool = True,
     ) -> torch.Tensor:
         """Logits ``[B, S, V]`` in fp32 (the tied head runs in the params'
         dtype, then casts, as the JAX package's ``apply``), with the weights
@@ -263,7 +289,9 @@ class GPT2(nn.Module):
         Under a ring hook (a sequence axis; ``sequence_chunk``) the batch
         holds the global rows and this process runs its chunk from the
         embeddings on, learned positions at the chunk's offset: the logits
-        are the chunk's ``[B, S/n, V]``."""
+        are the chunk's ``[B, S/n, V]``. Under the tensor axis the embedding
+        and the tied head are vocab-parallel where the vocab divides (not
+        gpt2's 50257), the logits gathered unless ``gather_logits`` is False."""
         cfg = self.config
         s = input_ids.shape[1]
         self._check_positions(s)
@@ -274,14 +302,15 @@ class GPT2(nn.Module):
             positions = (positions[None, :] if positions.dim() == 1 else positions)[..., start:stop]
             if positions.numel() and int(positions.max()) >= cfg.max_seq_len:
                 raise ValueError(f"a position exceeds max_seq_len {cfg.max_seq_len}")
-        h = params["embed_tokens"][input_ids[:, start:stop].long()] + params["embed_positions"][positions.long()]
+        h = (vocab_embedding(params["embed_tokens"], input_ids[:, start:stop], self.tensor_parallel, cfg.vocab_size)
+             + params["embed_positions"][positions.long()])
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
             attention_mask = attention_mask[:, start:stop]
         seeds = [None] * (2 * cfg.num_layers)
         if dropout_generator is not None and cfg.dropout_rate > 0.0:
-            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers)
+            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
 
         def layer(h, lp, seed_attn, seed_mlp):
             generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
@@ -297,7 +326,10 @@ class GPT2(nn.Module):
             args = (h, {name: w[i] for name, w in per_key.items()}, seeds[2 * i], seeds[2 * i + 1])
             h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
         h = layer_norm(h, params["final_norm_scale"], params["final_norm_bias"], cfg.norm_eps)
-        return (h @ params["embed_tokens"].T.to(h.dtype)).float()
+        head = params["embed_tokens"].T.to(h.dtype)
+        vocab_tp = split_or_none(self.tensor_parallel, head.shape[-1], cfg.vocab_size)
+        logits = column_products(h, torch.matmul, vocab_tp)(head).float()
+        return gather_last(logits, vocab_tp) if gather_logits else logits
 
     def forward(
         self,
@@ -318,8 +350,10 @@ class GPT2(nn.Module):
         def fn(params, batch):
             input_ids = batch["input_ids"]
             attention_mask = batch.get("attention_mask")
-            logits = model.apply(params, input_ids, attention_mask, dropout_generator=dropout_generator)
-            loss, counts = next_token_loss(logits, input_ids, attention_mask, model.attention_fn)
+            logits = model.apply(params, input_ids, attention_mask, dropout_generator=dropout_generator,
+                                 gather_logits=False)
+            loss, counts = next_token_loss(logits, input_ids, attention_mask, model.attention_fn,
+                                           model.tensor_parallel, model.config.vocab_size)
             return loss if counts else loss * 0.0
 
         return fn

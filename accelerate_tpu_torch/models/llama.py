@@ -20,6 +20,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.tensor_parallel import (
+    column_products,
+    gather_last,
+    kv_columns,
+    replicas_of,
+    row_product,
+    split_or_none,
+    vocab_embedding,
+    vocab_parallel_nll,
+)
 from ..utils.constants import MESH_AXIS_EXPERT, MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
 from ..utils.params import flatten_tree
 from .attention import (
@@ -65,9 +75,19 @@ def decoder_layer(
     dropout_generators: tuple = (None, None),  # the attention and MLP branches' masks
     dropout_rate: float = 0.0,
     return_aux: bool = False,  # also return the MoE load-balance term
+    tensor_parallel=None,  # parallel.tensor_parallel.TensorParallel: the tensor group
+    expert_parallel=None,  # parallel.tensor_parallel.ExpertParallel: the expert group
+    sequence=None,  # a sequence axis's ring: the MoE routes over the whole sequence
 ):
     """One llama decoder layer. Returns ``(h, new_cache_or_None)``, plus the
     layer's MoE aux loss (the float 0.0 for a dense layer) with ``return_aux``.
+
+    Where ``lp`` holds this process's slices over the tensor axis (its
+    heads' q, k, v and o, its share of the MLP's hidden dim) the projections
+    are column- and row-parallel and attention runs on its heads; with
+    fewer kv heads than the group has processes, k and v stay whole and
+    each process reads the kv head its query heads read. Whole weights run
+    the plain layer whatever the groups.
 
     ``cache`` selects the attention path:
     - with an ``attend`` hook (the serving engine's paged decode), ``attend``
@@ -86,10 +106,14 @@ def decoder_layer(
     dot = resolve_dot(dot_fn)
     b, s = h.shape[:2]
     nh, nkv, d = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
+    tp = split_or_none(tensor_parallel, lp["wq"].shape[-1], nh * d)
     x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q = dot(x, lp["wq"]).reshape(b, s, nh, d)
-    k = dot(x, lp["wk"]).reshape(b, s, nkv, d)
-    v = dot(x, lp["wv"]).reshape(b, s, nkv, d)
+    proj = column_products(x, dot, tp)
+    cols = kv_columns(tp, nh, nkv, d) if tp is not None and lp["wk"].shape[-1] == nkv * d else None
+    nh, nkv = lp["wq"].shape[-1] // d, (lp["wk"].shape[-1] if cols is None else d) // d
+    q = proj(lp["wq"]).reshape(b, s, nh, d)
+    k = proj(lp["wk"], cols).reshape(b, s, nkv, d)
+    v = proj(lp["wv"], cols).reshape(b, s, nkv, d)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     new_cache = None
@@ -111,15 +135,20 @@ def decoder_layer(
         attn = attention_fn(q, k, v, kv_mask)
     else:
         attn = dot_product_attention(q, k, v, mask=mask, causal=causal)
-    h = h + dropout(dot(attn.reshape(b, s, nh * d), lp["wo"]), dropout_rate, dropout_generators[0])
+    h = h + dropout(row_product(attn.reshape(b, s, nh * d), lp["wo"], dot, tp), dropout_rate, dropout_generators[0])
     x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
     if "router" in lp:
         mlp_out, aux = routed_mlp(
             x, lp["router"], lp["moe_up"], lp["moe_down"],
             top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+            tensor_parallel=split_or_none(tensor_parallel, lp["moe_up"].shape[-1], cfg.intermediate_size),
+            expert_parallel=split_or_none(expert_parallel, lp["moe_up"].shape[0], cfg.num_experts),
+            sequence=sequence,
         )
     else:
-        mlp_out = dot(F.silu(dot(x, lp["w_gate"])) * dot(x, lp["w_up"]), lp["w_down"])
+        tp = split_or_none(tensor_parallel, lp["w_up"].shape[-1], cfg.intermediate_size)
+        proj = column_products(x, dot, tp)
+        mlp_out = row_product(F.silu(proj(lp["w_gate"])) * proj(lp["w_up"]), lp["w_down"], dot, tp)
         aux = 0.0
     h = h + dropout(mlp_out, dropout_rate, dropout_generators[1])
     if return_aux:
@@ -174,10 +203,13 @@ def install_params(module: nn.Module, tree: dict, shapes: dict) -> nn.Module:
     return module
 
 
-def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor, attention_mask, attention_fn):
+def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor, attention_mask, attention_fn,
+                    tensor_parallel=None, vocab: Optional[int] = None):
     """Next-token cross-entropy of a causal LM's ``logits`` over ``input_ids``:
     log-softmax in fp32, the mask weighting the targets' positions, as the
-    JAX package's ``loss_fn``s.
+    JAX package's ``loss_fn``s. Logits split over the vocab (this process's
+    slice under the tensor axis, of a ``vocab``-wide head) take the
+    vocab-parallel log-softmax (``parallel.tensor_parallel.vocab_parallel_nll``).
 
     Under a sequence axis (a ring ``attention_fn``; ``sequence_chunk``) the
     logits are this process's chunk: it takes the terms of the chunk's
@@ -188,17 +220,15 @@ def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor, attention_mas
     on a process whose whole-sequence terms count elsewhere."""
     s = input_ids.shape[1]
     start, stop, _, counts = sequence_chunk(attention_fn, s)
+    vocab = vocab or logits.shape[-1]
     if stop - start == s:
-        targets = input_ids[:, 1:].long()
-        logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-        nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+        nll = vocab_parallel_nll(logits[:, :-1], input_ids[:, 1:], tensor_parallel, vocab)
         if attention_mask is not None:
             w = attention_mask[:, 1:].float()
             return (nll * w).sum() / torch.clamp(w.sum(), min=1.0), counts
         return nll.mean(), counts
-    targets = input_ids[:, start + 1:stop + 1].long()
-    logp = torch.log_softmax(logits[:, :targets.shape[1]].float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    targets = input_ids[:, start + 1:stop + 1]
+    nll = vocab_parallel_nll(logits[:, :targets.shape[1]], targets, tensor_parallel, vocab)
     if attention_mask is None:
         return nll.sum() / (input_ids.shape[0] * (s - 1)), True
     w = attention_mask[:, start + 1:stop + 1].float()
@@ -246,6 +276,10 @@ class Llama(nn.Module):
         # per-layer activation checkpointing, set by Accelerator.prepare_model:
         # False = off, or a utils.dataclasses.Remat policy run around each layer
         self.remat_layers = False
+        # the tensor and expert groups (parallel/tensor_parallel.py), set by
+        # Accelerator.prepare_model under those axes; None = no group
+        self.tensor_parallel = None
+        self.expert_parallel = None
         device = resolve_device(device)
         h, v = cfg.hidden_size, cfg.vocab_size
 
@@ -333,9 +367,8 @@ class Llama(nn.Module):
     def partition_rules(self) -> list[tuple[str, tuple]]:
         """The JAX package's layout rules (Megatron-style tensor parallelism:
         attention by heads, the MLP by its intermediate dim; the stacked
-        layers' leading dim over ``pipeline``). The port runs only the data
-        and fsdp axes, so every axis named here has size 1 and the rules
-        place the fsdp and ZeRO splits as the JAX package does."""
+        layers' leading dim over ``pipeline``), which place every split as
+        the JAX package does; :meth:`tensor_rules` go before them."""
         t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
         return [
             (r"embed_tokens", (t, None)),
@@ -351,6 +384,16 @@ class Llama(nn.Module):
             (r"lm_head", (None, t)),
         ]
 
+    def tensor_rules(self, tensor: int) -> list[tuple[str, tuple]]:
+        """Rules that go before :meth:`partition_rules` under a tensor group
+        of ``tensor``: with fewer kv heads than processes, k and v stay whole
+        (the JAX rule splits their columns mid-head, which GSPMD can run and
+        a process running its own heads cannot), and each process reads the
+        kv head its query heads read."""
+        if tensor > 1 and self.config.kv_heads < tensor:
+            return [(r"layers/(wk|wv)", (MESH_AXIS_PIPELINE, None, None))]
+        return []
+
     def head(self) -> torch.Tensor:
         return self.embed_tokens.T if self.config.tie_embeddings else self.lm_head
 
@@ -362,6 +405,7 @@ class Llama(nn.Module):
         positions: Optional[torch.Tensor] = None,
         dropout_generator: Optional[torch.Generator] = None,
         return_aux: bool = False,
+        gather_logits: bool = True,
     ):
         """Logits ``[B, S, V]`` in the params' dtype, with the weights taken
         from ``params`` (the JAX package's ``apply``, which a user's
@@ -381,15 +425,20 @@ class Llama(nn.Module):
         Under a ring hook (a sequence axis) the batch holds the global rows
         and this process runs its chunk of the sequence from the embeddings
         on (rotary positions at the chunk's offset; ``sequence_chunk``):
-        the logits are the chunk's ``[B, S/n, V]``."""
+        the logits are the chunk's ``[B, S/n, V]``; an MoE layer routes over
+        the whole sequence.
+
+        Params split over the tensor axis (``tensor_parallel``) run
+        Megatron-style: a vocab-parallel embedding, this process's heads and
+        hidden slice, a column-parallel head whose logits are gathered over
+        the group unless ``gather_logits`` is False (the loss takes this
+        process's slice of the vocab); ``expert_parallel`` runs the MoE
+        layers' exchange."""
         cfg = self.config
+        tp = self.tensor_parallel
         start, stop, attention_fn, _ = sequence_chunk(self.attention_fn, input_ids.shape[1])
-        if attention_fn is not None and stop - start < input_ids.shape[1] and cfg.num_experts > 1:
-            raise NotImplementedError(
-                "MoE layers under a sequence axis (routing capacity and the load-balance term over "
-                "the whole sequence) are not in the port yet (ROADMAP item 17(b))"
-            )
-        h = params["embed_tokens"][input_ids[:, start:stop].long()]
+        ring = getattr(attention_fn, "ring", None) if stop - start < input_ids.shape[1] else None
+        h = vocab_embedding(params["embed_tokens"], input_ids[:, start:stop], tp, cfg.vocab_size)
         if positions is None:
             positions = torch.arange(start, stop, device=h.device)[None, :]
         else:
@@ -408,7 +457,7 @@ class Llama(nn.Module):
         }
         seeds = [None] * (2 * cfg.num_layers)
         if dropout_generator is not None and cfg.dropout_rate > 0.0:
-            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers)
+            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers, replicas_of(tp, self.expert_parallel))
 
         def layer(h, lp, seed_attn, seed_mlp):
             h, _, aux = decoder_layer(
@@ -416,6 +465,7 @@ class Llama(nn.Module):
                 attention_fn=attention_fn, kv_mask=attention_mask,
                 dropout_generators=(seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device)),
                 dropout_rate=cfg.dropout_rate, return_aux=True,
+                tensor_parallel=tp, expert_parallel=self.expert_parallel, sequence=ring,
             )
             return h, aux
 
@@ -425,8 +475,11 @@ class Llama(nn.Module):
             h, aux = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
             total_aux = total_aux + aux
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-        head = params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = h @ head.to(h.dtype)
+        head = (params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]).to(h.dtype)
+        vocab_tp = split_or_none(tp, head.shape[-1], cfg.vocab_size)
+        logits = column_products(h, torch.matmul, vocab_tp)(head)
+        if gather_logits:
+            logits = gather_last(logits, vocab_tp)
         return (logits, total_aux) if return_aux else logits
 
     def forward(
@@ -517,8 +570,9 @@ class Llama(nn.Module):
             input_ids = batch["input_ids"]
             attention_mask = batch.get("attention_mask")
             logits, aux = model.apply(params, input_ids, attention_mask,
-                                      dropout_generator=dropout_generator, return_aux=True)
-            loss, counts = next_token_loss(logits, input_ids, attention_mask, model.attention_fn)
+                                      dropout_generator=dropout_generator, return_aux=True, gather_logits=False)
+            loss, counts = next_token_loss(logits, input_ids, attention_mask, model.attention_fn,
+                                           model.tensor_parallel, model.config.vocab_size)
             return loss + aux if counts else (loss + aux) * 0.0
 
         return fn

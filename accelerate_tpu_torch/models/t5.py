@@ -36,6 +36,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.tensor_parallel import (
+    column_products,
+    copy_to,
+    gather_last,
+    replicas_of,
+    row_product,
+    split_or_none,
+    vocab_embedding,
+    vocab_parallel_nll,
+)
 from ..utils.constants import MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
 from .attention import dense_init, draw_seeds, dropout, resolve_dot, round_to_dtype, seeded_generator
 from .bert import _Group
@@ -154,6 +164,8 @@ class T5(nn.Module):
         self.dot_fn = None
         self.attention_fn = None
         self.remat_layers = False
+        # the tensor group (parallel/tensor_parallel.py), set by Accelerator.prepare_model
+        self.tensor_parallel = None
         device = resolve_device(device)
         shapes = t5_shapes(cfg)
         for name, shape in shapes[None].items():
@@ -210,9 +222,9 @@ class T5(nn.Module):
 
     def partition_rules(self) -> list[tuple[str, tuple]]:
         """The JAX package's Megatron rules: q/k/v/wi column-parallel, the
-        output projections row-parallel, the bias tables replicated, the
-        stacked leading dims over ``pipeline``. The port runs only the data
-        and fsdp axes, so every axis named here has size 1."""
+        output projections row-parallel, the bias tables replicated (each
+        process reads its heads' columns, ``_head_bias``), the stacked
+        leading dims over ``pipeline``."""
         t, p = MESH_AXIS_TENSOR, MESH_AXIS_PIPELINE
         return [
             (r"shared_embed", (t, None)),
@@ -237,20 +249,44 @@ class T5(nn.Module):
             return fn(q, k, v, kv_mask, bias=bias, scale=1.0, causal=causal)
         return t5_attention(q, k, v, bias, mask)
 
+    def _tensor_parallel(self, w: torch.Tensor):
+        """The tensor group when ``w`` (a q projection) holds this process's
+        heads, else None."""
+        cfg = self.config
+        return split_or_none(self.tensor_parallel, w.shape[-1], cfg.num_heads * cfg.dim_per_head)
+
+    def _head_bias(self, table: torch.Tensor, tp) -> torch.Tensor:
+        """A relative-bias table ``[buckets, N]``, or under the tensor axis
+        this process's heads' columns of it (the whole table is on every
+        process, so its gradient is summed over the group)."""
+        if tp is None:
+            return table
+        width = table.shape[-1] // tp.size
+        return copy_to(table, tp)[:, tp.rank * width:(tp.rank + 1) * width]
+
+    def _mlp(self, x, lp, dot, tp):
+        tp = split_or_none(tp, lp["wi"].shape[-1], self.config.intermediate_size)
+        return row_product(torch.relu(column_products(x, dot, tp)(lp["wi"])), lp["wo_ff"], dot, tp)
+
     def _enc_layer(self, h, lp, bias, mask, generators=(None, None), kv_mask=None, use_hook: bool = True):
+        """One encoder layer; where ``lp`` holds this process's slices over
+        the tensor axis, on its heads (``bias`` holds theirs) and its share
+        of the feed-forward, column- and row-parallel."""
         cfg = self.config
         dot = resolve_dot(self.dot_fn)
         b, s = h.shape[:2]
-        nh, d = cfg.num_heads, cfg.dim_per_head
+        d = cfg.dim_per_head
+        nh = lp["wq"].shape[-1] // d
+        tp = self._tensor_parallel(lp["wq"])
         x = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q = dot(x, lp["wq"]).reshape(b, s, nh, d)
-        k = dot(x, lp["wk"]).reshape(b, s, nh, d)
-        v = dot(x, lp["wv"]).reshape(b, s, nh, d)
+        proj = column_products(x, dot, tp)
+        q = proj(lp["wq"]).reshape(b, s, nh, d)
+        k = proj(lp["wk"]).reshape(b, s, nh, d)
+        v = proj(lp["wv"]).reshape(b, s, nh, d)
         attn = self._attn(q, k, v, bias, mask, kv_mask, causal=False, use_hook=use_hook)
-        h = h + dropout(dot(attn.reshape(b, s, nh * d), lp["wo"]), cfg.dropout_rate, generators[0])
+        h = h + dropout(row_product(attn.reshape(b, s, nh * d), lp["wo"], dot, tp), cfg.dropout_rate, generators[0])
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        mlp_out = dot(torch.relu(dot(x, lp["wi"])), lp["wo_ff"])
-        return h + dropout(mlp_out, cfg.dropout_rate, generators[1])
+        return h + dropout(self._mlp(x, lp, dot, self.tensor_parallel), cfg.dropout_rate, generators[1])
 
     def _dec_layer(self, h, lp, self_bias, self_mask, enc_out, enc_mask,
                    generators=(None, None, None), kv_masks=(None, None), cache=None, length=None,
@@ -263,30 +299,35 @@ class T5(nn.Module):
         cfg = self.config
         dot = resolve_dot(self.dot_fn)
         b, s = h.shape[:2]
-        nh, d = cfg.num_heads, cfg.dim_per_head
+        d = cfg.dim_per_head
+        nh = lp["self_wq"].shape[-1] // d
+        tp = self._tensor_parallel(lp["self_wq"])
         x = rms_norm(h, lp["self_norm"], cfg.norm_eps)
-        q = dot(x, lp["self_wq"]).reshape(b, s, nh, d)
-        k = dot(x, lp["self_wk"]).reshape(b, s, nh, d)
-        v = dot(x, lp["self_wv"]).reshape(b, s, nh, d)
+        proj = column_products(x, dot, tp)
+        q = proj(lp["self_wq"]).reshape(b, s, nh, d)
+        k = proj(lp["self_wk"]).reshape(b, s, nh, d)
+        v = proj(lp["self_wv"]).reshape(b, s, nh, d)
         if cache is not None:
             cache["k"][:, length : length + s] = k.to(cache["k"].dtype)
             cache["v"][:, length : length + s] = v.to(cache["v"].dtype)
             attn = t5_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype), self_bias, self_mask)
         else:
             attn = self._attn(q, k, v, self_bias, self_mask, kv_masks[0], causal=True, use_hook=use_hook)
-        h = h + dropout(dot(attn.reshape(b, s, nh * d), lp["self_wo"]), cfg.dropout_rate, generators[0])
+        h = h + dropout(row_product(attn.reshape(b, s, nh * d), lp["self_wo"], dot, tp), cfg.dropout_rate,
+                        generators[0])
 
         x = rms_norm(h, lp["cross_norm"], cfg.norm_eps)
         t = enc_out.shape[1]
-        q = dot(x, lp["cross_wq"]).reshape(b, s, nh, d)
-        ek = dot(enc_out, lp["cross_wk"]).reshape(b, t, nh, d)
-        ev = dot(enc_out, lp["cross_wv"]).reshape(b, t, nh, d)
+        q = column_products(x, dot, tp)(lp["cross_wq"]).reshape(b, s, nh, d)
+        proj = column_products(enc_out, dot, tp)
+        ek = proj(lp["cross_wk"]).reshape(b, t, nh, d)
+        ev = proj(lp["cross_wv"]).reshape(b, t, nh, d)
         cross = self._attn(q, ek, ev, None, enc_mask, kv_masks[1], causal=False, use_hook=use_hook)
-        h = h + dropout(dot(cross.reshape(b, s, nh * d), lp["cross_wo"]), cfg.dropout_rate, generators[1])
+        h = h + dropout(row_product(cross.reshape(b, s, nh * d), lp["cross_wo"], dot, tp), cfg.dropout_rate,
+                        generators[1])
 
         x = rms_norm(h, lp["mlp_norm"], cfg.norm_eps)
-        mlp_out = dot(torch.relu(dot(x, lp["wi"])), lp["wo_ff"])
-        h = h + dropout(mlp_out, cfg.dropout_rate, generators[2])
+        h = h + dropout(self._mlp(x, lp, dot, self.tensor_parallel), cfg.dropout_rate, generators[2])
         return h if cache is None else (h, cache)
 
     def _run_stack(self, layer, h, stack: dict, keys, seeds, per_layer: int, extra=()):
@@ -317,14 +358,15 @@ class T5(nn.Module):
         model holds (the streamed executor's encoder pass)."""
         cfg = self.config
         s = input_ids.shape[1]
-        h = params["shared_embed"][input_ids.long()]
+        h = vocab_embedding(params["shared_embed"], input_ids, self.tensor_parallel, cfg.vocab_size)
         positions = torch.arange(s, device=h.device)
-        bias = relative_bias(params["enc_rel_bias"], positions, positions, bidirectional=True,
+        table = self._head_bias(params["enc_rel_bias"], self._tensor_parallel(params["encoder"]["wq"]))
+        bias = relative_bias(table, positions, positions, bidirectional=True,
                              num_buckets=cfg.rel_buckets, max_distance=cfg.rel_max_distance)
         mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
         seeds = [None] * (2 * cfg.num_layers)
         if dropout_generator is not None and cfg.dropout_rate > 0.0:
-            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers)
+            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
 
         def layer(h, lp, seed_attn, seed_mlp):
             generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
@@ -341,19 +383,22 @@ class T5(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         decoder_attention_mask: Optional[torch.Tensor] = None,
         dropout_generator: Optional[torch.Generator] = None,
+        gather_logits: bool = True,
     ) -> torch.Tensor:
         """Decoder logits ``[B, S_dec, V]`` fp32 (shadows ``nn.Module.apply``,
         as ``Llama.apply`` does). ``dropout_generator`` turns on residual
         dropout in both stacks: the encoder's seeds are drawn first, then
-        three a decoder layer."""
+        three a decoder layer. Under the tensor axis the logits of the
+        vocab-parallel head are gathered unless ``gather_logits`` is False."""
         cfg = self.config
         use_dropout = dropout_generator is not None and cfg.dropout_rate > 0.0
         enc_out = self.encode(params, input_ids, attention_mask,
                               dropout_generator=dropout_generator if use_dropout else None)
         s = decoder_input_ids.shape[1]
-        h = params["shared_embed"][decoder_input_ids.long()]
+        h = vocab_embedding(params["shared_embed"], decoder_input_ids, self.tensor_parallel, cfg.vocab_size)
         positions = torch.arange(s, device=h.device)
-        self_bias = relative_bias(params["dec_rel_bias"], positions, positions, bidirectional=False,
+        table = self._head_bias(params["dec_rel_bias"], self._tensor_parallel(params["layers"]["self_wq"]))
+        self_bias = relative_bias(table, positions, positions, bidirectional=False,
                                   num_buckets=cfg.rel_buckets, max_distance=cfg.rel_max_distance)
         self_mask = (positions[None, :] <= positions[:, None])[None, None]  # [1, 1, S, S]
         if decoder_attention_mask is not None:
@@ -361,7 +406,7 @@ class T5(nn.Module):
         enc_mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
         seeds = [None] * (3 * cfg.num_layers)
         if use_dropout:
-            seeds = draw_seeds(dropout_generator, 3 * cfg.num_layers)
+            seeds = draw_seeds(dropout_generator, 3 * cfg.num_layers, replicas_of(self.tensor_parallel))
 
         def layer(h, lp, enc_out, seed_self, seed_cross, seed_mlp):
             generators = tuple(seeded_generator(x, h.device) for x in (seed_self, seed_cross, seed_mlp))
@@ -370,14 +415,17 @@ class T5(nn.Module):
 
         h = self._run_stack(layer, h, params["layers"], DECODER_KEYS, seeds, 3, extra=(enc_out,))
         h = rms_norm(h, params["dec_final_norm"], cfg.norm_eps)
-        return self._lm_logits(params, h)
+        return self._lm_logits(params, h, gather_logits)
 
-    def _lm_logits(self, params, h):
+    def _lm_logits(self, params, h, gather_logits: bool = True):
         """The tied head with T5's ``d_model^-0.5`` rescale (the paper folds
         the attention's 1/sqrt(d) into the init; the head keeps this
         factor), rounded to h's dtype as the JAX package's scalar is."""
         h = h * round_to_dtype(self.config.hidden_size ** -0.5, h.dtype)
-        return (h @ params["shared_embed"].T.to(h.dtype)).to(torch.float32)
+        head = params["shared_embed"].T.to(h.dtype)
+        vocab_tp = split_or_none(self.tensor_parallel, head.shape[-1], self.config.vocab_size)
+        logits = column_products(h, torch.matmul, vocab_tp)(head).to(torch.float32)
+        return gather_last(logits, vocab_tp) if gather_logits else logits
 
     def shift_right(self, labels: torch.Tensor) -> torch.Tensor:
         """Teacher-forcing decoder inputs ``[start, l0, l1, ...]``: the labels
@@ -474,10 +522,9 @@ class T5(nn.Module):
                 decoder_input_ids = model.shift_right(labels)
             logits = model.apply(
                 params, batch["input_ids"], decoder_input_ids, batch.get("attention_mask"),
-                batch.get("decoder_attention_mask"), dropout_generator=dropout_generator,
-            ).float()
-            logp = torch.log_softmax(logits, dim=-1)
-            nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+                batch.get("decoder_attention_mask"), dropout_generator=dropout_generator, gather_logits=False,
+            )
+            nll = vocab_parallel_nll(logits, labels, model.tensor_parallel, model.config.vocab_size)
             mask = batch.get("decoder_attention_mask")
             if mask is not None:
                 w = mask.float()

@@ -9,7 +9,9 @@ each tensor leaf (and turns each numpy leaf into a tensor) there, with
 The collectives (``gather``, ``gather_object``, ``reduce``, ``broadcast``,
 ``broadcast_object_list``, ``pad_across_processes``) run on
 ``torch.distributed`` over every process of the job (``PartialState``) and
-return their inputs at one process. A tensor leaf stays a tensor (on the
+return their inputs at one process; ``gather`` under a tensor, expert or
+sequence axis runs over the batch axes' group, whose processes hold
+distinct rows. A tensor leaf stays a tensor (on the
 device it came from); a numpy leaf goes through a tensor on the
 collectives' device and comes back numpy. With ``ACCELERATE_DEBUG_MODE``
 set, the tensor collectives first check that every process passes the same
@@ -256,19 +258,34 @@ def _across(fn):
     return _leaf
 
 
+def _batch_group(state):
+    """``(group, size)`` of the processes holding distinct rows: every
+    process, or under a tensor, expert or sequence axis (whose processes
+    hold the same rows) the group over the batch axes, of one process when
+    there is none (the JAX package's gather of a batch-sharded array holds
+    each row once)."""
+    shape = state.mesh_shape
+    if all(shape[a] == 1 for a in ("tensor", "expert", "sequence")):
+        return None, state.num_processes
+    axes = tuple(a for a in ("data", "fsdp") if shape[a] > 1)
+    return (state.group(axes), state.batch_shards) if axes else (None, 1)
+
+
 def gather(tensor):
     """Every process's leaves concatenated along the leading dim (each
     process passes the same shapes: ``pad_across_processes`` first where
-    they differ)."""
+    they differ). Under a tensor, expert or sequence axis each batch
+    shard's rows come once, from the processes of its batch group."""
     _verify_same_shapes("gather", tensor)
     state = PartialState()
-    if state.num_processes == 1:
+    group, size = _batch_group(state)
+    if size == 1:
         return recursively_apply(lambda t: t, tensor, test_type=is_array, error_on_other_type=True)
 
     def _gather(x):
         x = x.reshape(1) if x.ndim == 0 else x
-        out = torch.empty((x.shape[0] * state.num_processes, *x.shape[1:]), dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x)
+        out = torch.empty((x.shape[0] * size, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
         return out
 
     return recursively_apply(_across(_gather), tensor, test_type=is_array, error_on_other_type=True)

@@ -7,7 +7,12 @@ one entry per leading dim, as ``tuple(jax.sharding.PartitionSpec(...))``
 holds it: None (the dim is whole on every process), an axis name, or a
 tuple of axis names (the dim split over their product, the first axis
 major). ``sharded_dims`` reads it as ``(dim, axes)`` pairs, leaving out
-axes of size 1.
+axes of size 1. The port adds one form the JAX package has no need of: a
+tuple led by an int, ``(3, "tensor")``, splits the dim as that many equal
+blocks, each over the axes (``spec_blocks``): gpt2's fused ``wqkv``, whose
+process holds the q, k and v columns of its own heads, three chunks of the
+JAX layout. GSPMD may split a fused weight anywhere; a process that runs
+its own heads needs whole ones.
 
 Rules are ``(regex, spec)`` pairs matched against each leaf's key path
 (``"layers/wq"``), first match wins; an unmatched leaf takes the FSDP
@@ -32,22 +37,29 @@ from ..utils.params import state_leaves, tree_map, tree_paths, tree_unflatten
 Spec = tuple  # one entry per leading dim: None, an axis name or a tuple of names
 
 
+def _entry_axes(entry) -> tuple[str, ...]:
+    """The axis names of one spec entry (a block count is not one)."""
+    if entry is None:
+        return ()
+    return tuple(a for a in entry if not isinstance(a, int)) if isinstance(entry, tuple) else (entry,)
+
+
+def _entry_blocks(entry) -> int:
+    return entry[0] if isinstance(entry, tuple) and entry and isinstance(entry[0], int) else 1
+
+
 def _axis_size(sizes: Mapping[str, int], axis) -> int:
-    if axis is None:
-        return 1
-    if isinstance(axis, (tuple, list)):
-        size = 1
-        for a in axis:
-            size *= sizes[a]
-        return size
-    return sizes[axis]
+    size = 1
+    for a in _entry_axes(axis):
+        size *= sizes[a]
+    return size
 
 
 def _spec_fits(shape: tuple[int, ...], spec: Sequence, sizes: Mapping[str, int]) -> bool:
     if len(spec) > len(shape):
         return False
     for dim, axis in zip(shape, spec):
-        size = _axis_size(sizes, axis)
+        size = _axis_size(sizes, axis) * _entry_blocks(axis)
         if size > 1 and dim % size != 0:
             return False
     return True
@@ -57,12 +69,30 @@ def sharded_dims(spec: Spec, sizes: Mapping[str, int]) -> list[tuple[int, tuple[
     """``(dim, axes)`` for each dim ``spec`` splits over axes of size above 1."""
     out = []
     for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        axes = tuple(a for a in (entry if isinstance(entry, tuple) else (entry,)) if sizes.get(a, 1) > 1)
+        axes = tuple(a for a in _entry_axes(entry) if sizes.get(a, 1) > 1)
         if axes:
             out.append((dim, axes))
     return out
+
+
+def spec_blocks(spec: Spec) -> dict[int, int]:
+    """``{dim: blocks}`` for each dim ``spec`` splits as blocks."""
+    return {dim: _entry_blocks(entry) for dim, entry in enumerate(spec) if _entry_blocks(entry) > 1}
+
+
+def without_axes(spec: Spec, axes: Sequence[str], sizes: Mapping[str, int]) -> Spec:
+    """``spec`` with every entry that splits a dim over one of ``axes`` made
+    whole (a dim is split over the batch axes or over the model axes, never
+    both; axes of size 1 split nothing)."""
+    out = []
+    for entry in spec:
+        named = [a for a in _entry_axes(entry) if sizes.get(a, 1) > 1]
+        if any(a in axes for a in named):
+            if not all(a in axes for a in named):
+                raise ValueError(f"spec {spec} splits one dim over {named}: mixed with {tuple(axes)}")
+            entry = None
+        out.append(entry)
+    return tuple(out)
 
 
 def fsdp_auto_spec(
@@ -156,9 +186,7 @@ def zero_batch_axes(sizes: Mapping[str, int]) -> tuple[str, ...]:
 def _spec_axes(spec: Spec) -> set:
     axes = set()
     for entry in spec:
-        if entry is None:
-            continue
-        axes.update(entry if isinstance(entry, tuple) else (entry,))
+        axes.update(_entry_axes(entry))
     return axes
 
 
@@ -178,9 +206,7 @@ def fold_update_spec(shape: tuple[int, ...], spec: Spec, sizes: Mapping[str, int
         return spec
 
     def _axis_count(entry) -> int:
-        if entry is None:
-            return 1
-        return _axis_size(sizes, entry if isinstance(entry, tuple) else (entry,))
+        return _axis_size(sizes, entry)
 
     order = sorted(range(len(shape)), key=lambda i: (_axis_count(spec[i]) == 1, -shape[i]))
     for dim in order:

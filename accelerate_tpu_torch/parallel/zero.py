@@ -66,7 +66,7 @@ from ..utils.constants import (
     MESH_AXIS_TENSOR,
 )
 from ..utils.params import tree_leaves, tree_map, tree_unflatten
-from .sharding import Spec, shardings_like, sharded_dims, zero_batch_axes
+from .sharding import Spec, shardings_like, sharded_dims, spec_blocks, without_axes, zero_batch_axes
 
 _MODEL_AXES = (MESH_AXIS_TENSOR, MESH_AXIS_SEQUENCE, MESH_AXIS_PIPELINE, MESH_AXIS_EXPERT)
 
@@ -81,7 +81,10 @@ def zero_ineligible_reason(sizes: dict, fsdp_plugin=None) -> Optional[str]:
         return "no nontrivial data/fsdp mesh axis to shard the update over"
     model = [a for a in _MODEL_AXES if sizes.get(a, 1) > 1]
     if model:
-        return f"model-parallel axes {model} are nontrivial"
+        return (
+            f"model-parallel axes {model} are nontrivial (their collectives "
+            "live inside the auto-partitioned forward)"
+        )
     if fsdp_plugin is not None and fsdp_plugin.stage < 3:
         return f"FullyShardedDataParallelPlugin(stage={fsdp_plugin.stage}) keeps parameters replicated by explicit contract"
     if fsdp_plugin is not None and fsdp_plugin.cpu_offload:
@@ -166,17 +169,24 @@ class _Mesh:
 
 def shard_of(x: torch.Tensor, spec: Spec, mesh: _Mesh) -> torch.Tensor:
     """This process's shard of a whole tensor, as a contiguous tensor of its
-    own (never a view of ``x``)."""
+    own (never a view of ``x``). A dim split as blocks keeps this process's
+    chunk of each block, in block order."""
     x = x.detach()
+    blocks = spec_blocks(spec)
     for dim, axes in sharded_dims(spec, mesh.sizes):
-        size = x.shape[dim] // mesh.count(axes)
-        x = x.narrow(dim, mesh.chunk(axes) * size, size)
+        nb = blocks.get(dim, 1)
+        size = x.shape[dim] // (nb * mesh.count(axes))
+        shape = x.shape
+        x = x.unflatten(dim, (nb, shape[dim] // nb)).narrow(dim + 1, mesh.chunk(axes) * size, size)
+        x = x.flatten(dim, dim + 1)
     return x.clone(memory_format=torch.contiguous_format)
 
 
+@torch.no_grad()
 def gather_full(x: torch.Tensor, spec: Spec, mesh: _Mesh) -> torch.Tensor:
     """The whole tensor from every process's shard: one all-gather per
     split dim (the inverse of :func:`shard_of`)."""
+    blocks = spec_blocks(spec)
     for dim, axes in sharded_dims(spec, mesh.sizes):
         n = mesh.count(axes)
         front = x.movedim(dim, 0).contiguous()
@@ -188,6 +198,9 @@ def gather_full(x: torch.Tensor, spec: Spec, mesh: _Mesh) -> torch.Tensor:
             placed = torch.empty_like(chunks)
             placed[order.to(out.device)] = chunks
             out = placed.view(out.shape)
+        nb = blocks.get(dim, 1)
+        if nb > 1:  # [chunk, block, rows] to [block, chunk, rows]
+            out = out.view(n, nb, front.shape[0] // nb, *front.shape[1:]).transpose(0, 1).reshape(out.shape)
         x = out.movedim(0, dim)
     return x.contiguous()
 
@@ -232,19 +245,20 @@ def make_grad_reducer(specs: list[Spec], batch_axes: tuple[str, ...], mesh: _Mes
     return reduce
 
 
-def sharded_global_norm(grads: list, specs: list[Spec], batch_axes: tuple[str, ...], mesh: _Mesh) -> torch.Tensor:
+def sharded_global_norm(grads: list, specs: list[Spec], axes: tuple[str, ...], mesh: _Mesh) -> torch.Tensor:
     """The global L2 norm of gradient leaves in their update layout. A leaf
-    is disjoint across the batch axes its spec splits it over and whole
-    (repeated) across the others, so each leaf's square sum is divided by
-    its count of copies (a power of two: exact) before one all-reduce."""
+    is disjoint across the axes (of ``axes``: the batch and model axes) its
+    spec splits it over and whole (repeated) across the others, so each
+    leaf's square sum is divided by its count of copies (a power of two:
+    exact) before one all-reduce."""
     total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
     for g, spec in zip(grads, specs):
-        consumed = {a for _, axes in sharded_dims(spec, mesh.sizes) for a in axes if a in batch_axes}
-        copies = int(np.prod([mesh.sizes[a] for a in batch_axes if a not in consumed]))
+        consumed = {a for _, split in sharded_dims(spec, mesh.sizes) for a in split if a in axes}
+        copies = int(np.prod([mesh.sizes[a] for a in axes if a not in consumed]))
         contrib = torch.sum(g.float() * g.float())
         total = total + (contrib / copies if copies > 1 else contrib)
-    if batch_axes:
-        dist.all_reduce(total, group=mesh.state.group(batch_axes))
+    if axes:
+        dist.all_reduce(total, group=mesh.state.group(axes))
     return torch.sqrt(total)
 
 
@@ -261,6 +275,9 @@ class ShardedLayout:
         self.pspecs = tree_leaves(param_specs)
         self.uspecs = tree_leaves(update_specs)
         self.batch_axes = zero_batch_axes(self.mesh.sizes)
+        # the tensor and expert axes: params split over them stay split for
+        # the forward, which runs on this process's slices
+        self.model_axes = tuple(a for a in (MESH_AXIS_TENSOR, MESH_AXIS_EXPERT) if self.mesh.sizes[a] > 1)
         # the loss's 1/N prescale: the batch shards; a sequence group's
         # processes hold shares of one shard's loss, summed
         self.shards = 1
@@ -269,6 +286,12 @@ class ShardedLayout:
         self.sum_axes = (MESH_AXIS_SEQUENCE,) if self.mesh.sizes[MESH_AXIS_SEQUENCE] > 1 else ()
         self.reduce = make_grad_reducer(self.uspecs, self.batch_axes, self.mesh, self.sum_axes)
         self.param_dims = [sharded_dims(s, self.mesh.sizes) for s in self.pspecs]
+        # what the forward gathers: the batch axes' splits, not the model axes'
+        self.compute_specs = [without_axes(s, self.model_axes, self.mesh.sizes) for s in self.pspecs]
+        self.compute_dims = [sharded_dims(s, self.mesh.sizes) for s in self.compute_specs]
+        # an update shard of a whole-stored param, relative to what is stored
+        self.relative_uspecs = [without_axes(u, [a for _, axes in d for a in axes], self.mesh.sizes)
+                                for u, d in zip(self.uspecs, self.param_dims)]
         update_dims = [sharded_dims(s, self.mesh.sizes) for s in self.uspecs]
         # which leaves update where they are stored (the others are stored
         # whole and update a shard: FSDP stages 1 and 2)
@@ -284,7 +307,14 @@ class ShardedLayout:
         return tree_unflatten(full, leaves)
 
     def gather_params(self, stored: dict) -> dict:
-        """The whole params, gathered from the stored ones."""
+        """The params the forward takes, gathered from the stored ones: whole
+        over the batch axes, this process's slices over the model axes."""
+        leaves = [gather_full(x, s, self.mesh) if d else x
+                  for x, s, d in zip(tree_leaves(stored), self.compute_specs, self.compute_dims)]
+        return tree_unflatten(stored, leaves)
+
+    def gather_whole(self, stored: dict) -> dict:
+        """The whole params, gathered from the stored ones over every axis."""
         leaves = [gather_full(x, s, self.mesh) if d else x
                   for x, s, d in zip(tree_leaves(stored), self.pspecs, self.param_dims)]
         return tree_unflatten(stored, leaves)
@@ -293,19 +323,19 @@ class ShardedLayout:
         """The leaves the update writes: the stored tensors where they are
         updated in place, else copies of this process's shard."""
         return [x if same else shard_of(x, u, self.mesh)
-                for x, u, same in zip(tree_leaves(stored), self.uspecs, self.in_place)]
+                for x, u, same in zip(tree_leaves(stored), self.relative_uspecs, self.in_place)]
 
     @torch.no_grad()
     def write_back(self, stored: dict, updated: list) -> None:
         """Gather the updated shards of whole-stored params back into them."""
-        for x, u, same, new in zip(tree_leaves(stored), self.uspecs, self.in_place, updated):
+        for x, u, same, new in zip(tree_leaves(stored), self.relative_uspecs, self.in_place, updated):
             if not same:
                 x.copy_(gather_full(new, u, self.mesh))
 
     def global_norm(self, grads: list) -> torch.Tensor:
         if not self.shards_update:  # every leaf whole: the local norm is the global one
             return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
-        return sharded_global_norm(grads, self.uspecs, self.batch_axes, self.mesh)
+        return sharded_global_norm(grads, self.uspecs, self.batch_axes + self.model_axes, self.mesh)
 
     def state_specs(self, opt_state, update_params: list) -> list[Spec]:
         """The spec of each optimizer-state leaf (a moment takes its param's)."""
@@ -334,12 +364,27 @@ class ShardedLayout:
             shape[dim] *= self.mesh.count(axes)
         return tuple(shape)
 
-    def chunk_start(self, shape: tuple[int, ...], spec: Spec) -> tuple[int, ...]:
-        """The global offset of this process's shard of a leaf of ``shape``."""
+    def chunks(self, shard, spec: Spec) -> list:
+        """This process's shard of a leaf (a tensor or an array) as ``(global
+        offset, piece)`` pairs: one, or one a block where the spec splits a dim as blocks (each
+        block's chunk lies apart in the whole leaf)."""
+        shape = self.full_shape(tuple(shard.shape), spec)
         start = [0] * len(shape)
+        blocked = []
         for dim, axes in sharded_dims(spec, self.mesh.sizes):
-            start[dim] = self.mesh.chunk(axes) * (shape[dim] // self.mesh.count(axes))
-        return tuple(start)
+            nb = spec_blocks(spec).get(dim, 1)
+            start[dim] = self.mesh.chunk(axes) * (shape[dim] // (nb * self.mesh.count(axes)))
+            if nb > 1:
+                blocked.append((dim, nb, shape[dim] // nb))
+        pieces = [(tuple(start), shard)]
+        for dim, nb, block in blocked:
+            width = shard.shape[dim] // nb
+            pieces = [
+                (tuple(o + j * block if d == dim else o for d, o in enumerate(offset)),
+                 whole[(slice(None),) * dim + (slice(j * width, (j + 1) * width),)])
+                for offset, whole in pieces for j in range(nb)
+            ]
+        return pieces
 
     def writes_chunk(self, spec: Spec) -> bool:
         """Whether this process writes its shard of a leaf to a sharded

@@ -82,8 +82,9 @@ class AcceleratedScheduler:
         if self.split_batches:
             self._counter += 1
         else:
-            # one tick per data shard: one device a process
-            self._counter += PartialState().num_devices
+            # one tick per data shard: the batch axes' extent (the processes
+            # of a tensor, expert or sequence group take the same rows)
+            self._counter += PartialState().batch_shards
 
     def get_last_lr(self) -> list[float]:
         return [float(self.schedule_fn(self._counter))]

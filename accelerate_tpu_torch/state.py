@@ -12,7 +12,10 @@ get_multihost_env``) ``PartialState`` joins the process group
 (``torch.distributed.init_process_group``: NCCL for a CUDA device, gloo for
 the CPU, unless ``InitProcessGroupKwargs.backend`` names one) and builds a
 ``DeviceMesh`` over the canonical axes (data outermost) from the
-``ParallelismConfig``; a group that is already initialized is adopted. The
+``ParallelismConfig``; a group that is already initialized is adopted;
+``group(axes)`` gives the process group over any of its axes (the tensor
+and expert groups of ``parallel/tensor_parallel.py``, ranked in the JAX
+mesh's order, ``rank_coords``). The
 device is ``cuda:LOCAL_RANK`` unless the caller names one (``device="cpu"``
 for the CPU). The process helpers (``wait_for_everyone``, ``any_process``,
 ``aggregate_metrics``, ``split_between_processes``,

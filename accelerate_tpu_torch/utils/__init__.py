@@ -14,6 +14,7 @@ from .constants import (
 from .dataclasses import (
     CompilationConfig,
     DistributedType,
+    FP8RecipeKwargs,
     FullyShardedDataParallelPlugin,
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
@@ -42,6 +43,7 @@ __all__ = [
     "CANONICAL_MESH_AXES",
     "CompilationConfig",
     "DistributedType",
+    "FP8RecipeKwargs",
     "FullyShardedDataParallelPlugin",
     "GradientAccumulationPlugin",
     "InitProcessGroupKwargs",

@@ -105,6 +105,26 @@ class LossScaleKwargs(KwargsHandler):
 
 
 @dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """The fp8 scaling recipe (the reference's ``FP8RecipeKwargs``, whose
+    TransformerEngine recipe scales by a delayed abs-max): per-tensor
+    *current* scaling, as the JAX package runs it; ``margin`` backs every
+    scale off by 2^margin headroom bits. ``fp8_format`` "E4M3" or "HYBRID"
+    both run e4m3 forward products (HYBRID's e5m2 side covers quantized
+    gradients, which stay in the compute dtype here)."""
+
+    margin: int = 0
+    fp8_format: str = "E4M3"
+
+    def __post_init__(self):
+        if self.fp8_format.upper() not in ("E4M3", "HYBRID"):
+            raise ValueError(f"fp8_format must be E4M3 or HYBRID, got {self.fp8_format!r}")
+        if self.margin < 0:
+            # a negative margin lifts values past e4m3's finite range: they quantize to NaN
+            raise ValueError(f"margin must be >= 0, got {self.margin}")
+
+
+@dataclass
 class GradientAccumulationPlugin(KwargsHandler):
     """Gradient-accumulation window semantics of the reference:
     ``adjust_scheduler`` ticks the scheduler on the micro-steps the
@@ -145,18 +165,17 @@ class ProjectConfiguration:
 # Parallelism: one mesh over the processes
 # ---------------------------------------------------------------------------
 
-# the model-parallel axes the port does not run yet: their collectives live inside the forward
-_MODEL_AXES = (MESH_AXIS_PIPELINE, MESH_AXIS_EXPERT, MESH_AXIS_TENSOR)
 
 
 @dataclass
 class ParallelismConfig:
     """Sizes of the mesh axes; ``data`` defaults to every process the other
     axes leave over. A process is one device, so the sizes multiply to the
-    world size. The port runs the ``data``, ``fsdp`` and ``sequence`` axes (a
-    sequence axis: ring attention over its processes,
-    ``parallel/ring_attention.py``); ``pipeline``, ``expert`` and ``tensor``
-    above 1 raise, naming ROADMAP item 17. ``zero_stage``: None shards the weight update over the data
+    world size. The port runs the ``data``, ``fsdp``, ``sequence`` (ring
+    attention over its processes, ``parallel/ring_attention.py``),
+    ``tensor`` and ``expert`` axes (Megatron-style projections and the
+    expert exchange, ``parallel/tensor_parallel.py``); ``pipeline`` above 1
+    raises, naming ROADMAP item 17(c). ``zero_stage``: None shards the weight update over the data
     axes wherever the configuration allows it (``parallel/zero.py``), 0
     keeps the replicated update, 1 or more requires the sharded one."""
 
@@ -169,11 +188,10 @@ class ParallelismConfig:
     zero_stage: Optional[int] = None
 
     def __post_init__(self):
-        above = {axis: getattr(self, axis) for axis in _MODEL_AXES if getattr(self, axis) > 1}
-        if above:
+        if self.pipeline > 1:
             raise NotImplementedError(
-                f"model-parallel mesh axes {above} (pipeline, expert and tensor "
-                "parallelism) are not in the port yet (ROADMAP item 17)"
+                f"pipeline={self.pipeline} (the pipeline schedule, parallel/pipeline.py) is not in "
+                "the port yet (ROADMAP item 17(c))"
             )
 
     @classmethod
@@ -220,14 +238,21 @@ class ParallelismConfig:
     @property
     def distributed_type(self) -> DistributedType:
         """The JAX package's naming: one live model axis names the type (a
-        sequence axis ``TENSOR_PARALLEL``, as there), two or more ``HYBRID``."""
-        active = [axis for axis, size in ((MESH_AXIS_FSDP, self.fsdp), (MESH_AXIS_SEQUENCE, self.sequence))
+        sequence axis ``TENSOR_PARALLEL`` and an expert axis ``HYBRID``, as
+        there), two or more ``HYBRID``."""
+        active = [axis for axis, size in ((MESH_AXIS_FSDP, self.fsdp), (MESH_AXIS_EXPERT, self.expert),
+                                          (MESH_AXIS_SEQUENCE, self.sequence), (MESH_AXIS_TENSOR, self.tensor))
                   if size > 1]
         if len(active) > 1:
             return DistributedType.HYBRID
         if not active:
             return DistributedType.DATA_PARALLEL
-        return DistributedType.FSDP if active[0] == MESH_AXIS_FSDP else DistributedType.TENSOR_PARALLEL
+        return {
+            MESH_AXIS_FSDP: DistributedType.FSDP,
+            MESH_AXIS_EXPERT: DistributedType.HYBRID,
+            MESH_AXIS_SEQUENCE: DistributedType.TENSOR_PARALLEL,
+            MESH_AXIS_TENSOR: DistributedType.TENSOR_PARALLEL,
+        }[active[0]]
 
 
 @dataclass
@@ -354,17 +379,15 @@ class CompilationConfig:
 class MixedPrecisionPolicy:
     """Dtype policy: fp32 master params, compute in ``compute_dtype``. The
     step casts params and batch to it inside the autograd graph, so grads
-    land on the fp32 masters; it is a cast, not autocast."""
+    land on the fp32 masters; it is a cast, not autocast. ``"fp8"``
+    computes in bf16 around the e4m3 projections (``ops/fp8.py``, which
+    ``Accelerator.prepare_model`` installs as the model's ``dot_fn``), as
+    in the JAX package."""
 
     mixed_precision: PrecisionType = PrecisionType.NO
 
     def __post_init__(self):
         self.mixed_precision = PrecisionType(self.mixed_precision)
-        if self.mixed_precision == PrecisionType.FP8:
-            raise NotImplementedError(
-                "mixed_precision='fp8' (scaled e4m3 projections, ops/fp8.py) is not in "
-                "the port yet (ROADMAP item 16)"
-            )
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -372,6 +395,7 @@ class MixedPrecisionPolicy:
             PrecisionType.NO: torch.float32,
             PrecisionType.FP16: torch.float16,
             PrecisionType.BF16: torch.bfloat16,
+            PrecisionType.FP8: torch.bfloat16,
         }[self.mixed_precision]
 
     @property

@@ -266,6 +266,25 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     forwards (7 projections a layer for the int8 matmul; the draft's decode
     launches a multiple of its layers).
 
+28. model parallelism and fp8: (a) llama-1b at full width and depth
+    under ``ParallelismConfig(tensor=2)``, two processes sharing cuda:0
+    over gloo (bf16 over fp32 masters, flash from 1024, ``fused_adamw``,
+    global batch 4 at S=1024, 3 steps): both processes' losses equal and
+    within ``TP_LOSS_RTOL`` of one process's, every leaf's first gradient
+    gathered from the two slices within ``TP_GRAD_RTOL`` of one process's,
+    each flash kernel launched 22 x steps a process on its 8 of 16 heads
+    and adamw once a stored leaf a step, step p50 and peak memory beside
+    one process's; (b) llama-moe-tiny under ``expert=2`` in the same launch
+    against one process, its exchange ``all_to_all_single`` on the CUDA
+    tensors, beside gloo's answer to a probe of it; (c)
+    ``torch._scaled_mm`` against the plain fp8 product at llama-125m's
+    projection shapes (timed beside the plain and bf16 products), the first
+    gradients and one fp8 step of llama-125m under ``tensor=2`` against one
+    process's, and llama-125m at phase 13's B=32 S=1024 under
+    ``mixed_precision="fp8"`` for 10 steps: finite, falling losses, step p50
+    and MFU beside phase 13's bf16 ones, then two steps under
+    ``torch.profiler``.
+
 The JSON line's launch counts of the four training kernels are phase 14's
 run A, the ring variants' phase 21's rank 0; phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
@@ -687,8 +706,9 @@ def phase_serving(card: str) -> tuple:
     return launches, [results[rid].generated for rid in ids]
 
 
-def report_profile(prof, wall_us: float, steps: int, what: str, card: str) -> None:
-    """Device-busy share of the wall time and device time by kernel."""
+def report_profile(prof, wall_us: float, steps: int, what: str, card: str, top: int = 8) -> dict:
+    """Device-busy share of the wall time and device time by kernel (the
+    microseconds of each kernel over the steps, returned)."""
     device = {}  # device-side events only: a host op's device time repeats its kernels'
     for event in prof.key_averages():
         if event.device_type == torch.autograd.DeviceType.CUDA and event.self_device_time_total > 0:
@@ -697,13 +717,14 @@ def report_profile(prof, wall_us: float, steps: int, what: str, card: str) -> No
     print(f"[profile] {what}: {steps} steps, wall {wall_us / steps / 1e3:.3f} ms/step under the "
           f"profiler, device busy {busy / steps / 1e3:.3f} ms/step ({busy / wall_us:.1%} of wall) "
           f"[{card}]")
-    for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:8]:
+    for key, us in sorted(device.items(), key=lambda kv: -kv[1])[:top]:
         print(f"[profile]   {us / steps:9.1f} us/step  {key[:90]}")
     paged = {kind: sum(us for key, us in device.items() if f"paged_{kind}_" in key)
              for kind in ("walk", "combine")}
     if any(paged.values()):
         print(f"[profile]   paged attention: walk {paged['walk'] / steps:.1f} us/step, combine "
               f"{paged['combine'] / steps:.1f} us/step")
+    return device
 
 
 def profile_decode(engine, card: str, tag: str, steps: int = 10) -> None:
@@ -1701,9 +1722,10 @@ def phase_training(card: str) -> tuple[dict, float]:
     return main_counts, main_p50
 
 
-def profile_train_step(step, batch, card: str, tag: str, steps: int = 2) -> None:
+def profile_train_step(step, batch, card: str, tag: str, steps: int = 2,
+                       what: str = "llama-125m bf16 training step", top: int = 8) -> dict:
     """Where a training step's time goes: ``steps`` steps under
-    torch.profiler, device events only."""
+    torch.profiler, device events only; the microseconds by kernel."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1711,7 +1733,7 @@ def profile_train_step(step, batch, card: str, tag: str, steps: int = 2) -> None
             step(batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, steps, f"llama-125m bf16 training step, {tag}", card)
+    return report_profile(prof, wall_us, steps, f"{what}, {tag}", card, top)
 
 
 def plain_attention_of(causal: bool):
@@ -4400,6 +4422,373 @@ def phase_fleet(card: str, phase3_rows: list) -> None:
           + f"; phase {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# -- phase 28: model parallelism and fp8 -------------------------------------------
+
+TP_BATCH, TP_SEQ, TP_STEPS = 4, 1024, 3  # llama-1b under tensor=2: the global batch, both processes' rows
+MOE_BATCH, MOE_SEQ = 8, 256  # llama-moe-tiny under expert=2 (phase 16's shape), TP_STEPS steps
+FP8_TP_BATCH = 8  # llama-125m's fp8 step under tensor=2, at S=TP_SEQ
+FP8_STEPS = 10  # llama-125m fp8 at phase 13's B=32 S=1024
+FP8_PEAK = 1979e12  # dense fp8, data sheet (the MFU below stays against the bf16 peak)
+# the two processes against one at bf16: the losses' relative gap (phase 18's
+# PAIR_LOSS_RTOL: the row-parallel partial sums are rounded to bf16 before
+# their all-reduce), and each leaf's first gradient, the norm of its gap over
+# its own norm (phase 21's RING_GRAD_RTOL)
+TP_LOSS_RTOL = 5e-3
+TP_GRAD_RTOL = 5e-2
+# the fp8 step under tensor=2 against one process's: its first loss, and each
+# leaf's first gradient as above. bf16 partial sums flip an e4m3 rounding now
+# and then, and the cotangents are cast to e4m3 unscaled, where a flip near
+# the subnormal range moves a value by all of it: on an H100 the sound step's
+# gradients were 2.7e-2 to 0.286 off (median 8.7e-2), its first loss 7.9e-5.
+# A scale taken from a process's slice alone, not the whole tensor's, moved
+# the gradients 0.075 to 2.83 (median 1.54; ten of twelve leaves above 1)
+# but its first loss only 5.8e-5: the gradients are the gate that catches
+# it. chip_fp8_gate.py reads both beside these limits
+FP8_TP_LOSS_RTOL = 1e-3
+FP8_TP_GRAD_RTOL = 0.5
+# _scaled_mm against the plain fp8 product (exact e4m3 products summed in
+# fp32): the fp8 tensor cores keep about 14 bits of the partial sums between
+# cuBLAS's fp32 promotions (2.3e-4 of the largest at [2048, 768] x [768, 768]
+# on an H100); a wrong scale or layout is off by the whole product
+SCALED_MM_RTOL = 1e-3
+A2A_PROBED = "all_to_all_single cuda"
+
+
+def tp_batches(seed: int, batch: int, seq: int, vocab: int) -> list:
+    rng = np.random.default_rng(SEED + seed)
+    return [{"input_ids": torch.tensor(rng.integers(0, vocab, (batch, seq)).astype(np.int32), device="cuda")}
+            for _ in range(TP_STEPS)]
+
+
+def probe_all_to_all() -> str:
+    """gloo's ``all_to_all_single`` on CUDA tensors in two processes, its
+    values checked, or its refusal: the call the port's expert exchange
+    makes on the tensors themselves."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+    got = torch.empty_like(x)
+    try:
+        dist.all_to_all_single(got, x)
+    except (RuntimeError, ValueError, NotImplementedError) as exc:  # the probe records a refusal
+        return f"refused: {type(exc).__name__}: {str(exc).splitlines()[0]}"
+    want = [0.0, 1.0, 10.0, 11.0] if rank == 0 else [2.0, 3.0, 12.0, 13.0]
+    return "ok" if got.tolist() == want else f"wrong values {got.tolist()}"
+
+
+def local_grads(accelerator, model, optimizer, batch) -> dict:
+    """The first batch's gradients before any update, this process's
+    slices under the tensor axis, on the host; then cleared."""
+    accelerator.backward(type(model).loss_fn(model), batch)
+    grads = {k: v.detach().to("cpu") for k, v in flatten_tree(optimizer.grads)}
+    optimizer.zero_grad()
+    return grads
+
+
+def timed_losses(step, batches) -> tuple[list, list]:
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def model_parallel_job(grads_dir: str) -> dict:
+    """In each of two processes on cuda:0 over gloo: (a) llama-1b bf16 under
+    ParallelismConfig(tensor=2), the first batch's gradient slices saved to
+    ``grads_dir``, then TP_STEPS compiled steps (launches counted, each
+    timed, peak memory); (b) llama-moe-tiny under expert=2, TP_STEPS steps
+    (c) :func:`fp8_tp_job`."""
+    import torch.distributed as dist
+
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="bf16", parallelism=ParallelismConfig(tensor=2),
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
+    rank = dist.get_rank()
+    out = {"rank": rank, "probe": probe_all_to_all()}
+    model = Llama("llama-1b", dtype=torch.float32, seed=SEED)
+    prepared = accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    batches = tp_batches(28, TP_BATCH, TP_SEQ, model.config.vocab_size)
+    torch.save(local_grads(accelerator, model, optimizer, batches[0]), os.path.join(grads_dir, f"rank{rank}.pt"))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out["losses"], out["times"] = timed_losses(step, batches)
+    out["counts"] = launch_counts()
+    out["leaves"] = len(tree_leaves(prepared.params))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["stored"] = {k: tuple(v.shape) for k, v in flatten_tree(prepared.params) if k in ("layers.wq", "lm_head")}
+    del accelerator, model, prepared, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="bf16", parallelism=ParallelismConfig(expert=2), **gloo_on_card())
+    model = Llama("llama-moe-tiny", dtype=torch.float32, seed=SEED)
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    out["moe_losses"], out["moe_times"] = timed_losses(step, tp_batches(16, MOE_BATCH, MOE_SEQ, 1024))
+    del accelerator, model, step
+    out.update(fp8_tp_job(grads_dir))
+    return out
+
+
+def fp8_tp_job(grads_dir: str) -> dict:
+    """In each of two processes on cuda:0 over gloo: llama-125m fp8 under
+    ParallelismConfig(tensor=2), B=FP8_TP_BATCH at S=TP_SEQ, the first
+    batch's gradient slices saved to ``grads_dir``, then one compiled step:
+    its loss and time."""
+    import torch.distributed as dist
+
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="fp8", parallelism=ParallelismConfig(tensor=2),
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    batch = fp8_tp_batch()
+    grads = local_grads(accelerator, model, optimizer, batch)
+    torch.save(grads, os.path.join(grads_dir, f"fp8_rank{dist.get_rank()}.pt"))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    out = {}
+    out["fp8_losses"], out["fp8_times"] = timed_losses(step, [batch])
+    del accelerator, model, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_training_state()
+    return out
+
+
+def fp8_tp_batch() -> dict:
+    return tp_batches(29, FP8_TP_BATCH, TP_SEQ, 32000)[0]
+
+
+def fp8_one_process() -> tuple[dict, float]:
+    """llama-125m fp8 in this process on :func:`fp8_tp_batch`: the first
+    gradients, and one compiled step's loss."""
+    accelerator, model = train_setup("llama-125m", "fp8", fused_adamw(ADAMW_LR))
+    batch = fp8_tp_batch()
+    grads = local_grads(accelerator, model, accelerator._optimizers[-1], batch)
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    loss = float(step(batch))
+    del accelerator, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return grads, loss
+
+
+def fp8_tp_gaps(ranks: list, grads_dir: str, want: dict, one: float) -> tuple[float, dict]:
+    """The fp8 step under tensor=2 against one process's: the first loss's
+    relative gap, and each leaf's first-gradient gap, gathered from the two
+    processes' slices in ``grads_dir``."""
+    slices = [torch.load(os.path.join(grads_dir, f"fp8_rank{r}.pt")) for r in range(2)]
+    return abs(ranks[0]["fp8_losses"][0] - one) / abs(one), leaf_gaps(gathered(slices, want), want)
+
+
+def gathered(slices: list, full: dict) -> dict:
+    """Each leaf whole from the two processes' slices: the dim where a
+    slice's shape differs from the whole's, concatenated in rank order; a
+    leaf the processes replicate, rank 0's."""
+    out = {}
+    for key, want in full.items():
+        a, b = slices[0][key], slices[1][key]
+        split = [d for d, (x, y) in enumerate(zip(a.shape, want.shape)) if x != y]
+        out[key] = a if not split else torch.cat([a, b], dim=split[0])
+    return out
+
+
+def scaled_mm_checks(card: str) -> None:
+    """``torch._scaled_mm`` against the plain fp8 product (the fp32 product
+    of the same e4m3 values) at llama-125m's projection shapes, B*S = 32768
+    tokens; each timed beside the plain product and a bf16 ``torch.matmul``."""
+    from accelerate_tpu_torch.ops.fp8 import fp8_matmul, quantize_e4m3
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    for name, (k, n) in {"qkvo": (768, 768), "up": (768, 2048), "down": (2048, 768)}.items():
+        m = 32 * 1024
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda") * 0.05
+        qx, _ = quantize_e4m3(x)
+        qw, _ = quantize_e4m3(w)
+        got, want = fp8_matmul(qx, qw), qx.float() @ qw.float()
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        ms = time_ms(lambda: fp8_matmul(qx, qw), flush, iters=20)
+        plain_ms = time_ms(lambda: qx.float() @ qw.float(), flush, iters=20)
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        bf16_ms = time_ms(lambda: xb @ wb, flush, iters=20)
+        flops = 2 * m * k * n
+        print(f"[fp8] _scaled_mm {name} [{m}, {k}] x [{k}, {n}]: max error {err:.3e} of the plain product's "
+              f"largest (tolerance {SCALED_MM_RTOL}); {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{flops / ms / 1e9 / (FP8_PEAK / 1e12):.3f} of the fp8 peak) against the plain fp32 product's "
+              f"{plain_ms:.4f} ms and bf16 matmul's {bf16_ms:.4f} ms [{card}]")
+        if err > SCALED_MM_RTOL:
+            raise AssertionError(f"_scaled_mm {name} differs from the plain fp8 product by {err}")
+        del x, w, qx, qw, got, want, xb, wb
+    del flush
+    torch.cuda.empty_cache()
+
+
+def phase_model_parallel(card: str, bf16_p50: float) -> None:
+    """Phase 28, tensor and expert parallelism and fp8: (a) llama-1b at full
+    width and depth under ParallelismConfig(tensor=2), two processes on
+    cuda:0 over gloo, bf16 over fp32 masters, flash from 1024,
+    ``fused_adamw(3e-4)``, global batch 4 at S=1024, 3 compiled steps; both
+    processes' losses equal, within ``TP_LOSS_RTOL`` of one process's; the
+    first gradient of every leaf, gathered from the two slices, within
+    ``TP_GRAD_RTOL`` of one process's; launches a process (each flash kernel
+    22 x steps on 8 of 16 heads; adamw leaves x steps); step p50 and peak
+    memory beside one process's. (b) llama-moe-tiny under expert=2 in the
+    same launch, losses against one process's, and gloo's own answer to
+    the exchange's ``all_to_all_single`` on CUDA tensors. (c)
+    ``_scaled_mm`` against the plain fp8 product; (a)'s launch ends with
+    llama-125m fp8 under tensor=2, its first gradients within
+    ``FP8_TP_GRAD_RTOL`` and its first loss within ``FP8_TP_LOSS_RTOL`` of
+    one process's; llama-125m at phase 13's B=32 S=1024 under
+    ``mixed_precision="fp8"``, 10 steps: finite, falling, step p50 and MFU
+    beside phase 13's bf16 ones (both against the bf16 peak), then two
+    steps under torch.profiler."""
+    from accelerate_tpu_torch.launchers import debug_launcher
+
+    # the two processes share the card with this one: what earlier phases left cached goes back first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] this process holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, as the two processes start [{card}]")
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-tp-")
+    ranks = debug_launcher(model_parallel_job, args=(tmp.name,), num_processes=2, timeout=600)
+    slices = [torch.load(os.path.join(tmp.name, f"rank{r}.pt")) for r in range(2)]
+    print(f"[tp] gloo on CUDA tensors, two processes on cuda:0: {A2A_PROBED}: {ranks[0]['probe']}; the expert "
+          f"exchange calls it on the tensors themselves [{card}]")
+    if ranks[0]["probe"] != ranks[1]["probe"]:
+        raise AssertionError(f"probes {[r['probe'] for r in ranks]}")
+    layers = get_config("llama-1b").num_layers
+    for got in ranks:
+        print(f"[tp] rank {got['rank']}: llama-1b bf16 fused_adamw B={TP_BATCH} S={TP_SEQ} under "
+              f"ParallelismConfig(tensor=2), stored {got['stored']}: losses {[round(x, 6) for x in got['losses']]}; "
+              f"step times {[round(x * 1e3, 3) for x in got['times']]} ms (p50 {np.median(got['times']) * 1e3:.3f}; "
+              f"gloo stages every activation all-reduce through the host, so this says nothing of NCCL); "
+              f"launches {got['counts']} over {TP_STEPS} steps; peak memory {got['peak_gib']:.3f} GiB [{card}]")
+        want = {name: layers * TP_STEPS for name in FLASH_KERNELS}
+        want["fused_adamw"] = got["leaves"] * TP_STEPS
+        for key, n in want.items():
+            if got["counts"][key] != n:
+                raise AssertionError(f"rank {got['rank']} {key}: {got['counts'][key]} launches, expected {n}")
+    for key in ("losses", "moe_losses", "fp8_losses"):
+        if ranks[0][key] != ranks[1][key]:
+            raise AssertionError(f"the two processes report different {key}")
+
+    reset_training_state()
+    accelerator, model = train_setup("llama-1b", "bf16", fused_adamw(ADAMW_LR))
+    batches = tp_batches(28, TP_BATCH, TP_SEQ, model.config.vocab_size)
+    want = local_grads(accelerator, model, accelerator._optimizers[-1], batches[0])
+    grad_gaps = leaf_gaps(gathered(slices, want), want)
+    del slices, want
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single, times = timed_losses(step, batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single)]
+    worst = max(grad_gaps, key=grad_gaps.get)
+    print(f"[tp] one process on the same batches: losses {[round(x, 6) for x in single]}; relative gaps "
+          f"{[f'{g:.3e}' for g in gaps]} (tolerance {TP_LOSS_RTOL}); first gradients' relative gap, worst leaf "
+          f"{worst} {grad_gaps[worst]:.3e} (tolerance {TP_GRAD_RTOL}), median leaf "
+          f"{float(np.median(list(grad_gaps.values()))):.3e}; step times {[round(x * 1e3, 3) for x in times]} ms "
+          f"(p50 {np.median(times) * 1e3:.3f}); peak memory {peak:.3f} GiB against "
+          f"{max(r['peak_gib'] for r in ranks):.3f} a tensor-parallel process [{card}]")
+    if max(gaps) > TP_LOSS_RTOL:
+        raise AssertionError("the tensor-parallel losses differ from one process's")
+    if not all(g <= TP_GRAD_RTOL for g in grad_gaps.values()):
+        raise AssertionError(f"the tensor-parallel gradients differ from one process's: {grad_gaps}")
+    del accelerator, model, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_training_state()
+    accelerator, model = train_setup("llama-moe-tiny", "bf16", fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    single, _ = timed_losses(step, tp_batches(16, MOE_BATCH, MOE_SEQ, 1024))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["moe_losses"], single)]
+    print(f"[tp] llama-moe-tiny bf16 B={MOE_BATCH} S={MOE_SEQ} under ParallelismConfig(expert=2): losses {[round(x, 6) for x in ranks[0]['moe_losses']]}, one process "
+          f"{[round(x, 6) for x in single]}, relative gaps {[f'{g:.3e}' for g in gaps]} (tolerance "
+          f"{TP_LOSS_RTOL}); step times {[round(x * 1e3, 3) for x in ranks[0]['moe_times']]} ms [{card}]")
+    if max(gaps) > TP_LOSS_RTOL:
+        raise AssertionError("the expert-parallel losses differ from one process's")
+    del accelerator, model, step
+
+    scaled_mm_checks(card)
+    reset_training_state()
+    want, one = fp8_one_process()
+    gap, grad_gaps = fp8_tp_gaps(ranks, tmp.name, want, one)
+    tmp.cleanup()
+    del want
+    worst = max(grad_gaps, key=grad_gaps.get)
+    print(f"[fp8] llama-125m fp8 B={FP8_TP_BATCH} S={TP_SEQ}, one step under ParallelismConfig(tensor=2): loss "
+          f"{ranks[0]['fp8_losses'][0]:.6f} in {ranks[0]['fp8_times'][0] * 1e3:.3f} ms, one process {one:.6f}, "
+          f"relative gap {gap:.3e} (tolerance {FP8_TP_LOSS_RTOL}); first gradients' relative gap, worst leaf "
+          f"{worst} {grad_gaps[worst]:.3e} (tolerance {FP8_TP_GRAD_RTOL}), median leaf "
+          f"{float(np.median(list(grad_gaps.values()))):.3e} [{card}]")
+    if gap > FP8_TP_LOSS_RTOL:
+        raise AssertionError("the fp8 step under tensor=2 differs from one process's")
+    if not all(g <= FP8_TP_GRAD_RTOL for g in grad_gaps.values()):
+        raise AssertionError(f"the fp8 gradients under tensor=2 differ from one process's: {grad_gaps}")
+
+    accelerator, model = train_setup("llama-125m", "fp8", fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    batch = random_batch(np.random.default_rng(SEED + 13), 32, 1024, model.config.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = timed_losses(step, [batch] * (FP8_STEPS + 3))
+    counts = launch_counts()
+    p50 = float(np.median(times[3:]))
+    flops = train_flops_per_step(model.config, 32, 1024)
+    print(f"[fp8] llama-125m fp8 (bf16 around e4m3 projections) fused_adamw B=32 S=1024: step p50 "
+          f"{p50 * 1e3:.3f} ms (min {min(times[3:]) * 1e3:.3f}, max {max(times[3:]) * 1e3:.3f}) over {FP8_STEPS} "
+          f"steps after 3 warm-up, MFU {flops / p50 / PEAK_FLOPS[torch.bfloat16]:.4f} against the bf16 peak of "
+          f"989 TFLOP/s ({flops / p50 / FP8_PEAK:.4f} of fp8's dense 1979); phase 13's bf16 step p50 "
+          f"{bf16_p50 * 1e3:.3f} ms, MFU {flops / bf16_p50 / PEAK_FLOPS[torch.bfloat16]:.4f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"launches {counts} [{card}]")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fp8 training: losses {losses}")
+    device = profile_train_step(step, batch, card, "B=32 S=1024", what="llama-125m fp8 training step", top=14)
+    print("[profile]   fp8 step by kind: " + ", ".join(
+        f"{kind} {us / 2e3:.3f} ms" for kind, us in kernel_kinds(device).items()) + f" a step [{card}]")
+    del accelerator, model, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_training_state()
+
+
+def kernel_kinds(device: dict) -> dict:
+    """Device microseconds by kind of kernel: fp32 GEMMs (the fp8 step's
+    backward products), other GEMMs (``_scaled_mm``'s e4m3 and bf16), the
+    flash kernels, adamw, dtype copies, and the rest (element-wise passes
+    and reductions)."""
+    kinds = dict.fromkeys(("fp32 GEMM", "other GEMM", "flash", "adamw", "copies", "element-wise and reductions"), 0.0)
+    for key, us in device.items():
+        name = key.lower()
+        if "gemm" in name or "nvjet" in name:
+            kinds["fp32 GEMM" if "f32f32" in name or "sgemm" in name else "other GEMM"] += us
+        elif "flash_" in name:
+            kinds["flash"] += us
+        elif "adamw" in name:
+            kinds["adamw"] += us
+        elif "copy" in name:
+            kinds["copies"] += us
+        else:
+            kinds["element-wise and reductions"] += us
+    return kinds
+
+
 def timed(label: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4456,6 +4845,7 @@ def main() -> int:
     timed("phase 25 the engine's quarantine, watchdog, dense slab and handoff", phase_engine_surface, card)
     timed("phase 26 big-model inference", phase_big_model, card, serving_rows)
     timed("phase 27 the serving fleet", phase_fleet, card, serving_rows)
+    timed("phase 28 model parallelism and fp8", phase_model_parallel, card, compiled_p50)
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **records[name])

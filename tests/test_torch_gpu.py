@@ -1141,3 +1141,78 @@ def test_gpt2_engine_on_the_card_quarantine_dense_and_handoff(cuda):
     new_id = dst.adopt_kv(prompts[2], 6, layout, kb, vb)
     assert src.release_parked(rid) and src.cache.pages_in_use == 0
     np.testing.assert_array_equal(dst.run()[new_id].generated, want[2][prompts[2].size:])
+
+
+# -- fp8 and the vocab-parallel loss on the card --------------------------------------
+
+# _scaled_mm against the plain fp8 product, which sums the exact e4m3
+# products in fp32: the fp8 tensor cores keep about 14 bits of the partial
+# sums between cuBLAS's fp32 promotions (without fast accumulation), 2.3e-4
+# of the largest at [2048, 768] x [768, 768] on an H100. The gradients pass
+# through e4m3 casts of fp32 products summed in another order, which flip an
+# element to its other neighbour now and then: they are held by the norm of
+# the gap over their own
+SCALED_MM_RTOL = 1e-3
+
+
+@pytest.mark.parametrize("mkn", [(2048, 768, 768), (2048, 768, 2048), (2048, 2048, 768)],
+                         ids=["qkvo", "up", "down"])
+def test_scaled_mm_matches_the_plain_fp8_product(cuda, mkn):
+    """``torch._scaled_mm`` at llama-125m's projection shapes against the
+    fp32 product of the same e4m3 values; the autograd product's output
+    and gradients against the same computation on the CPU; a shape off the
+    16-multiple layout rule raises."""
+    from accelerate_tpu_torch.ops.fp8 import fp8_matmul, make_fp8_dot, quantize_e4m3
+
+    m, k, n = mkn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.05
+    qx, _ = quantize_e4m3(x)
+    qw, _ = quantize_e4m3(w)
+    got, want = fp8_matmul(qx, qw), qx.float() @ qw.float()
+    assert float((got - want).abs().max()) <= SCALED_MM_RTOL * float(want.abs().max())
+    ct = torch.randn((m, n), generator=gen, device="cuda")
+    outs = {}
+    for device in ("cuda", "cpu"):
+        xd, wd = x.detach().to(device).requires_grad_(True), w.detach().to(device).requires_grad_(True)
+        out = make_fp8_dot(1)(xd, wd)
+        (out * ct.to(device)).sum().backward()
+        outs[device] = [t.detach().cpu() for t in (out, xd.grad, wd.grad)]
+    a, b = outs["cuda"][0], outs["cpu"][0]
+    assert float((a - b).abs().max()) <= SCALED_MM_RTOL * float(b.abs().max())
+    for a, b in zip(outs["cuda"][1:], outs["cpu"][1:]):
+        assert float(torch.linalg.vector_norm(a - b)) <= SCALED_MM_RTOL * float(torch.linalg.vector_norm(b))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fp8_matmul(qx[:, :40], qw[:40])
+
+
+def test_vocab_parallel_loss_on_cuda_in_one_process(cuda):
+    """The vocab-parallel loss's collectives on CUDA tensors in a process
+    group of one (gloo): equal to the plain log-softmax, value and gradient."""
+    import socket
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.parallel.tensor_parallel import TensorParallel, split_vocab_nll
+
+    started = not dist.is_initialized()
+    if started:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    logits = torch.randn((2, 8, 64), generator=gen, device="cuda") * 4
+    targets = torch.randint(0, 64, (2, 8), generator=gen, device="cuda")
+    tp = TensorParallel(dist.group.WORLD, 1, 0, "tensor")
+    a = logits.clone().requires_grad_(True)
+    got = split_vocab_nll(a, targets, tp)
+    got.sum().backward()
+    b = logits.clone().requires_grad_(True)
+    want = -torch.gather(torch.log_softmax(b, dim=-1), -1, targets[..., None])[..., 0]
+    want.sum().backward()
+    if started:
+        dist.destroy_process_group()
+    assert float((got - want).detach().abs().max()) <= 1e-5
+    assert float((a.grad - b.grad).abs().max()) <= 1e-6

@@ -1,5 +1,6 @@
 """The port stands alone: no file of ``accelerate_tpu_torch/``, nor
-``chip_smoke.py``, ``chip_compare.py``, ``chip_ring_gate.py`` or ``chip_gpt2_gate.py``, imports
+``chip_smoke.py``, ``chip_compare.py`` or the gate scripts ``chip_ring_gate.py``,
+``chip_gpt2_gate.py`` and ``chip_fp8_gate.py``, imports
 ``jax``, ``optax``, ``ml_dtypes`` (the card's machine has none) or
 ``accelerate_tpu``. Checked on the source (an AST scan), since the test
 process imports JAX anyway."""
@@ -14,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "ml_dtypes", "accelerate_tpu")
 
 
 def _port_sources():
-    scripts = ("chip_smoke.py", "chip_compare.py", "chip_ring_gate.py", "chip_gpt2_gate.py")
+    scripts = ("chip_smoke.py", "chip_compare.py", "chip_ring_gate.py", "chip_gpt2_gate.py", "chip_fp8_gate.py")
     files = [os.path.join(REPO_ROOT, name) for name in scripts]
     for root, _, names in os.walk(os.path.join(REPO_ROOT, "accelerate_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
@@ -71,7 +72,7 @@ NOT_YET = {
         "is_datasets_available": "20", "is_flax_available": "20", "is_optax_available": "20",
         "is_orbax_available": "20", "is_safetensors_available": "20", "is_tensorboard_available": "20",
         "is_tpu_available": "20", "is_transformers_available": "20", "is_wandb_available": "20",
-        "next_rng_key": "20", "FP8RecipeKwargs": "16", "ModelParallelPlugin": "17(f)",
+        "next_rng_key": "20", "ModelParallelPlugin": "17(f)",
     },
     "models": {},
     "ops": {},

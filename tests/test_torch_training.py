@@ -295,21 +295,21 @@ def test_set_seed_makes_the_generators_repeat():
 
 
 def test_later_slices_raise_not_implemented():
-    """fp8, tensor parallelism and the ring inside a pipeline stage wait
-    for their items (``remat_policy`` raised here until activation
-    checkpointing came; a ``ParallelismConfig`` until training across
-    processes came; the ring's flash block until sequence parallelism came)."""
+    """The pipeline axis and the ring inside a pipeline stage wait for
+    item 17(c) (``remat_policy`` raised here until activation checkpointing
+    came; a ``ParallelismConfig`` until training across processes came; the
+    ring's flash block until sequence parallelism came; fp8 and the tensor
+    axis until their slice came: fp8 now prepares on one process)."""
     from accelerate_tpu_torch.parallel.ring_attention import make_local_ring_attention
 
     _reset()
     assert CompilationConfig(remat_policy="save_flash").checkpoint_policy() is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
         make_local_ring_attention()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        Accelerator(mixed_precision="fp8", device="cpu")
+    assert Accelerator(mixed_precision="fp8", device="cpu").mixed_precision == "fp8"
     _reset()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        Accelerator(parallelism=PortParallelismConfig(tensor=2), device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
+        Accelerator(parallelism=PortParallelismConfig(pipeline=2), device="cpu")
     _reset()
 
 
