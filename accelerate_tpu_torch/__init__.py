@@ -69,6 +69,7 @@ from .utils.dataclasses import (
     GradientAccumulationPlugin,
     InitProcessGroupKwargs,
     LossScaleKwargs,
+    ModelParallelPlugin,
     ParallelismConfig,
     ProjectConfiguration,
 )
@@ -95,6 +96,7 @@ __all__ = [
     "Llama",
     "LossScaleKwargs",
     "MoEBlock",
+    "ModelParallelPlugin",
     "ParallelismConfig",
     "PartialState",
     "PreparedModel",

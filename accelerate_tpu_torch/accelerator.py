@@ -50,7 +50,11 @@ process's slices (``parallel/tensor_parallel.py``); the update runs where
 they are stored, the ZeRO fold being ineligible there as in the JAX
 package (``fsdp`` and ``tensor`` together: the rules' fsdp split of each
 leaf's largest free dim, stage 3). ``mixed_precision="fp8"`` runs the
-projections through e4m3 products (``ops/fp8.py``). The resilience, telemetry and
+projections through e4m3 products (``ops/fp8.py``). The ``pipeline`` axis
+(``ParallelismConfig(pipeline=P)`` or ``ModelParallelPlugin``) splits each
+hooked model's layer stack over its processes and runs the interleaved
+schedule (``parallel/pipeline.py``); every stage computes the same loss
+from the last stage's outputs. The resilience, telemetry and
 analysis branches wait for later slices (ROADMAP items 18, 19, 21): their
 methods raise ``NotImplementedError`` naming the item.
 """
@@ -70,7 +74,14 @@ from .ops import operations as ops
 from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value, scaled_optimizer_update
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, job_world_size
-from .utils.constants import MESH_AXIS_DATA, MESH_AXIS_FSDP, MESH_AXIS_SEQUENCE, MESH_AXIS_TENSOR
+from .utils.constants import (
+    MESH_AXIS_DATA,
+    MESH_AXIS_EXPERT,
+    MESH_AXIS_FSDP,
+    MESH_AXIS_PIPELINE,
+    MESH_AXIS_SEQUENCE,
+    MESH_AXIS_TENSOR,
+)
 from .utils.dataclasses import (
     CompilationConfig,
     FP8RecipeKwargs,
@@ -79,6 +90,7 @@ from .utils.dataclasses import (
     InitProcessGroupKwargs,
     KwargsHandler,
     LossScaleKwargs,
+    ModelParallelPlugin,
     ParallelismConfig,
     ProjectConfiguration,
 )
@@ -163,6 +175,7 @@ class Accelerator:
         gradient_accumulation_steps: Optional[int] = None,
         parallelism: Optional[ParallelismConfig] = None,
         fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+        model_parallel_plugin: Optional[ModelParallelPlugin] = None,
         compilation_config: Optional[CompilationConfig] = None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         project_config: Optional[ProjectConfiguration] = None,
@@ -179,8 +192,19 @@ class Accelerator:
         ``split_batches``, ``even_batches``, ``dispatch_batches``) are the
         defaults of ``prepare_data_loader``. An ``InitProcessGroupKwargs``
         among ``kwargs_handlers`` says how the processes meet, an
-        ``FP8RecipeKwargs`` the fp8 recipe."""
-        if fsdp_plugin is not None and parallelism is None:
+        ``FP8RecipeKwargs`` the fp8 recipe. A ``ModelParallelPlugin`` gives
+        the model axes' sizes when ``parallelism`` is not given, the
+        pipeline's microbatches and virtual stages, and rules that go before
+        a model's own."""
+        if model_parallel_plugin is not None and parallelism is None:
+            parallelism = ParallelismConfig(
+                fsdp=(fsdp_plugin.fsdp_size or 1) if fsdp_plugin else 1,
+                tensor=model_parallel_plugin.tensor_size,
+                sequence=model_parallel_plugin.sequence_size,
+                pipeline=model_parallel_plugin.pipeline_size,
+                expert=model_parallel_plugin.expert_size,
+            )
+        elif fsdp_plugin is not None and parallelism is None:
             parallelism = ParallelismConfig(fsdp=fsdp_plugin.fsdp_size or job_world_size())
         self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
         if project_dir is not None and self.project_configuration.project_dir is None:
@@ -198,6 +222,7 @@ class Accelerator:
         self.state = AcceleratorState(mixed_precision=mixed_precision, parallelism=parallelism, device=device,
                                       init_kwargs=init_kwargs)
         self.fsdp_plugin = fsdp_plugin
+        self.model_parallel_plugin = model_parallel_plugin
         self._resolve_zero()
         self.compilation_config = compilation_config or CompilationConfig()
         if (fsdp_plugin is not None and fsdp_plugin.activation_checkpointing
@@ -350,6 +375,9 @@ class Accelerator:
         from .parallel.sharding import PartitionRules
 
         rules = list(module.partition_rules()) if hasattr(module, "partition_rules") else []
+        plugin = self.model_parallel_plugin
+        if plugin is not None and plugin.partition_rules:
+            rules = list(plugin.partition_rules) + rules
         if hasattr(module, "tensor_rules"):
             rules = list(module.tensor_rules(self.state.mesh_shape[MESH_AXIS_TENSOR])) + rules
         stage3 = self.fsdp_plugin is None or self.fsdp_plugin.stage >= 3
@@ -380,6 +408,15 @@ class Accelerator:
         A model with the ``remat_layers`` hook checkpoints each layer under
         the config's ``remat_policy``; the step wraps the whole loss
         function of any other model instead.
+        Under a pipeline axis a model with the ``pipeline_fn`` hook (and
+        T5's ``enc_pipeline_fn``) gets the schedule over its pipeline group
+        (``parallel/pipeline.py``): ``ModelParallelPlugin``'s microbatches
+        (0: four a stage) and virtual stages, the model's declared side
+        inputs, the ring inside each stage under a sequence axis; its
+        layers are stored over the stages, each process holding its
+        chunks, and ``remat_layers`` is off (the schedule recomputes every
+        chunk). A model without the hook keeps its layers whole on every
+        stage, with a warning.
 
         Across processes process 0's weights are broadcast to every process
         (as DDP does), and each param is stored in the layout its partition
@@ -429,11 +466,14 @@ class Accelerator:
                 model.tensor_parallel = tensor
             if hasattr(model, "expert_parallel"):
                 model.expert_parallel = expert
+        self._wire_pipeline(model)
         if hasattr(model, "remat_layers"):
             # per layer, not the outer loss-fn wrap, which for the dot
             # policies would keep every layer's products alive at once;
-            # always assigned: the model may be re-prepared under another config
-            model.remat_layers = self.compilation_config.checkpoint_policy() or False
+            # off under the pipeline, which recomputes each chunk; always
+            # assigned: the model may be re-prepared under another config
+            pipelined = getattr(model, "pipeline_fn", None) is not None
+            model.remat_layers = (not pipelined and self.compilation_config.checkpoint_policy()) or False
         tree = model.param_tree()
         layout = None
         if self.num_processes > 1:
@@ -441,6 +481,80 @@ class Accelerator:
         prepared = PreparedModel(model, tree, layout, self.state.precision_policy)
         self._models.append(prepared)
         return prepared
+
+    def _wire_pipeline(self, model: Any) -> None:
+        """The pipeline schedule on a model's hooks (``prepare_model``)."""
+        sizes = self.state.mesh_shape
+        stages = sizes[MESH_AXIS_PIPELINE]
+        if stages > 1 and not hasattr(model, "pipeline_fn"):
+            # still correct (the layers replicate over the axis), but the user
+            # asked for pipeline parallelism and gets none: say so
+            logger.warning(
+                f"{type(model).__name__} has no pipeline_fn/pipeline_layer hook: "
+                "the pipeline axis will hold replicated layers (no schedule, no "
+                "memory savings). Implement the hook (models/llama.py) or drop "
+                "the pipeline axis."
+            )
+        if not hasattr(model, "pipeline_fn"):
+            return
+        if stages <= 1:
+            model.pipeline_fn = None
+            if hasattr(model, "enc_pipeline_fn"):
+                model.enc_pipeline_fn = None
+            return
+        from .parallel.pipeline import make_pipeline_layers_fn
+        from .parallel.tensor_parallel import Replicas
+        from .state import rank_coords
+
+        plugin = self.model_parallel_plugin
+        # four microbatches a stage: GPipe's idle share (P-1)/(M+P-1) falls
+        # from ~(P-1)/(2P-1) at M=P to under 20% at M=4P
+        num_micro = plugin.num_microbatches if plugin is not None and plugin.num_microbatches > 0 else 4 * stages
+        virtual = plugin.virtual_pipeline_stages if plugin is not None else 1
+        seq_dims = None
+        if sizes[MESH_AXIS_SEQUENCE] > 1:
+            # each stage runs its chunk of the sequence through the ring of its sequence group
+            seq_dims = getattr(model, "pipeline_seq_dims", None)
+            if hasattr(model, "attention_fn"):
+                from .parallel.ring_attention import make_local_ring_attention
+
+                model.attention_fn = make_local_ring_attention(causal=getattr(model, "causal_attention", True))
+        # the processes that run the same layers on the same rows share the
+        # call's dropout seed: the first of them draws it
+        axes = tuple(a for a in (MESH_AXIS_PIPELINE, MESH_AXIS_EXPERT, MESH_AXIS_SEQUENCE, MESH_AXIS_TENSOR)
+                     if sizes[a] > 1)
+        coords = self.state.mesh_coords
+        root = next(r for r in range(self.num_processes)
+                    if all(c == coords[a] or a in axes for a, c in rank_coords(r, sizes).items()))
+        replicas = Replicas(self.state.group(axes), root)
+        model.pipeline_fn = make_pipeline_layers_fn(
+            model.config, self.state, num_micro, layer_fn=model.pipeline_layer, virtual_stages=virtual,
+            seq_dims=seq_dims, const_kinds=getattr(model, "pipeline_const_kinds", None),
+        )
+        model.pipeline_fn.replicas = replicas
+        if hasattr(model, "enc_pipeline_layer"):
+            # an encoder-decoder model pipelines each stack: the encoder's
+            # schedule completes, then the decoder's with enc_out a side input
+            model.enc_pipeline_fn = make_pipeline_layers_fn(
+                model.config, self.state, num_micro, layer_fn=model.enc_pipeline_layer, virtual_stages=virtual,
+                const_kinds=getattr(model, "enc_pipeline_const_kinds", None),
+            )
+            model.enc_pipeline_fn.replicas = replicas
+
+    def _pipeline_specs(self, model: Any, specs: dict) -> dict:
+        """Specs under a pipeline axis: a hooked model's stacked layers as its
+        processes' interleaved chunks (``virtual_pipeline_stages`` blocks of
+        the leading dim), a model without the hook whole over the axis."""
+        sizes = self.state.mesh_shape
+        if sizes[MESH_AXIS_PIPELINE] <= 1:
+            return specs
+        from .parallel.pipeline import interleaved_spec
+        from .parallel.sharding import without_axes
+
+        if getattr(model, "pipeline_fn", None) is None:
+            return tree_map(lambda spec: without_axes(spec, (MESH_AXIS_PIPELINE,), sizes), specs)
+        virtual = model.pipeline_fn.virtual_stages
+        return tree_map(lambda spec: interleaved_spec(spec, virtual), specs)
 
     def _install_fp8(self, model: Any) -> None:
         """fp8: e4m3 per-tensor-scaled projection products (``ops/fp8.py``)
@@ -481,7 +595,7 @@ class Accelerator:
         for p in tree_leaves(tree):
             p.copy_(ops.broadcast(p.data))
         sizes = self.state.mesh_shape
-        specs = infer_shardings(tree, sizes, self._partition_rules(model))
+        specs = self._pipeline_specs(model, infer_shardings(tree, sizes, self._partition_rules(model)))
         if self._zero_update_sharding:
             specs = zero_update_shardings(tree, specs, sizes)
         layout = ShardedLayout(self.state, specs, specs)
@@ -510,7 +624,8 @@ class Accelerator:
             from .parallel.zero import ShardedLayout
 
             rules = self._partition_rules(model.module).with_fsdp_applied()
-            update_specs = infer_shardings(model.params, self.state.mesh_shape, rules)
+            update_specs = self._pipeline_specs(model.module, infer_shardings(model.params, self.state.mesh_shape,
+                                                                              rules))
             model.layout = ShardedLayout(self.state, model.layout.param_specs, update_specs)
         if self._zero_update_sharding:
             from .parallel.zero import tx_couples_across_leaves

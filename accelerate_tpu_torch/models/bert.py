@@ -11,8 +11,9 @@ non-causal flash dispatch, which runs the kernels from
 ``flash_attention_min_seq`` tokens under the padding mask. The MLP's gelu is
 the tanh approximation (``jax.nn.gelu``'s default). The streaming protocol
 (``stream_prefix``, ``stream_layer``, ``stream_suffix``) serves the
-big-model executor; the pipeline hook (ROADMAP item 17) is not in the port
-yet.
+big-model executor. Under a pipeline axis ``pipeline_fn``
+(``parallel/pipeline.py``) runs the layers through the ``pipeline_layer``
+hook.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.pipeline import OWN_HOOK, split_seed
 from ..parallel.tensor_parallel import (
     column_products,
     copy_to,
@@ -114,6 +116,8 @@ class Bert(nn.Module):
         # the tensor group (parallel/tensor_parallel.py), set by Accelerator.prepare_model
         self.tensor_parallel = None
         self.remat_layers = False
+        # the layers' pipeline schedule, set by Accelerator.prepare_model under a pipeline axis
+        self.pipeline_fn = None
         device = resolve_device(device)
         for group, shapes in bert_shapes(cfg).items():
             setattr(self, group, _Group(shapes, device, dtype))
@@ -216,9 +220,12 @@ class Bert(nn.Module):
         word = vocab_embedding(emb["word"], input_ids, self.tensor_parallel, cfg.vocab_size)
         h = word + emb["position"][position_ids.long()] + emb["token_type"][token_type_ids.long()]
         h = layer_norm(h, emb["norm_scale"], emb["norm_bias"], cfg.norm_eps)
+        pipeline = self.pipeline_fn
         seeds = [None] * (1 + 2 * cfg.num_layers)
         if dropout_generator is not None and cfg.dropout_rate > 0.0:
-            seeds = draw_seeds(dropout_generator, 1 + 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
+            # under the pipeline: the embeddings' seed and the layers' base seed
+            seeds = (draw_seeds(dropout_generator, 2, pipeline.replicas) if pipeline is not None else
+                     draw_seeds(dropout_generator, 1 + 2 * cfg.num_layers, replicas_of(self.tensor_parallel)))
             h = dropout(h, cfg.dropout_rate, seeded_generator(seeds[0], h.device))
         mask = None
         if attention_mask is not None:
@@ -229,10 +236,14 @@ class Bert(nn.Module):
             generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
             return self._block(h, lp, mask, generators, kv_mask=attention_mask, attention_fn=attention_fn)
 
-        per_key = {name: w.unbind(0) for name, w in params["layers"].items()}
-        for i in range(cfg.num_layers):
-            args = (h, {name: w[i] for name, w in per_key.items()}, seeds[1 + 2 * i], seeds[2 + 2 * i])
-            h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
+        if pipeline is not None:
+            h, _ = pipeline(params["layers"], h, mask, attention_mask, dropout_rng=seeds[1],
+                            attention_fn=attention_fn)
+        else:
+            per_key = {name: w.unbind(0) for name, w in params["layers"].items()}
+            for i in range(cfg.num_layers):
+                args = (h, {name: w[i] for name, w in per_key.items()}, seeds[1 + 2 * i], seeds[2 + 2 * i])
+                h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
         pooled = self._pool(h[:, 0], params["pooler"])
         logits = pooled @ params["classifier"]["w"] + params["classifier"]["b"]
         return logits if start == 0 and counts else logits * 0.0
@@ -273,6 +284,23 @@ class Bert(nn.Module):
         up = F.gelu(column_products(h, dot, tp)(lp["w_up"]) + lp["b_up"], approximate="tanh")
         mlp_out = dropout(row_product(up, lp["w_down"], dot, tp) + lp["b_down"], cfg.dropout_rate, generators[1])
         return layer_norm(h + mlp_out, lp["mlp_norm_scale"], lp["mlp_norm_bias"], cfg.norm_eps)
+
+    # -- pipeline hook (parallel/pipeline.make_pipeline_layers_fn) -------------
+
+    # the sequence dims of the activations and side inputs (mask, kv_mask)
+    pipeline_seq_dims = {"h": 1, "consts": (3, 1)}
+    # both side inputs carry the batch in dim 0
+    pipeline_const_kinds = ("mb", "mb")
+
+    def pipeline_layer(self, lp, h, seed, mask, kv_mask, attention_fn=OWN_HOOK):
+        """``layer_fn`` contract: ``(lp, h, seed, *consts) -> (h, aux)``,
+        the folded dropout seed split into the two branches'."""
+        generators = (None, None)
+        if seed is not None:
+            generators = tuple(seeded_generator(x, h.device) for x in split_seed(seed, 2))
+        h = self._block(h, lp, mask, generators, kv_mask=kv_mask,
+                        attention_fn=self.attention_fn if attention_fn is OWN_HOOK else attention_fn)
+        return h, 0.0
 
     # -- streaming protocol (big_modeling.StreamedModel) ----------------------
     # Weights come from ``resident`` and ``lp`` only. No attention hook runs:

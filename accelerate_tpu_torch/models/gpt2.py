@@ -18,8 +18,10 @@ protocol itself (``init_cache``, ``forward_with_cache``,
 ``forward_window_with_cache``), built from ``decode_prefix``,
 ``stream_layer_cached`` and ``decode_suffix`` as the JAX package's is, and
 the streaming protocol of the big-model executor (``stream_prefix``,
-``stream_layer``, ``stream_suffix``, ``init_layer_cache``). The pipeline
-hook (ROADMAP item 17(c)) raises.
+``stream_layer``, ``stream_suffix``, ``init_layer_cache``). Under a
+pipeline axis ``pipeline_fn`` (``parallel/pipeline.py``) runs the blocks
+through the ``pipeline_layer`` hook, the tied ``wte`` read by the
+embedding on every stage and by the head on every stage.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.pipeline import OWN_HOOK, split_seed
 from ..parallel.tensor_parallel import (
     column_products,
     gather_last,
@@ -98,6 +101,8 @@ class GPT2(nn.Module):
         # the tensor group (parallel/tensor_parallel.py), set by Accelerator.prepare_model
         self.tensor_parallel = None
         self.remat_layers = False
+        # the blocks' pipeline schedule, set by Accelerator.prepare_model under a pipeline axis
+        self.pipeline_fn = None
         device = resolve_device(device)
         h = cfg.hidden_size
 
@@ -308,23 +313,28 @@ class GPT2(nn.Module):
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
             attention_mask = attention_mask[:, start:stop]
-        seeds = [None] * (2 * cfg.num_layers)
-        if dropout_generator is not None and cfg.dropout_rate > 0.0:
-            seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
-
-        def layer(h, lp, seed_attn, seed_mlp):
-            generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
-            return self._block(h, lp, mask, generators, kv_mask=attention_mask, attention_fn=attention_fn)
-
+        dropping = dropout_generator is not None and cfg.dropout_rate > 0.0
         layers = params["layers"]
-        per_key = {
-            name: layers[name].unbind(0) if isinstance(layers[name], torch.Tensor)
-            else [layers[name][i] for i in range(cfg.num_layers)]
-            for name in LAYER_KEYS
-        }
-        for i in range(cfg.num_layers):
-            args = (h, {name: w[i] for name, w in per_key.items()}, seeds[2 * i], seeds[2 * i + 1])
-            h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
+        if self.pipeline_fn is not None:
+            seed = draw_seeds(dropout_generator, 1, self.pipeline_fn.replicas)[0] if dropping else None
+            h, _ = self.pipeline_fn(layers, h, mask, attention_mask, dropout_rng=seed, attention_fn=attention_fn)
+        else:
+            seeds = [None] * (2 * cfg.num_layers)
+            if dropping:
+                seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
+
+            def layer(h, lp, seed_attn, seed_mlp):
+                generators = (seeded_generator(seed_attn, h.device), seeded_generator(seed_mlp, h.device))
+                return self._block(h, lp, mask, generators, kv_mask=attention_mask, attention_fn=attention_fn)
+
+            per_key = {
+                name: layers[name].unbind(0) if isinstance(layers[name], torch.Tensor)
+                else [layers[name][i] for i in range(cfg.num_layers)]
+                for name in LAYER_KEYS
+            }
+            for i in range(cfg.num_layers):
+                args = (h, {name: w[i] for name, w in per_key.items()}, seeds[2 * i], seeds[2 * i + 1])
+                h = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
         h = layer_norm(h, params["final_norm_scale"], params["final_norm_bias"], cfg.norm_eps)
         head = params["embed_tokens"].T.to(h.dtype)
         vocab_tp = split_or_none(self.tensor_parallel, head.shape[-1], cfg.vocab_size)
@@ -496,7 +506,19 @@ class GPT2(nn.Module):
         """fp32 logits ``[B, S, V]``."""
         return self.decode_suffix(resident, carry, last=False)
 
-    # -- not in the port yet ----------------------------------------------------
+    # -- pipeline hook (parallel/pipeline.make_pipeline_layers_fn) -------------
 
-    def pipeline_layer(self, lp, h, rng, mask, kv_mask):
-        raise NotImplementedError("the pipeline layer schedule is not in the port yet (ROADMAP item 17(c))")
+    # the sequence dims of the activations and side inputs (mask, kv_mask)
+    pipeline_seq_dims = {"h": 1, "consts": (3, 1)}
+    # both side inputs carry the batch in dim 0
+    pipeline_const_kinds = ("mb", "mb")
+
+    def pipeline_layer(self, lp, h, seed, mask, kv_mask, attention_fn=OWN_HOOK):
+        """``layer_fn`` contract: ``(lp, h, seed, *consts) -> (h, aux)``,
+        the folded dropout seed split into the two branches'."""
+        generators = (None, None)
+        if seed is not None:
+            generators = tuple(seeded_generator(x, h.device) for x in split_seed(seed, 2))
+        h = self._block(h, lp, mask, generators, kv_mask=kv_mask,
+                        attention_fn=self.attention_fn if attention_fn is OWN_HOOK else attention_fn)
+        return h, 0.0

@@ -8,7 +8,10 @@ matrices, ``final_norm`` and ``lm_head`` ``[H, V]``; an MoE config
 of the gated MLP's three matrices. Weights therefore cross between the
 packages with no transposes (``utils/params.load_jax_params``). The stacked
 layers run as a Python loop where the JAX package scans; ``remat_layers``
-checkpoints each layer (``utils/dataclasses.CompilationConfig``).
+checkpoints each layer (``utils/dataclasses.CompilationConfig``). Under a
+pipeline axis ``pipeline_fn`` (``parallel/pipeline.py``, wired by
+``Accelerator.prepare_model``) runs the layers in the loop's place, one
+layer at a time through the ``pipeline_layer`` hook.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.runtime import resolve_device
+from ..parallel.pipeline import OWN_HOOK, split_seed
 from ..parallel.tensor_parallel import (
     column_products,
     gather_last,
@@ -280,6 +284,9 @@ class Llama(nn.Module):
         # Accelerator.prepare_model under those axes; None = no group
         self.tensor_parallel = None
         self.expert_parallel = None
+        # the layer stack's pipeline schedule (parallel/pipeline.py), set by
+        # Accelerator.prepare_model under a pipeline axis; None = the loop
+        self.pipeline_fn = None
         device = resolve_device(device)
         h, v = cfg.hidden_size, cfg.vocab_size
 
@@ -433,7 +440,12 @@ class Llama(nn.Module):
         hidden slice, a column-parallel head whose logits are gathered over
         the group unless ``gather_logits`` is False (the loss takes this
         process's slice of the vocab); ``expert_parallel`` runs the MoE
-        layers' exchange."""
+        layers' exchange.
+
+        Under a pipeline axis (``pipeline_fn``) ``params["layers"]`` holds
+        this process's chunks and the schedule runs them: dropout draws
+        from one base seed folded per (layer, microbatch), and the aux is
+        the mean of the microbatches' (``parallel/pipeline.py``)."""
         cfg = self.config
         tp = self.tensor_parallel
         start, stop, attention_fn, _ = sequence_chunk(self.attention_fn, input_ids.shape[1])
@@ -450,6 +462,13 @@ class Llama(nn.Module):
             attention_mask = attention_mask[:, start:stop]
         keys = layer_keys(cfg)
         layers = params["layers"]
+        if self.pipeline_fn is not None:
+            seed = None
+            if dropout_generator is not None and cfg.dropout_rate > 0.0:
+                seed = draw_seeds(dropout_generator, 1, self.pipeline_fn.replicas)[0]
+            h, total_aux = self.pipeline_fn(layers, h, mask, cos, sin, attention_mask, dropout_rng=seed,
+                                            attention_fn=attention_fn, sequence=ring)
+            return self._head(params, h, tp, gather_logits, total_aux if return_aux else None)
         per_key = {
             name: layers[name].unbind(0) if isinstance(layers[name], torch.Tensor)
             else [layers[name][i] for i in range(cfg.num_layers)]
@@ -474,13 +493,45 @@ class Llama(nn.Module):
             args = (h, {name: per_key[name][i] for name in keys}, seeds[2 * i], seeds[2 * i + 1])
             h, aux = self.remat_layers(layer, *args) if self.remat_layers else layer(*args)
             total_aux = total_aux + aux
+        return self._head(params, h, tp, gather_logits, total_aux if return_aux else None)
+
+    def _head(self, params: dict, h, tp, gather_logits: bool, aux):
+        """The final norm and the head: logits, or ``(logits, aux)``."""
+        cfg = self.config
         h = rms_norm(h, params["final_norm"], cfg.norm_eps)
         head = (params["embed_tokens"].T if cfg.tie_embeddings else params["lm_head"]).to(h.dtype)
         vocab_tp = split_or_none(tp, head.shape[-1], cfg.vocab_size)
         logits = column_products(h, torch.matmul, vocab_tp)(head)
         if gather_logits:
             logits = gather_last(logits, vocab_tp)
-        return (logits, total_aux) if return_aux else logits
+        return logits if aux is None else (logits, aux)
+
+    # the sequence dim of the pipeline's activations and side inputs (mask,
+    # cos, sin, kv_mask): under a sequence axis the schedule runs this
+    # process's chunk of the sequence, through the ring
+    pipeline_seq_dims = {"h": 1, "consts": (3, 1, 1, 1)}
+    # cos/sin stay shape-inferred (batch-invariant [1, S, D/2] with default
+    # positions, per-row [B, S, D/2] otherwise); mask/kv_mask are batched
+    pipeline_const_kinds = ("mb", None, None, "mb")
+
+    def pipeline_layer(self, lp, h, seed, mask, cos, sin, kv_mask=None, attention_fn=OWN_HOOK, sequence=None):
+        """One decoder layer in the schedule's ``layer_fn`` contract,
+        ``(lp, h, seed, *consts) -> (h, aux)``: ``seed`` the folded dropout
+        seed of (layer, microbatch) or None, split into the two branches'
+        seeds; ``aux`` the MoE balance term (0.0 for a dense layer). The
+        call's attention hook and ring come from ``apply`` (the model's
+        ``attention_fn`` when none is passed); fp8's ``dot_fn`` and the
+        tensor and expert groups apply inside the stage as in the loop."""
+        generators = (None, None)
+        if seed is not None:
+            generators = tuple(seeded_generator(x, h.device) for x in split_seed(seed, 2))
+        h, _, aux = decoder_layer(
+            self.config, h, lp, cos, sin, mask, causal=True, dot_fn=self.dot_fn,
+            attention_fn=self.attention_fn if attention_fn is OWN_HOOK else attention_fn, kv_mask=kv_mask,
+            dropout_generators=generators, dropout_rate=self.config.dropout_rate, return_aux=True,
+            tensor_parallel=self.tensor_parallel, expert_parallel=self.expert_parallel, sequence=sequence,
+        )
+        return h, aux
 
     def forward(
         self,

@@ -22,8 +22,12 @@ JAX package scans; ``remat_layers`` checkpoints each layer of both.
 The streaming and streamed-decode protocol (``stream_prefix`` ...
 ``decode_suffix``) serves ``big_modeling.Seq2SeqStreamedModel``: the
 encoder runs once, resident, and the decoder stack streams; neither takes
-the attention hook. Not in the port yet, raising ``NotImplementedError``:
-the pipeline hooks (ROADMAP item 17).
+the attention hook. Under a pipeline axis ``enc_pipeline_fn`` and
+``pipeline_fn`` (``parallel/pipeline.py``) run the two stacks one after the
+other through ``enc_pipeline_layer`` (the flash bias variants, as the loop)
+and ``pipeline_layer`` (the einsum, ``enc_out`` a per-microbatch side
+input), as the JAX package's; T5 declares no sequence dims, so a pipeline
+with a sequence axis raises.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..parallel.tensor_parallel import (
     vocab_parallel_nll,
 )
 from ..utils.constants import MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR
+from ..parallel.pipeline import split_seed
 from .attention import dense_init, draw_seeds, dropout, resolve_dot, round_to_dtype, seeded_generator
 from .bert import _Group
 from .config import TransformerConfig, get_config
@@ -166,6 +171,9 @@ class T5(nn.Module):
         self.remat_layers = False
         # the tensor group (parallel/tensor_parallel.py), set by Accelerator.prepare_model
         self.tensor_parallel = None
+        # the two stacks' pipeline schedules, set by Accelerator.prepare_model under a pipeline axis
+        self.enc_pipeline_fn = None
+        self.pipeline_fn = None
         device = resolve_device(device)
         shapes = t5_shapes(cfg)
         for name, shape in shapes[None].items():
@@ -355,7 +363,8 @@ class T5(nn.Module):
         are drawn from it before the loop, and each layer builds its
         branches' generators from them (a recomputed layer draws the same
         masks). ``use_hooks=False`` attends by the einsum whatever hook the
-        model holds (the streamed executor's encoder pass)."""
+        model holds, and bypasses the pipeline (the streamed executor's
+        encoder pass)."""
         cfg = self.config
         s = input_ids.shape[1]
         h = vocab_embedding(params["shared_embed"], input_ids, self.tensor_parallel, cfg.vocab_size)
@@ -364,8 +373,14 @@ class T5(nn.Module):
         bias = relative_bias(table, positions, positions, bidirectional=True,
                              num_buckets=cfg.rel_buckets, max_distance=cfg.rel_max_distance)
         mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
+        dropping = dropout_generator is not None and cfg.dropout_rate > 0.0
+        pipeline = self.enc_pipeline_fn if use_hooks else None
+        if pipeline is not None:
+            seed = draw_seeds(dropout_generator, 1, pipeline.replicas)[0] if dropping else None
+            h, _ = pipeline(params["encoder"], h, mask, bias, dropout_rng=seed)
+            return rms_norm(h, params["enc_final_norm"], cfg.norm_eps)
         seeds = [None] * (2 * cfg.num_layers)
-        if dropout_generator is not None and cfg.dropout_rate > 0.0:
+        if dropping:
             seeds = draw_seeds(dropout_generator, 2 * cfg.num_layers, replicas_of(self.tensor_parallel))
 
         def layer(h, lp, seed_attn, seed_mlp):
@@ -404,6 +419,11 @@ class T5(nn.Module):
         if decoder_attention_mask is not None:
             self_mask = self_mask & decoder_attention_mask[:, None, None, :].bool()
         enc_mask = None if attention_mask is None else attention_mask[:, None, None, :].bool()
+        if self.pipeline_fn is not None:
+            seed = draw_seeds(dropout_generator, 1, self.pipeline_fn.replicas)[0] if use_dropout else None
+            h, _ = self.pipeline_fn(params["layers"], h, self_bias, self_mask, enc_out, enc_mask, dropout_rng=seed)
+            h = rms_norm(h, params["dec_final_norm"], cfg.norm_eps)
+            return self._lm_logits(params, h, gather_logits)
         seeds = [None] * (3 * cfg.num_layers)
         if use_dropout:
             seeds = draw_seeds(dropout_generator, 3 * cfg.num_layers, replicas_of(self.tensor_parallel))
@@ -497,12 +517,33 @@ class T5(nn.Module):
         """fp32 logits of the last decoder position ``[B, V]``."""
         return self.stream_suffix(resident, carry)[:, -1]
 
-    # -- not in the port yet -------------------------------------------------
+    # -- pipeline hooks (parallel/pipeline.make_pipeline_layers_fn) -----------
 
-    def enc_pipeline_layer(self, *args, **kwargs):
-        raise NotImplementedError("T5's pipeline stages are not in the port yet (ROADMAP item 17)")
+    # the decoder's self_bias is batch-invariant [1, N, S, S]; self_mask is
+    # [1, 1, S, S] causal only or [B, 1, S, S] with a decoder mask, so it
+    # stays shape-inferred
+    pipeline_const_kinds = ("bcast", None, "mb", "mb")
+    enc_pipeline_const_kinds = ("mb", "bcast")
 
-    pipeline_layer = enc_pipeline_layer
+    def enc_pipeline_layer(self, lp, h, seed, mask, bias):
+        """The encoder stack's ``layer_fn``: ``(lp, h, seed, *consts) -> (h,
+        aux)``. The raw key validity comes back from the ``[B, 1, 1, S]``
+        mask, so the flash bias hook runs inside the stages as in the loop."""
+        generators = (None, None)
+        if seed is not None:
+            generators = tuple(seeded_generator(x, h.device) for x in split_seed(seed, 2))
+        kv_mask = None if mask is None else mask[:, 0, 0, :]
+        return self._enc_layer(h, lp, bias, mask, generators, kv_mask=kv_mask), 0.0
+
+    def pipeline_layer(self, lp, h, seed, self_bias, self_mask, enc_out, enc_mask):
+        """The decoder stack's ``layer_fn``: cross-attention reads the
+        encoder output carried as a per-microbatch side input. The side
+        inputs hold 4-D masks only (causality folded in), so the layer
+        attends by the einsum, as the JAX package's does."""
+        generators = (None, None, None)
+        if seed is not None:
+            generators = tuple(seeded_generator(x, h.device) for x in split_seed(seed, 3))
+        return self._dec_layer(h, lp, self_bias, self_mask, enc_out, enc_mask, generators, use_hook=False), 0.0
 
     # -- loss --------------------------------------------------------------
 

@@ -21,8 +21,8 @@ one chunk of the sequence (``sequence_span``); nothing is ever gathered:
 
 On a gloo group a hop of CUDA tensors is staged through host tensors by
 explicit copies (gloo moves host memory); NCCL, or gloo on CPU tensors,
-sends the tensors themselves. The choice is made by the group's backend and
-the tensors' device.
+sends the tensors themselves: ``parallel/compat.py``, which the pipeline's
+hops share.
 
 Memory per process: the chunk's activations and O(S/n · S/n) score blocks,
 so the sequence a model trains on grows with the ring.
@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..ops.flash_attention import flash_attention_block
 from ..utils.constants import MESH_AXIS_SEQUENCE
+from .compat import Hop
 
 NEG_INF = -1e30
 
@@ -51,41 +52,6 @@ def sequence_span(length: int, index: int, size: int) -> Optional[tuple[int, int
     return index * chunk, (index + 1) * chunk
 
 
-class _Hop:
-    """One rotation in flight: every tensor of ``tensors`` sent to one
-    neighbour and a tensor like it received from the other, posted as one
-    batch of point-to-point ops; :meth:`wait` returns the received ones.
-    ``into`` is a tensor like the first to receive it in (the autograd
-    function's output)."""
-
-    def __init__(self, ring: "Ring", tensors: list, backward: bool, into: Optional[torch.Tensor] = None):
-        dst, src = (ring.prev, ring.next) if backward else (ring.next, ring.prev)
-        self.device = tensors[0].device
-        self.staged = ring.staged(self.device)
-        self.into = into
-        sends = [x.to("cpu") if self.staged else x.contiguous() for x in tensors]
-        self.received = [torch.empty_like(x) for x in sends]
-        if into is not None and not self.staged:
-            self.received[0] = into
-        ops = []
-        for tag, (x, y) in enumerate(zip(sends, self.received)):
-            ops.append(dist.P2POp(dist.isend, x, dst, ring.group, tag))
-            ops.append(dist.P2POp(dist.irecv, y, src, ring.group, tag))
-        self.works = dist.batch_isend_irecv(ops)
-
-    def wait(self) -> list:
-        for work in self.works:
-            work.wait()
-        if not self.staged:
-            return self.received
-        out = [x.to(self.device) for x in self.received]
-        if self.into is not None:
-            with torch.no_grad():
-                self.into.copy_(out[0])
-            out[0] = self.into
-        return out
-
-
 class _Rotate(torch.autograd.Function):
     """``x`` sent to the next process of the ring and ``x`` of the previous
     one received, with ``extra`` tensors (no gradient) in the same batch.
@@ -98,12 +64,12 @@ class _Rotate(torch.autograd.Function):
     def forward(ctx, x, ring, extra, pending):
         ctx.ring = ring
         out = torch.empty_like(x)
-        pending.append(_Hop(ring, [x, *extra], backward=False, into=out))
+        pending.append(Hop([x, *extra], ring.next, ring.prev, ring.group, into=out))
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        (received,) = _Hop(ctx.ring, [grad.contiguous()], backward=True).wait()
+        (received,) = Hop([grad.contiguous()], ctx.ring.prev, ctx.ring.next, ctx.ring.group).wait()
         return received, None, None, None
 
 
@@ -117,14 +83,8 @@ class Ring:
         self.index = mesh.get_local_rank(axis_name)
         self.next = dist.get_global_rank(self.group, (self.index + 1) % self.size)
         self.prev = dist.get_global_rank(self.group, (self.index - 1) % self.size)
-        self.backend = dist.get_backend(self.group)
 
-    def staged(self, device: torch.device) -> bool:
-        """Whether a hop of tensors on ``device`` goes through host copies:
-        gloo moves host memory only."""
-        return self.backend == "gloo" and device.type != "cpu"
-
-    def rotate(self, x: torch.Tensor, extra: list) -> tuple[torch.Tensor, _Hop]:
+    def rotate(self, x: torch.Tensor, extra: list) -> tuple[torch.Tensor, Hop]:
         """Post the hop of ``x`` (differentiable) and ``extra``: ``(x', hop)``;
         ``x'`` holds the received tensor once ``hop.wait()`` (which returns
         ``[x', *extra']``) has returned."""
@@ -203,9 +163,16 @@ def make_ring_attention(mesh, axis_name: str = MESH_AXIS_SEQUENCE, causal: bool 
 
 
 def make_local_ring_attention(axis_name: str = MESH_AXIS_SEQUENCE, causal: bool = True):
-    """The ring for code already inside the pipeline schedule's manual
-    region: not in the port yet."""
-    raise NotImplementedError(
-        "make_local_ring_attention (the ring inside a pipeline stage) is not in the port yet "
-        "(ROADMAP item 17(c))"
-    )
+    """The ring for code inside a pipeline stage (``parallel/pipeline.py``):
+    the ring over this process's ``axis_name`` group of ``PartialState``'s
+    mesh, whose members share the process's pipeline stage, so they run the
+    same schedule and post the same hops in the same order. The JAX package
+    needs a second entry here because its schedule is a manual region of one
+    program; in the port each stage is a process and the group is the
+    mesh's, so this is :func:`make_ring_attention` on that mesh."""
+    from ..state import PartialState
+
+    state = PartialState() if PartialState._shared_state.get("_ready") else None
+    if state is None or state.mesh is None or state.mesh_shape[axis_name] <= 1:
+        raise ValueError(f"make_local_ring_attention needs a {axis_name!r} axis above 1 on PartialState's mesh")
+    return make_ring_attention(state.mesh, axis_name, causal)

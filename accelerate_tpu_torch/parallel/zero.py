@@ -42,6 +42,13 @@ by the whole batch's count: the gradients and the loss are summed over the
 the batch shards only), and ZeRO is ineligible, as in the JAX package, so
 the replicated update runs.
 
+Under a pipeline axis the layers' leading dim is stored over the stages
+(each process its chunks, ``parallel/pipeline.py``) and stays split for the
+forward; every other leaf is whole on every stage with one process's
+gradient (the schedule's backward sees to that), so nothing is reduced over
+``pipeline``, and the norm counts each split leaf on its own stage and each
+replicated leaf once (``sharded_global_norm``'s copies).
+
 Bit-exactness: the 1/N factor and the loss scale are powers of two, so they
 commute exactly through the backward and the sums; at two processes a
 reduce-scatter and an all-reduce add the same two terms (``a + b == b +
@@ -275,9 +282,11 @@ class ShardedLayout:
         self.pspecs = tree_leaves(param_specs)
         self.uspecs = tree_leaves(update_specs)
         self.batch_axes = zero_batch_axes(self.mesh.sizes)
-        # the tensor and expert axes: params split over them stay split for
-        # the forward, which runs on this process's slices
-        self.model_axes = tuple(a for a in (MESH_AXIS_TENSOR, MESH_AXIS_EXPERT) if self.mesh.sizes[a] > 1)
+        # the pipeline, tensor and expert axes: params split over them stay
+        # split for the forward, which runs on this process's slices (its
+        # stage's chunks of the layers, its heads)
+        self.model_axes = tuple(a for a in (MESH_AXIS_PIPELINE, MESH_AXIS_TENSOR, MESH_AXIS_EXPERT)
+                                if self.mesh.sizes[a] > 1)
         # the loss's 1/N prescale: the batch shards; a sequence group's
         # processes hold shares of one shard's loss, summed
         self.shards = 1

@@ -15,7 +15,9 @@ the CPU, unless ``InitProcessGroupKwargs.backend`` names one) and builds a
 ``ParallelismConfig``; a group that is already initialized is adopted;
 ``group(axes)`` gives the process group over any of its axes (the tensor
 and expert groups of ``parallel/tensor_parallel.py``, ranked in the JAX
-mesh's order, ``rank_coords``). The
+mesh's order, ``rank_coords``), and ``pipeline_stages()`` the pipeline
+group with this process's stage and its neighbours
+(``parallel/pipeline.py``). The
 device is ``cuda:LOCAL_RANK`` unless the caller names one (``device="cpu"``
 for the CPU). The process helpers (``wait_for_everyone``, ``any_process``,
 ``aggregate_metrics``, ``split_between_processes``,
@@ -34,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from .ops.runtime import resolve_device
-from .utils.constants import CANONICAL_MESH_AXES
+from .utils.constants import CANONICAL_MESH_AXES, MESH_AXIS_PIPELINE
 from .utils.dataclasses import (
     DistributedType,
     GradientAccumulationPlugin,
@@ -208,10 +210,29 @@ class PartialState:
                     groups[key] = made
         return groups[key]
 
+    def pipeline_stages(self) -> "PipelineStages":
+        """This process's pipeline group: its stage on the ``pipeline`` axis,
+        the axis's size, the next and previous stages' global ranks (the
+        ring wraps from the last stage to the first) and the group (None at
+        one stage)."""
+        stages = self.__dict__.get("_pipeline_stages")
+        if stages is None:
+            size = self.mesh_shape[MESH_AXIS_PIPELINE]
+            index = self.mesh_coords[MESH_AXIS_PIPELINE]
+            if size > 1:
+                group = self.group((MESH_AXIS_PIPELINE,))
+                stages = PipelineStages(group, size, index, dist.get_global_rank(group, (index + 1) % size),
+                                        dist.get_global_rank(group, (index - 1) % size))
+            else:
+                stages = PipelineStages(None, 1, 0, self.process_index, self.process_index)
+            self._pipeline_stages = stages
+        return stages
+
     @property
     def batch_shards(self) -> int:
         """How many shards a global batch splits into: the data and fsdp
-        axes' sizes (processes of one sequence group take the same rows)."""
+        axes' sizes (the processes of one pipeline, sequence, tensor or
+        expert group take the same rows)."""
         return self.mesh_shape["data"] * self.mesh_shape["fsdp"]
 
     @property
@@ -354,6 +375,22 @@ class PartialState:
         """Test hygiene: drop the shared dict (a process group stays up and
         is adopted by the next ``PartialState``)."""
         cls._shared_state.clear()
+
+
+class PipelineStages:
+    """A process's place on the ``pipeline`` axis: ``group`` (None at one
+    stage), ``size`` stages, this process's ``index``, and the global ranks
+    of the ``next`` and ``prev`` stages."""
+
+    def __init__(self, group, size: int, index: int, next: int, prev: int):  # noqa: A002 - the neighbour
+        self.group, self.size, self.index, self.next, self.prev = group, size, index, next, prev
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.size - 1
+
+    def __repr__(self) -> str:
+        return f"PipelineStages(index={self.index}, size={self.size}, next={self.next}, prev={self.prev})"
 
 
 def _same(a: torch.device, b: torch.device) -> bool:

@@ -21,6 +21,7 @@ from .dataclasses import (
     KwargsHandler,
     LossScaleKwargs,
     MixedPrecisionPolicy,
+    ModelParallelPlugin,
     ParallelismConfig,
     PrecisionType,
     ProjectConfiguration,
@@ -56,6 +57,7 @@ __all__ = [
     "MESH_AXIS_SEQUENCE",
     "MESH_AXIS_TENSOR",
     "MixedPrecisionPolicy",
+    "ModelParallelPlugin",
     "ParallelismConfig",
     "PrecisionType",
     "ProjectConfiguration",

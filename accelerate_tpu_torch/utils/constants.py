@@ -16,8 +16,7 @@ CHECKPOINT_TMP_SUFFIX = ".tmp"
 CHECKPOINT_MANIFEST_NAME = "manifest.json"
 
 # Mesh axis names, in canonical (outer -> inner) order: a rank's index is
-# row-major over them, data outermost. The port runs every axis but
-# pipeline, which waits for the pipeline schedule (ROADMAP item 17(c)).
+# row-major over them, data outermost. The port runs every axis.
 MESH_AXIS_DATA = "data"
 MESH_AXIS_FSDP = "fsdp"
 MESH_AXIS_PIPELINE = "pipeline"

@@ -171,11 +171,12 @@ class ProjectConfiguration:
 class ParallelismConfig:
     """Sizes of the mesh axes; ``data`` defaults to every process the other
     axes leave over. A process is one device, so the sizes multiply to the
-    world size. The port runs the ``data``, ``fsdp``, ``sequence`` (ring
-    attention over its processes, ``parallel/ring_attention.py``),
-    ``tensor`` and ``expert`` axes (Megatron-style projections and the
-    expert exchange, ``parallel/tensor_parallel.py``); ``pipeline`` above 1
-    raises, naming ROADMAP item 17(c). ``zero_stage``: None shards the weight update over the data
+    world size. The port runs every axis: ``data`` and ``fsdp``,
+    ``pipeline`` (the interleaved schedule, ``parallel/pipeline.py``),
+    ``sequence`` (ring attention over its processes,
+    ``parallel/ring_attention.py``), ``tensor`` and ``expert``
+    (Megatron-style projections and the expert exchange,
+    ``parallel/tensor_parallel.py``). ``zero_stage``: None shards the weight update over the data
     axes wherever the configuration allows it (``parallel/zero.py``), 0
     keeps the replicated update, 1 or more requires the sharded one."""
 
@@ -186,13 +187,6 @@ class ParallelismConfig:
     sequence: int = 1
     tensor: int = 1
     zero_stage: Optional[int] = None
-
-    def __post_init__(self):
-        if self.pipeline > 1:
-            raise NotImplementedError(
-                f"pipeline={self.pipeline} (the pipeline schedule, parallel/pipeline.py) is not in "
-                "the port yet (ROADMAP item 17(c))"
-            )
 
     @classmethod
     def from_env(cls) -> "ParallelismConfig":
@@ -240,8 +234,9 @@ class ParallelismConfig:
         """The JAX package's naming: one live model axis names the type (a
         sequence axis ``TENSOR_PARALLEL`` and an expert axis ``HYBRID``, as
         there), two or more ``HYBRID``."""
-        active = [axis for axis, size in ((MESH_AXIS_FSDP, self.fsdp), (MESH_AXIS_EXPERT, self.expert),
-                                          (MESH_AXIS_SEQUENCE, self.sequence), (MESH_AXIS_TENSOR, self.tensor))
+        active = [axis for axis, size in ((MESH_AXIS_FSDP, self.fsdp), (MESH_AXIS_PIPELINE, self.pipeline),
+                                          (MESH_AXIS_EXPERT, self.expert), (MESH_AXIS_SEQUENCE, self.sequence),
+                                          (MESH_AXIS_TENSOR, self.tensor))
                   if size > 1]
         if len(active) > 1:
             return DistributedType.HYBRID
@@ -249,6 +244,7 @@ class ParallelismConfig:
             return DistributedType.DATA_PARALLEL
         return {
             MESH_AXIS_FSDP: DistributedType.FSDP,
+            MESH_AXIS_PIPELINE: DistributedType.PIPELINE_PARALLEL,
             MESH_AXIS_EXPERT: DistributedType.HYBRID,
             MESH_AXIS_SEQUENCE: DistributedType.TENSOR_PARALLEL,
             MESH_AXIS_TENSOR: DistributedType.TENSOR_PARALLEL,
@@ -287,6 +283,39 @@ class FullyShardedDataParallelPlugin:
             cpu_offload=parse_flag_from_env("ACCELERATE_FSDP_CPU_OFFLOAD", False),
             activation_checkpointing=parse_flag_from_env("ACCELERATE_FSDP_ACTIVATION_CHECKPOINTING", False),
             state_dict_type=os.environ.get("ACCELERATE_FSDP_STATE_DICT_TYPE", "SHARDED_STATE_DICT"),
+        )
+
+
+@dataclass
+class ModelParallelPlugin:
+    """Megatron-style tensor, sequence, pipeline and expert parallelism as
+    mesh axis sizes (the JAX package's plugin): ``Accelerator`` builds its
+    ``ParallelismConfig`` from them when it is given none.
+    ``num_microbatches`` splits each batch for the pipeline schedule (0:
+    four a stage); ``virtual_pipeline_stages`` gives each process that many
+    interleaved chunks of layers (Megatron's interleaved schedule: the same
+    result, a smaller idle share). ``partition_rules`` are extra ``(regex,
+    spec)`` rules that go before the model's own."""
+
+    tensor_size: int = 1
+    sequence_size: int = 1
+    pipeline_size: int = 1
+    expert_size: int = 1
+    partition_rules: Optional[list[tuple[str, tuple]]] = None
+    num_microbatches: int = 0  # 0: four a pipeline stage
+    virtual_pipeline_stages: int = 1
+    recompute_activations: bool = False
+
+    @classmethod
+    def from_env(cls) -> "ModelParallelPlugin":
+        return cls(
+            tensor_size=parse_int_from_env("ACCELERATE_TENSOR_SIZE", 1),
+            sequence_size=parse_int_from_env("ACCELERATE_SEQUENCE_SIZE", 1),
+            pipeline_size=parse_int_from_env("ACCELERATE_PIPELINE_SIZE", 1),
+            expert_size=parse_int_from_env("ACCELERATE_EXPERT_SIZE", 1),
+            num_microbatches=parse_int_from_env("ACCELERATE_NUM_MICROBATCHES", 0),
+            virtual_pipeline_stages=parse_int_from_env("ACCELERATE_VIRTUAL_PIPELINE_STAGES", 1),
+            recompute_activations=parse_flag_from_env("ACCELERATE_RECOMPUTE_ACTIVATIONS", False),
         )
 
 

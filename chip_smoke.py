@@ -284,11 +284,37 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     ``mixed_precision="fp8"`` for 10 steps: finite, falling losses, step p50
     and MFU beside phase 13's bf16 ones, then two steps under
     ``torch.profiler``.
+29. pipeline parallelism, two processes sharing cuda:0 over gloo in one
+    launch: (a) llama-1b at full width and depth (22 layers, 11 a stage)
+    under ``ParallelismConfig(pipeline=2)``, bf16 over fp32 masters, flash
+    from 1024, ``fused_adamw``, global batch 8 at S=1024 in the default 8
+    microbatches, 3 steps: both processes' losses equal and within
+    ``TP_LOSS_RTOL`` of one process's, every leaf's first gradient (the two
+    stages' layer slices put together, the leaves outside the stack equal
+    on both) within ``TP_GRAD_RTOL`` of one process's, launches a process
+    (each chunk recomputed, idle ticks skipped: flash forward 2 x 11 x 8 a
+    step, dq and dk/dv 11 x 8, adamw once a stored leaf), step p50 and peak
+    memory beside one process's, the schedule's idle fraction and the
+    bytes hopped a step; (b) llama-125m under ``pipeline=2`` at
+    ``virtual_pipeline_stages=2`` (3 layers a chunk), its losses within
+    ``TP_LOSS_RTOL`` of the same method at v=1 on the same batches, both
+    idle fractions; (c) llama-125m fp8 under ``pipeline=2``: its first loss
+    within ``FP8_TP_LOSS_RTOL`` and every leaf's first gradient within
+    ``FP8_TP_GRAD_RTOL`` of one process's fp8 step on the same 8
+    microbatches (each e4m3 scale is a microbatch's inside the schedule, as
+    in the JAX package's; the gap to whole-batch scales is printed).
 
 The JSON line's launch counts of the four training kernels are phase 14's
-run A, the ring variants' phase 21's rank 0; phases 15-18 print their own. The line before the last is a JSON
+run A plus phase 29 (a)'s rank 0, the ring variants' phase 21's rank 0;
+phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
+
+``python3 chip_smoke.py --phases 1,29`` runs the phases named (labels as
+the ``[time]`` lines print them, e.g. ``4b``, ``10b``; phase 1, the build,
+always runs) for a quicker look; a phase that needs another's results
+raises when that one is not named. With no argument every phase runs: that
+run is the proof, and only it prints the kernels line.
 """
 
 from __future__ import annotations
@@ -306,6 +332,8 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -321,6 +349,7 @@ from accelerate_tpu_torch import (
     GradientState,
     InitProcessGroupKwargs,
     Llama,
+    ModelParallelPlugin,
     ParallelismConfig,
     PartialState,
     QuantizationConfig,
@@ -361,6 +390,7 @@ from accelerate_tpu_torch.ops import paged_attention as pa
 from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf, adamw_leaf_reference, bias_corrections
 from accelerate_tpu_torch.ops.quant_matmul import quant_matmul_reference
 from accelerate_tpu_torch.ops.runtime import build_kernel, build_log
+from accelerate_tpu_torch.parallel.compat import staged
 from accelerate_tpu_torch.resilience import HANDOFF_RETRY
 from accelerate_tpu_torch.serving import AutoscalePolicy, RoleRebalancer, make_burst_trace, run_offered_load
 from accelerate_tpu_torch.serving.engine import params_from_streamed
@@ -749,14 +779,18 @@ def profile_decode(engine, card: str, tag: str, steps: int = 10) -> None:
     report_profile(prof, wall_us, steps, f"{tag} decode, 8 slots at ~32-96 positions", card)
 
 
+PROFILED_REQUESTS = 8  # of phase 3's traffic shape, profiled to drain
+
+
 def profile_serving(engine, card: str, tag: str) -> None:
-    """Where a serving step's time goes: phase 3's traffic shape (fresh
-    prompts, so no prefix from the counted run is reused), every step from
-    submission to drain under torch.profiler, prefill chunks included.
-    Device activity only: host events over some 140 steps take minutes to
-    collect, and the report reads device events alone."""
+    """Where a serving step's time goes: the first ``PROFILED_REQUESTS`` of
+    phase 3's traffic shape (fresh prompts, so no prefix from the counted
+    run is reused), every step from submission to drain under
+    torch.profiler, prefill chunks included. Device activity only: host
+    events over many steps take minutes to collect, and the report reads
+    device events alone."""
     prompts = serving_prompts(np.random.default_rng(SEED + 3), engine.model.config.vocab_size)
-    for p in prompts:
+    for p in prompts[:PROFILED_REQUESTS]:
         engine.submit(p, max_new_tokens=64)
     torch.cuda.synchronize()
     steps = 0
@@ -767,7 +801,8 @@ def profile_serving(engine, card: str, tag: str) -> None:
             steps += 1
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, steps, f"{tag} serving, 16 requests x 64 tokens with prefill", card)
+    report_profile(prof, wall_us, steps, f"{tag} serving, {PROFILED_REQUESTS} requests x 64 tokens with prefill",
+                   card)
 
 
 def reference_rows(model, prompts, new):
@@ -3129,7 +3164,7 @@ def probe_p2p(ring) -> dict:
     moved, hop = ring.rotate(y, [])
     hop.wait()
     out[P2P_PROBED[2]] = ("ok" if moved.tolist() == (torch.arange(4) + 10 * peer).tolist() else
-                          f"wrong {moved.tolist()}") + (" (staged through the host)" if ring.staged(y.device) else "")
+                          f"wrong {moved.tolist()}") + (" (staged through the host)" if staged(ring.group, y.device) else "")
     return out
 
 
@@ -4768,6 +4803,266 @@ def phase_model_parallel(card: str, bf16_p50: float) -> None:
     reset_training_state()
 
 
+# -- phase 29: pipeline parallelism --------------------------------------------------
+
+PP_BATCH, PP_SEQ, PP_STEPS = 8, 1024, 3  # llama-1b under pipeline=2: the global batch, fed to both stages
+PP_SMALL = "llama-125m"  # (b) and (c): 12 layers, 3 a chunk at v=2
+PP_SMALL_STEPS = 2  # (b)'s steps at each v
+
+
+def pipeline_schedule_facts(stages: int, virtual: int, rows: int, seq: int, hidden: int, micro: int) -> dict:
+    """The schedule's idle fraction and the bytes a process sends a step:
+    one bf16 activation a tick but the last, forward and backward (the
+    point-to-point hops), and the outputs' and ``h``'s cotangent's
+    broadcasts over the pipeline group."""
+    from accelerate_tpu_torch.parallel.pipeline import build_interleaved_schedule
+
+    *tables, idle = build_interleaved_schedule(stages, virtual, micro)
+    ticks = tables[0].shape[1]
+    activation = (rows // micro) * seq * hidden * 2
+    return {"idle": idle, "ticks": ticks, "hop_bytes": 2 * (ticks - 1) * activation,
+            "broadcast_bytes": 2 * rows * seq * hidden * 2}
+
+
+def stage_grads(accelerator, model, optimizer, batch, path) -> dict:
+    """The first batch's gradients before any update, this process's stored
+    slices (its stage's layers), saved to ``path``; then cleared."""
+    grads = local_grads(accelerator, model, optimizer, batch)
+    torch.save(grads, path)
+    return grads
+
+
+def pipeline_job(grads_dir: str) -> dict:
+    """In each of two processes on cuda:0 over gloo: (a) llama-1b bf16 under
+    ParallelismConfig(pipeline=2), the first batch's gradients saved to
+    ``grads_dir``, then PP_STEPS compiled steps (launches counted, each
+    timed, peak memory); (b) llama-125m under pipeline=2 at v=2 and v=1 on
+    the same batches; (c) llama-125m fp8 under pipeline=2: its first
+    gradients saved, one step's loss."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="bf16", parallelism=ParallelismConfig(pipeline=2),
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
+    rank = dist.get_rank()
+    out = {"rank": rank, "stage": accelerator.state.mesh_coords["pipeline"], "parts": {}}
+    model = Llama("llama-1b", dtype=torch.float32, seed=SEED)
+    prepared = accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    out["microbatches"] = model.pipeline_fn.num_microbatches
+    batches = tp_batches(29, PP_BATCH, PP_SEQ, model.config.vocab_size)
+    out["parts"]["(a) set-up"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stage_grads(accelerator, model, optimizer, batches[0], os.path.join(grads_dir, f"pp_rank{rank}.pt"))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out["losses"], out["times"] = timed_losses(step, batches)
+    out["parts"]["(a) gradients and steps"] = time.perf_counter() - t0
+    out["counts"] = launch_counts()
+    out["leaves"] = len(tree_leaves(prepared.params))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["stored"] = {k: tuple(v.shape) for k, v in flatten_tree(prepared.params) if k in ("layers.wq", "lm_head")}
+    del accelerator, model, prepared, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    small = tp_batches(30, PP_BATCH, PP_SEQ, 32000)[:PP_SMALL_STEPS]
+    for virtual in (2, 1):
+        reset_training_state()
+        accelerator = Accelerator(
+            mixed_precision="bf16", parallelism=ParallelismConfig(pipeline=2),
+            model_parallel_plugin=ModelParallelPlugin(pipeline_size=2, virtual_pipeline_stages=virtual),
+            compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
+        model = Llama(PP_SMALL, dtype=torch.float32, seed=SEED)
+        prepared = accelerator.prepare_model(model)
+        accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+        step = accelerator.compiled_step(Llama.loss_fn(model))
+        out[f"v{virtual}_losses"], out[f"v{virtual}_times"] = timed_losses(step, small)
+        out[f"v{virtual}_stored"] = tuple(prepared.params["layers"]["wq"].shape)
+        del accelerator, model, prepared, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out["parts"]["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="fp8", parallelism=ParallelismConfig(pipeline=2),
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
+    model = Llama(PP_SMALL, dtype=torch.float32, seed=SEED)
+    accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    batch = fp8_tp_batch()
+    stage_grads(accelerator, model, optimizer, batch, os.path.join(grads_dir, f"pp_fp8_rank{rank}.pt"))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    out["fp8_losses"], out["fp8_times"] = timed_losses(step, [batch])
+    del accelerator, model, optimizer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_training_state()
+    out["parts"]["(c)"] = time.perf_counter() - t0
+    return out
+
+
+def stage_gathered(grads_dir: str, prefix: str, want: dict) -> dict:
+    """Each leaf whole from the two stages' gradients: a stacked layer leaf
+    the stages' slices in stage order, every other leaf rank 0's, which
+    must equal rank 1's bit for bit."""
+    slices = [torch.load(os.path.join(grads_dir, f"{prefix}_rank{r}.pt")) for r in range(2)]
+    for key in want:
+        if not key.startswith("layers.") and not torch.equal(slices[0][key], slices[1][key]):
+            raise AssertionError(f"{prefix}: the stages' gradients of {key} differ")
+    return gathered(slices, want)
+
+
+def phase_pipeline(card: str) -> dict:
+    """Phase 29, pipeline parallelism: :func:`pipeline_job` in two processes
+    sharing cuda:0 over gloo, then this process's one-process references
+    (module docstring). Returns rank 0's launches of (a)."""
+    from accelerate_tpu_torch.launchers import debug_launcher
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[pp] this process holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, as the two processes start [{card}]")
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-pp-")
+    t0 = time.perf_counter()
+    ranks = debug_launcher(pipeline_job, args=(tmp.name,), num_processes=2, timeout=600)
+    parts = {"the two processes": time.perf_counter() - t0}
+    cfg = get_config("llama-1b")
+    micro = ranks[0]["microbatches"]
+    facts = pipeline_schedule_facts(2, 1, PP_BATCH, PP_SEQ, cfg.hidden_size, micro)
+    per_stage = cfg.num_layers // 2
+    for got in ranks:
+        print(f"[pp] rank {got['rank']} (stage {got['stage']}): llama-1b bf16 fused_adamw B={PP_BATCH} "
+              f"S={PP_SEQ} in {micro} microbatches under ParallelismConfig(pipeline=2), stored {got['stored']}: "
+              f"losses {[round(x, 6) for x in got['losses']]}; step times "
+              f"{[round(x * 1e3, 3) for x in got['times']]} ms (p50 {np.median(got['times']) * 1e3:.3f}; gloo "
+              f"stages every hop through the host, and both stages share one card); launches {got['counts']} "
+              f"over {PP_STEPS} steps; peak memory {got['peak_gib']:.3f} GiB [{card}]")
+        # each chunk runs forward once and again in the backward; idle ticks run nothing
+        want = {"flash_fwd": 2 * per_stage * micro * PP_STEPS, "flash_dq": per_stage * micro * PP_STEPS,
+                "flash_dkv": per_stage * micro * PP_STEPS, "fused_adamw": got["leaves"] * PP_STEPS}
+        for key, n in want.items():
+            if got["counts"][key] != n:
+                raise AssertionError(f"rank {got['rank']} {key}: {got['counts'][key]} launches, expected {n}")
+    for key in ("losses", "v1_losses", "v2_losses", "fp8_losses"):
+        if ranks[0][key] != ranks[1][key]:
+            raise AssertionError(f"the two stages report different {key}")
+    print(f"[pp] schedule (P=2, v=1, M={micro}): {facts['ticks']} ticks, idle fraction {facts['idle']:.4f}; "
+          f"a process sends {facts['hop_bytes'] / 2**20:.1f} MiB a step point to point ({facts['ticks'] - 1} "
+          f"hops of a {PP_BATCH // micro}x{PP_SEQ}x{cfg.hidden_size} bf16 activation each way) and "
+          f"{facts['broadcast_bytes'] / 2**20:.1f} MiB in the two broadcasts [{card}]")
+
+    t0 = time.perf_counter()
+    reset_training_state()
+    accelerator, model = train_setup("llama-1b", "bf16", fused_adamw(ADAMW_LR))
+    batches = tp_batches(29, PP_BATCH, PP_SEQ, model.config.vocab_size)
+    want = local_grads(accelerator, model, accelerator._optimizers[-1], batches[0])
+    grad_gaps = leaf_gaps(stage_gathered(tmp.name, "pp", want), want)
+    del want
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single, times = timed_losses(step, batches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single)]
+    worst = max(grad_gaps, key=grad_gaps.get)
+    print(f"[pp] one process on the same batches: losses {[round(x, 6) for x in single]}; relative gaps "
+          f"{[f'{g:.3e}' for g in gaps]} (tolerance {TP_LOSS_RTOL}); first gradients' relative gap, worst leaf "
+          f"{worst} {grad_gaps[worst]:.3e} (tolerance {TP_GRAD_RTOL}), median leaf "
+          f"{float(np.median(list(grad_gaps.values()))):.3e}; step times {[round(x * 1e3, 3) for x in times]} ms "
+          f"(p50 {np.median(times) * 1e3:.3f}); peak memory {peak:.3f} GiB against "
+          f"{max(r['peak_gib'] for r in ranks):.3f} a pipeline stage [{card}]")
+    if max(gaps) > TP_LOSS_RTOL:
+        raise AssertionError("the pipeline's losses differ from one process's")
+    if not all(g <= TP_GRAD_RTOL for g in grad_gaps.values()):
+        raise AssertionError(f"the pipeline's gradients differ from one process's: {grad_gaps}")
+    del accelerator, model, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    parts["one process (a)"] = time.perf_counter() - t0
+
+    small = get_config(PP_SMALL)
+    idle = {v: pipeline_schedule_facts(2, v, PP_BATCH, PP_SEQ, small.hidden_size, micro)["idle"] for v in (1, 2)}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["v2_losses"], ranks[0]["v1_losses"])]
+    print(f"[pp] {PP_SMALL} bf16 B={PP_BATCH} S={PP_SEQ} under pipeline=2: virtual_pipeline_stages=2 (stored "
+          f"{ranks[0]['v2_stored']}) losses {[round(x, 6) for x in ranks[0]['v2_losses']]}, step times "
+          f"{[round(x * 1e3, 3) for x in ranks[0]['v2_times']]} ms, idle fraction {idle[2]:.4f}; v=1 (stored "
+          f"{ranks[0]['v1_stored']}) losses {[round(x, 6) for x in ranks[0]['v1_losses']]}, step times "
+          f"{[round(x * 1e3, 3) for x in ranks[0]['v1_times']]} ms, idle fraction {idle[1]:.4f}; relative gaps "
+          f"{[f'{g:.3e}' for g in gaps]} (tolerance {TP_LOSS_RTOL}) [{card}]")
+    if max(gaps) > TP_LOSS_RTOL:
+        raise AssertionError("the interleaved schedule's losses differ from v=1's")
+
+    t0 = time.perf_counter()
+    reset_training_state()
+    whole, want, one = fp8_microbatched_one_process(micro)
+    got = stage_gathered(tmp.name, "pp_fp8", want)
+    tmp.cleanup()
+    grad_gaps, whole_gaps = leaf_gaps(got, want), leaf_gaps(got, whole)
+    gap = abs(ranks[0]["fp8_losses"][0] - one) / abs(one)
+    worst, far = max(grad_gaps, key=grad_gaps.get), max(whole_gaps, key=whole_gaps.get)
+    print(f"[pp] {PP_SMALL} fp8 B={FP8_TP_BATCH} S={TP_SEQ}, one step under ParallelismConfig(pipeline=2): loss "
+          f"{ranks[0]['fp8_losses'][0]:.6f} in {ranks[0]['fp8_times'][0] * 1e3:.3f} ms; one process on the same "
+          f"{micro} microbatches {one:.6f}, relative gap {gap:.3e} (tolerance {FP8_TP_LOSS_RTOL}); first "
+          f"gradients' relative gap, worst leaf {worst} {grad_gaps[worst]:.3e} (tolerance {FP8_TP_GRAD_RTOL}), "
+          f"median leaf {float(np.median(list(grad_gaps.values()))):.3e}; against one process's whole-batch "
+          f"scales (not a gate: the scales are a microbatch's in the pipeline) worst leaf {far} "
+          f"{whole_gaps[far]:.3e}, median {float(np.median(list(whole_gaps.values()))):.3e} [{card}]")
+    if gap > FP8_TP_LOSS_RTOL:
+        raise AssertionError("the fp8 step under pipeline=2 differs from one process's")
+    if not all(g <= FP8_TP_GRAD_RTOL for g in grad_gaps.values()):
+        raise AssertionError(f"the fp8 gradients under pipeline=2 differ from one process's: {grad_gaps}")
+    del want, whole, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_training_state()
+    parts["one process (c)"] = time.perf_counter() - t0
+    print("[pp] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + "; in the two processes: " + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["parts"].items())
+          + f" [{card}]")
+    return ranks[0]["counts"]
+
+
+def fp8_microbatched_one_process(micro: int) -> tuple[dict, dict, float]:
+    """llama-125m fp8 in this process on :func:`fp8_tp_batch` as the
+    pipeline runs it. Inside the schedule each e4m3 scale is one
+    microbatch's (in the JAX package's pipeline too), and the cotangents
+    reaching the products carry the whole batch's ``1/micro`` (the JAX fp8
+    gradient casts them unscaled): so the reference sums the gradients of
+    each microbatch's loss over ``micro``, and its loss is a compiled step
+    with ``gradient_accumulation_steps=micro``. Returns the whole batch's
+    first gradients (for the record), the microbatched ones, and the loss."""
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="fp8", gradient_accumulation_steps=micro,
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024))
+    model = Llama(PP_SMALL, dtype=torch.float32, seed=SEED)
+    prepared = accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    batch = fp8_tp_batch()
+    loss_fn = Llama.loss_fn(model)
+
+    def host(tree) -> dict:
+        return {k: v.detach().to("cpu") for k, v in flatten_tree(tree)}
+
+    whole = host(accelerator._loss_and_grads(loss_fn, prepared, batch, None)[2])
+    rows = batch["input_ids"].shape[0] // micro
+    total = None
+    for m in range(micro):
+        part = {"input_ids": batch["input_ids"][m * rows:(m + 1) * rows]}
+        grads = host(accelerator._loss_and_grads(loss_fn, prepared, part, 1.0 / micro)[2])
+        total = grads if total is None else {k: total[k] + grads[k] for k in grads}
+    loss = float(accelerator.compiled_step(loss_fn)(batch))
+    del accelerator, model, prepared
+    gc.collect()
+    torch.cuda.empty_cache()
+    return whole, total, loss
+
+
 def kernel_kinds(device: dict) -> dict:
     """Device microseconds by kind of kernel: fp32 GEMMs (the fp8 step's
     backward products), other GEMMs (``_scaled_mm``'s e4m3 and bf16), the
@@ -4796,62 +5091,122 @@ def timed(label: str, fn, *args):
     return out
 
 
-def main() -> int:
+def parse_phases(argv: list) -> Optional[set]:
+    """The phases ``--phases`` names (None: every phase)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phase labels to run (e.g. 1,29); phase 1 always runs")
+    args = parser.parse_args(argv)
+    return None if args.phases is None else {p.strip() for p in args.phases.split(",") if p.strip()}
+
+
+def main(argv: Optional[list] = None) -> int:
+    selected = parse_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+
+    def on(label: str) -> bool:
+        return selected is None or label in selected
+
+    def needs(value, producer: str, consumer: str):
+        if value is None:
+            raise SystemExit(f"chip_smoke: phase {consumer} needs phase {producer}'s results: name both")
+        return value
+
     card = timed("phase 1 environment and build", phase_environment)
-    records = {"paged_decode": timed("phase 2 decode kernel", phase_kernel, card)}
-    launches = {}
-    launches["paged_decode"], serving_rows = timed("phase 3 serving", phase_serving, card)
-    model, prompts, rows, gaps = timed("phase 4 parity", phase_parity, card)
-    timed("phase 4b llama-tiny serving (head dim 32)", phase_tiny_serving, card)
-    records["paged_verify"] = timed("phase 5 verify kernel", phase_verify_kernel, card)
-    launches["paged_verify"] = timed("phase 6 speculative serving", phase_spec_serving, card)
-    timed("phase 7 speculative parity", phase_spec_parity, card, model, prompts, rows, gaps)
+    records, launches = {}, {}
+    serving_rows = model = prompts = rows = gaps = compiled_p50 = None
+    if on("2"):
+        records["paged_decode"] = timed("phase 2 decode kernel", phase_kernel, card)
+    if on("3"):
+        launches["paged_decode"], serving_rows = timed("phase 3 serving", phase_serving, card)
+    if on("4"):
+        model, prompts, rows, gaps = timed("phase 4 parity", phase_parity, card)
+    if on("4b"):
+        timed("phase 4b llama-tiny serving (head dim 32)", phase_tiny_serving, card)
+    if on("5"):
+        records["paged_verify"] = timed("phase 5 verify kernel", phase_verify_kernel, card)
+    if on("6"):
+        launches["paged_verify"] = timed("phase 6 speculative serving", phase_spec_serving, card)
+    if on("7"):
+        needs(model, "4", "7")
+        timed("phase 7 speculative parity", phase_spec_parity, card, model, prompts, rows, gaps)
     del model
     torch.cuda.empty_cache()
-    records["quant_matmul"] = timed("phase 8 quant kernel", phase_quant_kernel, card)
-    launches["quant_matmul"] = timed("phase 9 quantized serving", phase_quant_serving, card, prompts)
+    if on("8"):
+        records["quant_matmul"] = timed("phase 8 quant kernel", phase_quant_kernel, card)
+    if on("9"):
+        launches["quant_matmul"] = timed("phase 9 quantized serving", phase_quant_serving, card,
+                                         needs(prompts, "4", "9"))
     del prompts, rows, gaps
     gc.collect()
     torch.cuda.empty_cache()  # the serving models are freed before training starts
-    records["flash_fwd"] = timed("phase 10 flash forward kernel", phase_flash_forward, card)
-    records["flash_dq"], records["flash_dkv"] = timed(
-        "phase 11 flash backward kernels", phase_flash_backward, card)
-    timed("phase 10b flash bias kernels", phase_flash_bias, card)
-    records["fused_adamw"] = timed("phase 12 adamw kernel", phase_adamw, card)
-    _, compiled_p50 = timed("phase 13 training", phase_training, card)
-    timed("phase 13 training parity and learning", phase_training_parity, card)
-    counts = timed("phase 14 the training loop", phase_loop, card, compiled_p50)
-    for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
-        launches[name] = counts[name]
-    timed("phase 15 bert", phase_bert, card)
-    timed("phase 16 mixture of experts and dropout", phase_moe_dropout, card)
-    timed("phase 17 activation checkpointing", phase_remat, card)
-    timed("phase 18 two processes on the card over gloo", phase_pair, card)
-    timed("phase 19 t5", phase_t5, card)
-    records.update(timed("phase 20 flash ring blocks", phase_ring_blocks, card))
-    ring = timed("phase 21 ring attention across two processes on the card", phase_ring_pair, card)
-    for name in FLASH_KERNELS:
-        launches[f"{name}_ring"] = ring[name]
+    if on("10"):
+        records["flash_fwd"] = timed("phase 10 flash forward kernel", phase_flash_forward, card)
+    if on("11"):
+        records["flash_dq"], records["flash_dkv"] = timed(
+            "phase 11 flash backward kernels", phase_flash_backward, card)
+    if on("10b"):
+        timed("phase 10b flash bias kernels", phase_flash_bias, card)
+    if on("12"):
+        records["fused_adamw"] = timed("phase 12 adamw kernel", phase_adamw, card)
+    if on("13"):
+        _, compiled_p50 = timed("phase 13 training", phase_training, card)
+        timed("phase 13 training parity and learning", phase_training_parity, card)
+    if on("14"):
+        counts = timed("phase 14 the training loop", phase_loop, card, needs(compiled_p50, "13", "14"))
+        for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+            launches[name] = counts[name]
+    if on("15"):
+        timed("phase 15 bert", phase_bert, card)
+    if on("16"):
+        timed("phase 16 mixture of experts and dropout", phase_moe_dropout, card)
+    if on("17"):
+        timed("phase 17 activation checkpointing", phase_remat, card)
+    if on("18"):
+        timed("phase 18 two processes on the card over gloo", phase_pair, card)
+    if on("19"):
+        timed("phase 19 t5", phase_t5, card)
+    if on("20"):
+        records.update(timed("phase 20 flash ring blocks", phase_ring_blocks, card))
+    if on("21"):
+        ring = timed("phase 21 ring attention across two processes on the card", phase_ring_pair, card)
+        for name in FLASH_KERNELS:
+            launches[f"{name}_ring"] = ring[name]
     gc.collect()
     torch.cuda.empty_cache()
-    gpt2, prompts, rows, gaps = timed("phase 22 gpt2-1.5b serving", phase_gpt2_serving, card)
-    timed("phase 23 gpt2-1.5b speculative and int8-resident", phase_gpt2_spec_quant, card, gpt2,
-          prompts, rows, gaps)
-    del gpt2, prompts, rows, gaps
-    timed("phase 24 gpt2-124m training", phase_gpt2_training, card)
-    timed("phase 25 the engine's quarantine, watchdog, dense slab and handoff", phase_engine_surface, card)
-    timed("phase 26 big-model inference", phase_big_model, card, serving_rows)
-    timed("phase 27 the serving fleet", phase_fleet, card, serving_rows)
-    timed("phase 28 model parallelism and fp8", phase_model_parallel, card, compiled_p50)
-    kernels = [
-        dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[name], **records[name])
-        for name, (source, replaces) in KERNELS.items()
-    ]
-    print(json.dumps({"kernels": kernels}))
+    if on("22"):
+        gpt2, prompts, rows, gaps = timed("phase 22 gpt2-1.5b serving", phase_gpt2_serving, card)
+        if on("23"):
+            timed("phase 23 gpt2-1.5b speculative and int8-resident", phase_gpt2_spec_quant, card, gpt2,
+                  prompts, rows, gaps)
+        del gpt2, prompts, rows, gaps
+    elif on("23"):
+        needs(None, "22", "23")
+    if on("24"):
+        timed("phase 24 gpt2-124m training", phase_gpt2_training, card)
+    if on("25"):
+        timed("phase 25 the engine's quarantine, watchdog, dense slab and handoff", phase_engine_surface, card)
+    if on("26"):
+        timed("phase 26 big-model inference", phase_big_model, card, needs(serving_rows, "3", "26"))
+    if on("27"):
+        timed("phase 27 the serving fleet", phase_fleet, card, needs(serving_rows, "3", "27"))
+    if on("28"):
+        timed("phase 28 model parallelism and fp8", phase_model_parallel, card, needs(compiled_p50, "13", "28"))
+    if on("29"):
+        pipelined = timed("phase 29 pipeline parallelism across two processes on the card", phase_pipeline, card)
+        for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+            launches[name] = launches.get(name, 0) + pipelined[name]
+    if selected is None:
+        kernels = [
+            dict(name=name, route="cuda", source=source, replaces=replaces,
+                 launches=launches[name], **records[name])
+            for name, (source, replaces) in KERNELS.items()
+        ]
+        print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,9 +137,10 @@ def test_auto_attention_switches_at_min_seq():
 def test_bias_and_ring_offsets_raise():
     """An additive bias runs, through ``flash_attention`` and the auto hook
     (which says so by ``supports_bias``), and equals the einsum path with
-    the same bias; a bias whose batch dim is neither 1 nor B raises, as the
-    ring inside a pipeline stage does (ROADMAP item 17(c); the ring block
-    entry with its global offsets runs since item 17(a))."""
+    the same bias; a bias whose batch dim is neither 1 nor B raises, and the
+    ring inside a pipeline stage (item 17(c) brought it) raises without a
+    sequence axis (the ring block entry with its global offsets runs since
+    item 17(a))."""
     q, k, v, _ = _case(n=2, kv=2)
     t = [torch.tensor(x) for x in (q, k, v)]
     bias = torch.tensor(np.random.default_rng(1).normal(size=(1, 2, 256, 256)).astype(np.float32))
@@ -152,7 +153,7 @@ def test_bias_and_ring_offsets_raise():
         fa.flash_attention(*(x.repeat(3, 1, 1, 1) for x in t), bias=bias.repeat(2, 1, 1, 1))
     from accelerate_tpu_torch.parallel.ring_attention import make_local_ring_attention
 
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
+    with pytest.raises(ValueError, match="'sequence' axis above 1"):
         make_local_ring_attention()
 
 

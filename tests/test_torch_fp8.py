@@ -1,7 +1,7 @@
 """fp8 (e4m3) projections on one process: the port's ``ops/fp8.py`` against
-the JAX package's, case by case as ``tests/test_fp8.py`` (all but its
-pipeline case, ``:148``, which waits for ROADMAP item 17(c)); under the
-tensor axis in ``tests/test_torch_tensor_parallel.py``.
+the JAX package's, case by case as ``tests/test_fp8.py`` (its pipeline
+case, ``:148``, is in ``tests/test_torch_pipeline.py``); under the tensor
+axis in ``tests/test_torch_tensor_parallel.py``.
 
 Tolerances, and why:
 - quantize: bit for bit (one division and one cast, RNE both);

@@ -219,15 +219,18 @@ def test_remat_is_bit_equal_to_none(pair, deterministic, no_remat_step, policy):
 
 
 def test_pipeline_and_streamed_forward_wait_for_their_items():
-    """The pipeline hook waits for ROADMAP item 17(c); the streamed forward
-    (the big-model slice) runs: prefix, every layer, suffix equal the
-    model's forward bit for bit, and a per-layer cache past the learned
+    """The pipeline hook (item 17(c), ``tests/test_torch_pipeline.py``) runs
+    one block as the loop does, bit for bit, with no aux; the streamed
+    forward (the big-model slice) runs: prefix, every layer, suffix equal
+    the model's forward bit for bit, and a per-layer cache past the learned
     positions raises."""
     model = GPT2(MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="17"):
-        model.pipeline_layer(None, None, None, None, None)
     ids = torch.tensor(np.random.default_rng(2).integers(0, 1024, (2, 9)))
     tree = model.param_tree()
+    with torch.no_grad():
+        h = tree["embed_tokens"][ids]
+        got, aux = model.pipeline_layer(model.layer_params(0), h, None, None, None)
+        assert torch.equal(got, model._block(h, model.layer_params(0), None)) and aux == 0.0
     resident = {k: v for k, v in tree.items() if k != "layers"}
     carry = model.stream_prefix(resident, ids)
     for i in range(model.config.num_layers):

@@ -1063,6 +1063,43 @@ def test_two_processes_share_the_card_over_gloo(cuda):
     _reset_training_state()
 
 
+def test_pipeline_stages_share_the_card_over_gloo(cuda):
+    """Phase 29 of ``chip_smoke.py`` at llama-tiny size: two processes on
+    cuda:0 over gloo under ``pipeline=2`` (one layer a stage), bf16, flash
+    from 128 tokens, fused adamw, 3 steps on global batches of 8 rows in 8
+    microbatches. Both stages report the same losses, within 5e-3 relative
+    of one process's steps (bf16 rounds to 2^-8 relative); each stage
+    launches the flash forward twice a microbatch a step (the chunk is
+    recomputed in the backward), dq and dk/dv once, adamw once a stored
+    leaf a step."""
+    import os
+    import sys
+
+    from accelerate_tpu_torch.launchers import debug_launcher
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_pipeline_workers as workers
+
+    rng = np.random.default_rng(29)
+    batches = [rng.integers(0, 1024, (8, 128)).astype(np.int32) for _ in range(3)]
+    ranks = debug_launcher(workers.gpu_pipeline, (batches,), num_processes=2, timeout=600)
+    _reset_training_state()
+    acc = Accelerator(mixed_precision="bf16", compilation_config=CompilationConfig(flash_attention_min_seq=128))
+    model = Llama("llama-tiny", seed=0)
+    acc.prepare_model(model)
+    acc.prepare_optimizer(fused_adamw(1e-3))
+    step = acc.compiled_step(Llama.loss_fn(model))
+    single = [float(step({"input_ids": torch.tensor(b, device="cuda")})) for b in batches]
+    _reset_training_state()
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    np.testing.assert_allclose(ranks[0]["losses"], single, rtol=5e-3)
+    per_stage = model.config.num_layers // 2
+    for out in ranks:
+        micro = out["microbatches"]
+        assert out["launches"] == {"flash_fwd": 2 * per_stage * micro * 3, "flash_dq": per_stage * micro * 3,
+                                   "flash_dkv": per_stage * micro * 3, "fused_adamw": out["leaves"] * 3}
+
+
 # -- gpt2 at its shapes: the paged kernels at 25 heads, the dequant-matmul at K=1600 --
 
 

@@ -72,7 +72,7 @@ NOT_YET = {
         "is_datasets_available": "20", "is_flax_available": "20", "is_optax_available": "20",
         "is_orbax_available": "20", "is_safetensors_available": "20", "is_tensorboard_available": "20",
         "is_tpu_available": "20", "is_transformers_available": "20", "is_wandb_available": "20",
-        "next_rng_key": "20", "ModelParallelPlugin": "17(f)",
+        "next_rng_key": "20",
     },
     "models": {},
     "ops": {},

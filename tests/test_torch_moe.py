@@ -133,14 +133,16 @@ def test_moe_block_trains_under_accelerator():
 def test_expert_axis_above_one_raises_naming_the_parallel_slice():
     """An expert axis above 1 runs across processes
     (``tests/test_torch_tensor_parallel.py``); on one process it raises
-    naming the mesh it cannot cover, and a pipeline axis raises naming
-    item 17(c)."""
+    naming the mesh it cannot cover, as a pipeline axis does since item
+    17(c) brought it (``tests/test_torch_pipeline.py`` runs MoE under
+    ``pipeline=2, expert=2``)."""
     _reset()
     with pytest.raises(ValueError, match="not divisible"):
         Accelerator(device="cpu", parallelism=ParallelismConfig(expert=2))
     _reset()
-    with pytest.raises(NotImplementedError, match=r"item 17\(c\)"):
-        ParallelismConfig(pipeline=2)
+    with pytest.raises(ValueError, match="not divisible"):
+        Accelerator(device="cpu", parallelism=ParallelismConfig(pipeline=2))
+    _reset()
 
 
 @pytest.fixture(scope="module")

@@ -509,19 +509,13 @@ def test_jax_sharded_checkpoint_loads_into_port_processes(launches):
 
 @pytest.mark.parametrize("axis", ["tensor", "pipeline", "expert"])
 def test_model_parallel_axes_raise_naming_item_17(axis):
-    """The pipeline axis raises naming item 17(c); the tensor and expert
-    axes run across processes (``tests/test_torch_tensor_parallel.py``),
-    and on one process an axis of 2 raises for the mesh it cannot cover."""
-    if axis == "pipeline":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
-            ParallelismConfig(**{axis: 2})
-        _reset()
-        with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
-            Accelerator(device="cpu", parallelism=ParallelismConfig(**{axis: 2}))
-        _reset()
-        return
+    """The tensor, expert and pipeline axes (item 17(c) brought the last)
+    run across processes (``tests/test_torch_tensor_parallel.py``,
+    ``tests/test_torch_pipeline.py``), each named as the JAX package names
+    it; on one process an axis of 2 raises for the mesh it cannot cover."""
     config = ParallelismConfig(**{axis: 2})
-    assert config.distributed_type == ("TENSOR_PARALLEL" if axis == "tensor" else "HYBRID")
+    assert config.distributed_type == {"tensor": "TENSOR_PARALLEL", "pipeline": "PIPELINE_PARALLEL",
+                                       "expert": "HYBRID"}[axis]
     _reset()
     with pytest.raises(ValueError, match="not divisible"):
         Accelerator(device="cpu", parallelism=config)

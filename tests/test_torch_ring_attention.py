@@ -199,8 +199,16 @@ def test_sequence_spans_and_the_fallback():
 
 
 def test_local_ring_attention_names_its_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
+    """The ring inside a pipeline stage is the ring over the mesh's sequence
+    group (item 17(c) brought it; ``tests/test_torch_pipeline.py`` runs it
+    across processes); without a sequence axis it raises naming the axis."""
+    from accelerate_tpu_torch.state import PartialState
+
+    PartialState._reset_state()
+    PartialState(device="cpu")
+    with pytest.raises(ValueError, match="'sequence' axis above 1"):
         ra.make_local_ring_attention()
+    PartialState._reset_state()
 
 
 def test_save_flash_stash_replays_each_block():

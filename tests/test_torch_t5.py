@@ -341,16 +341,28 @@ def test_dropout_draws_from_the_generator(pair, deterministic):
 
 
 def test_streaming_and_pipeline_hooks_name_their_items():
-    """The pipeline hooks name ROADMAP item 17; the streaming protocol (the
-    big-model slice) runs: prefix (the encoder), every decoder layer and
-    suffix equal the model's forward bit for bit."""
+    """The pipeline hooks (item 17(c), ``tests/test_torch_pipeline.py``) run
+    one encoder and one decoder layer as the loops do, bit for bit, with no
+    aux; the streaming protocol (the big-model slice) runs: prefix (the
+    encoder), every decoder layer and suffix equal the model's forward bit
+    for bit."""
     model = T5(MODEL, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 17"):
-        model.pipeline_layer({}, None, None)
     rng = np.random.default_rng(3)
     ids = torch.tensor(rng.integers(0, 1024, (2, 11)))
     dec = torch.tensor(rng.integers(0, 1024, (2, 5)))
     tree = model.param_tree()
+    enc_lp = {k: v[0] for k, v in tree["encoder"].items()}
+    dec_lp = {k: v[0] for k, v in tree["layers"].items()}
+    with torch.no_grad():
+        h, e = tree["shared_embed"][ids], tree["shared_embed"][dec]
+        bias = torch.zeros((1, model.config.num_heads, 11, 11))
+        got, aux = model.enc_pipeline_layer(enc_lp, h, None, None, bias)
+        assert torch.equal(got, model._enc_layer(h, enc_lp, bias, None)) and aux == 0.0
+        self_bias = torch.zeros((1, model.config.num_heads, 5, 5))
+        causal = torch.ones((5, 5), dtype=torch.bool).tril()[None, None]
+        got, aux = model.pipeline_layer(dec_lp, e, None, self_bias, causal, h, None)
+        assert torch.equal(got, model._dec_layer(e, dec_lp, self_bias, causal, h, None, use_hook=False))
+        assert aux == 0.0
     resident = {k: v for k, v in tree.items() if k != "layers"}
     carry = model.stream_prefix(resident, ids, dec)
     for i in range(model.config.num_layers):

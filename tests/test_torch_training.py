@@ -295,20 +295,25 @@ def test_set_seed_makes_the_generators_repeat():
 
 
 def test_later_slices_raise_not_implemented():
-    """The pipeline axis and the ring inside a pipeline stage wait for
-    item 17(c) (``remat_policy`` raised here until activation checkpointing
-    came; a ``ParallelismConfig`` until training across processes came; the
-    ring's flash block until sequence parallelism came; fp8 and the tensor
-    axis until their slice came: fp8 now prepares on one process)."""
+    """What raised here has come, slice by slice: ``remat_policy`` with
+    activation checkpointing, a ``ParallelismConfig`` with training across
+    processes, the ring's flash block with sequence parallelism, fp8 and
+    the tensor axis with their slice (fp8 prepares on one process), and the
+    pipeline axis with item 17(c): on one process ``pipeline=2`` now raises
+    only for the mesh it cannot cover, and the ring inside a stage only
+    without a sequence axis (``tests/test_torch_pipeline.py`` runs both
+    across processes)."""
     from accelerate_tpu_torch.parallel.ring_attention import make_local_ring_attention
 
     _reset()
     assert CompilationConfig(remat_policy="save_flash").checkpoint_policy() is not None
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
+    Accelerator(device="cpu")
+    with pytest.raises(ValueError, match="sequence"):
         make_local_ring_attention()
+    _reset()
     assert Accelerator(mixed_precision="fp8", device="cpu").mixed_precision == "fp8"
     _reset()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 17\(c\)"):
+    with pytest.raises(ValueError, match="not divisible"):
         Accelerator(parallelism=PortParallelismConfig(pipeline=2), device="cpu")
     _reset()
 
