@@ -24,7 +24,10 @@ model by an ``"auto"`` device map over the card, host memory and disk
 (``init_empty_weights``, ``load_checkpoint_and_dispatch`` of a native or
 HuggingFace-layout checkpoint, ``load_and_quantize_model``, ``cpu_offload``,
 ``disk_offload``, ``cpu_offload_with_hook``) and streams what does not fit
-through the card for a forward, ``generate`` or the serving engine.
+through the card for a forward, ``generate`` or the serving engine. Every
+``Accelerator`` carries a telemetry hub (step times, goodput, memory, MFU,
+``telemetry.jsonl``), experiment trackers (``log_with``) and a resilience
+hub whose numerical guard skips a non-finite step on the card.
 
 Its kernels are hand-written CUDA for ``sm_90a``: flash attention forward
 (``csrc/flash_fwd.cu``) and backward (``csrc/flash_bwd.cu``), fused adamw
@@ -57,10 +60,11 @@ from .ops.fused_adamw import adamw, fused_adamw
 from .ops.paged_attention import paged_decode_attention, paged_verify_attention
 from .ops.quant_matmul import quant_dot, quant_matmul
 from .optimizer import AcceleratedOptimizer
-from .resilience import FaultPlan, RetryPolicy
+from .resilience import FaultPlan, GuardPolicy, ResilienceConfig, RetryPolicy
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving import ServingEngine, ServingRouter, SpeculativeConfig
 from .state import AcceleratorState, GradientState, PartialState
+from .telemetry import Telemetry, TelemetryConfig
 from .utils.dataclasses import (
     CompilationConfig,
     DistributedType,
@@ -105,7 +109,11 @@ __all__ = [
     "QuantizedWeight",
     "ResumePoint",
     "FaultPlan",
+    "GuardPolicy",
+    "ResilienceConfig",
     "RetryPolicy",
+    "Telemetry",
+    "TelemetryConfig",
     "ServingEngine",
     "ServingRouter",
     "SpeculativeConfig",

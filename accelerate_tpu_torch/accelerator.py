@@ -54,15 +54,29 @@ projections through e4m3 products (``ops/fp8.py``). The ``pipeline`` axis
 (``ParallelismConfig(pipeline=P)`` or ``ModelParallelPlugin``) splits each
 hooked model's layer stack over its processes and runs the interleaved
 schedule (``parallel/pipeline.py``); every stage computes the same loss
-from the last stage's outputs. The resilience, telemetry and
-analysis branches wait for later slices (ROADMAP items 18, 19, 21): their
-methods raise ``NotImplementedError`` naming the item.
+from the last stage's outputs.
+
+Every accelerator carries a telemetry hub (``accelerator.telemetry``,
+``telemetry/hub.py``; on unless ``TelemetryConfig(enabled=False)`` or
+``ACCELERATE_TELEMETRY=0``) and a resilience hub
+(``accelerator.resilience``, ``resilience/hub.py``; inert unless a
+``ResilienceConfig`` or ``ACCELERATE_RESILIENCE``/``ACCELERATE_CHAOS_*``
+arms it). Armed, ``compiled_step`` runs the numerical guard: the step's
+verdict and the update's skip stay on the card (the fused adamw kernel's
+guarded variant), and the host reads the guard's state on the telemetry's
+fence cadence only. ``log_with`` names the experiment trackers
+(``tracking.py``), and ``profile`` captures a ``torch.profiler`` trace.
+Elastic training and program analysis wait for later slices (ROADMAP items
+18, 21): their methods raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import json
+import os
+import weakref
 from contextlib import contextmanager
 from typing import Any, Callable, Optional
 
@@ -72,8 +86,11 @@ from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
 from .logging import get_logger
 from .ops import operations as ops
 from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value, scaled_optimizer_update
+from .resilience import Resilience, ResilienceConfig
+from .resilience.guards import guarded_update, poison
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState, job_world_size
+from .telemetry import Telemetry, TelemetryConfig
 from .utils.constants import (
     MESH_AXIS_DATA,
     MESH_AXIS_EXPERT,
@@ -114,6 +131,15 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {key: cast_floating(value, dtype) for key, value in tree.items()}
     return _cast(tree)
+
+
+class ProfileCapture(str):
+    """What ``Accelerator.profile()`` yields: the log dir (it IS a str, so
+    ``os.walk(capture)`` works) plus the device memory read on entry and
+    exit (``telemetry.memory.get_device_memory_info``: empty on the CPU)."""
+
+    memory_before: list = []
+    memory_after: list = []
 
 
 class PreparedModel:
@@ -184,6 +210,9 @@ class Accelerator:
         dispatch_batches: Optional[bool] = None,
         step_scheduler_with_optimizer: bool = True,
         kwargs_handlers: Optional[list[KwargsHandler]] = None,
+        log_with: Optional[list] = None,
+        telemetry_config: Optional[TelemetryConfig] = None,
+        resilience_config: Optional[ResilienceConfig] = None,
         device=None,
     ):
         """``device=None`` means CUDA (``cuda:LOCAL_RANK`` across processes;
@@ -253,6 +282,33 @@ class Accelerator:
         self._load_model_hooks: list = []
         self._accum_step = 0
         self.flag_tensor: Optional[torch.Tensor] = None
+        self.log_with = log_with
+        self.trackers: list = []
+        # the telemetry hub: step timing, kernel-build capture, memory
+        # watermarks, goodput, profiler windows; near-zero cost until the
+        # caller's telemetry.step()/flush()
+        self.telemetry = Telemetry(accelerator=self, config=telemetry_config)
+        self._profile_active = False
+        if self._zero_fallback_reason is not None and self.telemetry.enabled:
+            self.telemetry.write_record("zero", {"event": "fallback_replicated",
+                                                 "reason": self._zero_fallback_reason})
+        # the resilience hub: the numerical guard in compiled_step, the chaos
+        # plan, retry records; inert unless configured. Made after telemetry
+        # so its records have a sink
+        self.resilience = Resilience(accelerator=self, config=resilience_config)
+        if self.telemetry.enabled:
+            from . import data_loader as _dl
+
+            # weakly bound: the module-level hook (last Accelerator wins) must
+            # not pin a dead Accelerator's ledger
+            goodput_ref = weakref.ref(self.telemetry.goodput)
+
+            def _record_rewind(seconds: float, batches: int) -> None:  # noqa: ARG001 - the hook's signature
+                goodput = goodput_ref()
+                if goodput is not None:
+                    goodput.record("dataloader_rewind", seconds)
+
+            _dl.rewind_seconds_hook = _record_rewind
 
     def _resolve_zero(self) -> None:
         """The reference's ZeRO resolution: ``zero_stage=None`` shards the
@@ -270,8 +326,10 @@ class Accelerator:
             )
         self._zero_update_sharding = reason is None and requested != 0
         plugin = self.fsdp_plugin
+        self._zero_fallback_reason = None  # written to telemetry.jsonl once the hub exists
         if (requested != 0 and reason is not None and plugin is not None and plugin.cpu_offload
                 and plugin.stage >= 3 and zero_ineligible_reason(sizes, None) is None):
+            self._zero_fallback_reason = reason
             logger.warning(
                 f"ZeRO sharded update disabled: {reason}. Params and optimizer state keep the fsdp "
                 "layout, not folded over the data axes; drop cpu_offload for the folded 1/N layout, "
@@ -644,6 +702,17 @@ class Accelerator:
             layout=model.layout,
             cpu_offload=plugin is not None and plugin.cpu_offload,
         )
+        optimizer.telemetry = self.telemetry if self.telemetry.enabled else None
+        if self.telemetry.enabled:
+            # this process's residency of the state just allocated: 1/N of the
+            # replicated layout under the ZeRO sharded update
+            from .telemetry.memory import state_bytes_per_chip
+
+            self.telemetry.write_record("memory", {
+                "event": "optimizer_state_allocated",
+                "opt_state_bytes_per_chip": state_bytes_per_chip(optimizer.opt_state),
+                "zero_update_sharding": self._zero_update_sharding,
+            })
         self._optimizers.append(optimizer)
         return optimizer
 
@@ -879,10 +948,18 @@ class Accelerator:
         leading dim, then averaged) -> unscale -> clip -> the update seam.
         Run eagerly; the returned loss is a device scalar (no host sync).
         Across processes ``batch`` is this process's share and the step is
-        the sharded one of ``parallel.zero.build_zero_step``."""
+        the sharded one of ``parallel.zero.build_zero_step``.
+
+        With the resilience hub armed the step runs the numerical guard
+        (``resilience/guards.py``): the chaos plan's scheduled NaN, the
+        global norm, the verdict, the escalated clip and the skip flag into
+        the update, all on the card; the guard reads its state on its check
+        cadence only. With telemetry on, each step notes the batch's shapes
+        (a host walk of its leaves) and counts the optimizer step."""
         if model is None:
             model = self._models[-1]
         optimizer = self._optimizer_for(model)
+        self._record_step_kernels(optimizer)
         if optimizer.layout is not None:
             from .parallel.zero import build_zero_step
 
@@ -891,6 +968,9 @@ class Accelerator:
         num_micro = self.gradient_state.num_steps
         tx = optimizer.tx
         scaler_cfg = optimizer.scaler
+        resilience = self.resilience
+        guard = resilience.guard if resilience.enabled else None
+        telemetry = optimizer.telemetry
 
         def loss_and_grads(batch, scale):
             """The (unscaled) loss and the scaled grads, averaged over the
@@ -907,24 +987,75 @@ class Accelerator:
             return total_loss / num_micro, tree_map(lambda g: g / num_micro, total)
 
         def step(batch):
+            if telemetry is not None:
+                telemetry.note_step_signature(batch)
+            target = self._begin_guarded_step(model, optimizer)
             scale = optimizer.scale if scaler_cfg is not None else None
             loss, grads = loss_and_grads(batch, scale)
             if scale is not None:
                 grads = tree_map(lambda g: g / scale, grads)
             grads = clip_by_value(grads, clip_grad_value)
-            gnorm = None
-            if clip_grad_norm is not None or scaler_cfg is not None:
-                grads, gnorm = clip_by_global_norm(grads, clip_grad_norm)
-            _, optimizer.opt_state, new_scale, growth, optimizer._skipped = scaled_optimizer_update(
-                tx, model.params, optimizer.opt_state, grads, gnorm, scale,
-                optimizer.growth_tracker, scaler_cfg,
-            )
-            if scaler_cfg is not None:
-                optimizer.scale, optimizer.growth_tracker = new_scale, growth
-            optimizer._step_count += 1
+
+            def update(grads, gnorm, skip=None):
+                _, optimizer.opt_state, new_scale, growth, optimizer._skipped = scaled_optimizer_update(
+                    tx, model.params, optimizer.opt_state, grads, gnorm, scale,
+                    optimizer.growth_tracker, scaler_cfg, skip,
+                )
+                if scaler_cfg is not None:
+                    optimizer.scale, optimizer.growth_tracker = new_scale, growth
+
+            if resilience.enabled:
+                loss, grads = poison(loss, grads, target)
+                # the verdict needs the global norm whatever the clip settings
+                grads, gnorm = clip_by_global_norm(grads, None)
+                guarded_update(guard, loss, grads, gnorm, clip_grad_norm,
+                               lambda grads, skip: update(grads, gnorm, skip))
+            else:
+                gnorm = None
+                if clip_grad_norm is not None or scaler_cfg is not None:
+                    grads, gnorm = clip_by_global_norm(grads, clip_grad_norm)
+                update(grads, gnorm)
+            self._end_step(model, optimizer)
             return loss
 
         return step
+
+    def _record_step_kernels(self, optimizer: AcceleratedOptimizer) -> None:
+        """``{"kind": "kernels"}`` at step build: whether the fused adamw
+        kernel is in this step's update (the engine writes the same kind at
+        its first step)."""
+        if self.telemetry.enabled:
+            fused = getattr(optimizer.tx, "fused_apply", None) is not None
+            self.telemetry.write_record("kernels", {
+                "program": "train_step",
+                "fused_adamw": ("cuda" if optimizer.device.type == "cuda" else "plain") if fused else None,
+                "zero_update_sharding": self._zero_update_sharding,
+            })
+
+    def _begin_guarded_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer) -> Optional[str]:
+        """The resilience hub's start of a step (its count; the chaos plan's
+        stall and SIGTERM), the guard armed on its first step; returns the
+        chaos NaN's target for this step, or None."""
+        resilience = self.resilience
+        if not resilience.enabled:
+            return None
+        step_idx = resilience.begin_step()
+        chaos = resilience.chaos
+        target = chaos.corrupt_target(step_idx) if chaos is not None and chaos.nan_steps else None
+        guard = resilience.guard
+        if guard is not None and guard.state is None:
+            guard.arm(model, optimizer)
+        return target
+
+    def _end_step(self, model: PreparedModel, optimizer: AcceleratedOptimizer) -> None:
+        """After the update: the step counts, and the guard's check when its
+        cadence comes (its only host read)."""
+        optimizer._step_count += 1
+        if optimizer.telemetry is not None:
+            optimizer.telemetry._on_optimizer_step()
+        guard = self.resilience.guard if self.resilience.enabled else None
+        if guard is not None:
+            guard.after_step(model, optimizer)
 
     # -- gather / metrics -------------------------------------------------------
 
@@ -1040,16 +1171,99 @@ class Accelerator:
         # an Accelerator wraps process-wide singletons: a copy must not fork them
         return self
 
+    # -- trackers and profiling ------------------------------------------------
+
+    def init_trackers(self, project_name: str, config: Optional[dict] = None, init_kwargs: Optional[dict] = None):
+        """Start the trackers ``log_with`` names (``tracking.filter_trackers``)
+        under the project's logging directory, each with ``config``."""
+        from .tracking import filter_trackers
+
+        self.trackers = filter_trackers(self.log_with, self.project_configuration.logging_dir, project_name,
+                                        config, init_kwargs)
+
+    def log(self, values: dict, step: Optional[int] = None, log_kwargs: Optional[dict] = None):
+        """``values`` to every tracker, on the main process."""
+        if self.is_main_process:
+            for tracker in self.trackers:
+                tracker.log(values, step=step, **((log_kwargs or {}).get(tracker.name, {})))
+
+    def end_training(self) -> None:
+        """The resilience hub's final guard check and summary record, then
+        the telemetry hub's final flush (which fans out to the trackers),
+        then each tracker's finish. Collective across processes (the flush
+        aggregates)."""
+        self.resilience.finish()
+        self.telemetry.finish()
+        for tracker in self.trackers:
+            tracker.finish()
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if tracker.name == name:
+                return tracker.tracker if unwrap else tracker
+        raise ValueError(f"{name} is not an active tracker")
+
+    @contextmanager
+    def profile(self, log_dir: Optional[str] = None, port: Optional[int] = None,
+                host_metadata: Optional[dict] = None):
+        """Capture a ``torch.profiler`` trace (CPU and, on a card, CUDA
+        activities) of the enclosed steps, written as a Chrome trace
+        (``<log_dir>/trace.json``, for Perfetto or ``chrome://tracing``)::
+
+            with accelerator.profile("/tmp/trace") as capture:
+                for batch in loader:
+                    step(batch)
+            print(capture.memory_after)
+
+        ``host_metadata`` (with the process's coordinates and the card's
+        name) goes to ``host_metadata.json`` beside the trace. Yields a
+        :class:`ProfileCapture`. Not reentrant: a nested call raises. The
+        JAX package's ``port`` starts ``jax.profiler``'s live server, which
+        PyTorch lacks: a port raises."""
+        from .telemetry.memory import get_device_memory_info
+        from .telemetry.profiler import NO_SERVER, profiler_activities
+        from .telemetry.step_timer import drain_local_devices
+
+        if self._profile_active:
+            raise RuntimeError(
+                "accelerator.profile() is already active: torch.profiler takes one trace at a time, and "
+                "nesting would corrupt the capture. Close the outer profile() first."
+            )
+        if port is not None:
+            raise ValueError(NO_SERVER)
+        if log_dir is None:
+            log_dir = os.path.join(self.project_configuration.logging_dir or ".", "profile")
+        capture = ProfileCapture(log_dir)
+        capture.memory_before = get_device_memory_info()
+        os.makedirs(log_dir, exist_ok=True)
+        meta = {
+            "process_index": self.process_index,
+            "local_process_index": self.local_process_index,
+            "num_processes": self.num_processes,
+            "device_kind": torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu",
+            **(host_metadata or {}),
+        }
+        with open(os.path.join(log_dir, "host_metadata.json"), "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+        profiler = torch.profiler.profile(activities=profiler_activities())
+        profiler.__enter__()
+        # the guard flips only once the trace is live
+        self._profile_active = True
+        try:
+            yield capture
+        finally:
+            try:
+                drain_local_devices()  # the trace covers the last step's kernels
+                profiler.__exit__(None, None, None)
+                profiler.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+            finally:
+                # released even when the stop path raises (a full disk)
+                capture.memory_after = get_device_memory_info()
+                self._profile_active = False
+                # a trace is non-step overhead: keep the step-time samples honest
+                self.telemetry.timer.discard_window()
+
     # -- later slices ---------------------------------------------------------
-
-    def init_trackers(self, *args, **kwargs):
-        raise NotImplementedError("trackers are not in the port yet (ROADMAP item 19)")
-
-    log = end_training = get_tracker = init_trackers
-
-    def profile(self, *args, **kwargs):
-        raise NotImplementedError("Accelerator.profile (torch.profiler windows) is not in the port yet "
-                                  "(ROADMAP item 19)")
 
     def analyze(self, *args, **kwargs):
         raise NotImplementedError("Accelerator.analyze is not in the port yet (ROADMAP item 21)")

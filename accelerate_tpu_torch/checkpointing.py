@@ -30,8 +30,10 @@ offset), so neither side gathers. A leaf split over the tensor axis is
 written as this process's slice; gpt2's fused ``wqkv``, whose process holds
 the q, k and v columns of its heads, as three chunks, one a block. Either format loads into any number of
 processes, and into the JAX package on any mesh, since the chunks carry
-their offsets. The chaos harness's ``probe_io`` before a load comes with
-the resilience slice (ROADMAP item 18).
+their offsets. A load first crosses the chaos harness's I/O probe
+(``resilience.chaos.probe_io``): an injected transient ``EIO`` rides the
+caller's retry policy (``CheckpointManager.resume`` wraps a load at one
+process).
 """
 
 from __future__ import annotations
@@ -486,6 +488,9 @@ def load_accelerator_state(
             raise FileNotFoundError(f"No checkpoints under {base}")
         input_dir = checkpoints[-1]
     logger.info(f"Loading states from {input_dir}")
+    from .resilience.chaos import probe_io
+
+    probe_io("checkpoint_load")
 
     for hook in accelerator._load_model_hooks:
         hook(accelerator._models, input_dir)

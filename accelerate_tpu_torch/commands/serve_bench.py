@@ -20,8 +20,8 @@ slot occupancy.
   :class:`~..serving.RoleRebalancer`, comparing sheds and TTFT p99.
 - ``--trace`` traces every request, evaluates the SLO burn rates at the
   last retirement and writes ``trace.json`` (Chrome/Perfetto trace events)
-  into ``--trace-dir``. The telemetry hub's ``telemetry.jsonl`` comes with
-  item 19.
+  into ``--trace-dir``, beside the telemetry hub's ``telemetry.jsonl`` (the
+  engines' and the router's records, the traces and the SLO evaluations).
 
 ``--device`` picks the card (the default, CUDA) or ``cpu``; in bf16 on the
 card, fp32 on the CPU. The JSON payload keeps the JAX payload's keys where
@@ -239,14 +239,16 @@ def run(args) -> int:
         print(f"note: --max-len raised {args.max_len} -> {max_len} to fit the longest prompt "
               f"({longest} tokens) + max_new_tokens")
 
-    # one tracer shared by every sweep point's engines and fleets, so the
-    # Perfetto export covers the whole run, drill included
-    tracer = slo = None
+    # one tracer and one hub shared by every sweep point's engines and
+    # fleets, so telemetry.jsonl and the Perfetto export cover the whole run,
+    # drill included
+    hub = tracer = slo = None
     if args.trace:
-        from ..telemetry import RequestTracer, SLOMonitor, default_objectives
+        from ..telemetry import RequestTracer, SLOMonitor, Telemetry, TelemetryConfig, default_objectives
 
-        slo = SLOMonitor(default_objectives(ttft_s=args.slo_ttft_s, window_s=args.slo_window_s))
-        tracer = RequestTracer(slo=slo)
+        hub = Telemetry(config=TelemetryConfig(dir=args.trace_dir))
+        slo = SLOMonitor(default_objectives(ttft_s=args.slo_ttft_s, window_s=args.slo_window_s), telemetry=hub)
+        tracer = RequestTracer(telemetry=hub, slo=slo)
 
     engines = []  # every engine built, for the forward counts
 
@@ -258,6 +260,7 @@ def run(args) -> int:
             temperature=args.temperature, paged=not args.no_paged, page_size=args.page_size,
             prefill_chunk=args.prefill_chunk, tracer=tracer, speculative=spec_cfg, device=device,
         )
+        engine.telemetry = hub
         engines.append(engine)
         return engine
 
@@ -271,7 +274,7 @@ def run(args) -> int:
             kwargs["handoff_timeout_s"] = fault_plan.stall_seconds / 2.0
         return ServingRouter(
             engine_factory=fresh_engine, num_replicas=n_replicas, roles=roles,
-            fault_plan=fault_plan, tracer=tracer, autoscale=autoscale, **kwargs,
+            fault_plan=fault_plan, tracer=tracer, telemetry=hub, autoscale=autoscale, **kwargs,
         )
 
     def fleet_fault_plan():

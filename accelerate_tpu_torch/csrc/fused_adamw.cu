@@ -16,8 +16,15 @@
 // 16-byte vector loads and stores (float4) in a grid-stride loop, a scalar tail for the
 // last n % 4 elements, enough blocks to fill every SM several times over.
 //
+// The numerical guard's variant (kGuarded, a compile-time switch; `fused_adamw_guarded`):
+// the step's skip flag, one byte on the card computed there from the loss and the gradients'
+// global norm, is read once per block, and a set flag ends the block before it writes p, mu
+// or nu: a skipped step leaves the leaf bit-equal, with no host read. The unguarded
+// instantiation keeps every runtime operand of the variant inside `if constexpr`, so its
+// machine code is the kernel's without the variant.
+//
 // Launch rules: the kernel runs on the caller's stream, allocates nothing and does not
-// synchronise. The C entry point returns cudaGetLastError() after the launch.
+// synchronise. The C entry points return cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,9 +51,17 @@ __device__ __forceinline__ void update(float& p, float& mu, float& nu, float g, 
   nu = v;
 }
 
+template <bool kGuarded>
 __global__ void __launch_bounds__(kThreads) adamw_kernel(
     float* __restrict__ p, float* __restrict__ mu, float* __restrict__ nu,
-    const float* __restrict__ g, const float* __restrict__ bc, long long n, Hyper h) {
+    const float* __restrict__ g, const float* __restrict__ bc, long long n, Hyper h,
+    const unsigned char* __restrict__ skip) {
+  if constexpr (kGuarded) {
+    __shared__ unsigned char skipped;
+    if (threadIdx.x == 0) skipped = *skip;
+    __syncthreads();
+    if (skipped) return;
+  }
   const float bc1 = bc[0];
   const float bc2 = bc[1];
   const long long nvec = n / 4;
@@ -78,6 +93,21 @@ __global__ void __launch_bounds__(kThreads) adamw_kernel(
   }
 }
 
+template <bool kGuarded>
+int launch(void* p, void* mu, void* nu, const void* g, const void* bc, long long n,
+           const Hyper& h, const void* skip, void* stream) {
+  if (n <= 0) return n == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const long long nvec = n / 4;
+  long long blocks = (nvec + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1) blocks = 1;  // a leaf under 4 elements: the tail alone
+  adamw_kernel<kGuarded><<<static_cast<int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(p), static_cast<float*>(mu), static_cast<float*>(nu),
+      static_cast<const float*>(g), static_cast<const float*>(bc), n, h,
+      static_cast<const unsigned char*>(skip));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -87,16 +117,18 @@ extern "C" {
 int fused_adamw(void* p, void* mu, void* nu, const void* g, const void* bc, long long n,
                 float one_minus_b1, float b1, float one_minus_b2, float b2, float eps,
                 float eps_root, float weight_decay, float neg_lr, void* stream) {
-  if (n <= 0) return n == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
-  const long long nvec = n / 4;
-  long long blocks = (nvec + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) blocks = 1;  // a leaf under 4 elements: the tail alone
   const Hyper h{one_minus_b1, b1, one_minus_b2, b2, eps, eps_root, weight_decay, neg_lr};
-  adamw_kernel<<<static_cast<int>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(p), static_cast<float*>(mu), static_cast<float*>(nu),
-      static_cast<const float*>(g), static_cast<const float*>(bc), n, h);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(p, mu, nu, g, bc, n, h, nullptr, stream);
+}
+
+// The guarded variant: as fused_adamw, and `skip` is one byte of device memory; non-zero
+// leaves p, mu and nu as they are.
+int fused_adamw_guarded(void* p, void* mu, void* nu, const void* g, const void* bc, long long n,
+                        float one_minus_b1, float b1, float one_minus_b2, float b2, float eps,
+                        float eps_root, float weight_decay, float neg_lr, const void* skip,
+                        void* stream) {
+  const Hyper h{one_minus_b1, b1, one_minus_b2, b2, eps, eps_root, weight_decay, neg_lr};
+  return launch<true>(p, mu, nu, g, bc, n, h, skip, stream);
 }
 
 const char* fused_adamw_error_string(int code) {

@@ -759,8 +759,9 @@ class SkipBatchSampler:
 # Telemetry seam: called as ``hook(seconds, batches_skipped)`` when a
 # SkipDataLoader has replayed the batches it skips, the cost of rewinding a
 # loader on a mid-epoch resume (a DataLoaderShard skips in its batch
-# sampler, which costs nothing and reports nothing). The telemetry hub
-# installs it (ROADMAP item 19); it must never raise into the data path.
+# sampler, which costs nothing and reports nothing). The Accelerator
+# installs it over its telemetry hub's goodput ledger (``dataloader_rewind``);
+# it must never raise into the data path.
 rewind_seconds_hook: Optional[Callable[[float, int], None]] = None
 
 

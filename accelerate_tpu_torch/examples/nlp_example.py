@@ -5,8 +5,8 @@ The port's copy of ``examples/nlp_example.py``: the user keeps the loop, and
 ``Accelerator`` -> ``prepare`` -> ``backward`` -> ``gather_for_metrics``
 run it on one card (or on the CPU). The schedule is optax's
 ``warmup_cosine_decay_schedule`` formula (``scheduler.py``), the optimizer
-the port's ``adamw(schedule)``. The reference's ``end_training`` closes its
-trackers, which the port does not have yet (ROADMAP item 19).
+the port's ``adamw(schedule)``. ``end_training`` closes the telemetry hub
+and the trackers, as the reference's does.
 
 Run (one CUDA card, or ``--device cpu``):
     python -m accelerate_tpu_torch.examples.nlp_example --mixed_precision bf16
@@ -88,6 +88,7 @@ def training_function(config: dict, args: argparse.Namespace, params: Optional[d
             references.append(refs.cpu().numpy())
         eval_metric = accuracy_f1(np.concatenate(predictions), np.concatenate(references))
         accelerator.print(f"epoch {epoch}: {eval_metric}")
+    accelerator.end_training()
     return eval_metric
 
 

@@ -25,9 +25,10 @@ on one process, but every process must save at the same boundary), every
 ``preemption_sync_every`` steps; ``resume("auto")`` takes the main
 process's choice of checkpoint. Whole-call retries run at one process only:
 re-entering a save's barriers on one process would deadlock the others.
-The chaos harness's I/O probe comes with the resilience slice (item 18),
-and the telemetry hub that ``_telemetry_pause`` will report save and
-restore time to with item 19.
+The chaos harness probes the manifest write (``resilience.chaos.probe_io``):
+an injected transient ``EIO`` rides the retry. A save and a restore are
+paused time in the telemetry hub's goodput ledger (``checkpoint_save``,
+``checkpoint_restore``), and a restore marks a restart there.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 from .logging import get_logger
+from .resilience.chaos import probe_io
 from .resilience.retry import DEFAULT_IO_RETRY, RetryPolicy
 from .state import PartialState
 from .utils.constants import CHECKPOINT_DIR_PREFIX, CHECKPOINT_MANIFEST_NAME, CHECKPOINT_TMP_SUFFIX
@@ -109,6 +111,7 @@ def build_manifest(directory: str, step: Optional[int] = None, metadata: Optiona
 def write_manifest(directory: str, manifest: dict) -> str:
     """Write ``manifest.json`` durably (fsync'd: the rename that follows must
     never promote a directory whose manifest is still in the page cache)."""
+    probe_io("checkpoint_save")  # chaos harness: an injected EIO rides the retry above
     path = os.path.join(directory, CHECKPOINT_MANIFEST_NAME)
     tmp = path + ".part"
     with open(tmp, "w") as f:
@@ -322,10 +325,14 @@ class CheckpointManager:
         if handle_signals:
             self._install_handlers(handle_signals)
 
-    def _telemetry_pause(self, category: str):  # noqa: ARG002 - the hub's seam
-        """The bracket around a save or a restore that the telemetry hub will
-        count as paused time (ROADMAP item 19); no-op until then."""
-        return nullcontext()
+    def _telemetry_pause(self, category: str):
+        """The bracket around a save or a restore: its time lands in the
+        accelerator's goodput ledger under ``category`` and the step timer's
+        open window is dropped; a no-op where the accelerator has no hub."""
+        telemetry = getattr(self.accelerator, "telemetry", None)
+        if telemetry is None:
+            return nullcontext()
+        return telemetry.pause(category)
 
     # -- preemption --------------------------------------------------------
 
@@ -471,6 +478,11 @@ class CheckpointManager:
             load = self.retry_policy.wrap(load)
         with self._telemetry_pause("checkpoint_restore"):
             load(path)
+        telemetry = getattr(self.accelerator, "telemetry", None)
+        if telemetry is not None:
+            # a restore on this process means the run restarted (or was
+            # rewound): the goodput ledger records it
+            telemetry.goodput.mark_restart()
         manifest = read_manifest(path) or {}
         meta = manifest.get("metadata", {})
         point = ResumePoint(

@@ -20,6 +20,13 @@ the one-pass update the shared seam ``optimizer.scaled_optimizer_update``
 prefers. A CPU tensor takes :func:`adamw_leaf_reference`, a CUDA tensor
 launches the kernel or raises.
 
+The numerical guard (``resilience/guards.py``) passes ``skip``, a bool
+scalar on the card: the kernel's guarded variant (a compile-time switch in
+``csrc/fused_adamw.cu``) reads it once per block and, when it is set,
+writes nothing, and the count does not advance, so a skipped step leaves
+params, both moments and the count bit-equal without a host read. The plain
+version takes the same flag through ``torch.where``.
+
 :func:`adamw` also takes a schedule, ``learning_rate(count) -> lr``, as
 ``optax.adamw(schedule)`` does: its state is then optax's
 ``(ScaleByAdamState, EmptyState(), ScaleByScheduleState(count))`` and a
@@ -85,7 +92,10 @@ def bias_corrections(hp: AdamWHyperparams, count: torch.Tensor) -> torch.Tensor:
     optax computes them under XLA: the power of the fp32 beta to the step
     count, correctly rounded to fp32 (taken here in fp64), then 1 minus it
     in fp32."""
-    betas = torch.tensor([hp.b1, hp.b2], dtype=torch.float32, device=count.device)
+    # filled on the device: a torch.tensor from host values would be a
+    # blocking copy, a host synchronize every step
+    betas = torch.full((2,), hp.b1, dtype=torch.float32, device=count.device)
+    betas[1:].fill_(hp.b2)
     powers = (betas.double() ** count.double()).float()
     return torch.ones((), dtype=torch.float32, device=count.device) - powers
 
@@ -114,17 +124,26 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.fused_adamw.restype = ctypes.c_int
+    lib.fused_adamw_guarded.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_float] * 8 + [
+        ctypes.c_void_p, ctypes.c_void_p
+    ]
+    lib.fused_adamw_guarded.restype = ctypes.c_int
     lib.fused_adamw_error_string.argtypes = [ctypes.c_int]
     lib.fused_adamw_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @torch.no_grad()
-def adamw_leaf(p, mu, nu, g, bc, hp: AdamWHyperparams) -> None:
+def adamw_leaf(p, mu, nu, g, bc, hp: AdamWHyperparams, skip=None) -> None:
     """One leaf's update, in place on ``p``, ``mu`` and ``nu``: the kernel
-    for CUDA tensors (fp32, contiguous), the plain version on the CPU."""
+    for CUDA tensors (fp32, contiguous), the plain version on the CPU. With
+    ``skip`` (a bool scalar on p's device) the guarded variant, which
+    leaves all three as they are when the flag is set."""
     if p.device.type == "cpu":
         p_new, mu_new, nu_new = adamw_leaf_reference(p, mu, nu, g, bc, hp)
+        if skip is not None:
+            p_new, mu_new, nu_new = (torch.where(skip, old, new) for old, new in
+                                     ((p, p_new), (mu, mu_new), (nu, nu_new)))
         p.copy_(p_new)
         mu.copy_(mu_new)
         nu.copy_(nu_new)
@@ -143,20 +162,27 @@ def adamw_leaf(p, mu, nu, g, bc, hp: AdamWHyperparams) -> None:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, p {tuple(p.shape)}")
     if bc.numel() != 2:
         raise ValueError("bc must hold the two bias corrections")
+    if skip is not None and (skip.dtype != torch.bool or skip.numel() != 1 or skip.device != p.device):
+        raise ValueError(f"skip must be one bool on {p.device}, got {skip.dtype} {tuple(skip.shape)} on {skip.device}")
     lib = _library()
+    args = (p.data_ptr(), mu.data_ptr(), nu.data_ptr(), g.data_ptr(), bc.data_ptr(), p.numel(),
+            1.0 - hp.b1, hp.b1, 1.0 - hp.b2, hp.b2, hp.eps, hp.eps_root, hp.weight_decay, -hp.learning_rate)
     with torch.cuda.device(p.device):
-        code = lib.fused_adamw(
-            p.data_ptr(), mu.data_ptr(), nu.data_ptr(), g.data_ptr(), bc.data_ptr(), p.numel(),
-            1.0 - hp.b1, hp.b1, 1.0 - hp.b2, hp.b2, hp.eps, hp.eps_root, hp.weight_decay,
-            -hp.learning_rate, torch.cuda.current_stream(p.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        if skip is None:
+            code = lib.fused_adamw(*args, stream)
+        else:
+            code = lib.fused_adamw_guarded(*args, skip.data_ptr(), stream)
     if code != 0:
         message = lib.fused_adamw_error_string(code).decode()
         raise RuntimeError(f"fused_adamw launch failed: {message} ({code})")
     adamw_leaf.launches += 1
+    if skip is not None:
+        adamw_leaf.guarded_launches += 1
 
 
 adamw_leaf.launches = 0
+adamw_leaf.guarded_launches = 0  # of them, the guarded variant's
 
 
 class AdamW:
@@ -206,17 +232,21 @@ class FusedAdamW(AdamW):
     kernel launch per leaf, in place."""
 
     @torch.no_grad()
-    def fused_apply(self, params: dict, opt_state, grads: dict):
+    def fused_apply(self, params: dict, opt_state, grads: dict, skip=None):
         """``(params, opt_state, grads) -> (params', state')``: params, mu
         and nu are updated in place (the returned trees hold the same
-        tensors); the count is a new tensor."""
+        tensors); the count is a new tensor. With ``skip`` (a bool scalar on
+        the params' device) each leaf runs the guarded variant, and a set
+        flag leaves params, moments and count as they were."""
         hp = self.hyperparams
         adam = opt_state[0]
         count = safe_int32_increment(adam.count)
+        if skip is not None:
+            count = torch.where(skip, adam.count, count)
         bc = bias_corrections(hp, count)
         for p, mu, nu, g in zip(tree_leaves(params), tree_leaves(adam.mu),
                                 tree_leaves(adam.nu), tree_leaves(grads)):
-            adamw_leaf(p, mu, nu, g, bc, hp)
+            adamw_leaf(p, mu, nu, g, bc, hp, skip)
         return params, (ScaleByAdamState(count, adam.mu, adam.nu),) + tuple(opt_state[1:])
 
 

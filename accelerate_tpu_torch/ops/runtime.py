@@ -12,6 +12,11 @@ first use of a source compiles it with ``nvcc`` for ``sm_90a`` into a
 shared library under ``accelerate_tpu_torch/_build/`` (named by a hash of
 the source and the headers, so an edited source rebuilds) and loads it with
 ``ctypes``. The build takes seconds.
+
+The builds are the port's compiles: ``build_event_hook`` (set by the
+telemetry's compile tracker, ``telemetry/compile_tracker.py``) hears
+``("hit", name)`` when a source's library is already built, ``("miss",
+name)`` before an ``nvcc`` build and ``("build", (name, seconds))`` after it.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from typing import Optional
 
 import torch
@@ -34,6 +40,15 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# ``hook(event, key)``: the compile tracker's feed (module docstring)
+build_event_hook = None
+
+
+def _build_event(event: str, key) -> None:
+    hook = build_event_hook
+    if hook is not None:
+        hook(event, key)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -85,7 +100,10 @@ def build_kernel(name: str) -> str:
     and rename it into place, so none ever loads a half-written library."""
     path = library_path(name)
     if os.path.exists(path):
+        _build_event("hit", name)
         return path
+    _build_event("miss", name)
+    start = time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -100,6 +118,7 @@ def build_kernel(name: str) -> str:
     with open(path + ".log", "w") as f:
         f.write(proc.stdout + proc.stderr)
     os.replace(tmp, path)
+    _build_event("build", (name, time.perf_counter() - start))
     return path
 
 

@@ -44,7 +44,7 @@ def apply_updates(params: dict, updates: dict) -> dict:
 
 
 @torch.no_grad()
-def scaled_optimizer_update(tx, params, opt_state, grads, gnorm, scale, growth_tracker, scaler_cfg):
+def scaled_optimizer_update(tx, params, opt_state, grads, gnorm, scale, growth_tracker, scaler_cfg, skip=None):
     """The single grads -> update state machine shared by the eager path
     (``AcceleratedOptimizer.step``) and ``Accelerator.compiled_step``.
 
@@ -57,20 +57,37 @@ def scaled_optimizer_update(tx, params, opt_state, grads, gnorm, scale, growth_t
     (``ops.fused_adamw``) updates params and state in one pass per leaf,
     instead of ``tx.update`` + :func:`apply_updates`.
 
+    ``skip`` is the numerical guard's verdict (``resilience/guards.py``), a
+    bool scalar on the device: set, the step applies nothing, without a host
+    read. ``fused_apply`` takes it into the kernel's guarded variant; any
+    other transform's update and new state are undone by ``torch.where``,
+    which reads params and state a second time. Under the fp16 scaler the
+    flag joins the scaler's own host-read verdict (a guard skip backs the
+    scale off, as an overflow does).
+
     Returns ``(params, opt_state, scale, growth_tracker, skipped)``.
     """
     fused_apply = getattr(tx, "fused_apply", None)
 
-    def do_update():
+    def do_update(flag=None):
         if fused_apply is not None:
-            return fused_apply(params, opt_state, grads)
+            return fused_apply(params, opt_state, grads) if flag is None else fused_apply(
+                params, opt_state, grads, skip=flag)
         updates, new_state = tx.update(grads, opt_state, params)
-        return apply_updates(params, updates), new_state
+        if flag is None:
+            return apply_updates(params, updates), new_state
+        for p, u in zip(tree_leaves(params), tree_leaves(updates)):
+            p.copy_(torch.where(flag, p, p + u.to(p.dtype)))
+        kept = [torch.where(flag, old, new) for old, new in zip(state_leaves(opt_state), state_leaves(new_state))]
+        return params, state_unflatten(new_state, kept)
 
     if scaler_cfg is None:
-        params, opt_state = do_update()
-        return params, opt_state, scale, growth_tracker, torch.zeros((), dtype=torch.bool)
+        params, opt_state = do_update(skip)
+        skipped = skip if skip is not None else torch.zeros((), dtype=torch.bool)
+        return params, opt_state, scale, growth_tracker, skipped
     finite = torch.isfinite(gnorm)
+    if skip is not None:
+        finite = finite & ~skip
     if bool(finite):
         params, opt_state = do_update()
     growth_tracker = torch.where(finite, growth_tracker + 1, 0).to(torch.int32)
@@ -141,6 +158,9 @@ class AcceleratedOptimizer:
         self._grads = None  # accumulated (summed) grads
         self._accum_count = 0
         self._step_count = 0
+        # telemetry seam (set by Accelerator.prepare_optimizer): counts the
+        # optimizer steps without a device read
+        self.telemetry = None
         self._skipped = torch.zeros((), dtype=torch.bool, device=device)
         if scaler is not None:
             self.scale = torch.tensor(scaler.init_scale, dtype=torch.float32, device=device)
@@ -202,18 +222,21 @@ class AcceleratedOptimizer:
         self._grads = None
         self._accum_count = 0
         self._step_count += 1
+        if self.telemetry is not None:
+            self.telemetry._on_optimizer_step()
 
-    def apply_update(self, grads: dict, gnorm) -> None:
+    def apply_update(self, grads: dict, gnorm, skip=None) -> None:
         """The update of reduced, unscaled and clipped ``grads`` (in the
         update layout), shared by ``step()`` and ``compiled_step``: the
         offloaded state is brought to the device and back, and params stored
-        whole but updated by shard are gathered again."""
+        whole but updated by shard are gathered again. ``skip`` is the
+        numerical guard's device flag (:func:`scaled_optimizer_update`)."""
         params = self.params if self.layout is None else tree_unflatten(self.params, self.layout.update_params(self.params))
         state = self.opt_state
         if self.cpu_offload:
             state = state_unflatten(state, [x.to(self.device, non_blocking=True) for x in state_leaves(state)])
         params, state, scale, growth, self._skipped = scaled_optimizer_update(
-            self.tx, params, state, grads, gnorm, self.scale, self.growth_tracker, self.scaler,
+            self.tx, params, state, grads, gnorm, self.scale, self.growth_tracker, self.scaler, skip,
         )
         if self.layout is not None:
             self.layout.write_back(self.params, tree_leaves(params))

@@ -410,6 +410,7 @@ def build_zero_step(*, accelerator, loss_fn: Callable, model, optimizer, clip_gr
     loss is the global one (the batch-shard losses summed over the
     processes, each carrying its 1/N), unscaled, the same on every process."""
     from ..optimizer import clip_by_value, clip_grads
+    from ..resilience.guards import guarded_update, poison
 
     layout: ShardedLayout = optimizer.layout
     num_micro = accelerator.gradient_state.num_steps
@@ -431,23 +432,41 @@ def build_zero_step(*, accelerator, loss_fn: Callable, model, optimizer, clip_gr
             total_loss, total = total_loss / micro, tree_map(lambda g: g / micro, total)
         return total_loss, total
 
+    resilience = accelerator.resilience
+    guard = resilience.guard if resilience.enabled else None
+    telemetry = optimizer.telemetry
+
     def step(batch):
+        if telemetry is not None:
+            telemetry.note_step_signature(batch)
+        target = accelerator._begin_guarded_step(model, optimizer)
         scale = optimizer.scale if scaler_cfg is not None else None
         full = layout.gather_params(model.params)
         loss, grads = local_loss_and_grads(full, batch, scale)
+        if resilience.enabled:
+            # the chaos NaN lands in this process's share, before the reduction
+            loss, grads = poison(loss, grads, target)
         if scale is not None:  # unscale before the scatter: it sums the replicated path's terms
             grads = tree_map(lambda g: g / scale, grads)
         grads = tree_unflatten(grads, layout.reduce(tree_leaves(grads)))
         grads = clip_by_value(grads, clip_grad_value)
-        gnorm = None
-        if clip_grad_norm is not None or scaler_cfg is not None:
-            gnorm = layout.global_norm(tree_leaves(grads))
-            grads = clip_grads(grads, gnorm, clip_grad_norm)
         loss = layout.psum(loss)
         if scale is not None:
             loss = loss / scale
-        optimizer.apply_update(grads, gnorm)
-        optimizer._step_count += 1
+        if resilience.enabled:
+            # the guard's ladder, as the replicated step's, on the global loss
+            # and the global norm reduced over the group: every process takes
+            # the same verdict, so none updates its shard while another skips
+            gnorm = layout.global_norm(tree_leaves(grads))
+            guarded_update(guard, loss, grads, gnorm, clip_grad_norm,
+                           lambda grads, skip: optimizer.apply_update(grads, gnorm, skip))
+        else:
+            gnorm = None
+            if clip_grad_norm is not None or scaler_cfg is not None:
+                gnorm = layout.global_norm(tree_leaves(grads))
+                grads = clip_grads(grads, gnorm, clip_grad_norm)
+            optimizer.apply_update(grads, gnorm)
+        accelerator._end_step(model, optimizer)
         return loss
 
     return step

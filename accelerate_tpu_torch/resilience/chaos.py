@@ -7,13 +7,15 @@ The seed feeds synthetic content only, never whether a fault fires.
 
 The plan is whole here: every field of the JAX plan, ``from_env`` over the
 same ``ACCELERATE_CHAOS_*`` names, the ledger (``events``) and its
-``sink``, and every predicate. In this port the router (``replica_kill``,
-``replica_stall``, ``heartbeat_loss``), the handoff (``handoff_stall``,
-``handoff_loss``, ``redistribute_fail``) and the autoscaler
-(``rebalance_fail``, ``autoscale_outage``) consume it. The training,
-membership, elastic and engine legs' consumers (the checkpoint I/O probe,
-the engine's ``fault_plan=``, ``serving_burst``, ``spec_disable``) and the
-module-level ``probe_io`` come with ROADMAP items 18 and 21.
+``sink``, and every predicate. In this port the training step
+(``nan_steps``, ``stall_steps``, ``sigterm_step``, through the resilience
+hub), the checkpoint and loader I/O (``io_failures``, through the
+module-level :func:`probe_io`), the engine (``serving_burst``,
+``spec_disable``), the router (``replica_kill``, ``replica_stall``,
+``heartbeat_loss``), the handoff (``handoff_stall``, ``handoff_loss``,
+``redistribute_fail``) and the autoscaler (``rebalance_fail``,
+``autoscale_outage``) consume it. The membership and elastic legs'
+consumers come with ROADMAP item 18.
 
 Fleet-step indices are 0-based router steps, checked at the top of the
 router's step; handoff indices count handoff attempts fleet-wide (retries
@@ -107,8 +109,7 @@ class FaultPlan:
     spec_disable_step: Optional[int] = None
 
     # ledger of injected faults (appended in firing order); ``sink`` is set by
-    # the resilience hub (ROADMAP item 18) so every injection also lands in
-    # its telemetry
+    # the resilience hub so every injection also lands in telemetry.jsonl
     events: list = field(default_factory=list)
     sink: Optional[Callable[[dict], None]] = field(default=None, repr=False)
     _io_injected: int = field(default=0, repr=False)
@@ -435,3 +436,13 @@ def deactivate() -> None:
 
 def active_plan() -> Optional[FaultPlan]:
     return _active
+
+
+def probe_io(site: str) -> None:
+    """Checkpoint and loader I/O call sites probe here; a no-op unless a
+    plan with an I/O budget is active (one attribute read on the common
+    path). The JAX package also tells its lock recorder that a blocking
+    store-I/O boundary was crossed; that recorder is program analysis
+    (ROADMAP item 21)."""
+    if _active is not None:
+        _active.probe_io(site)

@@ -8,7 +8,7 @@ policies (``is_fleet_transient``/``FLEET_RETRY`` for placement,
 ``is_handoff_transient``/``HANDOFF_RETRY`` for the live-KV handoff).
 
 Every backoff is reported through :data:`retry_hook` (``_notify``), the
-seam the telemetry hub will point at its sink (ROADMAP item 19).
+seam the resilience hub points at its telemetry sink (``hub.py``).
 """
 
 from __future__ import annotations

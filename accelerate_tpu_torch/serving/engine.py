@@ -58,14 +58,22 @@ Counterpart of the paged core of ``accelerate_tpu/serving/engine.py``:
   fetch); decode marks and draft/verify spans are sampled every
   ``tracer.sample_every`` steps.
 
+- **telemetry** (``telemetry=``, a ``telemetry.Telemetry`` hub): one
+  ``{"kind": "kernels"}`` record at the first step (:meth:`kernel_summary`:
+  which kernels the engine runs, and the launches of each it has made),
+  ``{"kind": "resilience"}`` records for every degradation (shed, drain,
+  expiry, cancellation, quarantine and its release, failure, preemption,
+  parking, the watchdog, a speculation fallback), ``{"kind":
+  "speculative"}`` records, and ``{"kind": "serving"}`` from
+  :meth:`flush_telemetry`;
+- **chaos** (``fault_plan=``, else the plan ``resilience.chaos.activate``
+  registered): ``serving_burst`` pushes synthetic requests past admission
+  control at a scheduled step, ``spec_disable`` turns speculation off
+  mid-stream (the tokens stay those of plain decode).
+
 The pools are updated in place (prefill scatter, decode write-back, the
 copy-on-write page copy, the scrub), which is what buffer donation buys the
-JAX engine.
-
-Not in this port yet: the telemetry hub and its records (``telemetry=``,
-``kernel_summary``; ROADMAP item 19), chaos fault plans and the speculation
-chaos knob (``fault_plan``, ``spec_disable``; item 18) and program analysis
-(``analyze``; item 21).
+JAX engine. Program analysis (``analyze``) waits for ROADMAP item 21.
 """
 
 from __future__ import annotations
@@ -82,8 +90,8 @@ import torch
 from ..big_modeling import QuantizedLayerPacker, StreamedModel
 from ..models.attention import dot_product_attention
 from ..models.generation import make_sampler, resolve_decode_protocol, resolve_window_protocol
-from ..ops.quant_matmul import quant_dot
-from ..ops.paged_attention import paged_verify_attention
+from ..ops.quant_matmul import quant_dot, quant_matmul
+from ..ops.paged_attention import paged_decode_attention, paged_verify_attention
 from ..ops.runtime import resolve_device, same_device
 from ..telemetry.serving import ServingStats
 from ..utils.quantization import QuantizedWeight
@@ -91,6 +99,11 @@ from .kv_cache import SlotKVCache, bucket_for, prefill_buckets
 from .paging import PagedKVCache, decode_into_pool, paged_buckets, pages_for, prefill_into_pool
 from .scheduler import ContinuousBatchingScheduler, QueueFull, Request
 from .speculative import SpeculativeConfig, SpeculativeState
+
+
+# the kernels an engine's steps launch, by the name the launch counts go under
+KERNEL_WRAPPERS = {"paged_decode": paged_decode_attention, "paged_verify": paged_verify_attention,
+                   "quant_matmul": quant_matmul}
 
 
 @dataclass
@@ -283,6 +296,8 @@ class ServingEngine:
         speculative: Optional[SpeculativeConfig] = None,
         name: Optional[str] = None,
         tracer=None,
+        telemetry=None,
+        fault_plan=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -357,6 +372,16 @@ class ServingEngine:
         # a handed-off request keeps one trace. Decode steps run so far (not
         # reset by warmup) pace its sampled marks
         self.tracer = tracer
+        # the telemetry hub's sink, and the chaos plan: an explicit plan wins,
+        # else whatever resilience.chaos.activate registered process-wide
+        self.telemetry = telemetry
+        self._kernels_reported = False
+        self._launches = dict.fromkeys(KERNEL_WRAPPERS, 0)
+        if fault_plan is None:
+            from ..resilience import chaos as _chaos_mod
+
+            fault_plan = _chaos_mod.active_plan()
+        self.chaos = fault_plan
         self._steps = 0
         self._prefill_open: set[int] = set()  # request ids with an open prefill span
         self._draining = False  # drain(): admit nothing, finish the active slots
@@ -657,9 +682,12 @@ class ServingEngine:
                 )
         if self._draining:
             self.stats.record_reject()
+            hint = self.retry_after_hint()
+            self._resilience({"event": "shed", "reason": "draining",
+                              "queue_depth": self.scheduler.waiting, "retry_after_s": hint})
             raise QueueFull(
                 "engine is draining — not admitting new requests",
-                queue_depth=self.scheduler.waiting, retry_after_s=self.retry_after_hint(),
+                queue_depth=self.scheduler.waiting, retry_after_s=hint,
             )
         try:
             request = self.scheduler.submit(
@@ -669,6 +697,7 @@ class ServingEngine:
         except QueueFull as e:
             self.stats.record_reject()
             hint = self.retry_after_hint()
+            self._resilience({"event": "shed", "queue_depth": e.queue_depth, "retry_after_s": hint})
             raise QueueFull(
                 f"{e} — retry in ~{hint:.3f}s", queue_depth=e.queue_depth, retry_after_s=hint
             ) from None
@@ -718,6 +747,8 @@ class ServingEngine:
         drained = self.scheduler.drain_queue()
         for _ in drained:
             self.stats.record_rehomed()
+        self._resilience({"event": "drain", "queued_rehomed": len(drained),
+                          "active": len(self.scheduler.active_slots)})
         return [request.payload for request in drained], retired
 
     def resume_admission(self) -> None:
@@ -934,6 +965,7 @@ class ServingEngine:
                 self.tracer.span_start(request.id, "parked", replica=self.name, pages=len(pages))
             done = self.scheduler.retire(slot, "prefilled")
             self.stats.record_parked()
+            self._resilience({"event": "prefilled", "request_id": done.id, "pages": len(pages)})
             return self._result_for(done)
         self.cache.lengths[slot] = prefill_len
         self.cache.active[slot] = True
@@ -942,7 +974,7 @@ class ServingEngine:
             self.tracer.span_start(request.id, "decode", replica=self.name, slot=slot)
         return None
 
-    def _preempt_slot(self, slot: int) -> None:
+    def _preempt_slot(self, slot: int, reason: str) -> None:
         """Recompute-style eviction: back to the queue head, pages freed."""
         preempted = self.scheduler.preempt_slot(slot)
         self.cache.retire(slot)
@@ -953,6 +985,7 @@ class ServingEngine:
             self.tracer.interrupt(preempted.id, outcome="preempted")
             self.tracer.span_start(preempted.id, "queued", replica=self.name, after="preempted")
         self.stats.record_preempted()
+        self._resilience({"event": "preempted", "request_id": preempted.id, "slot": slot, "reason": reason})
 
     def _reclaim_pages(self, slot: int, request: Request, retry) -> str:
         """Page pressure on ``slot``: preempt strictly younger requests,
@@ -967,12 +1000,12 @@ class ServingEngine:
             younger = [s for s in active if self.scheduler.slots[s].id > request.id]
             if younger:
                 victim = max(younger, key=lambda s: self.scheduler.slots[s].id)
-                self._preempt_slot(victim)
+                self._preempt_slot(victim, "page_pressure")
                 if retry():
                     return "ok"
                 continue
             if active:
-                self._preempt_slot(slot)
+                self._preempt_slot(slot, "page_pressure_yield")
                 return "yielded"
             return "failed"
 
@@ -981,6 +1014,7 @@ class ServingEngine:
         done = self.scheduler.retire(slot, "failed")
         self._pending[slot] = 0
         self.stats.record_failed()
+        self._resilience({"event": "failed", "slot": slot, "request_id": done.id, "reason": "page_pressure"})
         return self._result_for(done)
 
     def _prepare_decode_writes(self) -> list[ServingResult]:
@@ -1022,6 +1056,13 @@ class ServingEngine:
             return
         self.spec.disable(reason)
         self.stats.record_spec_fallback()
+        self._resilience({"event": "spec_disabled", "reason": reason})
+        if self.telemetry is not None:
+            payload = {"event": "disabled", "fallback_reason": reason,
+                       "k": self.spec.config.k, "mode": self.spec.config.mode}
+            if self.name is not None:
+                payload = {"engine": self.name, **payload}
+            self.telemetry.write_record("speculative", payload)
 
     def _spec_catch_up(self, slot: int, request: Request) -> None:
         """Bring the draft pool's content for ``slot`` up to the committed
@@ -1333,20 +1374,42 @@ class ServingEngine:
                 continue
             self.cache.retire(slot)
             done = self.scheduler.retire(slot, reason)
-            self._record_degraded(done)
+            self._record_degraded(done, slot=slot)
             results.append(self._result_for(done))
         return results
 
-    def _record_degraded(self, request: Request) -> None:
+    def _record_degraded(self, request: Request, slot: Optional[int] = None) -> None:
         if request.finish_reason == "cancelled":
             self.stats.record_cancelled()
         else:
             self.stats.record_expired()
+        payload = {"event": request.finish_reason, "request_id": request.id}
+        if slot is not None:
+            payload["slot"] = slot
+        self._resilience(payload)
+
+    def _inject_chaos_burst(self) -> None:
+        """The chaos plan's queue-pressure burst: synthetic requests pushed
+        straight into the scheduler's queue, past admission control, so real
+        submits shed."""
+        if self._draining:  # a draining engine admits nothing, chaos included
+            return
+        burst = self.chaos.serving_burst(self._steps) if self.chaos is not None else 0
+        if not burst:
+            return
+        rng = np.random.default_rng(self.chaos.seed)
+        for _ in range(burst):
+            request = Request(id=next(self.scheduler._ids), prompt=rng.integers(0, 64, (2,)).astype(np.int32),
+                              max_new_tokens=1)
+            self.scheduler.queue.append(request)  # straight past admission control
+            self.stats.record_submit()
 
     def _on_watchdog_trip(self, elapsed_s: float) -> None:
         """A step outlasted ``step_timeout_s`` (from the watchdog's thread, or
         synchronously for a step that completed): it only records."""
         self.stats.record_watchdog_trip()
+        self._resilience({"event": "watchdog", "step": self._steps, "elapsed_s": round(elapsed_s, 4),
+                          "timeout_s": self.step_timeout_s})
 
     def _quarantine(self, slot: int, request: Request, finished: list) -> None:
         """The slot produced non-finite logits: quarantine and scrub it. The
@@ -1357,6 +1420,7 @@ class ServingEngine:
         if request.requeues >= self.max_request_requeues:
             done = self.scheduler.retire(slot, "failed")
             self.stats.record_failed()
+            self._resilience({"event": "failed", "slot": slot, "request_id": done.id, "requeues": done.requeues})
             finished.append(self._result_for(done))
         else:
             self.scheduler.requeue_front(slot)
@@ -1365,6 +1429,7 @@ class ServingEngine:
                 self.tracer.interrupt(request.id, outcome="quarantined")
                 self.tracer.span_start(request.id, "queued", replica=self.name, after="quarantine")
             self.stats.record_requeue()
+            self._resilience({"event": "quarantine", "slot": slot, "request_id": request.id})
         freed = self.cache.quarantine(slot)  # the slab's quarantine frees no pages
         self._scrub(freed or [], slot)
         if self.spec is not None:
@@ -1380,8 +1445,18 @@ class ServingEngine:
         a quarantined slot rides it), quarantine slots whose logits went
         non-finite, deliver and retire. Returns the requests that finished
         this step."""
+        before = {name: wrapper.launches for name, wrapper in KERNEL_WRAPPERS.items()}
+        try:
+            return self._step()
+        finally:
+            for name, wrapper in KERNEL_WRAPPERS.items():
+                self._launches[name] += wrapper.launches - before[name]
+
+    def _step(self) -> list[ServingResult]:
         t0 = time.perf_counter()
+        self._report_kernels()
         finished = self._retire_degraded(t0)
+        self._inject_chaos_burst()
         for slot, request in self.scheduler.admit_ready(self._free_slot):
             if self.tracer is not None:
                 self.tracer.span_end(request.id, "queued", stamp=request.admitted_at, stats=self.stats)
@@ -1420,6 +1495,10 @@ class ServingEngine:
         if self._watchdog is not None and self._decode_warm:
             self._watchdog.arm()
         drafted = None
+        if self.spec is not None and self.spec.enabled and self.chaos is not None and self.chaos.spec_disable(self._steps):
+            # the chaos drill: plain decode from this very step on, for good;
+            # the stream goes on without a dropped or repeated token
+            self.disable_speculation("chaos")
         if self.spec is not None and self.spec.enabled:
             # the speculative step replaces the plain decode: every active
             # lane rides the verify (a lane with no draft verifies just its
@@ -1505,6 +1584,7 @@ class ServingEngine:
                 self.cache.release_quarantined(slot)
                 self._probe_failures.pop(slot, None)
                 self.stats.record_quarantine_release()
+                self._resilience({"event": "quarantine_release", "slot": slot})
             else:
                 self._probe_failures[slot] = self._probe_failures.get(slot, 0) + 1
         if drafted is not None:
@@ -1743,3 +1823,53 @@ class ServingEngine:
     def metrics(self) -> dict:
         """Engine metrics, flat scalars."""
         return self.stats.snapshot()
+
+    # -- telemetry --------------------------------------------------------------
+
+    def kernel_summary(self) -> dict:
+        """Which kernels this engine runs and the launches of each it has
+        made (its warm-up included): the payload of the ``{"kind":
+        "kernels"}`` record. On the CPU every kernel takes its plain
+        version; the dense slab attends by the models' plain attention."""
+        on_card = self.device.type == "cuda"
+        return {
+            "paged": self.paged,
+            "decode_attention": ("cuda" if on_card else "plain") if self.paged else "dense_reference",
+            "verify_attention": ("cuda" if on_card else "plain") if self.spec is not None else None,
+            "quant_matmul": ("cuda" if on_card else "plain") if getattr(self.model, "dot_fn", None) is quant_dot
+            else None,
+            "launches": dict(self._launches),
+        }
+
+    def _report_kernels(self) -> None:
+        """One ``{"kind": "kernels"}`` record per engine, at its first step
+        (the hub may be attached after construction)."""
+        if self._kernels_reported or self.telemetry is None:
+            return
+        self._kernels_reported = True
+        payload = self.kernel_summary()
+        if self.name is not None:
+            payload = {"engine": self.name, **payload}
+        self.telemetry.write_record("kernels", payload)
+
+    def flush_telemetry(self) -> Optional[dict]:
+        """One ``{"kind": "serving"}`` record of :meth:`metrics` through the
+        hub (None without one)."""
+        if self.telemetry is None:
+            return None
+        return self.telemetry.write_record("serving", {"serving": self.metrics()})
+
+    def _resilience(self, payload: dict) -> None:
+        """One ``{"kind": "resilience"}`` degradation record, tagged with the
+        engine's name and the request's trace id (null without tracing or
+        for a record of no request); nothing without a hub."""
+        if self.telemetry is None:
+            return
+        if self.name is not None:
+            payload = {"engine": self.name, **payload}
+        if "trace_id" not in payload:
+            request_id = payload.get("request_id")
+            trace_id = self.tracer.trace_id(request_id) if self.tracer is not None and request_id is not None else None
+            payload = {**payload, "trace_id": trace_id}
+        self.telemetry.write_record("resilience", payload)
+

@@ -41,9 +41,10 @@ KV pools.
 
 The router writes its own records through ``telemetry=`` (any object with
 ``enabled`` and ``write_record(kind, payload)``): ``fleet``,
-``redistribute``, ``trace``, ``slo`` and ``autoscale``. It does not hand the
-sink to its engines: their records come with ROADMAP item 19. Program
-analysis (``analyze``) comes with item 21.
+``redistribute``, ``trace``, ``slo`` and ``autoscale``, and hands the sink
+to every engine that has none (its ``kernels``, ``resilience`` and
+``speculative`` records). Program analysis (``analyze``) comes with ROADMAP
+item 21.
 """
 
 from __future__ import annotations
@@ -154,6 +155,8 @@ class ServingRouter:
         for i, engine in enumerate(engines):
             if engine.name is None:
                 engine.name = f"replica{i}"
+            if engine.telemetry is None and telemetry is not None:
+                engine.telemetry = telemetry
             if engine.tracer is None and tracer is not None:
                 engine.tracer = tracer
             self.replicas.append(
@@ -1035,6 +1038,8 @@ class ServingRouter:
         engine = self.engine_factory()
         if engine.name is None:
             engine.name = f"replica{index}"
+        if engine.telemetry is None and self.telemetry is not None:
+            engine.telemetry = self.telemetry
         if engine.tracer is None and self.tracer is not None:
             engine.tracer = self.tracer
         replica.begin_recovery(engine)

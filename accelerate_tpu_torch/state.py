@@ -68,6 +68,16 @@ def job_world_size() -> int:
     return get_multihost_env()["num_processes"] or 1
 
 
+def job_process_index() -> int:
+    """This process's index in the job, read as :func:`job_world_size` reads
+    the size: without making a ``PartialState`` (which would pick a device)."""
+    if PartialState._shared_state.get("_ready"):
+        return PartialState().process_index
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return get_multihost_env()["process_id"] or 0
+
+
 class PartialState:
     """The process, its device and the mesh over every process.
     ``device=None`` means CUDA (``cuda:LOCAL_RANK`` in a job of several

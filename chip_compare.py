@@ -16,10 +16,12 @@ unpacked with ``git archive``) and each PART one of:
   through the flash function), bf16, at ``chip_smoke.FLASH_GEOMETRIES``;
 - ``training``: ``chip_smoke.phase_training`` (the bf16 llama-125m step at
   B=32 S=1024 and B=8 S=4096);
-- ``sass``: no timing: both trees' flash sources (``flash_fwd.cu``,
-  ``flash_bwd.cu``) compiled to machine code, and every kernel of the other
-  tree held against this tree's of the same name (a template argument
-  ``false`` that this tree appends, a variant the other lacks, dropped),
+- ``sass``: no timing: both trees' flash and adamw sources
+  (``flash_fwd.cu``, ``flash_bwd.cu``, ``fused_adamw.cu``) compiled to
+  machine code, and every kernel of the other tree held against this
+  tree's of the same name (a template argument ``false`` that this tree
+  appends, or a template of one ``false`` argument that it makes of a
+  plain kernel, a variant the other lacks, dropped),
   instruction by instruction with constants and addresses masked: one JSON
   line a kernel that differs, and a count of those that do not.
 
@@ -38,7 +40,7 @@ import subprocess
 import sys
 
 PARTS = ("paged", "serving", "flash", "training")
-SASS_SOURCES = ("flash_fwd", "flash_bwd")
+SASS_SOURCES = ("flash_fwd", "flash_bwd", "fused_adamw")
 
 
 def paged(cs, tag, card, flush, geometries, windows) -> None:
@@ -142,7 +144,7 @@ def kernel_sass(cubin: str, cuobjdump: str) -> dict:
         found = re.match(r"\s+Function : (\S+)", line)
         if found:
             # the identifier after its length prefix, and its int and bool template arguments
-            ident = re.search(r"\d((?:flash|dbias)\w*?_kernel)(I(?:L[ib]\d+E)+E)?", found.group(1))
+            ident = re.search(r"\d((?:flash|dbias|adamw)\w*?_kernel)(I(?:L[ib]\d+E)+E)?", found.group(1))
             name = ident.group(1) + (ident.group(2) or "")
             out[name] = []
         elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
@@ -153,7 +155,7 @@ def kernel_sass(cubin: str, cuobjdump: str) -> dict:
 
 
 def sass(other_root: str) -> None:
-    """Each flash kernel's machine code in both trees (``sass`` above)."""
+    """Each flash and adamw kernel's machine code in both trees (``sass`` above)."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
@@ -178,6 +180,8 @@ def sass(other_root: str) -> None:
         same, matched = 0, set()
         for kernel, code in sorted(other.items()):
             match = kernel
+            if match not in this and match + "ILb0EE" in this:
+                match += "ILb0EE"  # this tree made a template of the kernel, `false` its old code
             while match not in this and match.endswith("EE") and match.count("Lb0E") < 4:
                 match = match[:-1] + "Lb0EE"  # this tree appends a template argument `false`
             mine = this.get(match)

@@ -47,8 +47,9 @@ wall time:
    ``ServingEngine.from_streamed`` in bf16 with phase 3's traffic (kernel
    launches checked against 7 projections x layers x forwards, resident
    layer bytes against bf16's, the device memory ``from_streamed`` adds
-   measured), profiled as in phase 3; then fp32 int8 and int4 tokens
-   against ``generate()`` over the dequantized weights;
+   measured), profiled as in phase 3; then fp32 int8 (full depth) and int4
+   (6 of the 22 layers: the host quantizes a quarter) tokens against
+   ``generate()`` over the dequantized weights;
 10. the flash attention forward kernel against its plain version at six
     geometries ((a) llama-125m at B=32, S=1024, causal; (b) B=8, S=4096;
     (c) B=4, S=2048, head dim 128, 32 query heads over 8 kv heads, a padded
@@ -192,8 +193,9 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     heads (8 slots of up to 1000 positions) against their plain versions;
 23. gpt2-1.5b speculative with gpt2-124m drafts (k=4, linear): fp32
     tokens against the plain engine's, bf16 traffic through the verify
-    kernel with accepted drafts reported; int8-resident gpt2-1.5b through
-    ``dispatch_model`` and ``from_streamed`` (4 projections x layers x
+    kernel with accepted drafts reported; int8-resident gpt2-1.5b (its
+    widths, 12 of its 48 layers: the host quantizes a quarter of the
+    depth) through ``dispatch_model`` and ``from_streamed`` (4 projections x layers x
     forwards launches of the dequant-matmul, biases and positions in
     bf16) in bf16, then fp32 int8 tokens against ``generate()`` over the
     dequantized weights; the dequant-matmul at gpt2-1.5b's four
@@ -257,7 +259,8 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     against 2 prefill + 2 decode replicas, fixed and with a
     ``RoleRebalancer``: every request ran to its length, sheds == retries,
     and the rebalancer flipped at least one replica with no thrash; (d)
-    ``serve_bench.main`` in process three times with llama-1b (1 prefill +
+    ``serve_bench.main`` in process three times with llama-1b, 4 requests a
+    point (1 prefill +
     2 decode replicas, a lost handoff, traced; 2 int8 replicas under a
     replica kill at offered load with mixed prompts; 2 speculative replicas
     on a burst trace): every request of every point runs to its length, the
@@ -303,9 +306,36 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     ``FP8_TP_GRAD_RTOL`` of one process's fp8 step on the same 8
     microbatches (each e4m3 scale is a microbatch's inside the schedule, as
     in the JAX package's; the gap to whole-batch scales is printed).
+30. telemetry, trackers and the numerical guard: (b) the fused adamw
+    kernel's guarded variant over llama-125m's 12 leaves: flag clear,
+    bit-identical to the unguarded launch and the plain version; flag set,
+    params and moments bit-identical to what went in (kernel and plain);
+    one step of each variant timed in turns; (a) llama-125m bf16 B=32
+    S=1024 (flash from 1024, ``fused_adamw``) for 12 steps under
+    ``TelemetryConfig(sample_every=5)`` and a ``ResilienceConfig`` whose
+    ``FaultPlan`` poisons step 4's gradients: one step skipped, the hub's
+    MFU within 1% of ``train_flops_per_step / p50 / 989e12`` at its own
+    p50, the synchronizing calls of the 12 steps (torch's sync debug mode,
+    plus the step timer's own fences) at most ceil(12/5), each named,
+    launches 12 a step for each flash kernel and for adamw, all of adamw's
+    through the guarded variant; then the same batches without the
+    poisoned one and without the guard: params, both moments and the count
+    bit-equal; (c) two more steps under ``Accelerator.profile``, its Chrome
+    trace's flash and adamw kernel events equal to the launch counters;
+    (f) a ``CheckpointManager`` save whose manifest write meets the plan's
+    one injected EIO (``probe_io``), ridden out by the retry, and a
+    restore bit-equal to what was saved; (d) the JSONL tracker through
+    ``init_trackers``, ``log`` and ``end_training`` (the hub's final flush
+    through it); the step p50 with telemetry on and off, in turns; (e)
+    llama-125m fp32 serving 8 seeded prompts x 16 tokens with a telemetry
+    hub, plain under a chaos serving burst and speculative (a llama-125m
+    draft) under a chaos ``spec_disable``: ``kernel_summary``'s decode and
+    verify launches equal to the counters, tokens equal to ``generate()``
+    up to near-ties, the engines' records in ``telemetry.jsonl``.
 
 The JSON line's launch counts of the four training kernels are phase 14's
-run A plus phase 29 (a)'s rank 0, the ring variants' phase 21's rank 0;
+run A plus phase 29 (a)'s rank 0 plus phase 30's (a) and (c), the ring
+variants' phase 21's rank 0;
 phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -320,7 +350,10 @@ run is the proof, and only it prints the kernels line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
+import warnings
+from contextlib import contextmanager
 import json
 import math
 import os
@@ -330,6 +363,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 from typing import Optional
@@ -355,9 +389,12 @@ from accelerate_tpu_torch import (
     QuantizationConfig,
     FaultPlan,
     QuantizedWeight,
+    ResilienceConfig,
     ServingEngine,
     ServingRouter,
     SpeculativeConfig,
+    Telemetry,
+    TelemetryConfig,
     adamw,
     dispatch_model,
     fused_adamw,
@@ -394,7 +431,7 @@ from accelerate_tpu_torch.parallel.compat import staged
 from accelerate_tpu_torch.resilience import HANDOFF_RETRY
 from accelerate_tpu_torch.serving import AutoscalePolicy, RoleRebalancer, make_burst_trace, run_offered_load
 from accelerate_tpu_torch.serving.engine import params_from_streamed
-from accelerate_tpu_torch.telemetry import RequestTracer, SLOMonitor, default_objectives, to_perfetto
+from accelerate_tpu_torch.telemetry import PEAK_BF16_FLOPS, RequestTracer, SLOMonitor, default_objectives, to_perfetto
 from accelerate_tpu_torch.utils.hf_import import export_hf_llama
 from accelerate_tpu_torch.utils.modeling import named_component_sizes
 from accelerate_tpu_torch.utils.params import flatten_tree, state_leaves, tree_leaves, tree_map
@@ -402,7 +439,8 @@ from accelerate_tpu_torch.utils.quantization import dequantize_weight, quantize_
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, data sheet
+# dense, data sheet; bf16 from the telemetry's table, which the hub's MFU reads too
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS["H100 80GB HBM3"], torch.float32: 67e12}
 TOLERANCE = {torch.bfloat16: 2e-2, torch.float32: 2e-5}  # max abs error vs the plain version
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
@@ -449,6 +487,7 @@ def reset_launches() -> None:
     wrappers' counts of bias and ring-block launches too)."""
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    adamw_leaf.guarded_launches = 0
     for name in FLASH_KERNELS:
         WRAPPERS[name].bias_launches = WRAPPERS[name].ring_launches = 0
 
@@ -1115,15 +1154,22 @@ def as_fp32(streamed: StreamedModel) -> StreamedModel:
                          list(streamed.layer_on_device), packer, torch.float32, streamed.device)
 
 
-def quantize_llama(bits: int, dtype) -> StreamedModel:
-    """llama-1b's seeded fp32 weights, quantized on the host and placed on the card."""
-    model = Llama("llama-1b", dtype=torch.float32, seed=SEED)  # the source weights
+# phase 9's int4 parity: llama-1b's widths at 6 of its 22 layers, which the host
+# quantizes in about a quarter of the time (the int4 kernel's shapes are the widths')
+LLAMA_INT4_LAYERS = 6
+
+
+def quantize_llama(bits: int, dtype, config=None) -> StreamedModel:
+    """llama-1b's seeded fp32 weights (or ``config``'s), quantized on the
+    host and placed on the card."""
+    config = config or get_config("llama-1b")
+    model = Llama(config, dtype=torch.float32, seed=SEED)  # the source weights
     t0 = time.perf_counter()
     streamed = dispatch_model(
         model, device_map=make_layered_device_map(model, "device"), dtype=dtype,
         quantization=QuantizationConfig(load_in_8bit=bits == 8, load_in_4bit=bits == 4),
     )
-    print(f"[quant-serve] quantized llama-1b to int{bits} on the host in "
+    print(f"[quant-serve] quantized llama-1b ({config.num_layers} layers) to int{bits} on the host in "
           f"{time.perf_counter() - t0:.1f} s")
     return streamed
 
@@ -1131,7 +1177,8 @@ def quantize_llama(bits: int, dtype) -> StreamedModel:
 def phase_quant_serving(card: str, prompts) -> int:
     """llama-1b int8 behind the engine in bf16 (returns the quant kernel's
     launches), then fp32 int8 and int4 tokens against generate() over the
-    dequantized weights. The host quantizes once per bit width."""
+    dequantized weights (int4 at ``LLAMA_INT4_LAYERS`` of the 22 layers).
+    The host quantizes once per bit width."""
     streamed = quantize_llama(8, torch.bfloat16)
     model = streamed.model
     layers = model.config.num_layers
@@ -1197,16 +1244,18 @@ def phase_quant_serving(card: str, prompts) -> int:
     torch.cuda.empty_cache()
 
     new = 16
+    int4_config = dataclasses.replace(get_config("llama-1b"), num_layers=LLAMA_INT4_LAYERS)
     for bits in (8, 4):
-        fp32 = as_fp32(streamed) if bits == 8 else quantize_llama(4, torch.float32)
-        reference = Llama("llama-1b", dtype=torch.float32, seed=SEED).install(params_from_streamed(fp32))
+        fp32 = as_fp32(streamed) if bits == 8 else quantize_llama(4, torch.float32, int4_config)
+        reference = Llama(fp32.model.config, dtype=torch.float32, seed=SEED).install(params_from_streamed(fp32))
         want, gaps = reference_rows(reference, prompts, new)
         del reference
         engine = ServingEngine.from_streamed(fp32, num_slots=8, max_len=1024, page_size=16,
                                              prefill_chunk=64)
         rows = engine.generate_many(prompts, max_new_tokens=new)
         ties = compare_rows(f"quant-int{bits}", prompts, rows, want, gaps, "dequantized generate()")
-        print(f"[quant-int{bits}] llama-1b fp32 int{bits}, prompts {[p.size for p in prompts]} x "
+        print(f"[quant-int{bits}] llama-1b ({fp32.model.config.num_layers} layers) fp32 int{bits}, prompts "
+              f"{[p.size for p in prompts]} x "
               f"{new} tokens: engine == generate() over the dequantized weights with {ties} ties "
               f"[{card}]")
         del engine, fp32
@@ -3443,13 +3492,19 @@ def gpt2_quant_checks(card: str) -> None:
                 del dense
 
 
+# the int8-resident part of phase 23: gpt2-1.5b's widths at a quarter of its
+# depth, which the host quantizes a quarter as long (the kernel's shapes are
+# the widths'; the launch gates count this depth's layers)
+GPT2_QUANT_LAYERS = 12
+
+
 def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
     """gpt2-1.5b verifying gpt2-124m's drafts (k=4, linear): bf16 traffic
     through the verify kernel, then fp32 tokens against the plain engine's;
-    int8-resident gpt2-1.5b from ``dispatch_model`` through
-    ``from_streamed``: bf16 traffic through the dequant-matmul kernel, then
-    fp32 tokens against ``generate()`` over the dequantized weights; kernel
-    7 at gpt2-1.5b's shapes."""
+    int8-resident gpt2-1.5b (``GPT2_QUANT_LAYERS`` of its 48 layers) from
+    ``dispatch_model`` through ``from_streamed``: bf16 traffic through the
+    dequant-matmul kernel, then fp32 tokens against ``generate()`` over the
+    dequantized weights; kernel 7 at gpt2-1.5b's shapes."""
     layers = model.config.num_layers
     draft = GPT2("gpt2-124m", dtype=torch.float32, seed=SEED + 6)
     engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64,
@@ -3489,11 +3544,14 @@ def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    source = GPT2("gpt2-1.5b", dtype=torch.float32, seed=SEED)
+    quant_config = dataclasses.replace(get_config("gpt2-1.5b"), num_layers=GPT2_QUANT_LAYERS)
+    layers = quant_config.num_layers
+    source = GPT2(quant_config, dtype=torch.float32, seed=SEED)
     t0 = time.perf_counter()
     streamed = dispatch_model(source, device_map=make_layered_device_map(source, "device"),
                               dtype=torch.bfloat16, quantization=QuantizationConfig(load_in_8bit=True))
-    print(f"[gpt2-quant-serve] quantized gpt2-1.5b to int8 on the host in {time.perf_counter() - t0:.1f} s")
+    print(f"[gpt2-quant-serve] quantized gpt2-1.5b ({layers} of its 48 layers) to int8 on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
     engine = ServingEngine.from_streamed(streamed, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
     served = streamed.model
     if served.dot_fn is not quant_dot or not isinstance(served.layers.wqkv, QuantizedWeight):
@@ -3505,7 +3563,7 @@ def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
     forwards = engine.forward_counts["prefill"] + engine.forward_counts["decode"]
     resident, bf16_bytes = layer_bytes(served)
     m = engine.metrics()
-    print(f"[gpt2-quant-serve] gpt2-1.5b int8 in bf16, 16 requests x 64 new tokens: {m['steps']} decode "
+    print(f"[gpt2-quant-serve] gpt2-1.5b ({layers} layers) int8 in bf16, 16 requests x 64 new tokens: {m['steps']} decode "
           f"steps, {forwards} forwards, {counts['quant_matmul']} kernel launches ({GPT2_PROJECTIONS} x "
           f"{layers} x {forwards} = {GPT2_PROJECTIONS * layers * forwards}), decode launches "
           f"{counts['paged_decode']}; resident layer bytes {resident} = {resident / bf16_bytes:.3f} x "
@@ -3520,13 +3578,13 @@ def phase_gpt2_spec_quant(card: str, model, prompts, want, gaps) -> None:
     torch.cuda.empty_cache()
 
     fp32 = as_fp32(streamed)
-    reference = GPT2("gpt2-1.5b", dtype=torch.float32, seed=SEED).install(params_from_streamed(fp32))
+    reference = GPT2(quant_config, dtype=torch.float32, seed=SEED).install(params_from_streamed(fp32))
     rows_want, rows_gaps = reference_rows(reference, prompts, 16)
     del reference
     engine = ServingEngine.from_streamed(fp32, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64)
     rows = engine.generate_many(prompts, max_new_tokens=16)
     ties = compare_rows("gpt2-quant-int8", prompts, rows, rows_want, rows_gaps, "dequantized generate()")
-    print(f"[gpt2-quant-int8] gpt2-1.5b fp32 int8, prompts {[p.size for p in prompts]} x 16 tokens: "
+    print(f"[gpt2-quant-int8] gpt2-1.5b ({layers} layers) fp32 int8, prompts {[p.size for p in prompts]} x 16 tokens: "
           f"engine == generate() over the dequantized weights with {ties} ties [{card}]")
     del engine, fp32, streamed, source
     gc.collect()
@@ -4335,7 +4393,7 @@ def fleet_offered_load(model, prompts, card: str, rps: float) -> None:
 # serve_bench's runs in (d): the disaggregated drill the fleet is built for,
 # then an int8 fleet (kernel 7) and a speculative one (kernel 6) over the
 # flags no other phase drives
-BENCH_ARGS = ["--model", "llama-1b", "--json", "--requests", "6", "--max-new-tokens", "16",
+BENCH_ARGS = ["--model", "llama-1b", "--json", "--requests", "4", "--max-new-tokens", "16",
               "--prompt-len-min", "16", "--prompt-len-max", "256", "--num-slots", "8", "--max-len", "1024",
               "--page-size", "16", "--prefill-chunk", "64"]
 BENCH_RUNS = {
@@ -5063,6 +5121,402 @@ def fp8_microbatched_one_process(micro: int) -> tuple[dict, dict, float]:
     return whole, total, loss
 
 
+# -- phase 30: telemetry, tracking and the numerical guard --------------------------
+
+GUARD_STEPS, GUARD_NAN_STEP, GUARD_SAMPLE_EVERY = 12, 4, 5  # (a): llama-125m B=32 S=1024
+ONOFF_STEPS = 5  # telemetry on/off: timed steps a run, after 2 warm-up, in turns on, off, off, on
+MFU_RTOL = 0.01
+
+
+@contextmanager
+def counted_syncs():
+    """The synchronizing CUDA calls made inside the block, as torch's sync
+    debug mode reports them (a device-to-host read, a blocking copy: one
+    "called a synchronizing CUDA operation" warning each; setting the mode
+    warns too, which is not a call), each named by the innermost frame of
+    this repository on the stack (and the frame the warning names). It does
+    not report ``torch.cuda.synchronize()``: callers count their own."""
+    found: list = []
+
+    def record(message, category, filename, lineno, file=None, line=None):  # noqa: ARG001 - showwarning's
+        if "called a synchronizing" not in str(message):  # not the mode's own notice
+            return
+        frames = traceback.extract_stack()[:-1]
+        ours = [f for f in frames if "accelerate_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+        where = ours[-1] if ours else frames[-1]
+        found.append(f"{os.path.basename(where.filename)}:{where.lineno} {where.name} "
+                     f"(warned at {os.path.basename(filename)}:{lineno})")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def guard_adamw_checks(card: str) -> dict:
+    """(b) The guarded adamw variant over llama-125m's 12 leaves, after 3
+    updates: flag clear, bit-identical to the unguarded launch and to the
+    plain version; flag set, params and moments bit-identical to what went
+    in (the plain version's too); one step of each variant timed."""
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    leaves = [p.detach().clone() for p in tree_leaves(model.param_tree())]
+    del model
+    hp = fused_adamw(ADAMW_LR).hyperparams
+    state = [[p, torch.zeros_like(p), torch.zeros_like(p)] for p in leaves]
+    for step in range(1, 4):
+        grads = [torch.randn(p.shape, generator=rng, device="cuda") * 1e-2 for p in leaves]
+        bc = bias_corrections(hp, torch.tensor(step, dtype=torch.int32, device="cuda"))
+        for (p, mu, nu), g in zip(state, grads):
+            adamw_leaf(p, mu, nu, g, bc, hp)
+    bc = bias_corrections(hp, torch.tensor(4, dtype=torch.int32, device="cuda"))
+    clear = torch.zeros((), dtype=torch.bool, device="cuda")
+    flagged = torch.ones((), dtype=torch.bool, device="cuda")
+    copies = {k: [[x.clone() for x in leaf] for leaf in state] for k in ("guarded", "unguarded", "skipped")}
+    for (p, mu, nu), g in zip(copies["guarded"], grads):
+        adamw_leaf(p, mu, nu, g, bc, hp, clear)
+    for (p, mu, nu), g in zip(copies["unguarded"], grads):
+        adamw_leaf(p, mu, nu, g, bc, hp)
+    for (p, mu, nu), g in zip(copies["skipped"], grads):
+        adamw_leaf(p, mu, nu, g, bc, hp, flagged)
+    torch.cuda.synchronize()
+    err = 0.0
+    for leaf, guarded, unguarded, skipped, g in zip(state, copies["guarded"], copies["unguarded"],
+                                                    copies["skipped"], grads):
+        plain_clear = adamw_leaf_reference(*leaf, g, bc, hp)
+        for a, b, c, before in zip(guarded, unguarded, plain_clear, leaf):
+            if not (torch.equal(a, b) and torch.equal(a, c)):
+                raise AssertionError("the guarded adamw with the flag clear differs from the unguarded launch "
+                                     "or the plain version")
+            err = max(err, float((a - c).abs().max().item()))
+        for a, before in zip(skipped, leaf):
+            if not torch.equal(a, before):
+                raise AssertionError("the guarded adamw wrote a leaf with the skip flag set")
+    # the plain version with the flag set, on the CPU (its only device)
+    host = [x.cpu() for x in state[0]]
+    kept = [x.clone() for x in host]
+    adamw_leaf(*host, grads[0].cpu(), bc.cpu(), hp, flagged.cpu())
+    if not all(torch.equal(a, b) for a, b in zip(host, kept)):
+        raise AssertionError("the plain adamw wrote a leaf with the skip flag set")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    n = sum(p.numel() for p in leaves)
+    work = copies["unguarded"]
+
+    def unguarded():
+        for (p, mu, nu), g in zip(work, grads):
+            adamw_leaf(p, mu, nu, g, bc, hp)
+
+    def guarded():
+        for (p, mu, nu), g in zip(work, grads):
+            adamw_leaf(p, mu, nu, g, bc, hp, clear)
+
+    def skipping():
+        for (p, mu, nu), g in zip(work, grads):
+            adamw_leaf(p, mu, nu, g, bc, hp, flagged)
+
+    times = {}
+    for label, fn in (("unguarded", unguarded), ("guarded", guarded), ("guarded", guarded),
+                      ("unguarded", unguarded), ("skipping", skipping)):
+        times.setdefault(label, []).append(time_ms(fn, flush, iters=20))
+    bound = 7 * 4 * n / HBM_BYTES_PER_S * 1e3
+    ms = {k: float(np.mean(v)) for k, v in times.items()}
+    print(f"[guard-adamw] llama-125m, {len(leaves)} leaves, {n} params: flag clear == unguarded launch == plain "
+          f"bit for bit; flag set: params and moments unchanged (kernel and plain); one step ({len(leaves)} "
+          f"launches): guarded {ms['guarded']:.4f} ms, unguarded {ms['unguarded']:.4f} ms (each the mean of two "
+          f"medians, in turns unguarded, guarded, guarded, unguarded: {times}), flag set {ms['skipping']:.4f} "
+          f"ms; bound {bound:.4f} ms (bytes), guarded achieved {bound / ms['guarded']:.1%} of bound [{card}]")
+    del state, copies, work, grads, flush
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms["guarded"], unguarded_ms=ms["unguarded"], skip_ms=ms["skipping"],
+                bound_ms=bound)
+
+
+def guarded_training(card: str, directory: str, batches: list):
+    """(a) llama-125m bf16 B=32 S=1024 under the guard: the chaos plan's NaN
+    in step 4's gradients, telemetry sampling every 5 steps; returns the
+    accelerator, model, optimizer, step and the window's facts."""
+    reset_training_state()
+    plan = FaultPlan(nan_steps=(GUARD_NAN_STEP,), io_failures=1)  # the I/O flake is (f)'s
+    accelerator = Accelerator(
+        mixed_precision="bf16", compilation_config=CompilationConfig(flash_attention_min_seq=1024),
+        telemetry_config=TelemetryConfig(sample_every=GUARD_SAMPLE_EVERY, dir=directory),
+        resilience_config=ResilienceConfig(fault_plan=plan), log_with="jsonl", project_dir=directory,
+    )
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    prepared = accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    accelerator.init_trackers("phase30", {"lr": ADAMW_LR, "batch": 32, "seq": 1024})
+    telemetry = accelerator.telemetry
+    telemetry.configure_throughput(model.config, batch_size=32, seq_len=1024)
+    torch.cuda.synchronize()
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    with counted_syncs() as syncs:
+        for batch in batches:
+            loss = step(batch)
+            telemetry.step(loss)
+            losses.append(loss)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    guard = accelerator.resilience.guard
+    own_fences = telemetry.timer.fence_count - telemetry.timer.shared_fences
+    facts = dict(syncs=list(syncs), own_fences=own_fences, counts=counts, wall=wall,
+                 guarded_launches=adamw_leaf.guarded_launches, losses=losses, guard_checks=guard.steps // guard.check_every)
+    return accelerator, prepared, optimizer, step, plan, facts
+
+
+def training_state(prepared, optimizer) -> list:
+    return [x.detach().clone() for x in state_leaves(prepared.params) + state_leaves(optimizer.opt_state)]
+
+
+def telemetry_p50(model, enabled: bool, batch) -> float:
+    """llama-125m's bf16 step at B=32 S=1024 (phase 13's), telemetry on or
+    off: the p50 of ONOFF_STEPS synchronized steps after 2 warm-up."""
+    reset_training_state()
+    accelerator = Accelerator(mixed_precision="bf16",
+                              compilation_config=CompilationConfig(flash_attention_min_seq=1024),
+                              telemetry_config=TelemetryConfig(enabled=enabled))
+    accelerator.prepare_model(model)
+    accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    times = []
+    for i in range(2 + ONOFF_STEPS):
+        t0 = time.perf_counter()
+        accelerator.telemetry.step(step(batch))
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    del accelerator, step
+    return float(np.median(times))
+
+
+def trace_kernel_counts(path: str) -> dict:
+    """Kernel events in a Chrome trace by the port's kernel names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {key: sum(pattern in n for n in names) for key, pattern in
+            (("flash_fwd", "flash_fwd_"), ("flash_dq", "flash_dq_"), ("flash_dkv", "flash_dkv_"),
+             ("fused_adamw", "adamw_kernel"))}
+
+
+def engine_checks(card: str, directory: str) -> dict:
+    """(e) llama-125m fp32 serves 8 seeded prompts x 16 tokens with a
+    telemetry hub under a chaos serving burst, plain, then speculative
+    (a llama-125m draft) under a chaos spec_disable; kernel_summary's
+    launches against the counters, the tokens against generate()."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    rng = np.random.default_rng(SEED + 31)
+    prompts = [rng.integers(1, model.config.vocab_size, size=n).astype(np.int32)
+               for n in (1, 17, 150, 333, 5, 64, 200, 40)]
+    want, gaps = reference_rows(model, prompts, 16)
+    hub = Telemetry(config=TelemetryConfig(dir=directory))
+    draft = Llama("llama-125m", dtype=torch.float32, seed=SEED + 6)
+    out = {}
+    for kind, plan, spec in (
+        ("plain", FaultPlan(serving_burst_step=2, serving_burst_size=3), None),
+        ("speculative", FaultPlan(spec_disable_step=3), SpeculativeConfig(draft_model=draft, k=SPEC_K)),
+    ):
+        engine = ServingEngine(model, num_slots=8, max_len=1024, page_size=16, prefill_chunk=64,
+                               speculative=spec, telemetry=hub, fault_plan=plan, name=f"phase30-{kind}")
+        reset_launches()
+        rows = engine.generate_many(prompts, max_new_tokens=16)
+        counts = launch_counts()
+        summary = engine.kernel_summary()["launches"]
+        ties = compare_rows(f"guard-engine-{kind}", prompts, rows, want, gaps, "generate()")
+        fired = [e["fault"] for e in plan.events]
+        print(f"[guard-engine] llama-125m fp32 {kind}, 8 prompts x 16 tokens: engine == generate() with {ties} "
+              f"ties; chaos {fired}; kernel_summary launches {summary} == counters "
+              f"{ {k: counts[k] for k in summary} }; stats: completed {engine.stats.requests_completed}, "
+              f"spec fallbacks {engine.stats.spec_fallbacks} [{card}]")
+        if any(summary[k] != counts[k] for k in summary) or summary["paged_decode"] == 0:
+            raise AssertionError(f"{kind}: kernel_summary {summary} against the counters {counts}")
+        if kind == "plain" and (fired != ["serving_burst"] or engine.stats.requests_completed != 8 + 3):
+            raise AssertionError(f"the serving burst: {fired}, {engine.stats.requests_completed} completed")
+        if kind == "speculative" and (fired != ["spec_disable"] or summary["paged_verify"] == 0
+                                      or engine.spec.enabled):
+            raise AssertionError(f"the speculation drill: {fired}, {summary}")
+        out[kind] = summary
+        del engine
+    hub.finish(flush=False)
+    records = [json.loads(line) for line in open(os.path.join(directory, "telemetry.jsonl"))]
+    kinds = sorted({r["kind"] for r in records})
+    kernels = [r for r in records if r["kind"] == "kernels"]
+    disabled = [r for r in records if r["kind"] == "speculative" and r.get("event") == "disabled"]
+    print(f"[guard-engine] telemetry.jsonl: {len(records)} records of kinds {kinds}; kernels records "
+          f"{[(r['engine'], r['decode_attention'], r['verify_attention']) for r in kernels]} [{card}]")
+    if len(kernels) != 2 or len(disabled) != 1:
+        raise AssertionError(f"the engines' records: {len(kernels)} kernels, {len(disabled)} spec disabled")
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_telemetry_guard(card: str, compiled_p50: Optional[float]) -> dict:
+    """Telemetry, trackers and the numerical guard on the card: (b) the
+    guarded adamw variant; (a) llama-125m guarded training; (c)
+    ``Accelerator.profile``; (f) a checkpoint under an I/O flake; (d) the
+    JSONL tracker; (e) the engine with a hub and chaos; telemetry's cost on
+    phase 13's step. Returns the fused adamw launches and the guarded
+    variant's record."""
+    t0 = time.perf_counter()
+    parts = {}
+    record = guard_adamw_checks(card)
+    parts["(b)"] = time.perf_counter() - t0
+    vocab = get_config("llama-125m").vocab_size
+    rng = np.random.default_rng(SEED + 30)
+    batches = [random_batch(rng, 32, 1024, vocab) for _ in range(GUARD_STEPS)]
+    with tempfile.TemporaryDirectory() as directory:
+        start = time.perf_counter()
+        accelerator, prepared, optimizer, step, plan, facts = guarded_training(card, directory, batches)
+        guard, telemetry = accelerator.resilience.guard, accelerator.telemetry
+        losses = torch.stack(facts["losses"]).tolist()  # the phase's own read (after the window)
+        guarded_state = training_state(prepared, optimizer)
+        count = int(optimizer.opt_state[0].count)
+        metrics = telemetry.metrics()
+        p50 = telemetry.timer.percentiles()["p50"]
+        flops = train_flops_per_step(prepared.module.config, 32, 1024)
+        formula = flops / p50 / PEAK_BF16_FLOPS["H100 80GB HBM3"]
+        allowed = math.ceil(GUARD_STEPS / GUARD_SAMPLE_EVERY)
+        made = len(facts["syncs"]) + facts["own_fences"]
+        counts = facts["counts"]
+        layers = prepared.module.config.num_layers
+        print(f"[guard] llama-125m bf16 B=32 S=1024, {GUARD_STEPS} guarded steps, NaN in step {GUARD_NAN_STEP}'s "
+              f"gradients: skipped {guard.skipped_steps}, adamw count {count}; losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; hub: {metrics['steps']} steps, {metrics['sampled_windows']} windows, p50 "
+              f"{p50 * 1e3:.3f} ms, mean {metrics['step_time_mean_ms']:.3f} ms, MFU {metrics['mfu']:.4f} against "
+              f"flops/p50/989e12 {formula:.4f}; synchronizing calls in the window {made} (allowed "
+              f"ceil({GUARD_STEPS}/{GUARD_SAMPLE_EVERY}) = {allowed}): device reads {facts['syncs']} (the guard "
+              f"checked {facts['guard_checks']} times), the step timer's own fences "
+              f"{facts['own_fences']} ({telemetry.timer.shared_fences} boundaries took the guard's read); "
+              f"launches {counts}, {facts['guarded_launches']} of adamw's the guarded variant; wall "
+              f"{facts['wall']:.3f} s [{card}]")
+        if guard.skipped_steps != 1 or count != GUARD_STEPS - 1:
+            raise AssertionError(f"the guard skipped {guard.skipped_steps} steps, adamw counted {count}")
+        if abs(metrics["mfu"] - formula) > MFU_RTOL * formula:
+            raise AssertionError(f"the hub's MFU {metrics['mfu']} against {formula}")
+        if made > allowed:
+            raise AssertionError(f"{made} synchronizing calls in {GUARD_STEPS} steps: {facts['syncs']}, "
+                                 f"{facts['own_fences']} fences")
+        want = {"flash_fwd": layers * GUARD_STEPS, "flash_dq": layers * GUARD_STEPS,
+                "flash_dkv": layers * GUARD_STEPS, "fused_adamw": 12 * GUARD_STEPS}
+        if any(counts[k] != n for k, n in want.items()) or facts["guarded_launches"] != 12 * GUARD_STEPS:
+            raise AssertionError(f"guarded training launched {counts} ({facts['guarded_launches']} guarded)")
+        launches = {k: counts[k] for k in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw")}
+        parts["(a) guarded"] = time.perf_counter() - start
+
+        # (c) two more steps under Accelerator.profile: each kernel's trace
+        # events against its launch counter
+        start = time.perf_counter()
+        reset_launches()
+        with accelerator.profile(os.path.join(directory, "profile")) as capture:
+            for batch in batches[:2]:
+                telemetry.step(step(batch))
+        counts = launch_counts()
+        traced = trace_kernel_counts(os.path.join(capture, "trace.json"))
+        print(f"[guard-profile] Accelerator.profile over 2 steps: kernel events in the Chrome trace {traced}, "
+              f"launch counters {{{', '.join(f'{k}: {counts[k]}' for k in traced)}}}; device memory "
+              f"{capture.memory_before[0]['bytes_in_use']} -> {capture.memory_after[0]['bytes_in_use']} bytes "
+              f"[{card}]")
+        if any(traced[k] != counts[k] or counts[k] == 0 for k in traced):
+            raise AssertionError(f"the trace's kernels {traced} against the counters {counts}")
+        for k in launches:
+            launches[k] += counts[k]
+        parts["(c) profile"] = time.perf_counter() - start
+
+        # (f) a checkpoint whose manifest write meets one injected EIO: the
+        # retry rides it out, and the restore is bit-equal
+        start = time.perf_counter()
+        saved = training_state(prepared, optimizer)
+        manager = accelerator.checkpoint_manager(os.path.join(directory, "ckpt"), handle_signals=())
+        path = manager.save(GUARD_STEPS + 2)
+        with torch.no_grad():
+            for x in state_leaves(prepared.params) + state_leaves(optimizer.opt_state):
+                x.zero_()
+        resume = manager.resume(path)
+        restored = training_state(prepared, optimizer)
+        fired = [e["fault"] for e in plan.events]
+        equal = all(torch.equal(a, b) for a, b in zip(saved, restored))
+        print(f"[guard-ckpt] save under an injected I/O error: chaos {fired}, retries "
+              f"{accelerator.resilience.retries}, verify {verify_checkpoint(path)}; resumed step {resume.step}, "
+              f"params and moments bit-equal: {equal}; goodput ledger "
+              f"{telemetry.goodput.snapshot(telemetry.timer.productive_seconds)['overhead_s']} [{card}]")
+        if fired != ["nan", "io_error"] or accelerator.resilience.retries != 1 or not equal or verify_checkpoint(path):
+            raise AssertionError("the checkpoint under the I/O flake")
+        del saved, restored
+        parts["(f) checkpoint"] = time.perf_counter() - start
+
+        # (d) the JSONL tracker: the losses, then end_training (the guard's
+        # last check, the hub's flush through the tracker, the tracker's finish)
+        for i, value in enumerate(losses, start=1):
+            accelerator.log({"loss": value}, step=i)
+        accelerator.end_training()
+        lines = [json.loads(line) for line in open(os.path.join(directory, "phase30", "metrics.jsonl"))]
+        flushed = [line for line in lines if "telemetry/mfu" in line]
+        records = [json.loads(line) for line in open(os.path.join(directory, "telemetry.jsonl"))]
+        events = [r.get("event") for r in records if r["kind"] == "resilience"]
+        print(f"[guard-tracker] metrics.jsonl: {len(lines)} lines (config, {len(losses)} losses, "
+              f"{len(flushed)} telemetry flush); telemetry.jsonl: {len(records)} records, resilience events "
+              f"{events} [{card}]")
+        if lines[0].get("_config", {}).get("lr") != ADAMW_LR or len(lines) != 2 + len(losses) or len(flushed) != 1:
+            raise AssertionError(f"the JSONL tracker wrote {lines[:3]}...")
+        if not {"fault_injected", "guard_skip", "retry", "summary"} <= set(events):
+            raise AssertionError(f"telemetry.jsonl's resilience events: {events}")
+        model = prepared.module
+        del accelerator, prepared, optimizer, step
+
+        # the same batches, the poisoned one left out, without the guard
+        start = time.perf_counter()
+        reset_training_state()
+        clean = Accelerator(mixed_precision="bf16", compilation_config=CompilationConfig(flash_attention_min_seq=1024))
+        clean_model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+        clean_prepared = clean.prepare_model(clean_model)
+        clean_optimizer = clean.prepare_optimizer(fused_adamw(ADAMW_LR))
+        clean_step = clean.compiled_step(Llama.loss_fn(clean_model))
+        for i, batch in enumerate(batches, start=1):
+            if i != GUARD_NAN_STEP:
+                clean_step(batch)
+        clean_state = training_state(clean_prepared, clean_optimizer)
+        equal = len(clean_state) == len(guarded_state) and all(
+            torch.equal(a, b) for a, b in zip(guarded_state, clean_state))
+        print(f"[guard] guarded run (step {GUARD_NAN_STEP} skipped) == clean run over the other "
+              f"{GUARD_STEPS - 1} batches, params, both moments and the count bit for bit: {equal} [{card}]")
+        if not equal:
+            raise AssertionError("the guarded skip is not bit-equal to the clean run")
+        del clean, clean_model, clean_prepared, clean_optimizer, clean_step, clean_state, guarded_state
+        parts["(a) clean"] = time.perf_counter() - start
+
+        # telemetry's cost on phase 13's step: on, off, off, on
+        start = time.perf_counter()
+        p50s = {True: [], False: []}
+        for enabled in (True, False, False, True):
+            p50s[enabled].append(telemetry_p50(model, enabled, batches[0]))
+        print(f"[guard-onoff] llama-125m bf16 B=32 S=1024 step p50, {ONOFF_STEPS} steps a run after 2 warm-up, "
+              f"in turns on, off, off, on: telemetry on {[f'{x * 1e3:.3f}' for x in p50s[True]]} ms, off "
+              f"{[f'{x * 1e3:.3f}' for x in p50s[False]]} ms; phase 13's p50 (on) "
+              f"{compiled_p50 * 1e3 if compiled_p50 else math.nan:.3f} ms [{card}]")
+        del model, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["on/off"] = time.perf_counter() - start
+
+        start = time.perf_counter()
+        engine_checks(card, os.path.join(directory, "engine"))
+        parts["(e) engine"] = time.perf_counter() - start
+    print("[guard] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; phase {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches, record
+
+
 def kernel_kinds(device: dict) -> dict:
     """Device microseconds by kind of kernel: fp32 GEMMs (the fp8 step's
     backward products), other GEMMs (``_scaled_mm``'s e4m3 and bf16), the
@@ -5200,6 +5654,11 @@ def main(argv: Optional[list] = None) -> int:
         pipelined = timed("phase 29 pipeline parallelism across two processes on the card", phase_pipeline, card)
         for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
             launches[name] = launches.get(name, 0) + pipelined[name]
+    if on("30"):
+        guarded, _ = timed("phase 30 telemetry, trackers and the numerical guard", phase_telemetry_guard, card,
+                           compiled_p50)
+        for name, n in guarded.items():
+            launches[name] = launches.get(name, 0) + n
     if selected is None:
         kernels = [
             dict(name=name, route="cuda", source=source, replaces=replaces,

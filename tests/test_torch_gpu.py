@@ -813,6 +813,35 @@ def test_flash_attention_grads_match_autograd_through_plain(cuda, masked):
         assert float((got.grad - w.grad).abs().max()) <= 5e-4
 
 
+@pytest.mark.parametrize("flag", [False, True], ids=["clear", "set"])
+def test_guarded_adamw_variant_takes_the_skip_flag(cuda, flag):
+    """The guarded variant on leaves of odd sizes (a tail of 1-3 elements):
+    the flag clear, bit-equal to the unguarded launch and the plain version;
+    set, p, mu and nu bit-equal to what went in (the plain version's too,
+    which takes the flag on the CPU)."""
+    rng = np.random.default_rng(1)
+    hp = fused_adamw(3e-3).hyperparams
+    skip = torch.tensor(flag, device=cuda)
+    bc = bias_corrections(hp, torch.tensor(3, dtype=torch.int32, device=cuda))
+    for shape in [(64, 48), (7,), (3, 5, 11), (1,)]:
+        leaf = [torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=cuda) for _ in range(2)]
+        leaf.append(torch.tensor(rng.random(shape, dtype=np.float32), device=cuda))
+        g = torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=cuda)
+        guarded, unguarded = [x.clone() for x in leaf], [x.clone() for x in leaf]
+        before = (adamw_leaf.launches, adamw_leaf.guarded_launches)
+        adamw_leaf(*guarded, g, bc, hp, skip)
+        adamw_leaf(*unguarded, g, bc, hp)
+        assert (adamw_leaf.launches, adamw_leaf.guarded_launches) == (before[0] + 2, before[1] + 1)
+        plain = leaf if flag else adamw_leaf_reference(*leaf, g, bc, hp)
+        host = [x.cpu() for x in leaf]
+        adamw_leaf(*host, g.cpu(), bc.cpu(), hp, skip.cpu())  # the plain version takes the flag on the CPU
+        torch.cuda.synchronize()
+        for got, ref, want in zip(guarded, leaf if flag else unguarded, plain):
+            assert torch.equal(got, ref) and torch.equal(got, want)
+        if flag:
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(leaf, host))
+
+
 def test_fused_adamw_kernel_is_bit_equal_to_plain(cuda):
     """Five steps on leaves of odd sizes (a tail of 1-3 elements): the
     kernel's p, mu and nu equal the plain version's bit for bit."""

@@ -70,8 +70,8 @@ NOT_YET = {
         "clear_environment": "20", "parse_choice_from_env": "20",
         "patch_environment": "20", "compare_versions": "20", "is_jax_version": "20",
         "is_datasets_available": "20", "is_flax_available": "20", "is_optax_available": "20",
-        "is_orbax_available": "20", "is_safetensors_available": "20", "is_tensorboard_available": "20",
-        "is_tpu_available": "20", "is_transformers_available": "20", "is_wandb_available": "20",
+        "is_orbax_available": "20", "is_safetensors_available": "20",
+        "is_tpu_available": "20", "is_transformers_available": "20",
         "next_rng_key": "20",
     },
     "models": {},
@@ -82,17 +82,12 @@ NOT_YET = {
         "redistribute": "17(e)", "param_path": "17(e)", "replicated": "17(e)", "shard_tree": "17(e)",
     },
     "serving": {},
-    "telemetry": {
-        "CompileTracker": "19", "GoodputTracker": "19", "MemoryMonitor": "19", "PEAK_BF16_FLOPS": "19",
-        "ProfileWindow": "19", "StepTimer": "19", "Telemetry": "19", "TelemetryConfig": "19",
-        "device_peak_flops": "19", "drain_local_devices": "19",
-    },
+    "telemetry": {},
     "resilience": {
         "CollectiveHangWatchdog": "18", "DictStore": "18", "ElasticConfig": "18", "ElasticCoordinator": "18",
-        "ElasticFailure": "18", "FilesystemStore": "18", "GuardPolicy": "18", "MembershipConfig": "18",
-        "MembershipService": "18", "MembershipStore": "18", "NumericalGuard": "18", "Resilience": "18",
-        "ResilienceConfig": "18", "STORE_RETRY": "18", "StaleEpochError": "18",
-        "publish_supervisor_loss": "18", "tree_all_finite": "18", "zero_guard_state": "18",
+        "ElasticFailure": "18", "FilesystemStore": "18", "MembershipConfig": "18",
+        "MembershipService": "18", "MembershipStore": "18", "STORE_RETRY": "18", "StaleEpochError": "18",
+        "publish_supervisor_loss": "18",
     },
 }
 

@@ -51,6 +51,9 @@ from accelerate_tpu.models import T5 as JaxT5
 from accelerate_tpu.parallel import sharding as jax_sharding
 from accelerate_tpu.parallel.ring_attention import make_ring_attention as jax_make_ring_attention
 from accelerate_tpu.parallel.zero import zero_update_state_bytes as jax_zero_update_state_bytes
+from accelerate_tpu.resilience import FaultPlan as JaxFaultPlan
+from accelerate_tpu.resilience import GuardPolicy as JaxGuardPolicy
+from accelerate_tpu.resilience import ResilienceConfig as JaxResilienceConfig
 from accelerate_tpu.state import AcceleratorState as JaxAcceleratorState
 from accelerate_tpu.state import GradientState as JaxGradientState
 from accelerate_tpu.state import PartialState as JaxPartialState
@@ -149,6 +152,23 @@ def _jax_train(kind, params, batches):
     return out
 
 
+def _jax_guarded(params, batches):
+    """The JAX package's guarded ZeRO step on its 8 devices, the same chaos
+    plan as the workers' ``guarded``: NaN at step 2 of 3."""
+    _reset()
+    config = JaxResilienceConfig(guard=JaxGuardPolicy(check_every=3), fault_plan=JaxFaultPlan(nan_steps=(2,)))
+    acc = JaxAccelerator(resilience_config=config)
+    model = JaxLlama(MODEL)
+    prepared = acc.prepare_model(model, params=jax.tree.map(jnp.asarray, params))
+    acc.prepare_optimizer(optax.adamw(LR))
+    step = acc.compiled_step(JaxLlama.loss_fn(model))
+    losses = [float(step({"input_ids": jnp.asarray(batch)})) for batch in batches[:3]]
+    out = {"losses": losses, "params": dict(flatten_tree(jax.tree.map(np.asarray, prepared.params))),
+           "skipped": acc.resilience.guard.skipped_steps}
+    _reset()
+    return out
+
+
 @pytest.fixture(scope="module")
 def jax_runs(launches):
     """The JAX package's training runs (computed beside the launches)."""
@@ -233,6 +253,7 @@ def launches(request, tmp_path_factory, init_params, batches, bert_params, gpt2_
         with ThreadPoolExecutor(len(WORLD_CONFIGS)) as pool:
             futures = {world: pool.submit(launch, world) for world in WORLD_CONFIGS}
             out["jax_runs"] = {kind: _jax_train(kind, init_params, batches) for kind in JAX_TRAINING}
+            out["jax_guarded"] = _jax_guarded(init_params, batches)
             out["jax_ring"] = _jax_ring()
             out["jax_forwards"] = _jax_forwards(init_params, bert_params, gpt2_params)
             out.update({world: future.result() for world, future in futures.items()})
@@ -328,6 +349,28 @@ def test_training_matches_the_jax_mesh(launches, jax_runs, world, name):
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
     _assert_params_close(want["params"], got["params"], want["steps"])
     assert got["mesh"]["data"] * got["mesh"]["fsdp"] == world
+
+
+@pytest.mark.parametrize("world", sorted(WORLD_CONFIGS))
+def test_guarded_zero_update_skips_bit_exactly_and_matches_the_jax_mesh(launches, world):
+    """Under the ZeRO sharded update a poisoned step is skipped on every
+    process (the verdict reads the global norm): params and optimizer state
+    equal a clean run over the other batches bit for bit, and the params
+    stay within the training tolerance of the JAX package's guarded ZeRO
+    step on its 8 devices."""
+    ranks = [launches[world][r]["guarded"] for r in range(world)]
+    got, clean = ranks[0]["guarded"], ranks[0]["clean"]
+    assert got["zero"] and all(rank["guarded"]["skipped"] == 1 for rank in ranks)
+    # the NaN is in the gradients: the losses are finite, the skipped step's too
+    assert got["losses"][0] == clean["losses"][0] and got["losses"][2] == clean["losses"][1]
+    for key in clean["params"]:
+        np.testing.assert_array_equal(got["params"][key], clean["params"][key], err_msg=key)
+    for a, b in zip(got["state"], clean["state"]):
+        np.testing.assert_array_equal(a, b)
+    want = launches["jax_guarded"]
+    assert want["skipped"] == 1
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    _assert_params_close(want["params"], got["params"], 2)
 
 
 def _elements(shapes):

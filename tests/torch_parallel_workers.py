@@ -116,6 +116,39 @@ def update_gate(zero_stage, params: dict, steps: int = 10) -> dict:
     }
 
 
+def guarded(params: dict, batches: list) -> dict:
+    """The numerical guard under the ZeRO sharded update: 3 steps of
+    llama-tiny with the chaos plan's NaN in the gradients of step 2 (each
+    process poisons its share; the verdict reads the global loss and the
+    norm reduced over the group), and a clean run over batches 1 and 3; the
+    gathered params and optimizer state of both, the losses, the skips."""
+    from accelerate_tpu_torch.resilience import FaultPlan, GuardPolicy, ResilienceConfig, chaos
+
+    torch.use_deterministic_algorithms(True)
+    out = {}
+    for kind, plan, feed in (("guarded", FaultPlan(nan_steps=(2,)), batches[:3]),
+                             ("clean", None, [batches[0], batches[2]])):
+        _reset()
+        config = ResilienceConfig(guard=GuardPolicy(check_every=3), fault_plan=plan) if plan else None
+        acc = Accelerator(device="cpu", resilience_config=config,
+                          compilation_config=CompilationConfig(flash_attention_min_seq=FLASH_MIN_SEQ))
+        model = load_jax_params(Llama(MODEL, device="cpu"), params)
+        prepared = acc.prepare_model(model)
+        optimizer = acc.prepare_optimizer(fused_adamw(LR))
+        step = acc.compiled_step(Llama.loss_fn(model))
+        losses = [float(step(_share(batch, acc.state))) for batch in feed]
+        out[kind] = {
+            "losses": losses,
+            "params": _numpy_tree(prepared.full_params()),
+            "state": [x.detach().cpu().numpy().copy() for x in state_leaves(optimizer.state_dict()["opt_state"])],
+            "skipped": acc.resilience.guard.skipped_steps if plan else 0,
+            "zero": acc._zero_update_sharding,
+        }
+        chaos.deactivate()
+    _reset()
+    return out
+
+
 def collectives() -> dict:
     """Every collective of ``ops.operations`` and the process helpers, on
     values that differ by process."""
@@ -343,6 +376,7 @@ def suite(world_names: list, params: dict, batches: list, jax_dir=None, out_dir=
     out = {f"train/{name}": train(name, params, batches) for name in world_names}
     out["gate/sharded"] = update_gate(None, params)
     out["gate/replicated"] = update_gate(0, params)
+    out["guarded"] = guarded(params, batches)
     out["collectives"] = collectives()
     out["loaders"] = loaders()
     if jax_dir is not None:
