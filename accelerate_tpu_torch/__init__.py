@@ -60,7 +60,30 @@ from .ops.fused_adamw import adamw, fused_adamw
 from .ops.paged_attention import paged_decode_attention, paged_verify_attention
 from .ops.quant_matmul import quant_dot, quant_matmul
 from .optimizer import AcceleratedOptimizer
-from .resilience import FaultPlan, GuardPolicy, ResilienceConfig, RetryPolicy
+from .parallel.local_sgd import LocalSGD
+from .parallel.redistribute import (
+    EpochFence,
+    RedistributeConfig,
+    RedistributeError,
+    RedistributePlan,
+    RedistributeStageFailure,
+    plan_redistribute,
+    redistribute,
+)
+from .resilience import (
+    DictStore,
+    ElasticConfig,
+    ElasticCoordinator,
+    ElasticFailure,
+    FaultPlan,
+    FilesystemStore,
+    GuardPolicy,
+    MembershipConfig,
+    MembershipService,
+    ResilienceConfig,
+    RetryPolicy,
+    StaleEpochError,
+)
 from .scheduler import AcceleratedScheduler, warmup_cosine_decay_schedule
 from .serving import ServingEngine, ServingRouter, SpeculativeConfig
 from .state import AcceleratorState, GradientState, PartialState
@@ -108,7 +131,21 @@ __all__ = [
     "QuantizationConfig",
     "QuantizedWeight",
     "ResumePoint",
+    "DictStore",
+    "ElasticConfig",
+    "ElasticCoordinator",
+    "ElasticFailure",
+    "EpochFence",
     "FaultPlan",
+    "FilesystemStore",
+    "LocalSGD",
+    "MembershipConfig",
+    "MembershipService",
+    "RedistributeConfig",
+    "RedistributeError",
+    "RedistributePlan",
+    "RedistributeStageFailure",
+    "StaleEpochError",
     "GuardPolicy",
     "ResilienceConfig",
     "RetryPolicy",
@@ -138,6 +175,8 @@ __all__ = [
     "make_auto_attention",
     "make_layered_device_map",
     "ops",
+    "plan_redistribute",
+    "redistribute",
     "paged_decode_attention",
     "paged_verify_attention",
     "prepare_data_loader",

@@ -1245,6 +1245,7 @@ class Accelerator:
         }
         with open(os.path.join(log_dir, "host_metadata.json"), "w") as f:
             json.dump(meta, f, indent=2, default=str)
+        drain_local_devices()  # nothing queued before the window runs inside it
         profiler = torch.profiler.profile(activities=profiler_activities())
         profiler.__enter__()
         # the guard flips only once the trace is live
@@ -1268,8 +1269,18 @@ class Accelerator:
     def analyze(self, *args, **kwargs):
         raise NotImplementedError("Accelerator.analyze is not in the port yet (ROADMAP item 21)")
 
-    def elastic_coordinator(self, *args, **kwargs):
-        raise NotImplementedError("elastic training is not in the port yet (ROADMAP item 18)")
+    def elastic_coordinator(self, loss_fn: Callable, model: Optional[PreparedModel] = None, **kwargs):
+        """A ``resilience.elastic.ElasticCoordinator`` driving this
+        accelerator's compiled step with in-memory recovery from the loss of
+        a host: buddy copies of the ZeRO shards, the shrink onto the
+        survivors' new process group and the regrow, and the ladder (buddy
+        reshard, checkpoint reload, fail loudly). Across processes pass
+        ``membership=MembershipService(FilesystemStore(dir), num_hosts,
+        host_index)`` (or set ``ACCELERATE_MEMBERSHIP_DIR``): its epochs name
+        each rendezvous and its detector names the lost host."""
+        from .resilience.elastic import ElasticCoordinator
+
+        return ElasticCoordinator(self, loss_fn, model=model, **kwargs)
 
 
 def _check_schedule_shaped(obj: Callable) -> None:

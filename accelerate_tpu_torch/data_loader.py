@@ -24,9 +24,15 @@ again while the step may still read it). Batch order and the end-of-epoch
 flags are those of ``prefetch=0``: the producer only tags the last batch,
 and the flags flip on the consumer's side.
 
-The reference's ``_remesh_stale`` re-lays a prefetched batch out on a mesh
-that shrank or grew under elastic training; it comes with elastic training
-(ROADMAP item 18).
+Under elastic training (``resilience/elastic.py``) the process group can
+shrink or grow between two batches: each fetched batch is stamped with the
+``PartialState.generation`` it was cut for and, with ``split_batches``, the
+global batch's indices it was cut from. A batch fetched (or prefetched) for
+an older group is cut again from those indices for the live group at
+consume time (``_remesh_stale``), and the sampler's shard follows the live
+group from its next batch on, so the global stream of rows is unchanged:
+no row skipped or repeated. A round-robin shard keeps no global rows, and
+its stale batch raises.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import math
 import queue
 import threading
 import time
-from typing import Any, Callable, Iterable, Iterator, Optional
+from typing import Any, Callable, Iterable, Iterator, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -187,6 +193,7 @@ class BatchSamplerShard:
             share = len(batch) // self.num_processes
             if share == 0:
                 continue
+            self.last_global = batch  # the global rows this share is cut from
             yield batch[self.process_index * share : (self.process_index + 1) * share]
 
     def _iter_round_robin(self) -> Iterator[list[int]]:
@@ -309,6 +316,16 @@ def _host_tensors(batch):
 # ---------------------------------------------------------------------------
 
 
+class _Fetched(NamedTuple):
+    """A collated host batch, the ``PartialState.generation`` its share was
+    cut for, and the global batch's indices it was cut from (None for a
+    round-robin shard)."""
+
+    batch: Any
+    generation: int
+    rows: Optional[list]
+
+
 class DataLoaderStateMixin:
     """``GradientState`` bookkeeping at the start and end of an epoch."""
 
@@ -351,10 +368,28 @@ class BaseDataLoader(DataLoaderStateMixin):
 
     def _place(self, host_batch):
         """A collated host batch on the loader's device (blocking copy)."""
+        if isinstance(host_batch, _Fetched):
+            host_batch = host_batch.batch
         batch = _host_tensors(host_batch)
         if not self.device_placement:
             return batch
         return send_to_device(batch, self.device)
+
+    def _remesh_stale(self, item, placed):
+        """A batch cut for a process group that has since shrunk or grown
+        (elastic training) cut again for the live one from its global rows;
+        the steady-state cost is one integer compare a batch."""
+        if not isinstance(item, _Fetched) or item.generation == self.state.generation:
+            return placed
+        if item.rows is None:
+            raise RuntimeError(
+                "a batch fetched for the process group before an elastic shrink or regrow holds this "
+                "process's old share only: prepare the loader with split_batches=True, whose batches keep "
+                "their global rows, or feed ElasticCoordinator.step() global host batches")
+        return self._place(self._refetch(item.rows))
+
+    def _refetch(self, rows: list):
+        raise NotImplementedError
 
     def _mark_last_batch(self) -> None:
         self.end_of_dataloader = True
@@ -372,13 +407,13 @@ class BaseDataLoader(DataLoaderStateMixin):
             for nxt in batches:
                 if have_current:
                     self.batches_yielded += 1
-                    yield self._place(current)
+                    yield self._remesh_stale(current, self._place(current))
                 current = nxt
                 have_current = True
             if have_current:
                 self._mark_last_batch()
                 self.batches_yielded += 1
-                yield self._place(current)
+                yield self._remesh_stale(current, self._place(current))
         finally:
             self.end()
 
@@ -410,13 +445,14 @@ class BaseDataLoader(DataLoaderStateMixin):
 
                 def placed(host_batch):
                     if not on_card:
-                        return self._place(host_batch), None
-                    pinned = recursively_apply(lambda t: t.pin_memory(), _host_tensors(host_batch))
+                        return self._place(host_batch), None, host_batch
+                    host = host_batch.batch if isinstance(host_batch, _Fetched) else host_batch
+                    pinned = recursively_apply(lambda t: t.pin_memory(), _host_tensors(host))
                     with torch.cuda.stream(stream):
                         batch = send_to_device(pinned, self.device, non_blocking=True)
                         copied = torch.cuda.Event()
                         copied.record(stream)
-                    return batch, copied
+                    return batch, copied, host_batch
 
                 for nxt in batches:
                     if have_current and not _put(("batch", placed(current), False)):
@@ -440,7 +476,7 @@ class BaseDataLoader(DataLoaderStateMixin):
                     break
                 if kind == "error":
                     raise payload
-                batch, copied = payload
+                batch, copied, item = payload
                 if copied is not None:
                     consumer = torch.cuda.current_stream(self.device)
                     consumer.wait_event(copied)
@@ -448,7 +484,7 @@ class BaseDataLoader(DataLoaderStateMixin):
                 if is_last:
                     self._mark_last_batch()
                 self.batches_yielded += 1
-                yield batch
+                yield self._remesh_stale(item, batch)
                 if is_last:
                     break
         finally:
@@ -480,6 +516,7 @@ class DataLoaderShard(BaseDataLoader):
         self.batch_sampler = batch_sampler
         self.collate_fn = collate_fn or default_collate
         self.split_batches = split_batches
+        self._generation = self.state.generation  # the group its sampler was sharded for
         try:
             self._total_samples = len(dataset)
         except TypeError:
@@ -511,9 +548,33 @@ class DataLoaderShard(BaseDataLoader):
     def _fetch_batch(self, index_batch):
         return self.collate_fn([self.dataset[i] for i in index_batch])
 
+    def _follow_mesh(self, generation: int) -> None:
+        """After an elastic shrink or regrow, the sampler's shard on the
+        live group (the sampler reads it per batch). ``generation`` is read
+        before the group's sizes: ``rebuild_mesh`` bumps it after them, so a
+        batch is never stamped newer than the sizes it was cut with."""
+        if self._generation != generation and isinstance(self.batch_sampler, BatchSamplerShard):
+            self.batch_sampler.num_processes = self.state.batch_shards
+            self.batch_sampler.process_index = self.state.batch_shard_index
+        self._generation = generation
+
     def _local_batches(self):
-        for index_batch in self.batch_sampler:
-            yield io_retry_policy.call(self._fetch_batch, index_batch)
+        batches = iter(self.batch_sampler)
+        split = getattr(self.batch_sampler, "split_batches", False)
+        while True:
+            generation = self.state.generation
+            self._follow_mesh(generation)
+            try:
+                index_batch = next(batches)
+            except StopIteration:
+                return
+            rows = list(self.batch_sampler.last_global) if split else None
+            yield _Fetched(io_retry_policy.call(self._fetch_batch, index_batch), generation, rows)
+
+    def _refetch(self, rows: list):
+        share = len(rows) // self.state.batch_shards
+        index = self.state.batch_shard_index
+        return io_retry_policy.call(self._fetch_batch, rows[index * share:(index + 1) * share])
 
     def __iter__(self):
         yield from self._iterate_with_lookahead(self._local_batches())

@@ -1,12 +1,26 @@
-"""Training across processes: the layout engine and the sharded update, and
-the KV handoff's transfer leg of the redistribution primitive."""
+"""Training across processes: the layout engine and the sharded update, the
+redistribution primitive (a sharded tree moved between layouts over
+processes: the elastic shrink and regrow, the KV handoff's transfer leg) and
+LocalSGD."""
 
-from .redistribute import RedistributeStageFailure
+from .local_sgd import LocalSGD
+from .redistribute import (
+    EpochFence,
+    RedistributeConfig,
+    RedistributeError,
+    RedistributePlan,
+    RedistributeStageFailure,
+    plan_redistribute,
+    redistribute,
+)
 from .sharding import (
     PartitionRules,
     fold_update_spec,
     fsdp_auto_spec,
     infer_shardings,
+    param_path,
+    replicated,
+    shard_tree,
     shardings_like,
     zero_batch_axes,
     zero_update_shardings,
@@ -23,7 +37,12 @@ from .zero import (
 )
 
 __all__ = [
+    "EpochFence",
+    "LocalSGD",
     "PartitionRules",
+    "RedistributeConfig",
+    "RedistributeError",
+    "RedistributePlan",
     "RedistributeStageFailure",
     "ShardedLayout",
     "build_zero_step",
@@ -32,6 +51,11 @@ __all__ = [
     "gather_full",
     "infer_shardings",
     "make_grad_reducer",
+    "param_path",
+    "plan_redistribute",
+    "redistribute",
+    "replicated",
+    "shard_tree",
     "sharded_global_norm",
     "shardings_like",
     "tx_couples_across_leaves",

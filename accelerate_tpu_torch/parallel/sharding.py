@@ -248,3 +248,38 @@ def shardings_like(state: Any, params: dict, param_specs: dict) -> list[Spec]:
                         best = (p_path, spec)
         out.append(best[1] if best is not None else ())
     return out
+
+
+# -- the JAX package's tree helpers, over the port's specs -------------------------------
+
+
+def param_path(key_path) -> str:
+    """A key path (keys, indices, or entries with ``key``/``idx``/``name``)
+    to the ``"a/b/0/c"`` string the rules match."""
+    parts = []
+    for entry in key_path:
+        if hasattr(entry, "key"):
+            parts.append(str(entry.key))
+        elif hasattr(entry, "idx"):
+            parts.append(str(entry.idx))
+        elif hasattr(entry, "name"):
+            parts.append(str(entry.name))
+        else:
+            parts.append(str(entry))
+    return "/".join(parts)
+
+
+def replicated(sizes: Optional[Mapping[str, int]] = None) -> Spec:  # noqa: ARG001 - the JAX signature takes the mesh
+    """The spec of a leaf whole on every process."""
+    return ()
+
+
+def shard_tree(tree: dict, specs: dict, state=None) -> dict:
+    """Whole leaves to this process's shards of them, each its own
+    contiguous tensor (the placement step): ``specs`` over the mesh of
+    ``state`` (the ``PartialState``)."""
+    from ..state import PartialState
+    from .zero import _Mesh, shard_of
+
+    mesh = _Mesh(state if state is not None else PartialState())
+    return tree_map(lambda x, spec: shard_of(x, spec, mesh), tree, specs)

@@ -450,9 +450,7 @@ def build_zero_step(*, accelerator, loss_fn: Callable, model, optimizer, clip_gr
             grads = tree_map(lambda g: g / scale, grads)
         grads = tree_unflatten(grads, layout.reduce(tree_leaves(grads)))
         grads = clip_by_value(grads, clip_grad_value)
-        loss = layout.psum(loss)
-        if scale is not None:
-            loss = loss / scale
+        loss = layout.psum(loss)  # unscaled: the scale multiplies only what the gradients are taken of
         if resilience.enabled:
             # the guard's ladder, as the replicated step's, on the global loss
             # and the global norm reduced over the group: every process takes

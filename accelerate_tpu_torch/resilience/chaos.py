@@ -13,9 +13,11 @@ hub), the checkpoint and loader I/O (``io_failures``, through the
 module-level :func:`probe_io`), the engine (``serving_burst``,
 ``spec_disable``), the router (``replica_kill``, ``replica_stall``,
 ``heartbeat_loss``), the handoff (``handoff_stall``, ``handoff_loss``,
-``redistribute_fail``) and the autoscaler (``rebalance_fail``,
-``autoscale_outage``) consume it. The membership and elastic legs'
-consumers come with ROADMAP item 18.
+``redistribute_fail``, and the elastic relayout's transfers), the
+autoscaler (``rebalance_fail``, ``autoscale_outage``) and the elastic
+coordinator (``host_loss``, and the ``membership_silence``/
+``membership_stall`` legs on its own host's heartbeat,
+``resilience/elastic.py``) consume it.
 
 Fleet-step indices are 0-based router steps, checked at the top of the
 router's step; handoff indices count handoff attempts fleet-wide (retries

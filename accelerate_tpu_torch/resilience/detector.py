@@ -2,9 +2,8 @@
 from the absence of evidence.
 
 Counterpart of ``accelerate_tpu/resilience/detector.py``. The serving
-fleet's replica heartbeat (``serving/fleet.py``) decides with it; the
-training membership detector that shares it in the JAX package comes with
-ROADMAP item 18.
+fleet's replica heartbeat (``serving/fleet.py``) and the training
+membership detector (``resilience/membership.py``) decide with it.
 
 Semantics:
 

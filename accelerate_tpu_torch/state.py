@@ -22,6 +22,8 @@ device is ``cuda:LOCAL_RANK`` unless the caller names one (``device="cpu"``
 for the CPU). The process helpers (``wait_for_everyone``, ``any_process``,
 ``aggregate_metrics``, ``split_between_processes``,
 ``main_process_first``, the ``on_*`` decorators) run across the processes.
+Elastic training (``resilience/elastic.py``) leaves a group and forms a new
+one over the current members (``rejoin``, ``leave``, ``rebuild_mesh``).
 """
 
 from __future__ import annotations
@@ -78,6 +80,21 @@ def job_process_index() -> int:
     return get_multihost_env()["process_id"] or 0
 
 
+def leave_process_group() -> None:
+    """Leave the default process group without a collective: under NCCL
+    its communicator is aborted first (a peer lost mid-collective leaves it
+    waiting), then the group is destroyed. A process that leaves an elastic
+    job calls it, as do the survivors before their next rendezvous."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == "nccl":
+        group = dist.group.WORLD
+        backend = group._get_backend(torch.device("cuda")) if hasattr(group, "_get_backend") else None
+        if backend is not None and hasattr(backend, "abort"):
+            backend.abort()
+    dist.destroy_process_group()
+
+
 class PartialState:
     """The process, its device and the mesh over every process.
     ``device=None`` means CUDA (``cuda:LOCAL_RANK`` in a job of several
@@ -120,6 +137,9 @@ class PartialState:
         self.mesh_shape = self.parallelism.axis_sizes(world)
         self.mesh = None
         self.backend = None
+        # bumped by every rebuild of the mesh (an elastic shrink or regrow):
+        # what a batch placed for an older group is told apart by
+        self.generation = 0
         if world > 1:
             self._join(world, rank, env, init_kwargs or InitProcessGroupKwargs())
         self._ready = True
@@ -128,6 +148,7 @@ class PartialState:
         """Join the process group (unless it is up) and build the mesh."""
         from torch.distributed.device_mesh import init_device_mesh
 
+        self._pg_timeout = kwargs.timeout  # a rejoin keeps the group's timeout
         if not dist.is_initialized():
             backend = kwargs.backend or ("nccl" if self.device.type == "cuda" else "gloo")
             init_method = kwargs.init_method or env["init_method"]
@@ -141,6 +162,68 @@ class PartialState:
         self.backend = dist.get_backend()
         shape = tuple(self.mesh_shape[axis] for axis in CANONICAL_MESH_AXES)
         self.mesh = init_device_mesh(self.device.type, shape, mesh_dim_names=CANONICAL_MESH_AXES)
+
+    def rebuild_mesh(self, parallelism: Optional[ParallelismConfig] = None):
+        """Rebuild the mesh over the current process group, under
+        ``parallelism`` when given (it must cover the group's size): the
+        elastic shrink and regrow seam (``resilience/elastic.py``). The
+        groups made over the old mesh's axes are dropped; state laid out
+        for the old mesh is the caller's to move."""
+        if parallelism is not None:
+            self.parallelism = parallelism
+        self.mesh_shape = self.parallelism.axis_sizes(self._world)
+        self.__dict__.pop("_axis_groups", None)
+        self.__dict__.pop("_pipeline_stages", None)
+        self.mesh = None
+        if self._world > 1:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            shape = tuple(self.mesh_shape[axis] for axis in CANONICAL_MESH_AXES)
+            self.mesh = init_device_mesh(self.device.type, shape, mesh_dim_names=CANONICAL_MESH_AXES)
+        self.generation += 1
+        return self.mesh
+
+    def leave(self) -> None:
+        """Leave the process group: the mesh and the groups made over it
+        are dropped first, so the group's connections close with it and a
+        peer still blocked in one of its collectives fails at once rather
+        than at the group's timeout."""
+        import gc
+
+        self.mesh = None
+        self.__dict__.pop("_axis_groups", None)
+        self.__dict__.pop("_pipeline_stages", None)
+        gc.collect()
+        leave_process_group()
+        gc.collect()
+
+    def rejoin(self, rank: int, world: int, init_method: str, parallelism: Optional[ParallelismConfig] = None,
+               timeout=None, rendezvous_timeout=None):
+        """The elastic re-rendezvous (``resilience/membership.py``): leave
+        the current process group, which may still count a dead peer, join
+        a new one of ``world`` processes at ``init_method`` as ``rank``
+        (the members renumbered in their old order; the membership epoch
+        names the rendezvous, so a process of an older epoch cannot join
+        it), and rebuild the mesh over it. The device stays. Under NCCL the
+        old group's communicator is aborted first: a peer that died
+        mid-collective would otherwise keep it waiting. ``timeout`` is the
+        new group's (default: the old one's); ``rendezvous_timeout`` how
+        long a ``file://`` rendezvous waits for its members (a survivor
+        held in a collective until the group's timeout arrives late)."""
+        backend = self.backend or ("nccl" if self.device.type == "cuda" else "gloo")
+        self.leave()
+        timeout = timeout if timeout is not None else self.__dict__.get("_pg_timeout")
+        extra = {"timeout": timeout} if timeout is not None else {}
+        if rendezvous_timeout is not None and init_method.startswith("file://"):
+            store = dist.FileStore(init_method[len("file://"):], world)
+            store.set_timeout(rendezvous_timeout)
+            extra["store"] = store
+        else:
+            extra["init_method"] = init_method
+        dist.init_process_group(backend, world_size=world, rank=rank, **extra)
+        self.backend = dist.get_backend()
+        self._world, self._rank = int(world), int(rank)
+        return self.rebuild_mesh(parallelism)
 
     # -- topology ------------------------------------------------------------
 

@@ -20,8 +20,8 @@ categories match where production runs actually bleed time:
                              non-finite steps (resilience/guards.py)
 - ``elastic_reshard``      — in-memory host-loss recovery: reassembling
                              surviving/buddy shards, resharding onto the
-                             shrunken mesh (elastic training, which the
-                             port has not yet: ROADMAP item 18)
+                             shrunken mesh, and the regrow
+                             (resilience/elastic.py)
 
 Productive time comes from the StepTimer (measured window time extrapolated
 over all steps), so the ratio needs no extra synchronization. The ledger is

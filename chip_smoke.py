@@ -127,7 +127,7 @@ wall time:
     flash kernel 12, ``fused_adamw`` once a shard leaf), the masters and
     optimizer state a process against ``zero_update_state_bytes``, the
     step p50 (gloo stages every collective through the host, so it says
-    nothing of NCCL), and the update gate: 10 eager updates of seeded
+    nothing of NCCL), and the update gate: 3 eager updates of seeded
     gradients at full width, the ZeRO update against the replicated one,
     tolerance 0. Where gloo refuses a CUDA reduce-scatter or all-gather,
     (b) runs the replicated data-parallel update and the gate is skipped;
@@ -256,9 +256,10 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     (the retry budget spent, each re-prefilled on the decode pool), tokens
     still equal; (c) phase 3's prompts on a seeded burst trace (mean rate
     (a)'s requests a second, a 4x burst) through ``run_offered_load``
-    against 2 prefill + 2 decode replicas, fixed and with a
-    ``RoleRebalancer``: every request ran to its length, sheds == retries,
-    and the rebalancer flipped at least one replica with no thrash; (d)
+    against 2 prefill + 2 decode replicas with a ``RoleRebalancer``: every
+    request ran to its length, sheds == retries, and the rebalancer flipped
+    at least one replica with no thrash and no aborted flip (the fixed
+    fleet's run beside it is cut to make room for phase 31); (d)
     ``serve_bench.main`` in process three times with llama-1b, 4 requests a
     point (1 prefill +
     2 decode replicas, a lost handoff, traced; 2 int8 replicas under a
@@ -269,13 +270,14 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     forwards (7 projections a layer for the int8 matmul; the draft's decode
     launches a multiple of its layers).
 
-28. model parallelism and fp8: (a) llama-1b at full width and depth
+28. model parallelism and fp8: (a) llama-1b at full width and 8 of its
+    22 layers (cut to make room for phase 31)
     under ``ParallelismConfig(tensor=2)``, two processes sharing cuda:0
     over gloo (bf16 over fp32 masters, flash from 1024, ``fused_adamw``,
     global batch 4 at S=1024, 3 steps): both processes' losses equal and
     within ``TP_LOSS_RTOL`` of one process's, every leaf's first gradient
     gathered from the two slices within ``TP_GRAD_RTOL`` of one process's,
-    each flash kernel launched 22 x steps a process on its 8 of 16 heads
+    each flash kernel launched 8 x steps a process on its 8 of 16 heads
     and adamw once a stored leaf a step, step p50 and peak memory beside
     one process's; (b) llama-moe-tiny under ``expert=2`` in the same launch
     against one process, its exchange ``all_to_all_single`` on the CUDA
@@ -288,15 +290,16 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     and MFU beside phase 13's bf16 ones, then two steps under
     ``torch.profiler``.
 29. pipeline parallelism, two processes sharing cuda:0 over gloo in one
-    launch: (a) llama-1b at full width and depth (22 layers, 11 a stage)
-    under ``ParallelismConfig(pipeline=2)``, bf16 over fp32 masters, flash
+    launch: (a) llama-1b at full width and 12 of its 22 layers (6 a
+    stage; cut to make room for phase 31) under
+    ``ParallelismConfig(pipeline=2)``, bf16 over fp32 masters, flash
     from 1024, ``fused_adamw``, global batch 8 at S=1024 in the default 8
     microbatches, 3 steps: both processes' losses equal and within
     ``TP_LOSS_RTOL`` of one process's, every leaf's first gradient (the two
     stages' layer slices put together, the leaves outside the stack equal
     on both) within ``TP_GRAD_RTOL`` of one process's, launches a process
-    (each chunk recomputed, idle ticks skipped: flash forward 2 x 11 x 8 a
-    step, dq and dk/dv 11 x 8, adamw once a stored leaf), step p50 and peak
+    (each chunk recomputed, idle ticks skipped: flash forward 2 x 6 x 8 a
+    step, dq and dk/dv 6 x 8, adamw once a stored leaf), step p50 and peak
     memory beside one process's, the schedule's idle fraction and the
     bytes hopped a step; (b) llama-125m under ``pipeline=2`` at
     ``virtual_pipeline_stages=2`` (3 layers a chunk), its losses within
@@ -2501,7 +2504,10 @@ def phase_remat(card: str) -> None:
 
 PROBED = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor", "broadcast")
 PAIR_BATCH, PAIR_SEQ = 16, 1024  # global: 8 rows a process
-PAIR_STEPS, PAIR_TIMED, GATE_STEPS = 3, 4, 10
+# the gate's updates: 3, cut from 10 to make room for phase 31 (each is two
+# full-width updates staged through the host; the second and third already
+# read moments the earlier ones wrote)
+PAIR_STEPS, PAIR_TIMED, GATE_STEPS = 3, 4, 3
 # the two-process losses against one process's at the same global batch:
 # bf16 rounds every product to 8 bits (2^-8 = 3.9e-3 relative), and the
 # halves' matmuls may tile otherwise than the whole batch's
@@ -2597,7 +2603,7 @@ def train_pair(zero: bool) -> dict:
 
 def update_gate_pair() -> dict:
     """In each of two processes on cuda:0: the update-equivalence gate at
-    llama-125m's full width: 10 eager updates of seeded CUDA gradients
+    llama-125m's full width: GATE_STEPS eager updates of seeded CUDA gradients
     (each process its own draw) under the ZeRO update, then under the
     replicated one, params and optimizer state gathered; the largest gap."""
     import torch.distributed as dist
@@ -4351,43 +4357,42 @@ def fleet_disaggregated(model, prompts, want, gaps, card: str, replicated: dict)
 
 def fleet_offered_load(model, prompts, card: str, rps: float) -> None:
     """(c): phase 3's prompts on a Poisson trace at (a)'s saturation rate
-    with a 4x burst, against 2 prefill + 2 decode replicas, fixed and with
-    the rebalancer. The rebalancer's deadband is set low enough for these
-    16 requests to starve the decode pool (4 of its 16 slots busy) while
-    the prefill pool idles (at most 1 of its 16), so at least one prefill
-    replica drains and flips to decode."""
+    with a 4x burst, against 2 prefill + 2 decode replicas with the
+    rebalancer (the fixed fleet's run beside it is cut: (b) and (d) drive
+    that router and the burst trace). The rebalancer's deadband is set low
+    enough for these 16 requests to starve the decode pool (4 of its 16
+    slots busy) while the prefill pool idles (at most 1 of its 16), so at
+    least one prefill replica drains and flips to decode."""
     arrivals = make_burst_trace(len(prompts), rps, burst_multiplier=4.0, seed=SEED)
     roles = ["prefill", "prefill", "decode", "decode"]
     policy = AutoscalePolicy(cadence_steps=2, scale_up_pressure=0.25, scale_down_pressure=0.1,
                              min_dwell_steps=8, cooldown_steps=20)
-    for tag, autoscale in (("fixed", None), ("rebalanced", RoleRebalancer(policy=policy))):
-        router = ServingRouter(engine_factory=lambda: ServingEngine(model, **FLEET_ENGINE), num_replicas=4,
-                               roles=roles, autoscale=autoscale)
-        router.warmup()
-        t0 = time.perf_counter()
-        point = run_offered_load(router, prompts, 64, arrival_times=arrivals, seed=SEED)
-        wall = time.perf_counter() - t0
-        flips = point.get("autoscale_flip_count", 0)
-        thrash = point.get("autoscale_thrash_count", 0)
-        print(f"[fleet] (c) burst trace ({len(prompts)} requests, base {rps:.2f} req/s, 4x burst, "
-              f"{arrivals[-1]:.2f} s of arrivals), 2 prefill + 2 decode, {tag}: {point['requests_completed']} of "
-              f"{point['offered_requests']} terminated, finish reasons {point['loadgen_finish_reasons']}, sheds "
-              f"{point['loadgen_sheds']} retries {point['loadgen_retries']}, flips {flips} (thrash {thrash}, "
-              f"aborted {point.get('autoscale_aborted_flips', 0)}), roles {[r.role for r in router.replicas]}, "
-              f"TTFT p50 {point['loadgen_ttft_p50_ms']:.1f} ms p99 {point['loadgen_ttft_p99_ms']:.1f} ms; wall "
-              f"{wall:.3f} s [{card}]")
-        if (point["requests_completed"] != point["offered_requests"]
-                or point["loadgen_finish_reasons"] != {"length": len(prompts)}
-                or point["loadgen_sheds"] != point["loadgen_retries"]):
-            raise AssertionError(f"offered load ({tag}): {point['requests_completed']} of "
-                                 f"{point['offered_requests']} terminated as {point['loadgen_finish_reasons']}, "
-                                 f"sheds {point['loadgen_sheds']} retries {point['loadgen_retries']}")
-        if autoscale is not None and (flips < 1 or thrash or point["autoscale_aborted_flips"]):
-            raise AssertionError(f"the rebalancer flipped {flips} times, thrash {thrash}, aborted "
-                                 f"{point['autoscale_aborted_flips']}")
-        del router
-        gc.collect()
-        torch.cuda.empty_cache()
+    router = ServingRouter(engine_factory=lambda: ServingEngine(model, **FLEET_ENGINE), num_replicas=4,
+                           roles=roles, autoscale=RoleRebalancer(policy=policy))
+    router.warmup()
+    t0 = time.perf_counter()
+    point = run_offered_load(router, prompts, 64, arrival_times=arrivals, seed=SEED)
+    wall = time.perf_counter() - t0
+    flips, thrash = point["autoscale_flip_count"], point["autoscale_thrash_count"]
+    aborted = point["autoscale_aborted_flips"]
+    print(f"[fleet] (c) burst trace ({len(prompts)} requests, base {rps:.2f} req/s, 4x burst, "
+          f"{arrivals[-1]:.2f} s of arrivals), 2 prefill + 2 decode, rebalanced: {point['requests_completed']} of "
+          f"{point['offered_requests']} terminated, finish reasons {point['loadgen_finish_reasons']}, sheds "
+          f"{point['loadgen_sheds']} retries {point['loadgen_retries']}, flips {flips} (thrash {thrash}, "
+          f"aborted {aborted}), roles {[r.role for r in router.replicas]}, "
+          f"TTFT p50 {point['loadgen_ttft_p50_ms']:.1f} ms p99 {point['loadgen_ttft_p99_ms']:.1f} ms; wall "
+          f"{wall:.3f} s [{card}]")
+    if (point["requests_completed"] != point["offered_requests"]
+            or point["loadgen_finish_reasons"] != {"length": len(prompts)}
+            or point["loadgen_sheds"] != point["loadgen_retries"]):
+        raise AssertionError(f"offered load: {point['requests_completed']} of {point['offered_requests']} "
+                             f"terminated as {point['loadgen_finish_reasons']}, sheds {point['loadgen_sheds']} "
+                             f"retries {point['loadgen_retries']}")
+    if flips < 1 or thrash or aborted:
+        raise AssertionError(f"the rebalancer flipped {flips} times, thrash {thrash}, aborted {aborted}")
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # serve_bench's runs in (d): the disaggregated drill the fleet is built for,
@@ -4488,8 +4493,8 @@ def fleet_serve_bench(card: str) -> None:
 def phase_fleet(card: str, phase3_rows: list) -> None:
     """The serving fleet over llama-1b at full width and depth in bf16 with
     phase 3's weights and traffic: (a) replicated with a replica kill, (b)
-    disaggregated and traced with handoff losses, (c) offered load with and
-    without the rebalancer, (d) serve_bench."""
+    disaggregated and traced with handoff losses, (c) a burst trace with
+    the rebalancer, (d) serve_bench."""
     t0 = time.perf_counter()
     model = Llama("llama-1b", dtype=torch.bfloat16, seed=SEED)
     prompts = serving_prompts(np.random.default_rng(SEED), model.config.vocab_size)
@@ -4518,6 +4523,10 @@ def phase_fleet(card: str, phase3_rows: list) -> None:
 # -- phase 28: model parallelism and fp8 -------------------------------------------
 
 TP_BATCH, TP_SEQ, TP_STEPS = 4, 1024, 3  # llama-1b under tensor=2: the global batch, both processes' rows
+# llama-1b's depth under tensor=2: 8 of its 22 layers at full width (an
+# earlier path runs at a smaller depth to make room for phase 31; the split
+# of every layer is the same at any depth)
+TP_LAYERS = 8
 MOE_BATCH, MOE_SEQ = 8, 256  # llama-moe-tiny under expert=2 (phase 16's shape), TP_STEPS steps
 FP8_TP_BATCH = 8  # llama-125m's fp8 step under tensor=2, at S=TP_SEQ
 FP8_STEPS = 10  # llama-125m fp8 at phase 13's B=32 S=1024
@@ -4545,6 +4554,11 @@ FP8_TP_GRAD_RTOL = 0.5
 # on an H100); a wrong scale or layout is off by the whole product
 SCALED_MM_RTOL = 1e-3
 A2A_PROBED = "all_to_all_single cuda"
+
+
+def tp_config():
+    """llama-1b at full width, TP_LAYERS deep."""
+    return dataclasses.replace(get_config("llama-1b"), num_layers=TP_LAYERS)
 
 
 def tp_batches(seed: int, batch: int, seq: int, vocab: int) -> list:
@@ -4602,7 +4616,7 @@ def model_parallel_job(grads_dir: str) -> dict:
                               compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
     rank = dist.get_rank()
     out = {"rank": rank, "probe": probe_all_to_all()}
-    model = Llama("llama-1b", dtype=torch.float32, seed=SEED)
+    model = Llama(tp_config(), dtype=torch.float32, seed=SEED)
     prepared = accelerator.prepare_model(model)
     optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
     batches = tp_batches(28, TP_BATCH, TP_SEQ, model.config.vocab_size)
@@ -4730,13 +4744,13 @@ def scaled_mm_checks(card: str) -> None:
 
 def phase_model_parallel(card: str, bf16_p50: float) -> None:
     """Phase 28, tensor and expert parallelism and fp8: (a) llama-1b at full
-    width and depth under ParallelismConfig(tensor=2), two processes on
+    width, TP_LAYERS deep, under ParallelismConfig(tensor=2), two processes on
     cuda:0 over gloo, bf16 over fp32 masters, flash from 1024,
     ``fused_adamw(3e-4)``, global batch 4 at S=1024, 3 compiled steps; both
     processes' losses equal, within ``TP_LOSS_RTOL`` of one process's; the
     first gradient of every leaf, gathered from the two slices, within
     ``TP_GRAD_RTOL`` of one process's; launches a process (each flash kernel
-    22 x steps on 8 of 16 heads; adamw leaves x steps); step p50 and peak
+    TP_LAYERS x steps on 8 of 16 heads; adamw leaves x steps); step p50 and peak
     memory beside one process's. (b) llama-moe-tiny under expert=2 in the
     same launch, losses against one process's, and gloo's own answer to
     the exchange's ``all_to_all_single`` on CUDA tensors. (c)
@@ -4761,9 +4775,9 @@ def phase_model_parallel(card: str, bf16_p50: float) -> None:
           f"exchange calls it on the tensors themselves [{card}]")
     if ranks[0]["probe"] != ranks[1]["probe"]:
         raise AssertionError(f"probes {[r['probe'] for r in ranks]}")
-    layers = get_config("llama-1b").num_layers
+    layers = TP_LAYERS
     for got in ranks:
-        print(f"[tp] rank {got['rank']}: llama-1b bf16 fused_adamw B={TP_BATCH} S={TP_SEQ} under "
+        print(f"[tp] rank {got['rank']}: llama-1b ({TP_LAYERS} of 22 layers) bf16 fused_adamw B={TP_BATCH} S={TP_SEQ} under "
               f"ParallelismConfig(tensor=2), stored {got['stored']}: losses {[round(x, 6) for x in got['losses']]}; "
               f"step times {[round(x * 1e3, 3) for x in got['times']]} ms (p50 {np.median(got['times']) * 1e3:.3f}; "
               f"gloo stages every activation all-reduce through the host, so this says nothing of NCCL); "
@@ -4778,7 +4792,7 @@ def phase_model_parallel(card: str, bf16_p50: float) -> None:
             raise AssertionError(f"the two processes report different {key}")
 
     reset_training_state()
-    accelerator, model = train_setup("llama-1b", "bf16", fused_adamw(ADAMW_LR))
+    accelerator, model = train_setup(tp_config(), "bf16", fused_adamw(ADAMW_LR))
     batches = tp_batches(28, TP_BATCH, TP_SEQ, model.config.vocab_size)
     want = local_grads(accelerator, model, accelerator._optimizers[-1], batches[0])
     grad_gaps = leaf_gaps(gathered(slices, want), want)
@@ -4864,6 +4878,10 @@ def phase_model_parallel(card: str, bf16_p50: float) -> None:
 # -- phase 29: pipeline parallelism --------------------------------------------------
 
 PP_BATCH, PP_SEQ, PP_STEPS = 8, 1024, 3  # llama-1b under pipeline=2: the global batch, fed to both stages
+# llama-1b's depth under pipeline=2: 12 of its 22 layers at full width, 6
+# a stage (an earlier path runs at a smaller depth to make room for phase
+# 31; the schedule and every stage's hops are the same at any depth)
+PP_LAYERS = 12
 PP_SMALL = "llama-125m"  # (b) and (c): 12 layers, 3 a chunk at v=2
 PP_SMALL_STEPS = 2  # (b)'s steps at each v
 
@@ -4880,6 +4898,11 @@ def pipeline_schedule_facts(stages: int, virtual: int, rows: int, seq: int, hidd
     activation = (rows // micro) * seq * hidden * 2
     return {"idle": idle, "ticks": ticks, "hop_bytes": 2 * (ticks - 1) * activation,
             "broadcast_bytes": 2 * rows * seq * hidden * 2}
+
+
+def pp_config():
+    """llama-1b at full width, PP_LAYERS deep."""
+    return dataclasses.replace(get_config("llama-1b"), num_layers=PP_LAYERS)
 
 
 def stage_grads(accelerator, model, optimizer, batch, path) -> dict:
@@ -4905,7 +4928,7 @@ def pipeline_job(grads_dir: str) -> dict:
                               compilation_config=CompilationConfig(flash_attention_min_seq=1024), **gloo_on_card())
     rank = dist.get_rank()
     out = {"rank": rank, "stage": accelerator.state.mesh_coords["pipeline"], "parts": {}}
-    model = Llama("llama-1b", dtype=torch.float32, seed=SEED)
+    model = Llama(pp_config(), dtype=torch.float32, seed=SEED)
     prepared = accelerator.prepare_model(model)
     optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
     out["microbatches"] = model.pipeline_fn.num_microbatches
@@ -4990,12 +5013,13 @@ def phase_pipeline(card: str) -> dict:
     t0 = time.perf_counter()
     ranks = debug_launcher(pipeline_job, args=(tmp.name,), num_processes=2, timeout=600)
     parts = {"the two processes": time.perf_counter() - t0}
-    cfg = get_config("llama-1b")
+    cfg = pp_config()
     micro = ranks[0]["microbatches"]
     facts = pipeline_schedule_facts(2, 1, PP_BATCH, PP_SEQ, cfg.hidden_size, micro)
     per_stage = cfg.num_layers // 2
     for got in ranks:
-        print(f"[pp] rank {got['rank']} (stage {got['stage']}): llama-1b bf16 fused_adamw B={PP_BATCH} "
+        print(f"[pp] rank {got['rank']} (stage {got['stage']}): llama-1b ({PP_LAYERS} of 22 layers) bf16 "
+              f"fused_adamw B={PP_BATCH} "
               f"S={PP_SEQ} in {micro} microbatches under ParallelismConfig(pipeline=2), stored {got['stored']}: "
               f"losses {[round(x, 6) for x in got['losses']]}; step times "
               f"{[round(x * 1e3, 3) for x in got['times']]} ms (p50 {np.median(got['times']) * 1e3:.3f}; gloo "
@@ -5017,7 +5041,7 @@ def phase_pipeline(card: str) -> dict:
 
     t0 = time.perf_counter()
     reset_training_state()
-    accelerator, model = train_setup("llama-1b", "bf16", fused_adamw(ADAMW_LR))
+    accelerator, model = train_setup(pp_config(), "bf16", fused_adamw(ADAMW_LR))
     batches = tp_batches(29, PP_BATCH, PP_SEQ, model.config.vocab_size)
     want = local_grads(accelerator, model, accelerator._optimizers[-1], batches[0])
     grad_gaps = leaf_gaps(stage_gathered(tmp.name, "pp", want), want)
@@ -5296,6 +5320,29 @@ def telemetry_p50(model, enabled: bool, batch) -> float:
     return float(np.median(times))
 
 
+def trace_launch_gaps(path: str) -> str:
+    """Where a trace lacks a kernel event: each runtime launch whose
+    correlation id has no kernel event, its time from the trace's first
+    event and the kernels launched just before and after it."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e]
+    start = min(float(e["ts"]) for e in events)
+    kernels = {e.get("args", {}).get("correlation"): e for e in events if e.get("cat") == "kernel"}
+    launches = sorted((e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "Launch" in e.get("name", "")), key=lambda e: float(e["ts"]))
+    lines = []
+    for i, e in enumerate(launches):
+        if e.get("args", {}).get("correlation") in kernels:
+            continue
+        near = [kernels[x["args"]["correlation"]]["name"][:40] for x in launches[max(0, i - 2):i + 3]
+                if x.get("args", {}).get("correlation") in kernels]
+        lines.append(f"launch {i} of {len(launches)} ({e['name']}, correlation {e.get('args', {}).get('correlation')}) "
+                     f"at {float(e['ts']) - start:.1f} us has no kernel event; kernels around it {near}")
+    first = min((float(e["ts"]) for e in kernels.values()), default=start)
+    return (f"first kernel event at {first - start:.1f} us of the trace, {len(kernels)} kernel events for "
+            f"{len(launches)} launches; " + "; ".join(lines[:6]))
+
+
 def trace_kernel_counts(path: str) -> dict:
     """Kernel events in a Chrome trace by the port's kernel names."""
     with open(path) as f:
@@ -5428,7 +5475,8 @@ def phase_telemetry_guard(card: str, compiled_p50: Optional[float]) -> dict:
               f"{capture.memory_before[0]['bytes_in_use']} -> {capture.memory_after[0]['bytes_in_use']} bytes "
               f"[{card}]")
         if any(traced[k] != counts[k] or counts[k] == 0 for k in traced):
-            raise AssertionError(f"the trace's kernels {traced} against the counters {counts}")
+            raise AssertionError(f"the trace's kernels {traced} against the counters {counts}: "
+                                 f"{trace_launch_gaps(os.path.join(capture, 'trace.json'))}")
         for k in launches:
             launches[k] += counts[k]
         parts["(c) profile"] = time.perf_counter() - start
@@ -5515,6 +5563,451 @@ def phase_telemetry_guard(card: str, compiled_p50: Optional[float]) -> dict:
     print("[guard] seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
           + f"; phase {time.perf_counter() - t0:.1f} s [{card}]")
     return launches, record
+
+
+# -- phase 31: elastic training and LocalSGD across four processes ------------------
+
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_STEPS = 12, 1024, 6  # 3 rows a process at 4, 4 at 3
+ELASTIC_LOSS_AT, ELASTIC_REGROW_AT = 3, 6  # boundaries: host 2 lost before step 3, back before step 6
+ELASTIC_CKPT_STEPS = 4  # (d): a checkpoint at step 2, host 1 lost at boundary 4 (the mirror a step stale)
+CHECK_PRIME = 2147483647  # the state checksums' modulus (2^31 - 1)
+LSGD_STEPS, LSGD_K = 4, 2
+# losses of every elastic run against the uninterrupted 4-process run on the
+# same global batches: PERF §2's tolerance across processes (bf16, other
+# reduction orders at 3 and 4 processes)
+ELASTIC_LOSS_RTOL = 5e-3
+# a LocalSGD average against the mean of the four replicas before it, on a
+# slice of every leaf: fp32 sums of four in another order
+LSGD_MEAN_RTOL = 1e-6
+ELASTIC_HEARTBEAT_S = 10.0  # a kernel build or a relay must never read as a death
+
+
+def elastic_batches() -> list:
+    rng = np.random.default_rng(SEED + 31)
+    return [rng.integers(0, 32000, (ELASTIC_BATCH, ELASTIC_SEQ)).astype(np.int32) for _ in range(ELASTIC_STEPS)]
+
+
+def elastic_setup(root: str, plan=None, first: bool = False):
+    """One scenario's Accelerator in one of four processes on cuda:0 over
+    gloo (its own rendezvous but for the first), llama-125m bf16 over fp32
+    masters, flash from 1024, ``fused_adamw``."""
+    reset_training_state()
+    os.makedirs(root, exist_ok=True)
+    if not first:  # the launcher's rendezvous is used once
+        os.environ["ACCELERATE_INIT_METHOD"] = f"file://{os.path.join(root, 'init')}"
+    accelerator = Accelerator(
+        mixed_precision="bf16", compilation_config=CompilationConfig(flash_attention_min_seq=1024),
+        resilience_config=ResilienceConfig(guard=None, fault_plan=plan) if plan is not None else None,
+        telemetry_config=TelemetryConfig(dir=root), **gloo_on_card())
+    model = Llama("llama-125m", dtype=torch.float32, seed=SEED)
+    prepared = accelerator.prepare_model(model)
+    optimizer = accelerator.prepare_optimizer(fused_adamw(ADAMW_LR))
+    return accelerator, model, prepared, optimizer
+
+
+def elastic_end(*objects) -> None:
+    from accelerate_tpu_torch.state import leave_process_group
+
+    del objects
+    leave_process_group()
+    reset_training_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def elastic_coordinator(accelerator, model, root: str, config):
+    from accelerate_tpu_torch import FilesystemStore, MembershipConfig, MembershipService
+
+    membership = MembershipService(FilesystemStore(os.path.join(root, "membership")), num_hosts=config.num_hosts,
+                                   host_index=accelerator.process_index,
+                                   config=MembershipConfig(heartbeat_timeout_s=ELASTIC_HEARTBEAT_S))
+    return accelerator.elastic_coordinator(Llama.loss_fn(model), config=config, membership=membership)
+
+
+def bits_checksum(pieces, device="cuda") -> torch.Tensor:
+    """Two sums of every element's 32 bits times a multiplier of its flat
+    position in the whole leaf, modulo CHECK_PRIME: ``pieces`` are
+    ``(flat positions, values)`` pairs. Equal bits give equal sums; a
+    changed element changes both but for a chance near 2^-62."""
+    h = torch.zeros(2, dtype=torch.int64, device=device)
+    for idx, values in pieces:
+        bits = (values.detach().contiguous().view(torch.int32).long() & 0xFFFFFFFF) % CHECK_PRIME
+        for k, mult in enumerate((2654435761, 40503)):
+            m = (idx * mult + 12345) % CHECK_PRIME
+            h[k] += (bits * m % CHECK_PRIME).sum()
+    return h
+
+
+def flat_positions(offset: tuple, shape: tuple, whole: tuple, device="cuda") -> torch.Tensor:
+    """The flat positions in a leaf of shape ``whole`` of its box of
+    ``shape`` at ``offset``."""
+    idx = torch.zeros(shape, dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(whole))):
+        span = torch.arange(offset[d], offset[d] + shape[d], dtype=torch.int64, device=device) * stride
+        idx += span.reshape((-1,) + (1,) * (len(whole) - 1 - d))
+        stride *= whole[d]
+    return idx
+
+
+def whole_state_checksum(prepared, optimizer) -> list:
+    """The checksums (``bits_checksum``) of every whole param and optimizer
+    state leaf, from the shards where they lie: each region counted once
+    (by the process that writes it to a sharded checkpoint), summed over
+    the processes in one all-reduce. The same bits in another layout give
+    the same sums; no whole leaf is gathered."""
+    import torch.distributed as dist
+
+    layout = prepared.layout
+    pairs = (list(zip(tree_leaves(prepared.params), layout.pspecs))
+             + list(zip(state_leaves(optimizer.opt_state), optimizer.state_specs)))
+    sums = []
+    for x, spec in pairs:
+        whole = layout.full_shape(tuple(x.shape), spec)
+        pieces = [] if not layout.writes_chunk(spec) else [
+            (flat_positions(offset, tuple(piece.shape), whole), piece) for offset, piece in layout.chunks(x, spec)]
+        sums.append(bits_checksum(pieces))
+    total = torch.stack(sums).cpu()
+    dist.all_reduce(total)
+    return total.tolist()
+
+
+def relayout_kernel_checks(rows: int, shard: torch.Tensor) -> dict:
+    """Kernels 1-4 after a relayout, at the shapes the path now gives them
+    (this process's rows at llama-125m's attention; its first param shard),
+    against their plain versions; the comparison's launches are taken back
+    out of the counts."""
+    counts = launch_counts()
+    rng = np.random.default_rng(SEED + 311)
+    c = flash_case(rng, (rows, ELASTIC_SEQ, ELASTIC_SEQ, 12, 12, 64, True, False), torch.bfloat16)
+    q, k, v, do = c["q"], c["k"], c["v"], c["do"]
+    out, lse = fa.flash_forward(q, k, v, None, None, True, c["scale"])
+    want, _ = fa.flash_forward_reference(q, k, v, None, True, c["scale"])
+    errors = {"flash_fwd": float((out.float() - want.float()).abs().max().item())}
+    dq, delta = fa.flash_backward_dq(q, k, v, None, None, do, lse, out, True, c["scale"])
+    dk, dv = fa.flash_backward_dkv(q, k, v, None, None, do, lse, delta, True, c["scale"])
+    ref_args = (q, k, v, None, do, lse, fa.flash_delta_reference(do, out), True, c["scale"])
+    ok = errors["flash_fwd"] <= TOLERANCE[torch.bfloat16]
+    for key, got, ref in (("flash_dq", dq, fa.flash_backward_dq_reference(*ref_args)),
+                          ("flash_dkv", dk, fa.flash_backward_dkv_reference(*ref_args)[0])):
+        err, tol = grad_error(got, ref, torch.bfloat16)
+        errors[key] = err
+        ok = ok and err <= tol
+    hp = fused_adamw(ADAMW_LR).hyperparams
+    p = shard.detach().clone()
+    g = torch.randn(p.shape, generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda") * 1e-2
+    bc = bias_corrections(hp, torch.tensor(1, dtype=torch.int32, device="cuda"))
+    kernel = [p.clone(), torch.zeros_like(p), torch.zeros_like(p)]
+    adamw_leaf(*kernel, g, bc, hp)
+    plain = adamw_leaf_reference(p, torch.zeros_like(p), torch.zeros_like(p), g, bc, hp)
+    errors["fused_adamw"] = max(float((a - b).abs().max().item()) for a, b in zip(kernel, plain))
+    ok = ok and all(torch.equal(a, b) for a, b in zip(kernel, plain))
+    for name, n in counts.items():
+        WRAPPERS[name].launches = n
+    return {"ok": bool(ok), "errors": errors, "shard": tuple(shard.shape)}
+
+
+def timed_elastic_step(coordinator, batch) -> tuple[float, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(coordinator.step({"input_ids": batch}))
+    return loss, time.perf_counter() - t0
+
+
+def elastic_uninterrupted(root: str, batches: list) -> dict:
+    """The reference: ELASTIC_STEPS ZeRO steps over the four processes."""
+    accelerator, model, prepared, optimizer = elastic_setup(root, first=True)
+    rows = ELASTIC_BATCH // accelerator.num_processes
+    index = accelerator.process_index
+    step = accelerator.compiled_step(Llama.loss_fn(model))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step({"input_ids": torch.tensor(batch[index * rows:(index + 1) * rows], device="cuda")})))
+        times.append(time.perf_counter() - t0)
+    out = {"losses": losses, "times": times, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    elastic_end(accelerator, model, prepared, optimizer, step)
+    return out
+
+
+def elastic_local_sgd(root: str, batches: list) -> dict:
+    """(a): LocalSGD, one worker a process, ``local_sgd_steps=LSGD_K``, over
+    LSGD_STEPS steps: each replica's checksum after every step (they differ
+    between syncs, are equal after one), a slice of every leaf of each
+    replica before each sync against the average after it, adamw's
+    launches (one a replica leaf a step)."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import LocalSGD
+
+    accelerator, model, prepared, optimizer = elastic_setup(root)
+    rows = ELASTIC_BATCH // accelerator.num_processes
+    index = accelerator.process_index
+    digests, gaps, losses = [], [], []
+    reset_launches()
+    with LocalSGD(accelerator, prepared, fused_adamw(ADAMW_LR), local_sgd_steps=LSGD_K) as lsgd:
+        sync = lsgd._sync
+
+        def checked():  # the mean of the four replicas' slices before the average, against it after
+            sample = torch.cat([x.reshape(-1)[:4096] for x in tree_leaves(lsgd.params)]).cpu()
+            every = [torch.empty_like(sample) for _ in range(accelerator.num_processes)]
+            dist.all_gather(every, sample)
+            mean = torch.stack(every).double().mean(0)
+            sync()
+            after = torch.cat([x.reshape(-1)[:4096] for x in tree_leaves(lsgd.params)]).cpu().double()
+            gaps.append(float(((after - mean).abs().max() / mean.abs().max().clamp(min=1.0)).item()))
+
+        lsgd._sync = checked
+        for batch in batches[:LSGD_STEPS]:
+            share = {"input_ids": torch.tensor(batch[index * rows:(index + 1) * rows], device="cuda")}
+            losses.append(float(lsgd.step(Llama.loss_fn(model), share)))
+            digests.append(tuple(torch.stack([bits_checksum([(flat_positions((0,) * x.ndim, tuple(x.shape),
+                                                                                  tuple(x.shape)), x)])
+                                              for x in tree_leaves(lsgd.params)]).cpu().reshape(-1).tolist()))
+        leaves = len(tree_leaves(lsgd.params))
+    counts = launch_counts()
+    out = {"losses": losses, "digests": digests, "gaps": gaps, "counts": counts, "leaves": leaves}
+    elastic_end(accelerator, model, prepared, optimizer)
+    return out
+
+
+def elastic_drill(root: str, batches: list) -> dict:
+    """(b) and (c): ``ElasticConfig(redundancy=1, num_hosts=4)``, host 2
+    lost by chaos at boundary ELASTIC_LOSS_AT (the buddy rung), back at
+    ELASTIC_REGROW_AT by its join record (the staged regrow); the whole
+    state's checksums before and after each relayout, kernels 1-4 checked
+    after each, the launches of the run, its step times and peak memory."""
+    from accelerate_tpu_torch import ElasticConfig
+    from accelerate_tpu_torch.resilience.elastic import HostLost
+
+    plan = FaultPlan(host_loss_step=ELASTIC_LOSS_AT, host_loss_index=2)
+    accelerator, model, prepared, optimizer = elastic_setup(root, plan)
+    records = []
+    write = accelerator.telemetry.write_record
+
+    def record(kind, payload):
+        records.append((kind, dict(payload)))
+        return write(kind, payload)
+
+    accelerator.telemetry.write_record = record
+    coordinator = elastic_coordinator(accelerator, model, root, ElasticConfig(redundancy=1, num_hosts=4))
+    mirror_bytes = coordinator.buddy_bytes()
+    losses, times, checks, kernels = {}, {}, {}, {}
+    handled = set()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    while coordinator.completed_steps < ELASTIC_STEPS:
+        i = coordinator.completed_steps
+        if i + 1 in (ELASTIC_LOSS_AT, ELASTIC_REGROW_AT) and i + 1 not in handled:
+            handled.add(i + 1)
+            if i + 1 == ELASTIC_REGROW_AT:  # the returning host asked back in: every member sees its record
+                wait_until(lambda: coordinator.membership.pending_joins())
+            before = whole_state_checksum(prepared, optimizer)
+            try:
+                coordinator.boundary()
+            except HostLost:
+                # host 2 asks back in once every member has beaten at the step before the regrow's boundary
+                wait_until(lambda: members_beat(coordinator, ELASTIC_REGROW_AT - 1))
+                coordinator.rejoin()
+                handled.add(ELASTIC_REGROW_AT)
+                whole_state_checksum(prepared, optimizer)  # the members' checksums after the regrow
+                kernels[ELASTIC_REGROW_AT] = relayout_kernel_checks(ELASTIC_BATCH // 4,
+                                                                     tree_leaves(prepared.params)[0])
+                continue
+            after = whole_state_checksum(prepared, optimizer)
+            checks[i + 1] = {"bit_equal": before == after, "members": list(coordinator.members),
+                             "leaves": len(after)}
+            kernels[i + 1] = relayout_kernel_checks(ELASTIC_BATCH // len(coordinator.members),
+                                                    tree_leaves(prepared.params)[0])
+        losses[i], times[i] = timed_elastic_step(coordinator, batches[i])
+    out = {"losses": losses, "times": times, "checks": checks, "kernels": kernels, "counts": launch_counts(),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "mirror_bytes": mirror_bytes,
+           "recoveries": coordinator.recoveries, "member": coordinator.member,
+           "leaves": len(tree_leaves(prepared.params)),
+           "moved": [p for k, p in records if k == "redistribute"]}
+    elastic_end(accelerator, model, prepared, optimizer, coordinator)
+    return out
+
+
+def elastic_checkpoint(root: str, batches: list) -> dict:
+    """(d): the mirror every 2 steps, a checkpoint at step 2, host 1 lost
+    at boundary 4 (a step after the last refresh): the checkpoint rung,
+    the steps since the checkpoint lost and run again, the loop rewound
+    with the step count."""
+    from accelerate_tpu_torch import ElasticConfig
+    from accelerate_tpu_torch.resilience.elastic import HostLost
+
+    ckpt = os.path.join(root, "ckpt")
+    plan = FaultPlan(host_loss_step=4, host_loss_index=1)
+    accelerator, model, prepared, optimizer = elastic_setup(root, plan)
+    coordinator = elastic_coordinator(accelerator, model, root, ElasticConfig(
+        redundancy=1, num_hosts=4, mirror_every=2, checkpoint_dir=ckpt))
+    losses, ran, saved = {}, [], False
+    while coordinator.completed_steps < ELASTIC_CKPT_STEPS:
+        if coordinator.completed_steps == 2 and not saved:
+            accelerator.save_state(os.path.join(ckpt, "checkpoint_2"), sharded=True, manifest_metadata={"step": 2})
+            saved = True
+        try:
+            coordinator.boundary()  # first: the checkpoint rung rewinds the count the loop takes its batch by
+        except HostLost:
+            out = {"lost": True, "ran": ran}
+            elastic_end(accelerator, model, prepared, optimizer, coordinator)
+            return out
+        i = coordinator.completed_steps
+        ran.append(i)
+        losses[i] = float(coordinator.step({"input_ids": batches[i]}))
+    out = {"lost": False, "losses": losses, "ran": ran, "recoveries": coordinator.recoveries}
+    elastic_end(accelerator, model, prepared, optimizer, coordinator)
+    return out
+
+
+def wait_until(predicate, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise TimeoutError("phase 31's harness waited too long")
+        time.sleep(0.005)
+
+
+def members_beat(coordinator, step: int) -> bool:
+    """Whether every member host has published a heartbeat at ``step``."""
+    store = coordinator.membership.store
+    beats = [store.read(f"hosts/{h}") for h in coordinator.membership.view()["members"] if h != coordinator.host]
+    return all(b is not None and int(b["step"]) >= step for b in beats)
+
+
+def elastic_job(root: str) -> dict:
+    """Phase 31 in each of four processes on cuda:0 over gloo, in turn: the
+    uninterrupted reference, (a) LocalSGD, (b) and (c) the drill, (d) the
+    checkpoint rung. Each scenario forms its own process group and leaves
+    it."""
+    batches = elastic_batches()
+    parts = {}
+    out = {}
+    for name, fn in (("reference", elastic_uninterrupted), ("local_sgd", elastic_local_sgd),
+                     ("drill", elastic_drill), ("checkpoint", elastic_checkpoint)):
+        t0 = time.perf_counter()
+        out[name] = fn(os.path.join(root, name), batches)
+        parts[name] = time.perf_counter() - t0
+    out["parts"] = parts
+    return out
+
+
+def phase_elastic(card: str) -> dict:
+    """Phase 31, elastic training and LocalSGD: llama-125m at full width
+    and depth, bf16 over fp32 masters, flash from 1024, ``fused_adamw``, four
+    processes sharing cuda:0 over gloo, global batch ELASTIC_BATCH at
+    S=ELASTIC_SEQ. (a) LocalSGD, W=4, ``local_sgd_steps=2``, 4 steps: the
+    replicas differ between syncs and are equal after each, the average
+    within LSGD_MEAN_RTOL of the four replicas' mean, adamw launched once a
+    replica leaf a step; (b) host 2 lost by chaos at boundary 3: the buddy
+    rung, no step lost, the whole params and moments bit-equal across the
+    shrink 4 -> 3; (c) host 2 back at boundary 6 by its join record, the
+    whole state bit-equal across the regrow 3 -> 4; kernels 1-4 held
+    against their plain versions after each relayout; (d) the mirror every
+    2 steps, host 1 lost between refreshes: the checkpoint rung, one step
+    lost, the loop rewound; (e) every loss within ELASTIC_LOSS_RTOL of the
+    uninterrupted run's; (f) the step p50 at 4 and at 3 processes, peak
+    memory a process. Returns the drill's launches on rank 0."""
+    from accelerate_tpu_torch.launchers import debug_launcher
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-")
+    try:
+        ranks = debug_launcher(elastic_job, args=(tmp.name,), num_processes=4, timeout=900)
+    finally:
+        tmp.cleanup()
+    reference = ranks[0]["reference"]["losses"]
+    layers = get_config("llama-125m").num_layers
+    print(f"[elastic] parts a process (s): {[{k: round(v, 1) for k, v in r['parts'].items()} for r in ranks]} "
+          f"[{card}]")
+    ref_p50 = float(np.median(ranks[0]["reference"]["times"][1:]))
+    print(f"[elastic] uninterrupted, 4 processes, B={ELASTIC_BATCH} S={ELASTIC_SEQ}: losses "
+          f"{[round(x, 6) for x in reference]}; step p50 {ref_p50 * 1e3:.3f} ms; peak memory a process "
+          f"{max(r['reference']['peak_gib'] for r in ranks):.3f} GiB [{card}]")
+
+    # (a) LocalSGD
+    lsgd = [r["local_sgd"] for r in ranks]
+    for step in range(LSGD_STEPS):
+        same = len({r["digests"][step] for r in lsgd}) == 1
+        if same != ((step + 1) % LSGD_K == 0):
+            raise AssertionError(f"LocalSGD replicas after step {step + 1}: equal {same}")
+    worst = max(g for r in lsgd for g in r["gaps"])
+    print(f"[elastic] (a) LocalSGD W=4 k={LSGD_K}, {LSGD_STEPS} steps: losses {[round(x, 6) for x in lsgd[0]['losses']]}; "
+          f"replicas differ between syncs, equal after each; the average against the replicas' mean, worst "
+          f"{worst:.3e} (tolerance {LSGD_MEAN_RTOL}); launches {lsgd[0]['counts']} [{card}]")
+    if worst > LSGD_MEAN_RTOL:
+        raise AssertionError("the LocalSGD average differs from the mean of the replicas")
+    for r in lsgd:
+        if r["counts"]["fused_adamw"] != r["leaves"] * LSGD_STEPS or r["counts"]["flash_fwd"] != layers * LSGD_STEPS:
+            raise AssertionError(f"LocalSGD launches {r['counts']}")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(lsgd[0]["losses"], reference)]
+    if max(gaps[:1]) > ELASTIC_LOSS_RTOL:  # before the replicas drift, the first step is the same step
+        raise AssertionError(f"LocalSGD's first loss {lsgd[0]['losses'][0]} against {reference[0]}")
+
+    # (b), (c), (e), (f): the drill
+    drill = [r["drill"] for r in ranks]
+    survivors = [d for d in drill if d["member"] != 2]
+    for d in survivors:
+        recovered, regrown = d["recoveries"]
+        print(f"[elastic] (b) rank {d['member']}: host 2 lost at boundary {ELASTIC_LOSS_AT}: {recovered['rung']} rung, "
+              f"{recovered['steps_lost']} steps lost, mttr {recovered['mttr_s']:.3f} s, mesh {recovered['mesh']}, "
+              f"whole state (checksums of {d['checks'][ELASTIC_LOSS_AT]['leaves']} leaves) bit-equal across the "
+              f"shrink: {d['checks'][ELASTIC_LOSS_AT]['bit_equal']}; (c) regrow "
+              f"at boundary {ELASTIC_REGROW_AT}: mttr {regrown['mttr_s']:.3f} s, bit-equal "
+              f"{d['checks'][ELASTIC_REGROW_AT]['bit_equal']}; mirror {d['mirror_bytes']} bytes a process; moved "
+              + "; ".join(f"{p['path']} {p['stage_kinds']} {p['bytes_moved']} B in {p['wall_time_s']:.3f} s"
+                          for p in d["moved"]) + f" [{card}]")
+        if recovered["rung"] != "buddy" or recovered["steps_lost"] != 0 or regrown["event"] != "regrown":
+            raise AssertionError(f"the drill's recoveries {d['recoveries']}")
+        if not all(c["bit_equal"] for c in d["checks"].values()):
+            raise AssertionError(f"the whole state changed across a relayout: {d['checks']}")
+    for d in drill:
+        for boundary, check in d["kernels"].items():
+            print(f"[elastic] rank {d['member']} after the relayout at boundary {boundary}: kernels against their "
+                  f"plain versions {check['errors']} (adamw bit-equal required; its shard {check['shard']}) [{card}]")
+            if not check["ok"]:
+                raise AssertionError(f"a kernel disagrees with its plain version after a relayout: {check}")
+        ran = len(d["losses"])
+        want = {name: layers * ran for name in FLASH_KERNELS}
+        want["fused_adamw"] = d["leaves"] * ran
+        print(f"[elastic] rank {d['member']}: {ran} steps, launches {d['counts']}, peak memory "
+              f"{d['peak_gib']:.3f} GiB [{card}]")
+        for key, n in want.items():
+            if d["counts"][key] != n:
+                raise AssertionError(f"rank {d['member']} {key}: {d['counts'][key]} launches, expected {n}")
+    losses = [drill[0]["losses"][i] for i in range(ELASTIC_STEPS)]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, reference)]
+    shrunk = [drill[0]["times"][i] for i in range(ELASTIC_LOSS_AT - 1, ELASTIC_REGROW_AT - 1)]
+    full = [drill[0]["times"][i] for i in range(ELASTIC_REGROW_AT - 1, ELASTIC_STEPS)]
+    print(f"[elastic] (e) the drill's losses {[round(x, 6) for x in losses]}, relative gaps to the uninterrupted "
+          f"run {[f'{g:.3e}' for g in gaps]} (tolerance {ELASTIC_LOSS_RTOL}); (f) elastic step p50 (the boundary, "
+          f"the step, the mirror) at 3 processes {np.median(shrunk) * 1e3:.3f} ms, at 4 after the regrow "
+          f"{np.median(full) * 1e3:.3f} ms, the plain step at 4 {ref_p50 * 1e3:.3f} ms; peak memory a process "
+          f"{max(d['peak_gib'] for d in drill):.3f} GiB [{card}]")
+    if max(gaps) > ELASTIC_LOSS_RTOL:
+        raise AssertionError("the drill's losses differ from the uninterrupted run's")
+
+    # (d) the checkpoint rung
+    ckpt = [r["checkpoint"] for r in ranks]
+    for c in ckpt:
+        if c["lost"]:
+            continue
+        [recovered] = c["recoveries"]
+        gaps = [abs(c["losses"][i] - reference[i]) / abs(reference[i]) for i in range(ELASTIC_CKPT_STEPS)]
+        print(f"[elastic] (d) host 1 lost at boundary 4, mirror every 2 steps: {recovered['rung']} rung (tried "
+              f"{recovered['tried']}), steps lost {recovered['steps_lost']}, resumed at step "
+              f"{recovered['resumed_at_step']}, steps run {c['ran']}, mttr {recovered['mttr_s']:.3f} s; relative "
+              f"gaps {[f'{g:.3e}' for g in gaps]} [{card}]")
+        if (recovered["rung"] != "checkpoint" or recovered["steps_lost"] != 1 or c["ran"] != [0, 1, 2, 2, 3]
+                or max(gaps) > ELASTIC_LOSS_RTOL):
+            raise AssertionError(f"the checkpoint rung: {c}")
+    if [c["lost"] for c in ckpt] != [False, True, False, False]:
+        raise AssertionError("the checkpoint drill lost the wrong process")
+    return drill[0]["counts"]
 
 
 def kernel_kinds(device: dict) -> dict:
@@ -5659,6 +6152,11 @@ def main(argv: Optional[list] = None) -> int:
                            compiled_p50)
         for name, n in guarded.items():
             launches[name] = launches.get(name, 0) + n
+    if on("31"):
+        elastic = timed("phase 31 elastic training and LocalSGD across four processes on the card", phase_elastic,
+                        card)
+        for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
+            launches[name] = launches.get(name, 0) + elastic[name]
     if selected is None:
         kernels = [
             dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -282,10 +282,22 @@ def test_logger_stamps_the_process_and_logs_on_the_main_one(caplog):
                                           ("elastic_coordinator", "item 18")])
 def test_accelerator_methods_of_later_slices_name_their_item(method, item, tmp_path):
     """A method of a slice still to come raises NotImplementedError naming
-    its ROADMAP item; item 19's (trackers, profile) are in the port now and
-    run on the CPU."""
+    its ROADMAP item; item 19's (trackers, profile) and item 18's elastic
+    coordinator are in the port now and run on the CPU (the coordinator
+    needs a prepared model and optimizer; one process builds it, with
+    nothing to shrink onto)."""
     acc = Accelerator(device="cpu", project_dir=str(tmp_path))
-    if item != "item 19":
+    if method == "elastic_coordinator":
+        from accelerate_tpu_torch import Llama, fused_adamw
+
+        with pytest.raises(ValueError, match="prepared model"):
+            acc.elastic_coordinator(lambda params, batch: 0.0)
+        model = Llama("llama-tiny", device="cpu")
+        acc.prepare_model(model)
+        acc.prepare_optimizer(fused_adamw(1e-3))
+        coordinator = acc.elastic_coordinator(Llama.loss_fn(model))
+        assert coordinator.members == [0] and coordinator._buddy is None  # one host: the mirror stands down
+    elif item != "item 19":
         with pytest.raises(NotImplementedError, match=item):
             getattr(acc, method)()
     elif method == "profile":
