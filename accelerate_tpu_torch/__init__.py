@@ -38,6 +38,8 @@ the caller passes ``device="cpu"``; on the CPU every kernel takes its plain
 PyTorch version.
 """
 
+__version__ = "0.1.0"
+
 from . import ops
 from .accelerator import Accelerator, PreparedModel
 from .big_modeling import (
@@ -52,7 +54,7 @@ from .big_modeling import (
 )
 from .data_loader import prepare_data_loader, skip_first_batches
 from .fault_tolerance import CheckpointManager, ResumePoint, latest_valid_checkpoint, verify_checkpoint
-from .launchers import debug_launcher
+from .launchers import debug_launcher, notebook_launcher
 from .logging import get_logger
 from .models import GPT2, T5, Bert, Llama, MoEBlock, generate, get_config
 from .ops.flash_attention import flash_attention, make_auto_attention
@@ -174,6 +176,7 @@ __all__ = [
     "load_jax_params",
     "make_auto_attention",
     "make_layered_device_map",
+    "notebook_launcher",
     "ops",
     "plan_redistribute",
     "redistribute",

@@ -81,6 +81,7 @@ from contextlib import contextmanager
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from .data_loader import BaseDataLoader, prepare_data_loader, skip_first_batches
 from .logging import get_logger
@@ -89,7 +90,7 @@ from .optimizer import AcceleratedOptimizer, clip_by_global_norm, clip_by_value,
 from .resilience import Resilience, ResilienceConfig
 from .resilience.guards import guarded_update, poison
 from .scheduler import AcceleratedScheduler
-from .state import AcceleratorState, GradientState, job_world_size
+from .state import AcceleratorState, GradientState, PartialState, job_world_size
 from .telemetry import Telemetry, TelemetryConfig
 from .utils.constants import (
     MESH_AXIS_DATA,
@@ -111,8 +112,10 @@ from .utils.dataclasses import (
     ParallelismConfig,
     ProjectConfiguration,
 )
+from .utils.environment import parse_int_from_env
 from .utils.memory import release_memory
 from .utils.params import tree_leaves, tree_map, tree_unflatten
+from .utils.random import set_seed
 
 logger = get_logger(__name__)
 
@@ -131,6 +134,25 @@ def cast_floating(tree: Any, dtype: torch.dtype) -> Any:
     if isinstance(tree, dict):
         return {key: cast_floating(value, dtype) for key, value in tree.items()}
     return _cast(tree)
+
+
+def _export_coordinator(handler: InitProcessGroupKwargs) -> None:
+    """A ``DistributedInitKwargs``'s coordinator fields into the environment
+    names ``PartialState`` reads, as the JAX package's ``Accelerator`` does;
+    too late once the state exists, so that raises."""
+    fields = {"ACCELERATE_COORDINATOR_ADDRESS": getattr(handler, "coordinator_address", None),
+              "ACCELERATE_NUM_PROCESSES": getattr(handler, "num_processes", None),
+              "ACCELERATE_PROCESS_ID": getattr(handler, "process_id", None)}
+    if all(value is None for value in fields.values()):
+        return
+    if PartialState._shared_state.get("_ready") or (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "DistributedInitKwargs with coordinator fields must be passed before any PartialState or "
+            "Accelerator is made: the process group is joined once, so they would be ignored now"
+        )
+    for key, value in fields.items():
+        if value is not None:
+            os.environ[key] = str(value)
 
 
 class ProfileCapture(str):
@@ -248,6 +270,7 @@ class Accelerator:
                 self.fp8_recipe = handler
             elif isinstance(handler, InitProcessGroupKwargs):
                 init_kwargs = handler
+                _export_coordinator(handler)
         self.state = AcceleratorState(mixed_precision=mixed_precision, parallelism=parallelism, device=device,
                                       init_kwargs=init_kwargs)
         self.fsdp_plugin = fsdp_plugin
@@ -262,7 +285,10 @@ class Accelerator:
         if self.state.mixed_precision == "fp16" and self.loss_scale_kwargs is None:
             self.loss_scale_kwargs = LossScaleKwargs()
         if gradient_accumulation_plugin is None:
-            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=gradient_accumulation_steps or 1)
+            # the launcher's setting (launch --gradient_accumulation_steps, a
+            # config file's) when the caller gives none
+            steps = gradient_accumulation_steps or parse_int_from_env("ACCELERATE_GRADIENT_ACCUMULATION_STEPS", 1)
+            gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=steps)
         elif gradient_accumulation_steps is not None:
             raise ValueError(
                 "Pass either gradient_accumulation_steps or gradient_accumulation_plugin, not both."
@@ -273,6 +299,9 @@ class Accelerator:
         self.even_batches = even_batches
         self.dispatch_batches = dispatch_batches
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        seed = parse_int_from_env("ACCELERATE_SEED")  # a config file's seed, through the launcher
+        if seed is not None:
+            set_seed(seed)
         self._models: list[PreparedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []

@@ -53,7 +53,7 @@ from .logging import get_logger
 from .ops.operations import to_numpy
 from .state import PartialState
 from .utils.constants import CHECKPOINT_DIR_PREFIX
-from .utils.params import state_leaves, state_paths, state_unflatten, tree_leaves, tree_paths
+from .utils.params import host_tensor, state_leaves, state_paths, state_unflatten, tree_leaves, tree_paths
 from .utils.random import restore_rng_state, rng_state
 
 logger = get_logger(__name__)
@@ -84,7 +84,7 @@ def unflatten_into(params: dict, flat: dict[str, np.ndarray]) -> dict:
         value = np.asarray(flat[path])
         if value.shape != tuple(leaf.shape):
             raise ValueError(f"shape mismatch for {path}: checkpoint {value.shape} vs model {tuple(leaf.shape)}")
-        leaf.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(leaf.dtype))
+        leaf.copy_(host_tensor(value).to(leaf.dtype))
     return params
 
 
@@ -456,7 +456,7 @@ def _load_params(model, flat: dict[str, np.ndarray]) -> None:
     for (path, leaf), spec in zip(tree_paths(model.params), layout.pspecs):
         if path not in flat:
             raise KeyError(f"checkpoint missing parameter {path!r}")
-        full = torch.from_numpy(np.ascontiguousarray(flat[path]))
+        full = host_tensor(flat[path])
         leaf.copy_(shard_of(full, spec, layout.mesh).to(leaf.dtype))
 
 

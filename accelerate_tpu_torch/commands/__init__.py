@@ -1,3 +1,3 @@
-"""Command-line tools of the port, each run as ``python -m
-accelerate_tpu_torch.commands.<name>``. The ``accelerate-tpu`` entry point
-that registers them comes with ROADMAP item 20."""
+"""Command-line tools of the port, registered under ``accelerate-tpu-torch``
+(``commands/cli.py``; ``python -m accelerate_tpu_torch.commands.cli`` from a
+checkout)."""

@@ -2,8 +2,8 @@
 replicas, under offered load and report serving metrics.
 
 Counterpart of ``accelerate_tpu/commands/serve_bench.py``, run as ``python
--m accelerate_tpu_torch.commands.serve_bench [flags]`` (the ``accelerate-tpu
-serve-bench`` registration comes with ROADMAP item 20). A seeded prompt
+-m accelerate_tpu_torch.commands.serve_bench [flags]`` or
+``accelerate-tpu-torch serve-bench [flags]``. A seeded prompt
 trace replays against a :class:`~..serving.ServingEngine`, or with
 ``--replicas N`` a :class:`~..serving.ServingRouter` over N replicas of one
 model, at each ``--offered-load`` rate and then at saturation (everything
@@ -502,6 +502,14 @@ def _print_table(args, payload, points, trace_point, autoscale_drill, drill, tra
                   + f" ({record['window_bad']}/{record['window_observed']} bad in window)")
         print(f"traces: {tracer.traces_completed} completed, {tracer.open_count} open (must be 0) — "
               f"Perfetto JSON at {trace_path} (open in https://ui.perfetto.dev)")
+
+
+def register_subcommand(subparsers):
+    """``serve-bench`` under ``accelerate-tpu-torch``, with this module's flags."""
+    parser = subparsers.add_parser("serve-bench", parents=[build_parser()], add_help=False,
+                                   help="Benchmark the serving engine under offered load")
+    parser.set_defaults(func=run)
+    return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

@@ -51,6 +51,7 @@ from .ops.operations import recursively_apply, send_to_device
 from .ops.runtime import resolve_device
 from .resilience.retry import DEFAULT_IO_RETRY
 from .state import GradientState, PartialState
+from .utils.params import host_tensor
 
 logger = get_logger(__name__)
 
@@ -305,7 +306,7 @@ def _host_tensors(batch):
     """A collated batch with every numeric numpy leaf made a tensor (a
     custom ``collate_fn`` may return numpy)."""
     return recursively_apply(
-        lambda a: torch.from_numpy(np.ascontiguousarray(a)) if a.dtype.kind in "biuf" else a,
+        lambda a: host_tensor(a) if a.dtype.kind in "biuf" else a,
         batch,
         test_type=lambda x: isinstance(x, np.ndarray),
     )

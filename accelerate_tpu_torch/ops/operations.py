@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from ..state import PartialState
+from ..utils.params import host_tensor
 
 
 class DistributedOperationException(Exception):
@@ -110,7 +111,7 @@ def send_to_device(tensor, device=None, non_blocking: bool = False, skip_keys=No
         if isinstance(t, np.ndarray):
             if t.dtype.kind not in "biuf":  # strings and objects stay on the host
                 return t
-            t = torch.from_numpy(np.ascontiguousarray(t))
+            t = host_tensor(t)
         return t.to(device, non_blocking=non_blocking)
 
     if skip_keys:
@@ -239,7 +240,7 @@ def _verify_same_shapes(operation: str, tensor) -> None:
 
 
 def _as_tensor(t) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(t)) if isinstance(t, np.ndarray) else t
+    return host_tensor(t) if isinstance(t, np.ndarray) else t
 
 
 def _across(fn):

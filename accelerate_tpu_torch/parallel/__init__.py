@@ -33,6 +33,7 @@ from .zero import (
     sharded_global_norm,
     tx_couples_across_leaves,
     zero_ineligible_reason,
+    elastic_redundancy_bytes,
     zero_update_state_bytes,
 )
 
@@ -62,5 +63,6 @@ __all__ = [
     "zero_batch_axes",
     "zero_ineligible_reason",
     "zero_update_shardings",
+    "elastic_redundancy_bytes",
     "zero_update_state_bytes",
 ]

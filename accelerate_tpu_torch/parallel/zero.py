@@ -134,6 +134,19 @@ def zero_update_state_bytes(n_params: int, grad_dtype_bytes: float, replicas: in
     return -(-opt_full // replicas), -(-grad_full // replicas)
 
 
+def elastic_redundancy_bytes(n_params: int, param_dtype_bytes: float, replicas: int, redundancy: int = 1) -> int:
+    """Bytes a process holds for the elastic buddy mirror
+    (``resilience/elastic.py``): ``redundancy`` extra copies of its 1/N
+    parameter shard and its 1/N optimizer-state shard, kept on a buddy so a
+    lost process never takes a shard's only copy with it. Gradients are
+    recomputed after a recovery and are not mirrored. ``estimate-memory
+    --elastic-redundancy`` prices it beside the ZeRO column."""
+    replicas = max(int(replicas), 1)
+    opt_chip, _ = zero_update_state_bytes(n_params, param_dtype_bytes, replicas)
+    param_chip = -(-int(n_params * param_dtype_bytes) // replicas)
+    return max(int(redundancy), 0) * (param_chip + opt_chip)
+
+
 # -- the collectives over a spec ------------------------------------------------
 
 

@@ -20,45 +20,12 @@ memory signal.
 
 from __future__ import annotations
 
-import os
 from typing import Any, Optional
 
 import torch
 
+from ..utils.environment import get_device_memory_info, get_host_memory_info
 from ..utils.params import state_leaves
-
-
-def get_device_memory_info() -> list[dict[str, int]]:
-    """``[{bytes_limit, bytes_in_use, peak_bytes_in_use}]`` of this
-    process's card; empty on the CPU and where CUDA was never initialized."""
-    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
-        return []
-    device = torch.cuda.current_device()
-    stats = torch.cuda.memory_stats(device)
-    in_use = int(stats.get("allocated_bytes.all.current", 0))
-    return [{
-        "bytes_limit": int(torch.cuda.get_device_properties(device).total_memory),
-        "bytes_in_use": in_use,
-        "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", in_use)),
-    }]
-
-
-def get_host_memory_info() -> dict[str, int]:
-    """This process's RSS ``{rss_bytes, peak_rss_bytes}`` via ``resource``
-    and ``/proc/self/statm``: the watermark every backend has."""
-    try:
-        import resource
-
-        peak = int(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss) * 1024  # KiB on Linux
-    except Exception:  # noqa: BLE001 - a platform without getrusage reports none
-        return {}
-    rss = peak
-    try:
-        with open("/proc/self/statm") as f:
-            rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
-    except (OSError, ValueError, IndexError):
-        pass
-    return {"rss_bytes": int(rss), "peak_rss_bytes": peak}
 
 
 def state_bytes_per_chip(tree: Any) -> int:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import enum
 import functools
 import os
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, field
 from datetime import timedelta
 from typing import Any, Callable, Optional
 
@@ -47,6 +47,15 @@ class DistributedType(_StrEnum):
     TENSOR_PARALLEL = "TENSOR_PARALLEL"
     PIPELINE_PARALLEL = "PIPELINE_PARALLEL"
     HYBRID = "HYBRID"
+
+
+class ComputeEnvironment(_StrEnum):
+    """Where a job runs, as the config file names it. ``TPU_POD`` is the
+    JAX package's many-host layout; the port reads it as several machines
+    (``launch --num_machines``), each starting one process per card."""
+
+    LOCAL_MACHINE = "LOCAL_MACHINE"
+    TPU_POD = "TPU_POD"
 
 
 class PrecisionType(_StrEnum):
@@ -94,6 +103,21 @@ class InitProcessGroupKwargs(KwargsHandler):
 
 
 @dataclass
+class DistributedInitKwargs(InitProcessGroupKwargs):
+    """:class:`InitProcessGroupKwargs` with the JAX package's coordinator
+    fields, keyword-only (a positional ``DistributedInitKwargs("host:1234",
+    4, 0)`` would put the address into ``backend``): ``coordinator_address``
+    (``host:port``, met over ``tcp://``), ``num_processes`` (the world size:
+    one process per card here, one per host there) and ``process_id`` (this
+    process's rank). ``Accelerator`` writes them into the environment names
+    ``PartialState`` reads, before it makes the state."""
+
+    coordinator_address: Optional[str] = field(default=None, kw_only=True)
+    num_processes: Optional[int] = field(default=None, kw_only=True)
+    process_id: Optional[int] = field(default=None, kw_only=True)
+
+
+@dataclass
 class LossScaleKwargs(KwargsHandler):
     """Dynamic loss scaling for fp16 (reference ``GradScalerKwargs``). bf16
     needs no scaling; this only activates for fp16."""
@@ -102,6 +126,16 @@ class LossScaleKwargs(KwargsHandler):
     growth_factor: float = 2.0
     backoff_factor: float = 0.5
     growth_interval: int = 2000
+
+
+@dataclass
+class AutocastKwargs(KwargsHandler):
+    """The reference's per-call opt-out of the compute-dtype policy, taken
+    by ``Accelerator.autocast`` for parity (the port casts params, not ops,
+    so there is nothing to switch)."""
+
+    enabled: bool = True
+    cache_enabled: bool = True
 
 
 @dataclass

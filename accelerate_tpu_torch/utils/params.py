@@ -101,6 +101,13 @@ def state_unflatten(template, leaves: list):
     return build(template)
 
 
+def host_tensor(array: np.ndarray) -> torch.Tensor:
+    """A CPU tensor sharing a numpy array's memory where it can, of the
+    array's shape: a 0-d array stays 0-d (``np.ascontiguousarray`` makes
+    it 1-d)."""
+    return torch.from_numpy(np.ascontiguousarray(array).reshape(np.shape(array)))
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of nested dicts of one structure."""
     if isinstance(tree, dict):

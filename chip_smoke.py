@@ -102,7 +102,9 @@ wall time:
     kernel 12 times a step and adamw 25 (the leaves) and is profiled; (c)
     fp32 B=2, three steps through the kernels against three through the
     plain versions under the padding mask (1e-4 relative); (d) the port's
-    ``nlp_example`` for one epoch, printing its metric line;
+    ``nlp_example`` at its defaults (bert-tiny, adamw on the warmup-cosine
+    schedule) for one epoch, printing its metric line (its bert-base run
+    through the kernels is launched in phase 32 (e));
 16. mixture of experts and dropout: llama-moe-tiny (4 experts, top 2, GQA
     4/2 at head dim 32) trains 5 bf16 steps at B=8 S=256 through the flash
     kernels (losses fall, the balance term is in them; peak memory of the
@@ -335,10 +337,28 @@ bound and plain version, and SDPA with the bias and mask penalty as a float
     draft) under a chaos ``spec_disable``: ``kernel_summary``'s decode and
     verify launches equal to the counters, tokens equal to ``generate()``
     up to near-ties, the engines' records in ``telemetry.jsonl``.
+32. the CLI on the card (``python -m accelerate_tpu_torch.commands.cli``,
+    six subprocesses at once, each failing the phase on a nonzero exit):
+    (a) ``env``, whose card 0 is ``torch.cuda.get_device_name(0)``; (b)
+    ``estimate-memory llama-1b --elastic-redundancy 1 --replicas 4``, its
+    fp32 and bf16 params and buddy columns against llama-1b built on the
+    card (numel x element size, ``elastic_redundancy_bytes``); (c) ``test``
+    (the sanity script, one process on the card) and its success line; (d)
+    ``launch --num_processes 2`` of the multiprocess script on cuda:0 over
+    gloo, both ranks passing; (e) ``launch --mixed_precision bf16`` of a
+    driver of the port's ``nlp_example --model_name bert-base --lr 2e-5``
+    (full width and depth, 128 tokens, flash from 128, fused adamw, one
+    epoch), printing
+    its metric, losses and launch counts: each flash kernel 12 x the train
+    steps (the forward also x the eval batches) and adamw 25 x the train
+    steps, its losses within ``NLP_LOSS_RTOL`` of and its metric equal to
+    the same run in this process afterwards, under the child's matmul
+    flags (earlier phases change them); (f) a launch of two processes
+    whose rank 1 exits 3 returns 3 within ``FAIL_FAST_S``.
 
 The JSON line's launch counts of the four training kernels are phase 14's
-run A plus phase 29 (a)'s rank 0 plus phase 30's (a) and (c), the ring
-variants' phase 21's rank 0;
+run A plus phase 29 (a)'s rank 0 plus phase 30's (a) and (c) plus phase
+31's plus phase 32 (e)'s launched run, the ring variants' phase 21's rank 0;
 phases 15-18 print their own. The line before the last is a JSON
 object describing each kernel; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -2262,8 +2282,8 @@ def phase_bert(card: str) -> dict:
     """bert-base at full width and depth, B=32 S=128 bf16: (a) the bench's
     setup (adamw, the einsum hook at S=128); (b) flash from 128 tokens,
     fused adamw, a padding mask, with launch counts; (c) fp32 B=2 kernels
-    against plain versions; (d) the port's nlp_example for one epoch.
-    Returns (b)'s launch counts."""
+    against plain versions; (d) the port's nlp_example at its defaults for
+    one epoch. Returns (b)'s launch counts."""
     cfg = get_config("bert-base")
     counted = None
     for tag, tx, min_seq, padded in (("a: adamw, einsum attention", adamw(BERT_LR), 1024, False),
@@ -6010,6 +6030,216 @@ def phase_elastic(card: str) -> dict:
     return drill[0]["counts"]
 
 
+# phase 32: the CLI, each step a subprocess of ``python -m accelerate_tpu_torch.commands.cli``
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI = [sys.executable, "-m", "accelerate_tpu_torch.commands.cli"]
+CLI_TIMEOUT_S = 300  # a step that outlasts it fails the phase (its process group is killed)
+FAIL_FAST_S = 30.0
+# the port's nlp_example through the kernels: bert-base at full width and
+# depth, flash from 128 tokens, the fused adamw kernel at a fine-tuning rate
+NLP_ARGS = ["--num_epochs", "1", "--model_name", "bert-base", "--lr", str(BERT_LR)]
+# the launched run's losses against the in-process run's under the child's
+# math settings (the same code, seed, card and cuBLAS flags: equal is
+# expected, and was, run A); 1e-6 relative leaves room for a reduction
+# order that differs between processes, nothing more. Unmatched, phase 8's
+# allow_bf16_reduced_precision_reduction=False moved them 2.1e-3 (smoke W)
+NLP_LOSS_RTOL = 1e-6
+# the process-wide matmul flags earlier phases set; the in-process twin of
+# (e) runs under the launched child's values
+MATH_FLAGS = {"allow_tf32": torch.backends.cuda.matmul,
+              "allow_bf16_reduced_precision_reduction": torch.backends.cuda.matmul,
+              "allow_fp16_reduced_precision_reduction": torch.backends.cuda.matmul}
+NLP_DRIVER = """
+import json
+import torch
+from accelerate_tpu_torch.examples import nlp_example
+from accelerate_tpu_torch.ops import flash_attention as fa
+from accelerate_tpu_torch.ops.fused_adamw import adamw_leaf
+
+wrappers = {{"flash_fwd": fa.flash_forward, "flash_dq": fa.flash_backward_dq,
+            "flash_dkv": fa.flash_backward_dkv, "fused_adamw": adamw_leaf}}
+for wrapper in wrappers.values():
+    wrapper.launches = 0  # just before the path is driven
+losses = []
+metric = nlp_example.main({args!r}, losses=losses)
+matmul = torch.backends.cuda.matmul
+math = {{name: getattr(matmul, name) for name in {flags!r}}}
+print("NLP " + json.dumps({{"metric": metric, "losses": losses, "math": math,
+                           "launches": {{name: w.launches for name, w in wrappers.items()}}}}), flush=True)
+"""
+FAIL_FAST_SCRIPT = """
+import os, sys, time
+if os.environ["RANK"] == "1":
+    sys.exit(3)
+time.sleep(300)
+"""
+
+
+def cli_env() -> dict:
+    """This process's environment without a job's coordinates, the package
+    importable from the checkout."""
+    drop = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("ACCELERATE_") and k not in drop}
+    env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def run_cli(args: list, timeout: float = CLI_TIMEOUT_S) -> tuple:
+    """``(exit code, stdout, stderr, seconds)`` of one CLI command; its
+    whole process group is killed if it outlasts ``timeout``."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(CLI + args, cwd=REPO, env=cli_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"`{' '.join(args)}` did not finish within {timeout} s:\n{out[-3000:]}\n{err[-3000:]}")
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def cli_ok(label: str, result: tuple) -> str:
+    code, out, err, _ = result
+    if code != 0:
+        raise AssertionError(f"phase 32 ({label}) exited {code}:\n{out[-3000:]}\n{err[-3000:]}")
+    return out
+
+
+def estimate_row(out: str, dtype: str) -> list:
+    """The columns of ``estimate-memory``'s row for ``dtype``."""
+    for line in out.splitlines():
+        cols = [c.strip() for c in line.split("|")]
+        if cols[0] == dtype:
+            return cols
+    raise AssertionError(f"estimate-memory printed no {dtype} row:\n{out}")
+
+
+def phase_cli(card: str) -> dict:
+    """The CLI on the card, six steps at once, each ``python -m
+    accelerate_tpu_torch.commands.cli``: (a) ``env``; (b) ``estimate-memory
+    llama-1b --elastic-redundancy 1 --replicas 4`` against llama-1b built on
+    the card; (c) ``test``; (d) ``launch --num_processes 2`` of the
+    multiprocess script on cuda:0 over gloo; (e) the port's nlp_example
+    (bert-base through the kernels, 1 epoch) by ``launch --mixed_precision
+    bf16``, against the same run in this process under the child's matmul
+    flags; (f) a launch of two processes whose rank 1 exits 3. Returns
+    (e)'s launch counts."""
+    from accelerate_tpu_torch.commands.estimate import _convert_bytes
+    from accelerate_tpu_torch.examples.example_utils import PairClassificationDataset, train_eval_split
+    from accelerate_tpu_torch.models.config import param_count
+    from accelerate_tpu_torch.parallel.zero import elastic_redundancy_bytes
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
+        driver, fail_fast = os.path.join(tmp, "nlp_driver.py"), os.path.join(tmp, "fail_fast.py")
+        with open(driver, "w") as f:
+            f.write(NLP_DRIVER.format(args=NLP_ARGS, flags=sorted(MATH_FLAGS)))
+        with open(fail_fast, "w") as f:
+            f.write(FAIL_FAST_SCRIPT)
+        steps = {
+            "a": ["env"],
+            "b": ["estimate-memory", "llama-1b", "--elastic-redundancy", "1", "--replicas", "4"],
+            "c": ["test"],
+            "d": ["launch", "--num_processes", "2", "-m", "accelerate_tpu_torch.test_utils.scripts.multiprocess_script",
+                  "--device", "cuda:0", "--backend", "gloo"],
+            "e": ["launch", "--mixed_precision", "bf16", driver],
+            "f": ["launch", "--num_processes", "2", fail_fast],
+        }
+        with ThreadPoolExecutor(len(steps)) as pool:
+            futures = {label: pool.submit(run_cli, args) for label, args in steps.items()}
+            # meanwhile, in this process: llama-1b on the card
+            llama = Llama("llama-1b", device="cuda", seed=SEED)
+            numel = sum(p.numel() for p in llama.parameters())
+            elements = {p.element_size() for p in llama.parameters()}
+            del llama
+            torch.cuda.empty_cache()
+            results = {label: future.result() for label, future in futures.items()}
+    seconds = {label: r[3] for label, r in results.items()}
+    out = cli_ok("e: launch of the nlp_example", results["e"])
+    launched = [json.loads(line[4:]) for line in out.splitlines() if line.startswith("NLP ")]
+    if len(launched) != 1:
+        raise AssertionError(f"the launched nlp_example printed {launched}:\n{out}")
+    launched = launched[0]
+    # (e)'s twin in this process, under the child's matmul flags
+    previous = {name: getattr(owner, name) for name, owner in MATH_FLAGS.items()}
+    for name, owner in MATH_FLAGS.items():
+        setattr(owner, name, launched["math"][name])
+    try:
+        reset_training_state()
+        reset_launches()
+        t0 = time.perf_counter()
+        here_losses: list = []
+        here_metric = nlp_example.main(NLP_ARGS + ["--mixed_precision", "bf16"], losses=here_losses)
+        here_seconds = time.perf_counter() - t0
+        here_counts = launch_counts()
+        reset_training_state()
+    finally:
+        for name, owner in MATH_FLAGS.items():
+            setattr(owner, name, previous[name])
+
+    out = cli_ok("a: env", results["a"])
+    name = torch.cuda.get_device_name(0)
+    reported = [line.split(": ", 1)[1].split(", power limit")[0] for line in out.splitlines()
+                if line.startswith("- card 0: ")]
+    print(f"[cli] (a) env: card 0 {reported} in {seconds['a']:.1f} s [{card}]")
+    if reported != [name]:
+        raise AssertionError(f"env reported {reported}, torch {name!r}:\n{out}")
+
+    out = cli_ok("b: estimate-memory", results["b"])
+    count = param_count(get_config("llama-1b"))
+    fp32, bf16 = estimate_row(out, "float32"), estimate_row(out, "bfloat16")
+    want = {"fp32 params": _convert_bytes(numel * 4), "bf16 params": _convert_bytes(numel * 2),
+            "fp32 buddy": _convert_bytes(elastic_redundancy_bytes(numel, 4, 4, 1)),
+            "bf16 buddy": _convert_bytes(elastic_redundancy_bytes(numel, 2, 4, 1))}
+    got = {"fp32 params": fp32[1], "bf16 params": bf16[1], "fp32 buddy": fp32[5], "bf16 buddy": bf16[5]}
+    print(f"[cli] (b) estimate-memory llama-1b: {got}; the model on the card: {numel} fp32 parameters "
+          f"(param_count {count}), {want} in {seconds['b']:.1f} s [{card}]")
+    if got != want or count != numel or elements != {4}:
+        raise AssertionError(f"estimate-memory disagrees with llama-1b on the card:\n{out}")
+
+    out = cli_ok("c: test", results["c"])
+    print(f"[cli] (c) test: {[line for line in out.splitlines() if 'success' in line or 'passed' in line]} "
+          f"in {seconds['c']:.1f} s [{card}]")
+    if "Test is a success!" not in out or "All distributed correctness checks passed." not in out:
+        raise AssertionError(f"test printed no success line:\n{out}")
+
+    out = cli_ok("d: launch of the multiprocess script", results["d"])
+    lines = [json.loads(line) for line in out.splitlines() if line.startswith('{"multiprocess_ok"')]
+    print(f"[cli] (d) launch --num_processes 2, multiprocess script on cuda:0 over gloo: {lines} "
+          f"in {seconds['d']:.1f} s [{card}]")
+    if lines != [{"multiprocess_ok": True, "processes": 2, "ranks": [0, 1], "devices": ["cuda:0", "cuda:0"],
+                  "backend": "gloo"}]:
+        raise AssertionError(f"the two-process launch printed {lines}")
+
+    train, evaluation = train_eval_split(PairClassificationDataset(vocab_size=get_config("bert-base").vocab_size,
+                                                                   max_len=128))
+    train_steps, eval_steps = -(-len(train) // 16), -(-len(evaluation) // 16)
+    layers = get_config("bert-base").num_layers
+    expected = {"flash_fwd": layers * (train_steps + eval_steps), "flash_dq": layers * train_steps,
+                "flash_dkv": layers * train_steps, "fused_adamw": BERT_LEAVES * train_steps}
+    here = {key: here_counts[key] for key in expected}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(launched["losses"], here_losses)]
+    print(f"[cli] (e) launch --mixed_precision bf16 of nlp_example {' '.join(NLP_ARGS)}: metric "
+          f"{launched['metric']}, losses {launched['losses']}, launches {launched['launches']} in "
+          f"{seconds['e']:.1f} s; in this process: metric {here_metric}, losses {here_losses}, launches {here} in "
+          f"{here_seconds:.1f} s (the child's matmul flags {launched['math']}, this process's {previous}); "
+          f"expected launches {expected} ({train_steps} train and {eval_steps} eval batches); largest relative "
+          f"loss gap {max(gaps) if gaps else float('nan'):.3e} [{card}]")
+    if launched["launches"] != expected or here != expected:
+        raise AssertionError("the nlp_example's kernel launches differ from layers and leaves x steps")
+    if (len(launched["losses"]) != train_steps or len(here_losses) != train_steps
+            or not all(math.isfinite(x) for x in launched["losses"]) or max(gaps) > NLP_LOSS_RTOL
+            or launched["metric"] != here_metric):
+        raise AssertionError("the launched nlp_example differs from the in-process run")
+
+    code, out, err, _ = results["f"]
+    print(f"[cli] (f) fail fast: rank 1 exits 3, launch returned {code} in {seconds['f']:.1f} s "
+          f"(limit {FAIL_FAST_S} s) [{card}]")
+    if code != 3 or seconds["f"] > FAIL_FAST_S:
+        raise AssertionError(f"the failing launch returned {code} after {seconds['f']:.1f} s:\n{out}\n{err}")
+    return launched["launches"]
+
+
 def kernel_kinds(device: dict) -> dict:
     """Device microseconds by kind of kernel: fp32 GEMMs (the fp8 step's
     backward products), other GEMMs (``_scaled_mm``'s e4m3 and bf16), the
@@ -6157,6 +6387,10 @@ def main(argv: Optional[list] = None) -> int:
                         card)
         for name in ("flash_fwd", "flash_dq", "flash_dkv", "fused_adamw"):
             launches[name] = launches.get(name, 0) + elastic[name]
+    if on("32"):
+        launched = timed("phase 32 the CLI on the card", phase_cli, card)
+        for name, n in launched.items():
+            launches[name] = launches.get(name, 0) + n
     if selected is None:
         kernels = [
             dict(name=name, route="cuda", source=source, replaces=replaces,

@@ -1282,3 +1282,60 @@ def test_vocab_parallel_loss_on_cuda_in_one_process(cuda):
         dist.destroy_process_group()
     assert float((got - want).detach().abs().max()) <= 1e-5
     assert float((a.grad - b.grad).abs().max()) <= 1e-6
+
+
+def _cli_output(module, argv: list) -> tuple:
+    """``(exit code, stdout)`` of a port subcommand run in this process."""
+    import argparse
+    import contextlib
+    import io
+
+    parser = argparse.ArgumentParser()
+    module.register_subcommand(parser.add_subparsers())
+    args = parser.parse_args(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = args.func(args)
+    return code, out.getvalue()
+
+
+def test_env_reports_the_card(cuda):
+    from accelerate_tpu_torch.commands import env
+
+    code, out = _cli_output(env, ["env"])
+    assert code == 0, out
+    assert f"- card 0: {torch.cuda.get_device_name(0)}, power limit " in out
+    assert f"- card count: {torch.cuda.device_count()}" in out
+
+
+def test_estimate_memory_counts_the_model_on_the_card(cuda):
+    """The params columns of ``estimate-memory llama-125m`` against the
+    numel and element size of the model built on the card."""
+    from accelerate_tpu_torch.commands import estimate
+
+    model = Llama("llama-125m", device=cuda, seed=0)
+    numel = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    code, out = _cli_output(estimate, ["estimate-memory", "llama-125m", "--dtypes", "float32", "bfloat16"])
+    assert code == 0
+    rows = {cols[0]: cols for cols in ([c.strip() for c in line.split("|")] for line in out.splitlines())}
+    assert rows["float32"][1] == estimate._convert_bytes(nbytes)
+    assert rows["bfloat16"][1] == estimate._convert_bytes(numel * 2)
+
+
+def _accelerator_on_the_card():
+    accelerator = Accelerator()
+    return accelerator.mixed_precision, accelerator.device.type, accelerator.num_processes
+
+
+def test_notebook_launcher_runs_one_process_on_the_card(cuda):
+    from accelerate_tpu_torch import notebook_launcher
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    PartialState._reset_state()
+    got = notebook_launcher(_accelerator_on_the_card, num_processes=1, mixed_precision="bf16")
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    PartialState._reset_state()
+    assert got == ("bf16", "cuda", 1)

@@ -59,28 +59,40 @@ def test_scan_covers_the_model_zoo_and_the_examples():
                  "examples/example_utils.py", "serving/router.py", "serving/autoscale.py",
                  "commands/serve_bench.py", "telemetry/tracing.py", "resilience/chaos.py",
                  "parallel/redistribute.py", "resilience/membership.py", "resilience/elastic.py",
-                 "parallel/local_sgd.py"):
+                 "parallel/local_sgd.py", "commands/launch.py", "commands/estimate.py",
+                 "test_utils/scripts/test_script.py"):
         assert os.path.join("accelerate_tpu_torch", name) in scanned
 
 
 # Names the JAX package's subpackages export that the port does not yet, with
 # the ROADMAP item that brings each (queue 1)
 NOT_YET = {
-    "utils": {
-        "AutocastKwargs": "20", "ComputeEnvironment": "20", "DistributedInitKwargs": "20",
-        "clear_environment": "20", "parse_choice_from_env": "20",
-        "patch_environment": "20", "compare_versions": "20", "is_jax_version": "20",
-        "is_datasets_available": "20", "is_flax_available": "20", "is_optax_available": "20",
-        "is_orbax_available": "20", "is_safetensors_available": "20",
-        "is_tpu_available": "20", "is_transformers_available": "20",
-        "next_rng_key": "20",
-    },
+    "utils": {},
     "models": {},
     "ops": {},
     "parallel": {},
     "serving": {},
     "telemetry": {},
     "resilience": {},
+}
+
+# Names of the JAX package's stack, which the port exports a counterpart of
+# in its place (None: none is needed), each with its reason
+COUNTERPARTS = {
+    "utils": {
+        # the accelerator probe: CUDA cards where the JAX package asks for TPU chips
+        "is_tpu_available": "is_cuda_available",
+        # the framework's version: torch's where the JAX package asks for jax's
+        "is_jax_version": "is_torch_version",
+        # the split root key's counterpart: the port draws from explicit torch.Generators
+        "next_rng_key": "generator",
+        # the models' library: the port's modules are torch.nn.Modules
+        "is_flax_available": "is_torch_available",
+        # checkpoints: the port writes safetensors (or .npz) itself, never through orbax
+        "is_orbax_available": "is_safetensors_available",
+        # the transforms are the port's own (ops/fused_adamw.py): no optional package to probe
+        "is_optax_available": None,
+    },
 }
 
 
@@ -99,14 +111,18 @@ def _exports(path):
 @pytest.mark.parametrize("package", sorted(NOT_YET))
 def test_subpackage_exports_match_the_jax_package(package):
     """Every name a JAX subpackage's ``__init__`` exports, the port's
-    exports too, or it is listed in ``NOT_YET`` with its item; no name is
-    listed that the port has, and every exported name resolves."""
+    exports too, or exports its counterpart (``COUNTERPARTS``), or it is
+    listed in ``NOT_YET`` with its item; no name is listed that the port
+    has, and every exported name resolves."""
     import importlib
 
     jax_names = _exports(os.path.join(REPO_ROOT, "accelerate_tpu", package, "__init__.py"))
     port_names = _exports(os.path.join(REPO_ROOT, "accelerate_tpu_torch", package, "__init__.py"))
-    missing = jax_names - port_names
+    counterparts = COUNTERPARTS.get(package, {})
+    missing = jax_names - port_names - set(counterparts)
     assert missing == set(NOT_YET[package]), (sorted(missing - set(NOT_YET[package])),
                                               sorted(set(NOT_YET[package]) - missing))
+    assert set(counterparts) <= jax_names - port_names  # a counterpart never hides a name the port has
+    assert {name for name in counterparts.values() if name is not None} <= port_names
     module = importlib.import_module(f"accelerate_tpu_torch.{package}")
     assert all(hasattr(module, name) for name in port_names)
